@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels for the hot ops, each beside its plain version.
+
+  - group_norm: GroupNorm(+FiLM+SiLU) over NHWC, three launches (partial
+    sums, fixed-order finalize into an affine, apply) — replaces the Pallas
+    `_stats_kernel` / `_apply_kernel` pair of ddnm_tpu/ops/groupnorm.py;
+  - fused_attention: flash-style single-head attention over (B*, T, C) —
+    replaces the Pallas `_attn_kernel` of ddnm_tpu/ops/attention.py.
+
+A CUDA tensor goes through the kernel, a CPU tensor through the plain
+version; `force=` picks one explicitly. Each kernel wrapper counts its
+launches, so a run can show that it went through the kernels.
+"""
+
+from ddnm_tpu_torch.ops import attention as _attention
+from ddnm_tpu_torch.ops import groupnorm as _groupnorm
+from ddnm_tpu_torch.ops.attention import fused_attention
+from ddnm_tpu_torch.ops.groupnorm import group_norm
+
+__all__ = ["fused_attention", "group_norm", "launch_counts", "reset_launch_counts"]
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel wrapper since the last reset."""
+    return {**_groupnorm.LAUNCHES, **_attention.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for table in (_groupnorm.LAUNCHES, _attention.LAUNCHES):
+        for name in table:
+            table[name] = 0
