@@ -36,6 +36,7 @@ _SIGNATURES = {
     "ddnm_gn_finalize": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "ddnm_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ddnm_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "ddnm_fwht": [_P, _P, _I, _I, _F, _P],
 }
 
 _lib = None

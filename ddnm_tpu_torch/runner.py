@@ -1,5 +1,5 @@
 """Restoration runner: config -> model -> operator -> sampler -> PNGs + PSNR
-(port of the simplified mode of ddnm_tpu/runner.py).
+(port of ddnm_tpu/runner.py: simplified mode and SVD mode).
 
 The model comes from a torch checkpoint (`--ckpt`, the reference's state
 dict, fp16 storage upcast to fp32) or from `--random_init` (weights from
@@ -7,9 +7,9 @@ the seed). Images run in batches; every image draws its x_T and sampler
 noise from its own generators keyed by (seed, global image index), so the
 outputs do not depend on the batch size. Progress is plain log lines.
 
-Paths of the JAX runner that this slice does not port raise
-NotImplementedError: SVD mode, the ADM model family, classifier guidance,
-the encoder cache, measurement noise. A run uses the one device given by
+Paths of the JAX runner that are not ported yet raise
+NotImplementedError: the ADM model family, classifier guidance, the
+encoder cache, measurement noise. A run uses the one device given by
 `device`; the JAX runner's sharding over several devices is not ported.
 """
 
@@ -32,9 +32,10 @@ from ddnm_tpu_torch.data.io import load_mask, save_image
 from ddnm_tpu_torch.data.metrics import psnr, ssim
 from ddnm_tpu_torch.data.transforms import data_transform, inverse_data_transform
 from ddnm_tpu_torch.models import DDPMUNet, cast_torso
-from ddnm_tpu_torch.operators import build_functional_operator
+from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
 from ddnm_tpu_torch.runtime import resolve_device
-from ddnm_tpu_torch.sampling import build_schedule, sample_simplified
+from ddnm_tpu_torch.sampling import build_schedule, sample_simplified, sample_svd
+from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
 from ddnm_tpu_torch.sampling.rng import (
     STREAM_INIT,
     STREAM_SAMPLE,
@@ -49,7 +50,7 @@ __all__ = ["RunArgs", "Runner", "load_checkpoint"]
 
 @dataclasses.dataclass
 class RunArgs:
-    """CLI-facing arguments of the simplified path (main_torch.py)."""
+    """CLI-facing arguments (main_torch.py)."""
 
     config: str = ""
     deg: str = "sr_averagepooling"
@@ -60,7 +61,7 @@ class RunArgs:
     exp: str = "exp"
     path_y: str = "celeba_hq"
     image_folder: str = "output"
-    simplified: bool = True
+    simplified: bool = False
     add_noise: bool = False
     subset_start: int = -1
     subset_end: int = -1
@@ -87,18 +88,18 @@ def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
 class Runner:
     def __init__(self, args: RunArgs, config: Config):
         self.device = resolve_device(args.device)
-        if not args.simplified:
-            raise NotImplementedError(
-                "SVD mode is not ported yet (ROADMAP.md Queue 1, later slice B); "
-                "pass --simplified")
         if config.model.type != "simple":
             raise NotImplementedError(
                 f"model type {config.model.type!r} is not ported yet "
                 "(ROADMAP.md Queue 1, later slice C: hq/ADM)")
         if args.classifier_ckpt:
             raise NotImplementedError(
-                "classifier guidance is not ported yet (ROADMAP.md Queue 1, "
-                "later slice B)")
+                "classifier guidance is not ported yet: ADMClassifier comes with "
+                "the hq/ADM models (ROADMAP.md Queue 1, later slice C)")
+        if args.solver == "multistep":
+            raise NotImplementedError(
+                "--solver multistep is not ported yet (ROADMAP.md Queue 1, later "
+                "slice D: solvers and acceleration)")
         if args.encoder_cache > 1:
             raise NotImplementedError(
                 "--encoder_cache is not ported yet (ROADMAP.md Queue 1, later "
@@ -169,15 +170,43 @@ class Runner:
         return mask
 
     def build_operator(self):
-        args = self.args
+        args, cfg = self.args, self.config
         needs_mask = args.deg in ("inpainting", "mask_color_sr", "diy")
-        return build_functional_operator(
+        mask = self._mask() if needs_mask else None
+        if args.simplified:
+            return build_functional_operator(
+                args.deg,
+                image_size=cfg.data.image_size,
+                deg_scale=args.deg_scale,
+                mask=mask,
+                device=self.device,
+            )
+        return build_svd_operator(
             args.deg,
-            image_size=self.config.data.image_size,
+            channels=cfg.data.channels,
+            image_size=cfg.data.image_size,
             deg_scale=args.deg_scale,
-            mask=self._mask() if needs_mask else None,
+            mask=mask,
+            seed=args.seed,
             device=self.device,
         )
+
+    def _apy_visualisation(self, operator, y, n):
+        """SVD-mode A+y preview (NHWC) with the reference's task special
+        cases: deblurring shows y itself, colorization the gray y over 3
+        channels, inpainting fills the holes with 1 (white)."""
+        size = self.config.data.image_size
+        deg = self.args.deg
+        if deg.startswith("deblur"):
+            apy = y
+        elif deg == "colorization":
+            apy = y.reshape(n, 1, size, size).expand(n, 3, size, size)
+        else:
+            apy = operator.A_pinv(y)
+            if deg == "inpainting":
+                ones = torch.ones((n, 3 * size * size), device=y.device)
+                apy = apy + operator.A_pinv(operator.A(ones)) - 1.0
+        return apy.reshape(n, 3, size, size).permute(0, 2, 3, 1)
 
     # ------------------------------------------------------------------- data
     def build_dataset(self):
@@ -230,14 +259,23 @@ class Runner:
                                         rescaled=cfg.data.rescaled)
                 x_init = default_noise(
                     image_generators(args.seed, idxs, STREAM_INIT, dev), (n, size, size, 3))
-                y = operator.A(x_orig)
-                apy = operator.Ap(y)
-                t0 = time.perf_counter()
-                x, _ = sample_simplified(
-                    model, x_init, y, operator, self.sched,
-                    image_generators(args.seed, idxs, STREAM_SAMPLE, dev),
-                    eta=args.eta, sigma_y=sigma_y, solver=args.solver,
-                )
+                gens = image_generators(args.seed, idxs, STREAM_SAMPLE, dev)
+                if args.simplified:
+                    y = operator.A(x_orig)
+                    apy = operator.Ap(y)
+                    t0 = time.perf_counter()
+                    x, _ = sample_simplified(
+                        model, x_init, y, operator, self.sched, gens,
+                        eta=args.eta, sigma_y=sigma_y, solver=args.solver,
+                    )
+                else:
+                    y = operator.A(_nhwc_to_vec(x_orig))
+                    apy = self._apy_visualisation(operator, y, n)
+                    t0 = time.perf_counter()
+                    x, _ = sample_svd(
+                        model, x_init, y, operator, self.sched, gens,
+                        eta=args.eta, sigma_y=sigma_y, solver=args.solver,
+                    )
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 sample_seconds += time.perf_counter() - t0

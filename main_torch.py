@@ -1,13 +1,18 @@
 #!/usr/bin/env python
-"""CLI of the PyTorch/CUDA port (ddnm_tpu_torch): simplified DDNM+ restoration.
+"""CLI of the PyTorch/CUDA port (ddnm_tpu_torch): DDNM / DDNM+ restoration.
 
-Takes main.py's flags for the simplified path plus --device (default cuda;
-without a card it raises unless --device cpu is given). Example, the main
-path at full width on the card:
+Takes main.py's flags plus --device (default cuda; without a card it raises
+unless --device cpu is given). With --simplified it runs the functional
+A / A+ path, without it SVD mode (the matrix-free SVD operators of every
+task). Examples at full width on the card:
 
   python main_torch.py --config configs/celeba_hq.yml --path_y celeba_hq \
       --deg sr_averagepooling --deg_scale 4 --sigma_y 0 --simplified \
       --ckpt tests/fixtures/flag_ddpm256.pt --dtype bfloat16 -i demo --ni
+
+  python main_torch.py --config configs/celeba_hq.yml --path_y celeba_hq \
+      --deg cs_walshhadamard --deg_scale 0.25 --sigma_y 0 \
+      --ckpt tests/fixtures/flag_ddpm256.pt --dtype bfloat16 -i demo_cs --ni
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ def parse_args(argv=None):
                    help="dataset folder name under <exp>/datasets, or absolute path")
     p.add_argument("--sigma_y", type=float, default=0.0, help="measurement noise (in [0,1] domain)")
     p.add_argument("--eta", type=float, default=0.85, help="DDIM eta")
-    p.add_argument("--simplified", action="store_true", help="functional A/A+ (no SVD)")
+    p.add_argument("--simplified", action="store_true",
+                   help="functional A/A+ (default: SVD mode, the SVD operators)")
     p.add_argument("-i", "--image_folder", type=str, default="output")
     p.add_argument("--deg_scale", type=float, default=4.0)
     p.add_argument("--add_noise", action="store_true")
@@ -43,7 +49,7 @@ def parse_args(argv=None):
     p.add_argument("--ni", action="store_true", help="non-interactive (overwrite outputs)")
     p.add_argument("--ckpt", type=str, default=None, help="torch checkpoint (.pt) to load")
     p.add_argument("--classifier_ckpt", type=str, default=None,
-                   help="classifier guidance (not ported yet: raises)")
+                   help="classifier guidance (not ported yet, slice C: raises)")
     p.add_argument("--random_init", action="store_true",
                    help="random weights from --seed (no checkpoint)")
     p.add_argument("--batch_size", type=int, default=None, help="override config batch size")

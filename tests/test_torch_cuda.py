@@ -11,6 +11,7 @@ import torch
 
 from ddnm_tpu_torch import ops
 from ddnm_tpu_torch.ops.attention import _torch_attention
+from ddnm_tpu_torch.ops.fwht import _torch_fwht
 from ddnm_tpu_torch.ops.groupnorm import (
     _apply,
     _stats_affine,
@@ -74,6 +75,24 @@ def test_attention_kernel_matches_plain(gen, dtype, tol, shape):
     assert err <= tol * max(1.0, float(ref.float().abs().max()))
 
 
+@pytest.mark.parametrize("shape", [(2, 3, 65536), (8, 3, 65536), (3, 5, 2048), (4, 1, 64)])
+def test_fwht_kernel_matches_plain(gen, shape):
+    x = torch.randn(shape, device="cuda", generator=gen)
+    norm = float(shape[-1]) ** 0.5
+    ops.reset_launch_counts()
+    out = ops.fwht(x, norm)
+    assert ops.launch_counts()["fwht"] == 1
+    ref = _torch_fwht(x, norm)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * max(1.0, float(ref.abs().max()))
+    # bit-reproducible (no atomics), and a strided view gives the same bits
+    assert torch.equal(out, ops.fwht(x, norm))
+    view = x.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not view.is_contiguous() or shape[1] == 1
+    assert torch.equal(out, ops.fwht(view, norm))
+
+
 def test_kernels_raise_on_what_they_do_not_take(gen):
     x = torch.zeros(1, 4, 4, 30, device="cuda")
     with pytest.raises(ValueError, match="divisible"):
@@ -84,3 +103,7 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros(1, 64, 8, device="cuda").transpose(1, 2)
         ops.fused_attention(t, t, t, 1.0)
+    with pytest.raises(ValueError, match="power-of-two"):
+        ops.fwht(torch.zeros(2, 96, device="cuda"), 1.0)
+    with pytest.raises(ValueError, match="P <= 65536"):
+        ops.fwht(torch.zeros(1, 131072, device="cuda"), 1.0)

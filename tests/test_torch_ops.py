@@ -128,4 +128,4 @@ def test_kernel_force_on_cpu_raises_and_counts_nothing():
     group_norm(x, torch.ones(32), torch.zeros(32))
     fused_attention(q, q, q, 1.0)
     assert ops.launch_counts() == {"groupnorm_stats": 0, "groupnorm_apply": 0,
-                                   "attention": 0}
+                                   "attention": 0, "fwht": 0}

@@ -101,8 +101,8 @@ def test_multistep_solver_not_ported():
 
 
 @pytest.mark.parametrize("kw,config", [
-    (dict(simplified=False), "toy32.yml"),
     (dict(classifier_ckpt="clf.pt"), "toy32.yml"),
+    (dict(solver="multistep"), "toy32.yml"),
     (dict(encoder_cache=2), "toy32.yml"),
     (dict(add_noise=True), "toy32.yml"),
     ({}, "smoke_openai.yml"),

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes, on one card.
 
-Runs the main path's sampler (simplified DDNM+, 4x average-pooling SR, the
-114M DDPM UNet of configs/celeba_hq.yml with tests/fixtures/flag_ddpm256.pt,
-bf16 torso, batch 8 from exp/datasets/celeba_hq) for a window of steps of
-the 100-step schedule, and reports:
+Runs a main path's sampler (the 114M DDPM UNet of configs/celeba_hq.yml
+with tests/fixtures/flag_ddpm256.pt, bf16 torso, batch 8 from
+exp/datasets/celeba_hq, sigma_y 0) for a window of steps of the 100-step
+schedule: `--mode simplified` (default) is simplified DDNM+ 4x
+average-pooling SR, `--mode svd` SVD-mode DDNM on 25% Walsh-Hadamard
+compressed sensing (cs_walshhadamard, perm from the seed). It reports:
 
   - ms per step (host clock around steps that end in a synchronize);
   - from torch.profiler over a second window: device time by kernel and by
@@ -14,7 +16,7 @@ the 100-step schedule, and reports:
     window;
   - the chrome trace, written to --out.
 
-    python3 tools/profile_torch_main_path.py --out <dir> [--steps 10]
+    python3 tools/profile_torch_main_path.py --out <dir> [--steps 10] [--mode svd]
 
 Prints one JSON object as its last line. Needs a CUDA card.
 """
@@ -39,6 +41,8 @@ if str(REPO) not in sys.path:
 KINDS = (  # first match wins; matched against the lower-cased kernel name
     ("groupnorm (port)", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("attention (port)", ("attn_kernel",)),
+    ("fwht (port)", ("fwht_rows_kernel", "fwht_cols_kernel")),
+    ("gather", ("index",)),
     ("convolution", ("conv", "cudnn", "implicit", "fprop", "dgrad", "winograd")),
     ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "xmma", "sm90_")),
     ("reduction", ("reduce",)),
@@ -60,6 +64,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True, help="directory for the chrome trace")
     ap.add_argument("--steps", type=int, default=10, help="steps per window")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--mode", choices=["simplified", "svd"], default="simplified")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile runs only on a card")
@@ -69,9 +74,10 @@ def main(argv=None) -> int:
     from ddnm_tpu_torch.data.datasets import get_dataset, iterate_batches
     from ddnm_tpu_torch.data.transforms import data_transform
     from ddnm_tpu_torch.models import DDPMUNet, cast_torso
-    from ddnm_tpu_torch.operators import build_functional_operator
+    from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
     from ddnm_tpu_torch.runner import load_checkpoint
-    from ddnm_tpu_torch.sampling import build_schedule, sample_simplified
+    from ddnm_tpu_torch.sampling import build_schedule, sample_simplified, sample_svd
+    from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
     from ddnm_tpu_torch.sampling.rng import (STREAM_INIT, STREAM_SAMPLE, default_noise,
                                              image_generators)
 
@@ -87,9 +93,14 @@ def main(argv=None) -> int:
                      image_size=size, out_of_dist=cfg.data.out_of_dist)
     imgs, _, _ = next(iterate_batches(ds, args.batch))
     x_orig = data_transform(torch.from_numpy(imgs).cuda())
-    op = build_functional_operator("sr_averagepooling", image_size=size, deg_scale=4.0,
-                                   device="cuda")
-    y = op.A(x_orig)
+    if args.mode == "svd":
+        op = build_svd_operator("cs_walshhadamard", image_size=size, deg_scale=0.25,
+                                device="cuda")
+        y, sample = op.A(_nhwc_to_vec(x_orig)), sample_svd
+    else:
+        op = build_functional_operator("sr_averagepooling", image_size=size, deg_scale=4.0,
+                                       device="cuda")
+        y, sample = op.A(x_orig), sample_simplified
     idxs = range(args.batch)
     x_init = default_noise(image_generators(0, idxs, STREAM_INIT, "cuda"),
                            (args.batch, size, size, 3))
@@ -102,8 +113,8 @@ def main(argv=None) -> int:
             full, t_cur=full.t_cur[start:start + args.steps],
             t_next=full.t_next[start:start + args.steps],
             is_travel=full.is_travel[start:start + args.steps])
-        return sample_simplified(model, x_init, y, op, sched,
-                                 image_generators(0, idxs, STREAM_SAMPLE, "cuda"))
+        return sample(model, x_init, y, op, sched,
+                      image_generators(0, idxs, STREAM_SAMPLE, "cuda"))
 
     window(0)  # warm-up: cuDNN algorithm choice, the kernels' build and load
     torch.cuda.synchronize()
@@ -121,7 +132,7 @@ def main(argv=None) -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "main_path_trace.json"))
+    prof.export_chrome_trace(str(out / f"{args.mode}_trace.json"))
 
     by_kernel: dict[str, float] = {}
     for ev in prof.events():  # device-side events: one per kernel run
@@ -137,7 +148,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "batch": args.batch, "steps": args.steps, "step_ms": step_ms,
+        "mode": args.mode, "batch": args.batch, "steps": args.steps, "step_ms": step_ms,
         "profiled_window_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
         "ms_per_step_by_kind": {k: v / args.steps for k, v in
