@@ -35,11 +35,19 @@ far it got. A failure in any phase raises.
      (noise-free and noisy), colorization and inpainting run through the
      kernels, each held to its JAX PSNR in tests/fixtures/flag_golden_psnr.json;
   7. the SVD main path through main_torch: phase 5's set-up without
-     --simplified, on cs_walshhadamard at ratio 0.25.
+     --simplified, on cs_walshhadamard at ratio 0.25;
+  8. the fused GN+SiLU+conv experiment through its ported driver
+     (tools/experiments/fused_gn_conv_torch.py, in process): the default
+     run and the ablations at the experiment's (8, 256, 256, 128), each
+     variant's launch counts checked exactly, and the fused route and the
+     conv alone timed against the unfused chain and F.conv2d at the DDPM
+     UNet's 3x3 Cin = Cout shapes at batch 8.
 
 Phase 3 also holds the Walsh-Hadamard kernel against its plain version at
-the SVD path's shapes. Each of phases 4-7 sets the launch counts to 0 just
-before its run and checks them exactly just after.
+the SVD path's shapes, and the fused GN+SiLU+conv kernel in its three modes
+(full, conv, act) at the experiment's shape, a small one and a ragged one.
+Each of phases 4-8 sets the launch counts to 0 just before each run it
+drives and checks them exactly just after.
 
 The line before the last is the JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Outputs go to a temporary directory.
@@ -48,6 +56,7 @@ is {"ok": true, "device": {...}}. Outputs go to a temporary directory.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import subprocess
@@ -67,6 +76,10 @@ if str(REPO) not in sys.path:
 from ddnm_tpu_torch import ops  # noqa: E402
 from ddnm_tpu_torch.ops import _build  # noqa: E402
 from ddnm_tpu_torch.ops.attention import _kernel_attention, _torch_attention  # noqa: E402
+from ddnm_tpu_torch.ops.fused_gn_conv import (  # noqa: E402
+    _kernel_fused_gn_conv,
+    _torch_fused_gn_conv,
+)
 from ddnm_tpu_torch.ops.fwht import (  # noqa: E402
     _factor,
     _kernel_fwht,
@@ -106,7 +119,10 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 #    scores to bf16 before the softmax, the kernel (as the Pallas kernel)
 #    keeps them fp32: ~1% noise on each probability, averaged over T keys;
 #  - fwht fp32: sums of 65536 +-x terms in another order (butterfly against
-#    the plain einsum).
+#    the plain einsum);
+#  - fused_gn_conv bf16: both sides sum the same bf16 products in fp32 (in
+#    another order; the plain conv with TF32 off) and round once to bf16, so
+#    they may land one bf16 ulp (<= 2^-7 relative) apart.
 TOL = {
     ("groupnorm_stats", torch.float32): 1e-4,
     ("groupnorm_stats", torch.bfloat16): 1e-4,
@@ -117,6 +133,7 @@ TOL = {
     ("attention", torch.float32): 1e-4,
     ("attention", torch.bfloat16): 3e-2,
     ("fwht", torch.float32): 1e-4,
+    ("fused_gn_conv", torch.bfloat16): 1e-2,
 }
 # the kernels of the JSON summary: source, and the Pallas function replaced
 SOURCES = {
@@ -125,10 +142,17 @@ SOURCES = {
     "attention": ("ddnm_tpu_torch/csrc/attention.cu",
                   "ddnm_tpu/ops/attention.py:57"),
     "fwht": ("ddnm_tpu_torch/csrc/fwht.cu", "ddnm_tpu/ops/fwht.py:63"),
+    "fused_gn_conv": ("ddnm_tpu_torch/csrc/fused_gn_conv.cu",
+                      "tools/experiments/fused_gn_conv.py:110 + "
+                      "tools/experiments/fused_gn_conv_ablations.py:128"),
 }
 # the Walsh-Hadamard transform's shapes on the SVD paths: 3 planes of 65536
 # per image, batch 2 (phase 6) and 8 (phase 7)
 FWHT_SHAPES = ((2, 3, 65536), (8, 3, 65536))
+# the fused GN+SiLU+conv kernel: the experiment's shape, the CPU test's, a
+# ragged one (H, W not multiples of the tile, C = 96 = 3 x 32)
+FUSED_SHAPES = ((8, 256, 256, 128), (2, 32, 32, 64), (3, 20, 36, 96))
+EXPERIMENT = REPO / "tools" / "experiments" / "fused_gn_conv_torch.py"
 
 
 @contextlib.contextmanager
@@ -266,6 +290,51 @@ def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generat
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def check_fused(mode: str, shape: tuple, gen: torch.Generator) -> dict:
+    """The fused GN+SiLU+conv kernel against its plain version in one mode:
+    x with a non-zero mean and random gamma, beta (an unmasked border would
+    show), eps 1e-5. Times the kernel route (stats pair included), the plain
+    route, F.conv2d in bf16 on the same inputs (`library_ms`, conv mode) and
+    the unfused chain (the GroupNorm kernels, F.silu and, in full mode,
+    F.conv2d: `chain_ms`, full and act). The bound counts the conv's flops
+    at the bf16 tensor-core peak (the elementwise work, ~0.008 ms at the
+    experiment's shape, is left out) against x and y moved once (and w)."""
+    dev = "cuda"
+    B, H, W, C = shape
+    x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).bfloat16()
+    w = (torch.randn(3, 3, C, C, device=dev, generator=gen) * 0.05).bfloat16()
+    g = 1 + 0.1 * torch.randn(C, device=dev, generator=gen)
+    b = 0.1 * torch.randn(C, device=dev, generator=gen)
+    kern = lambda: _kernel_fused_gn_conv(x, w, g, b, 32, 1e-5, mode)
+    plain = lambda: _torch_fused_gn_conv(x, w, g, b, 32, 1e-5, mode)
+    ref = plain().float()
+    err = float((kern().float() - ref).abs().max())
+    torch.cuda.synchronize()
+    tol = TOL[("fused_gn_conv", torch.bfloat16)] * max(1.0, float(ref.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"fused_gn_conv {mode} {shape}: kernel vs plain max abs "
+                             f"{err:.3e} > {tol:.3e}")
+    w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    conv = lambda z: F.conv2d(z, w_cl, padding=1)
+    act = lambda: F.silu(_kernel_group_norm(x, g, b, 32, 1e-5, False)).permute(0, 3, 1, 2)
+    library = (lambda: conv(x.permute(0, 3, 1, 2))) if mode == "conv" else None
+    chain = {"full": lambda: conv(act()), "act": act}.get(mode)
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    nbytes = 2 * x.numel() * 2 + (w.numel() * 2 if mode != "act" else 0)
+    if mode == "act":
+        flops, peak = 9 * x.numel(), PEAK_FLOPS[torch.float32]
+    else:
+        flops, peak = 2 * B * H * W * 9 * C * C, PEAK_FLOPS[torch.bfloat16]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
+    return {"kind": f"fused_gn_conv/{mode}", "shape": shape, "dtype": "bfloat16",
+            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": cuda_ms(library) if library else None,
+            "chain_ms": cuda_ms(chain) if chain else None,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -325,7 +394,7 @@ def parity_fp32(model, n_gn: int, n_attn: int) -> dict:
         raise AssertionError(f"kernel vs plain trajectories differ by "
                              f"{out['kernel_vs_torch_max_abs']:.3e}")
     want = {"groupnorm_stats": n_gn * steps, "groupnorm_apply": n_gn * steps,
-            "attention": n_attn * steps, "fwht": 0}
+            "attention": n_attn * steps, "fwht": 0, "fused_gn_conv": 0}
     if runs["kernel"][2] != want:
         raise AssertionError(f"launch counts {runs['kernel'][2]} != {want}")
     if any(runs["torch"][2].values()):
@@ -438,7 +507,7 @@ def parity_svd(model, n_gn: int, n_attn: int) -> dict:
                                          f"{r['pool8_max_abs_vs_golden']:.3e}")
             want = ({"groupnorm_stats": n_gn * steps, "groupnorm_apply": n_gn * steps,
                      "attention": n_attn * steps,
-                     "fwht": fwht_launches(deg, sigma_y, steps)}
+                     "fwht": fwht_launches(deg, sigma_y, steps), "fused_gn_conv": 0}
                     if mode == "kernel" else dict.fromkeys(counts, 0))
             if counts != want:
                 raise AssertionError(f"{name} {mode}: launch counts {counts} != {want}")
@@ -456,6 +525,33 @@ def parity_svd(model, n_gn: int, n_attn: int) -> dict:
                                      f"{diff:.3e}")
     set_op_force(model, None)
     return out
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def experiment() -> dict:
+    """The ported fused GN+SiLU+conv experiment in process: its default run,
+    then the ablations with the UNet-shape table. Every variant's launch
+    counts are set to 0 before its counted loop and checked exactly after
+    it (also inside the driver); the fused route must agree with the plain
+    chain."""
+    spec = importlib.util.spec_from_file_location("fused_gn_conv_torch", EXPERIMENT)
+    exp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(exp)
+    default = exp.main([])
+    ablations = exp.main(["--ablations", "--unet"])
+    tol = TOL[("fused_gn_conv", torch.bfloat16)] * max(1.0, default["max_abs_plain"])
+    if not default["max_abs_diff"] <= tol:
+        raise AssertionError(f"experiment: fused vs plain chain {default['max_abs_diff']:.3e}"
+                             f" > {tol:.3e}")
+    for run in (default, ablations):
+        for name, r in run["variants"].items():
+            want = {k: run["n_iter"] * exp.VARIANTS[name][1].get(k, 0) for k in r["launches"]}
+            if r["launches"] != want or not r["finite"]:
+                raise AssertionError(f"experiment {name}: launches {r['launches']} != "
+                                     f"{want} or non-finite output")
+    return {"default": default, "ablations": ablations}
 
 
 # ------------------------------------------------------------ phases 5 and 7
@@ -495,7 +591,7 @@ def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int
     if not (np.isfinite(stats["avg_psnr"]) and stats["avg_psnr"] > 14.0):
         raise AssertionError(f"main-path PSNR {stats['avg_psnr']} is not a restoration")
     want = {"groupnorm_stats": n_gn * steps, "groupnorm_apply": n_gn * steps,
-            "attention": n_attn * steps, "fwht": want_fwht}
+            "attention": n_attn * steps, "fwht": want_fwht, "fused_gn_conv": 0}
     if launches != want:
         raise AssertionError(f"main-path launch counts {launches} != {want}")
     return stats, launches
@@ -580,6 +676,24 @@ def main() -> int:
                                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         per_forward["fwht"]["max_abs_err"] = max(r["max_abs_err"] for r in fwht_rows)
         print("fwht: per (8, 3, 65536) call: " + json.dumps(per_forward["fwht"]), flush=True)
+        fused = {}
+        for shape in FUSED_SHAPES:
+            for mode in ("full", "conv", "act"):
+                r = fused[(mode, shape)] = check_fused(mode, shape, gen)
+                extra = "".join(f"  {k.split('_')[0]} {r[k]:.4f} ms"
+                                for k in ("library_ms", "chain_ms") if r[k] is not None)
+                print(f"{r['kind']:20s} {str(shape):22s} bfloat16 "
+                      f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
+                      f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms{extra}  "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        # per call at the experiment's shape; full mode heads the entry
+        keys = ("ms", "plain_ms", "library_ms", "chain_ms", "bound_ms", "bound_by")
+        by_mode = {mode: {k: fused[(mode, FUSED_SHAPES[0])][k] for k in keys}
+                   for mode in ("full", "conv", "act")}
+        per_forward["fused_gn_conv"] = dict(by_mode["full"], by_mode=by_mode, max_abs_err=max(
+            r["max_abs_err"] for r in fused.values()))
+        print("fused_gn_conv: per (8, 256, 256, 128) call: "
+              + json.dumps(per_forward["fused_gn_conv"]), flush=True)
         print("kernels: " + json.dumps(sorted(SOURCES)), flush=True)
 
     with phase(4, "full-width fp32 parity with the JAX golden"):
@@ -606,18 +720,29 @@ def main() -> int:
         _, launches = main_path("cs_walshhadamard", "0.25", False, n_gn, n_attn,
                                 1 + fwht_launches("cs_walshhadamard", 0.0, 100))
 
-    # launches: the SVD main path's (phase 7, which runs all four kernels);
-    # launches_by_path adds the simplified main path's (phase 5)
+    with phase(8, "fused GN+SiLU+conv experiment (default run, ablations, UNet shapes)"):
+        exp_runs = experiment()
+        # the default run's launches: its chain and fused loops
+        launches_experiment = {k: sum(r["launches"][k] for r in
+                                      exp_runs["default"]["variants"].values())
+                               for k in launches}
+
+    # launches: the SVD main path's (phase 7, which runs the four kernels of
+    # the restoration paths) and, for fused_gn_conv, the experiment's default
+    # run (phase 8, its only path); launches_by_path has all three
     summary = {"kernels": [
         {"name": kind, "route": "cuda", "source": SOURCES[kind][0],
-         "replaces": SOURCES[kind][1], "launches": launches[kind],
+         "replaces": SOURCES[kind][1],
+         "launches": (launches_experiment if kind == "fused_gn_conv" else launches)[kind],
          "launches_by_path": {"simplified": launches_simplified[kind],
-                              "svd": launches[kind]},
+                              "svd": launches[kind],
+                              "experiment": launches_experiment[kind]},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
          "plain_ms": per_forward[kind]["plain_ms"],
          "bound_ms": per_forward[kind]["bound_ms"],
          "bound_by": per_forward[kind]["bound_by"],
-         "library_ms": per_forward[kind]["library_ms"]}
+         "library_ms": per_forward[kind]["library_ms"],
+         **({"by_mode": per_forward[kind]["by_mode"]} if kind == "fused_gn_conv" else {})}
         for kind in SOURCES]}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)

@@ -7,7 +7,12 @@
     replaces the Pallas `_attn_kernel` of ddnm_tpu/ops/attention.py;
   - fwht: the Walsh-Hadamard transform as a shared-memory butterfly, two
     launches (rows, then columns) — replaces the Pallas `_fwht_kernel` of
-    ddnm_tpu/ops/fwht.py.
+    ddnm_tpu/ops/fwht.py;
+  - fused_gn_conv: GroupNorm affine -> SiLU -> 3x3 conv as an implicit GEMM
+    on bf16 tensor cores, behind the GroupNorm stats pair, in three modes
+    (full, conv, act) — replaces the Pallas kernels of the fused GN+SiLU+conv
+    experiment (tools/experiments/fused_gn_conv.py `_pallas_raw`,
+    fused_gn_conv_ablations.py `_call`), which is not a route of the UNet.
 
 A CUDA tensor goes through the kernel, a CPU tensor through the plain
 version; `force=` picks one explicitly. Each kernel wrapper counts its
@@ -15,16 +20,19 @@ launches, so a run can show that it went through the kernels.
 """
 
 from ddnm_tpu_torch.ops import attention as _attention
+from ddnm_tpu_torch.ops import fused_gn_conv as _fused_gn_conv
 from ddnm_tpu_torch.ops import fwht as _fwht
 from ddnm_tpu_torch.ops import groupnorm as _groupnorm
 from ddnm_tpu_torch.ops.attention import fused_attention
+from ddnm_tpu_torch.ops.fused_gn_conv import fused_gn_conv
 from ddnm_tpu_torch.ops.fwht import fwht, hadamard_matrix
 from ddnm_tpu_torch.ops.groupnorm import group_norm
 
-__all__ = ["fused_attention", "fwht", "group_norm", "hadamard_matrix", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["fused_attention", "fused_gn_conv", "fwht", "group_norm", "hadamard_matrix",
+           "launch_counts", "reset_launch_counts"]
 
-_TABLES = (_groupnorm.LAUNCHES, _attention.LAUNCHES, _fwht.LAUNCHES)
+_TABLES = (_groupnorm.LAUNCHES, _attention.LAUNCHES, _fwht.LAUNCHES,
+           _fused_gn_conv.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` are compiled by one `nvcc` call into a shared library with
-a plain C interface, loaded with ctypes. The library lands in
+Each `csrc/*.cu` is compiled to an object by its own `nvcc` process, all
+started together, and one more `nvcc` links the objects into a shared
+library with a plain C interface, loaded with ctypes. The library lands in
 `ddnm_tpu_torch/_build/` (ignored by git), named by a hash of the sources
 and flags, so a changed source rebuilds and an unchanged one loads at once.
 The build runs at first use: nothing here runs at import.
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (every pointer and the stream are
@@ -37,6 +38,7 @@ _SIGNATURES = {
     "ddnm_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ddnm_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "ddnm_fwht": [_P, _P, _I, _I, _F, _P],
+    "ddnm_fused_gn_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -72,22 +74,41 @@ def _library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile the kernels if this source hash has no library yet.
 
-    Returns (library path, seconds spent in nvcc; 0.0 when it was built
-    already). Raises with nvcc's output if the compile fails."""
+    Returns (library path, seconds spent in nvcc, compiles and link; 0.0
+    when it was built already). Raises with nvcc's output if a step fails."""
     lib = _library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return lib, seconds
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for _, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    objs = [str(obj) for obj, _, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+    return lib, time.perf_counter() - t0
 
 
 def load_library() -> ctypes.CDLL:

@@ -8,9 +8,10 @@ noise from its own generators keyed by (seed, global image index), so the
 outputs do not depend on the batch size. Progress is plain log lines.
 
 Paths of the JAX runner that are not ported yet raise
-NotImplementedError: the ADM model family, classifier guidance, the
-encoder cache, measurement noise. A run uses the one device given by
-`device`; the JAX runner's sharding over several devices is not ported.
+NotImplementedError: the ADM model family, classifier guidance (where the
+config would run it), the encoder cache, measurement noise. A run uses the
+one device given by `device`; the JAX runner's sharding over several
+devices is not ported.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class RunArgs:
     subset_start: int = -1
     subset_end: int = -1
     ckpt: Optional[str] = None
-    classifier_ckpt: Optional[str] = None  # not ported: raises
+    classifier_ckpt: Optional[str] = None  # guidance is not ported: raises where it would run
     random_init: bool = False
     batch_size: Optional[int] = None
     dtype: str = "float32"  # model torso dtype: float32 | bfloat16
@@ -92,7 +93,12 @@ class Runner:
             raise NotImplementedError(
                 f"model type {config.model.type!r} is not ported yet "
                 "(ROADMAP.md Queue 1, later slice C: hq/ADM)")
-        if args.classifier_ckpt:
+        # guidance runs only for a class-conditional ADM model with a
+        # classifier config (ddnm_tpu/runner.py:161,174); otherwise the flag
+        # is ignored, as in the JAX runner
+        guided = (config.model.type == "openai" and config.model.class_cond
+                  and config.classifier is not None)
+        if args.classifier_ckpt and guided:
             raise NotImplementedError(
                 "classifier guidance is not ported yet: ADMClassifier comes with "
                 "the hq/ADM models (ROADMAP.md Queue 1, later slice C)")

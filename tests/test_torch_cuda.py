@@ -11,6 +11,7 @@ import torch
 
 from ddnm_tpu_torch import ops
 from ddnm_tpu_torch.ops.attention import _torch_attention
+from ddnm_tpu_torch.ops.fused_gn_conv import _torch_fused_gn_conv
 from ddnm_tpu_torch.ops.fwht import _torch_fwht
 from ddnm_tpu_torch.ops.groupnorm import (
     _apply,
@@ -93,6 +94,33 @@ def test_fwht_kernel_matches_plain(gen, shape):
     assert torch.equal(out, ops.fwht(view, norm))
 
 
+@pytest.mark.parametrize("mode", ["full", "conv", "act"])
+@pytest.mark.parametrize("shape", [(8, 256, 256, 128), (2, 32, 32, 64), (3, 20, 36, 96),
+                                   (1, 8, 8, 512), (2, 16, 16, 128), (1, 5, 3, 32)])
+def test_fused_gn_conv_kernel_matches_plain(gen, mode, shape):
+    """bf16 out: both sides sum the same bf16 products in fp32 (in another
+    order) and round once, so they may land one bf16 ulp (<= 2^-7 relative)
+    apart; the plain conv runs in fp32 with TF32 off. Inputs with a non-zero
+    mean and random gamma, beta: an unmasked border would show."""
+    torch.backends.cudnn.allow_tf32 = False
+    B, H, W, C = shape
+    x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).bfloat16()
+    w = (torch.randn(3, 3, C, C, device="cuda", generator=gen) * 0.05).bfloat16()
+    g = 1 + 0.1 * torch.randn(C, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(C, device="cuda", generator=gen)
+    ops.reset_launch_counts()
+    y = ops.fused_gn_conv(x, w, g, b, mode=mode)
+    assert ops.launch_counts() == {"groupnorm_stats": int(mode != "conv"),
+                                   "groupnorm_apply": 0, "attention": 0, "fwht": 0,
+                                   "fused_gn_conv": 1}
+    ref = _torch_fused_gn_conv(x, w, g, b, 32, 1e-5, mode)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    err = float((y.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * max(1.0, float(ref.float().abs().max()))
+    # bit-reproducible: no atomics
+    assert torch.equal(y, ops.fused_gn_conv(x, w, g, b, mode=mode))
+
+
 def test_kernels_raise_on_what_they_do_not_take(gen):
     x = torch.zeros(1, 4, 4, 30, device="cuda")
     with pytest.raises(ValueError, match="divisible"):
@@ -107,3 +135,9 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
         ops.fwht(torch.zeros(2, 96, device="cuda"), 1.0)
     with pytest.raises(ValueError, match="P <= 65536"):
         ops.fwht(torch.zeros(1, 131072, device="cuda"), 1.0)
+    xb = torch.zeros(1, 4, 4, 48, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 32"):
+        ops.fused_gn_conv(xb, torch.zeros(3, 3, 48, 48, device="cuda", dtype=torch.bfloat16),
+                          torch.ones(48), torch.zeros(48), num_groups=16)
+    with pytest.raises(ValueError, match="bf16"):
+        ops.fused_gn_conv(xb.float(), None, torch.ones(48), torch.zeros(48), mode="act")

@@ -17,7 +17,9 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "ddnm_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "ddnm_tpu", "yaml", "PIL", "tqdm")
-PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "main_torch.py"]
+EXPERIMENT = REPO / "tools" / "experiments" / "fused_gn_conv_torch.py"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "main_torch.py",
+                                          EXPERIMENT]
 
 
 def _blocked(name: str) -> bool:
@@ -25,11 +27,11 @@ def _blocked(name: str) -> bool:
 
 
 def test_port_imports_with_foreign_packages_blocked():
-    """Every module of the port, main_torch and chip_smoke import in a
-    process where the blocked packages cannot be found; importing runs
-    nothing (no output, no build directory)."""
+    """Every module of the port, main_torch, chip_smoke and the ported
+    experiment import in a process where the blocked packages cannot be
+    found; importing runs nothing (no output, no build directory)."""
     script = textwrap.dedent(f"""
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pkgutil, sys
         BLOCKED = {BLOCKED!r}
 
         class Block:
@@ -46,6 +48,9 @@ def test_port_imports_with_foreign_packages_blocked():
         for name in names:
             importlib.import_module(name)
         import chip_smoke, main_torch
+        spec = importlib.util.spec_from_file_location("fused_gn_conv_torch",
+                                                      {str(EXPERIMENT)!r})
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not leaked, leaked
         print("IMPORTED", len(names))

@@ -101,11 +101,11 @@ def test_multistep_solver_not_ported():
 
 
 @pytest.mark.parametrize("kw,config", [
-    (dict(classifier_ckpt="clf.pt"), "toy32.yml"),
     (dict(solver="multistep"), "toy32.yml"),
     (dict(encoder_cache=2), "toy32.yml"),
     (dict(add_noise=True), "toy32.yml"),
     ({}, "smoke_openai.yml"),
+    (dict(classifier_ckpt="clf.pt"), "imagenet_256_cc.yml"),
 ])
 def test_runner_raises_on_paths_not_ported(kw, config):
     from ddnm_tpu_torch.config import load_config
@@ -114,6 +114,27 @@ def test_runner_raises_on_paths_not_ported(kw, config):
     args = RunArgs(config=config, random_init=True, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="not ported"):
         Runner(args, load_config(REPO / "configs" / config))
+
+
+def test_runner_ignores_classifier_ckpt_without_guidance(tmp_path):
+    """As the JAX runner: a config without class-conditional guidance
+    ignores --classifier_ckpt, so the outputs equal a run without it."""
+    from ddnm_tpu_torch.config import load_config
+    from ddnm_tpu_torch.runner import RunArgs, Runner
+
+    outs = {}
+    for name, kw in (("plain", {}), ("flag", dict(classifier_ckpt="clf.pt"))):
+        cfg = load_config(REPO / "configs" / "toy32.yml")
+        cfg.time_travel.T_sampling = 5
+        args = RunArgs(config="toy32.yml", exp=str(REPO / "exp"), path_y="toy32",
+                       ckpt=str(REPO / "tests" / "fixtures" / "toy_ddpm32.pt"),
+                       simplified=True, max_images=2, batch_size=2, device="cpu",
+                       image_folder=str(tmp_path / name), **kw)
+        stats = Runner(args, cfg).run()
+        outs[name] = (stats["avg_psnr"], stats["num_samples"],
+                      [(tmp_path / name / f"{i}_0.png").read_bytes() for i in range(2)])
+    assert outs["plain"][1] == 2
+    assert outs["flag"] == outs["plain"]
 
 
 def test_main_torch_cpu_end_to_end(tmp_path):
