@@ -11,14 +11,21 @@ far it got. A failure in any phase raises.
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels of ddnm_tpu_torch/csrc with nvcc;
   3. kernels against their plain versions, at every (shape, dtype) that the
-     UNet forwards of phases 4 and 5 give them: the GroupNorm stats pair
-     (sums + finalize) and apply kernel each against its own plain version,
+     UNet forwards of phases 4 and 5 give them: the GroupNorm stats kernel
+     (one launch: cluster sums folded into the affine; the same bits on a
+     second call) and apply kernel each against its own plain version,
      the whole GroupNorm against the plain GroupNorm, attention against the
      plain attention; max abs error, kernel ms, plain ms, the library
      call's ms where one call computes the same function (F.group_norm for
      the whole GroupNorm, F.scaled_dot_product_attention; timed as a
      yardstick, never used by the port) and the least time the card could
-     take (bound);
+     take (bound). Kernel and library ms are timed back to back (the host's
+     launch cost included); device ms queue the calls behind a sleep kernel
+     (the card's time alone). Then the edge shapes no UNet forward of phases 4-7
+     gives: attention at T = 1, T = 17, C = 32, both sides of the
+     whole-row softmax limit and the ADM heads (C = 64 at T = 64, 256 and
+     1024; C = 32 at T = 1024) in bf16 and fp32, and the stats kernel with
+     FiLM at (8, 16, 16, 768);
   4. full-width fp32 parity: the 114M DDPM UNet with the trained weights of
      tests/fixtures/flag_ddpm256.pt, zero noise, x_T from RandomState(42),
      2 images of exp/datasets/natural256, 25 steps, 4x average-pooling SR;
@@ -75,7 +82,11 @@ if str(REPO) not in sys.path:
 
 from ddnm_tpu_torch import ops  # noqa: E402
 from ddnm_tpu_torch.ops import _build  # noqa: E402
-from ddnm_tpu_torch.ops.attention import _kernel_attention, _torch_attention  # noqa: E402
+from ddnm_tpu_torch.ops.attention import (  # noqa: E402
+    WHOLE_ROW_MAX_T,
+    _kernel_attention,
+    _torch_attention,
+)
 from ddnm_tpu_torch.ops.fused_gn_conv import (  # noqa: E402
     _kernel_fused_gn_conv,
     _torch_fused_gn_conv,
@@ -109,7 +120,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 # kernel-vs-plain gates, relative to max(1, max |plain|):
 #  - GroupNorm stats (a, b in fp32, from fp32 sums of the same values):
-#    the sums run in another order (partials per 256 pixels);
+#    the sums run in another order (per thread, pixel lane, block, cluster);
 #  - GroupNorm apply and the pair, fp32: one FMA against a multiply and an
 #    add, and (pair) the plain version normalises then scales;
 #  - GroupNorm apply and the pair, bf16: the fp32 values agree to ~1e-6 and
@@ -135,17 +146,25 @@ TOL = {
     ("fwht", torch.float32): 1e-4,
     ("fused_gn_conv", torch.bfloat16): 1e-2,
 }
-# the kernels of the JSON summary: source, and the Pallas function replaced
+# the kernels of the JSON summary: source, and the pl.pallas_call it replaces
 SOURCES = {
-    "groupnorm_stats": ("ddnm_tpu_torch/csrc/groupnorm.cu", "ddnm_tpu/ops/groupnorm.py:91"),
-    "groupnorm_apply": ("ddnm_tpu_torch/csrc/groupnorm.cu", "ddnm_tpu/ops/groupnorm.py:73"),
+    "groupnorm_stats": ("ddnm_tpu_torch/csrc/groupnorm.cu", "ddnm_tpu/ops/groupnorm.py:95"),
+    "groupnorm_apply": ("ddnm_tpu_torch/csrc/groupnorm.cu", "ddnm_tpu/ops/groupnorm.py:77"),
     "attention": ("ddnm_tpu_torch/csrc/attention.cu",
-                  "ddnm_tpu/ops/attention.py:57"),
-    "fwht": ("ddnm_tpu_torch/csrc/fwht.cu", "ddnm_tpu/ops/fwht.py:63"),
+                  "ddnm_tpu/ops/attention.py:63"),
+    "fwht": ("ddnm_tpu_torch/csrc/fwht.cu", "ddnm_tpu/ops/fwht.py:71"),
     "fused_gn_conv": ("ddnm_tpu_torch/csrc/fused_gn_conv.cu",
-                      "tools/experiments/fused_gn_conv.py:110 + "
-                      "tools/experiments/fused_gn_conv_ablations.py:128"),
+                      "tools/experiments/fused_gn_conv.py:114 + "
+                      "tools/experiments/fused_gn_conv_ablations.py:132"),
 }
+# attention shapes beyond the UNet forwards': T = 1, T = 17, C = 32, both
+# sides of the whole-row softmax limit (the last runs the online softmax),
+# the ADM heads of configs/imagenet_256.yml (64 channels; 1024, 256 and 64
+# tokens at its 32, 16 and 8 px grids; batch 8 x 8 or 16 heads) and of
+# configs/hq/adm128.yml (32 channels, 1024 tokens at 32 px)
+EDGE_ATTENTION_SHAPES = ((4, 1, 512), (3, 17, 512), (5, 33, 32),
+                         (2, WHOLE_ROW_MAX_T, 512), (2, WHOLE_ROW_MAX_T + 1, 512),
+                         (64, 1024, 64), (128, 256, 64), (128, 64, 64), (24, 1024, 32))
 # the Walsh-Hadamard transform's shapes on the SVD paths: 3 planes of 65536
 # per image, batch 2 (phase 6) and 8 (phase 7)
 FWHT_SHAPES = ((2, 3, 65536), (8, 3, 65536))
@@ -174,6 +193,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds of fn() over `iters` back-to-back calls."""
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds of fn() with the host's launch cost hidden: a
+    sleep kernel holds the stream while the `iters` calls are queued behind
+    it, so the events time the card's work alone. `cuda_ms` times calls back
+    to back, where a call whose kernel is shorter than its host side shows
+    the host side."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's 1.98 GHz, > the queueing
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -215,9 +254,11 @@ def op_shapes(model, x_nhwc) -> dict:
     return seen
 
 
-def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generator):
+def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generator,
+                 film: bool = False):
     """Kernel vs plain (vs library, where one call computes the same
-    function) at one shape; returns a result dict. Kinds: groupnorm_stats,
+    function) at one shape; returns a result dict. Kinds: groupnorm_stats
+    (with FiLM if `film`; two kernel calls must give the same bits),
     groupnorm_apply, groupnorm (the pair, against F.group_norm), attention,
     fwht (against the einsum H_a X H_b in fp32, TF32 off)."""
     dev = "cuda"
@@ -230,9 +271,14 @@ def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generat
         peak = PEAK_FLOPS[torch.float32]  # elementwise fp32 on the CUDA cores
         affine_bytes = 2 * B * C * 4
         if kind == "groupnorm_stats":
-            kern = lambda: _stats_affine(x, g, b, 32, 1e-6, None, None)
-            plain = lambda: _torch_stats_affine(x, g, b, 32, 1e-6)
-            nbytes = x.numel() * x.element_size() + affine_bytes
+            fs, ft = ((torch.randn(B, C, device=dev, generator=gen) * 0.3 for _ in range(2))
+                      if film else (None, None))
+            kern = lambda: _stats_affine(x, g, b, 32, 1e-6, fs, ft)
+            plain = lambda: _torch_stats_affine(x, g, b, 32, 1e-6, fs, ft)
+            first, second = kern(), kern()
+            if not all(torch.equal(u, w) for u, w in zip(first, second)):
+                raise AssertionError(f"groupnorm_stats {shape} {dtype}: two calls differ")
+            nbytes = x.numel() * x.element_size() + affine_bytes * (2 if film else 1)
             flops = 3 * x.numel()
         elif kind == "groupnorm_apply":
             a_p, b_p = _torch_stats_affine(x, g, b, 32, 1e-6)
@@ -284,7 +330,8 @@ def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generat
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak * 1e3
     return {"kind": kind, "shape": shape, "dtype": str(dtype).replace("torch.", ""),
-            "max_abs_err": err, "tol": tol, "ms": ms,
+            "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": device_ms(kern),
+            "library_device_ms": device_ms(library) if library is not None else None,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -293,7 +340,7 @@ def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generat
 def check_fused(mode: str, shape: tuple, gen: torch.Generator) -> dict:
     """The fused GN+SiLU+conv kernel against its plain version in one mode:
     x with a non-zero mean and random gamma, beta (an unmasked border would
-    show), eps 1e-5. Times the kernel route (stats pair included), the plain
+    show), eps 1e-5. Times the kernel route (stats kernel included), the plain
     route, F.conv2d in bf16 on the same inputs (`library_ms`, conv mode) and
     the unfused chain (the GroupNorm kernels, F.silu and, in full mode,
     F.conv2d: `chain_ms`, full and act). The bound counts the conv's flops
@@ -646,9 +693,9 @@ def main() -> int:
                 lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
                 print(f"{kind:15s} {str(shape):22s} {r['dtype']:8s} "
                       f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
-                      f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-                      f"library {lib}  bound {r['bound_ms']:.4f} ms "
-                      f"({r['bound_by']})", flush=True)
+                      f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
+                      f"plain {r['plain_ms']:.4f} ms  library {lib}  "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
         # per UNet forward of the main path (bf16, batch 8): each shape's time
         # times its calls per forward
         per_forward = {}
@@ -658,12 +705,29 @@ def main() -> int:
                         if o == op]
                 per_forward[kind] = {
                     f: (None if rows[0][0][f] is None else sum(r[f] * c for r, c in rows))
-                    for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for f in ("ms", "device_ms", "plain_ms", "library_ms",
+                              "library_device_ms", "bound_ms")}
                 per_forward[kind]["max_abs_err"] = max(
                     r["max_abs_err"] for k, r in results.items() if k[0] == kind)
                 per_forward[kind]["bound_by"] = rows[0][0]["bound_by"]
                 print(f"{kind}: per bf16 batch-8 forward ({sum(c for _, c in rows)} "
                       "calls): " + json.dumps(per_forward[kind]), flush=True)
+        edge = [check_kernel("attention", shape, dtype, gen)
+                for shape in EDGE_ATTENTION_SHAPES for dtype in (torch.bfloat16, torch.float32)]
+        edge.append(check_kernel("groupnorm_stats", (8, 16, 16, 768), torch.float32, gen,
+                                 film=True))
+        for r in edge:
+            lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            print(f"edge {r['kind']:10s} {str(r['shape']):22s} {r['dtype']:8s} "
+                  f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
+                  f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
+                  f"plain {r['plain_ms']:.4f} ms  library {lib} (device "
+                  f"{r['library_device_ms'] if r['library_device_ms'] is None else round(r['library_device_ms'], 4)})  "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        for kind in per_forward:
+            per_forward[kind]["max_abs_err"] = max(
+                [per_forward[kind]["max_abs_err"]]
+                + [r["max_abs_err"] for r in edge if r["kind"] == kind])
         fwht_rows = [check_kernel("fwht", shape, torch.float32, gen) for shape in FWHT_SHAPES]
         for r in fwht_rows:
             print(f"{'fwht':15s} {str(r['shape']):22s} {r['dtype']:8s} "
@@ -673,7 +737,8 @@ def main() -> int:
                   f"({r['bound_by']})", flush=True)
         # per call at the SVD main path's shape (batch 8)
         per_forward["fwht"] = {f: fwht_rows[-1][f] for f in
-                               ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                               ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")}
         per_forward["fwht"]["max_abs_err"] = max(r["max_abs_err"] for r in fwht_rows)
         print("fwht: per (8, 3, 65536) call: " + json.dumps(per_forward["fwht"]), flush=True)
         fused = {}
@@ -738,6 +803,7 @@ def main() -> int:
                               "svd": launches[kind],
                               "experiment": launches_experiment[kind]},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
+         "device_ms": per_forward[kind].get("device_ms"),
          "plain_ms": per_forward[kind]["plain_ms"],
          "bound_ms": per_forward[kind]["bound_ms"],
          "bound_by": per_forward[kind]["bound_by"],

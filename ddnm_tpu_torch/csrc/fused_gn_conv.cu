@@ -9,7 +9,7 @@
 //                   _kernel_noact: the same convolution of the raw input;
 //   mode 2, act  <- the same _call with _kernel_nodot: silu(x * a + b) in
 //                   fp32, one rounding to bf16, no convolution.
-// The per-(B, C) affine a, b comes from the ported GroupNorm stats pair
+// The per-(B, C) affine a, b comes from the ported GroupNorm stats kernel
 // (groupnorm.cu), as the experiment takes it from XLA's gn_stats_affine.
 //
 // What bounds it on an H100: the convolution does 2 * 9 C^2 flops per

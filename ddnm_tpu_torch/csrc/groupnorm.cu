@@ -1,25 +1,39 @@
 // GroupNorm (+ optional FiLM, + optional SiLU) over NHWC activations.
 //
 // Replaces the Pallas kernels of ddnm_tpu/ops/groupnorm.py:
-//   gn_stats_kernel    <- _stats_kernel / _pallas_stats (per-(B, C) fp32
-//                         sum and sum of squares over H*W);
-//   gn_finalize_kernel <- the XLA glue _effective_affine (per-group mean and
-//                         rstd by the fast variance E[x^2] - mean^2 clamped
-//                         at 0, folded into a per-(B, C) affine a, b, FiLM
-//                         included);
-//   gn_apply_kernel    <- _apply_kernel / _pallas_group_norm
-//                         (y = x * a + b in fp32, cast, optional SiLU).
+//   gn_stats_affine_kernel <- _stats_kernel / _pallas_stats (per-(B, C) fp32
+//                             sum and sum of squares over H*W) together with
+//                             its XLA glue _effective_affine (per-group mean
+//                             and rstd by the fast variance E[x^2] - mean^2
+//                             clamped at 0, folded into a per-(B, C) affine
+//                             a, b, FiLM included), in one launch;
+//   gn_apply_kernel        <- _apply_kernel / _pallas_group_norm
+//                             (y = x * a + b in fp32, cast, optional SiLU).
 //
 // What bounds it on an H100: memory. Each element costs a handful of
 // flops, far below the ~295 flops per byte where the card turns compute
 // bound, so the least time is the bytes moved (x read twice, y written
-// once) over 3.35 TB/s. The design keeps every pass a single streaming
-// read with coalesced loads: 32 neighbouring threads read 32 neighbouring
-// channels of one pixel. On the TPU the stats pass carried its sums across
-// a sequential grid; here blocks run in parallel and in no order, so each
-// (batch, channel block, row block) writes its own fp32 partial sums to a
-// scratch buffer and a second small kernel reduces them in a fixed order.
-// No fp32 atomics anywhere: every launch gives the same bits.
+// once) over 3.35 TB/s.
+//
+// Stats. On the TPU the stats pass carried its sums across a sequential
+// grid; here blocks run in parallel and in no order, and the port's earlier
+// design paid for that with a second launch and a scratch round trip.
+// Now one launch does it all. A block sums a contiguous run of pixels of
+// one image over a channel span of whole groups (a multiple of C / G), each
+// thread loading VEC channels of one pixel as one 16-byte load (8 bf16 or 4
+// fp32; 1 where C or the pointer does not allow it) with kStatsUnroll loads
+// in flight, and reduces its pixel lanes through shared memory in a fixed
+// order. The plan (ops/groupnorm.py `_stats_plan`) reads a big map in whole
+// pixel rows (contiguous streams) with up to 32 blocks an image; a small
+// map with one block per (image, 64-byte span), so that its grid still
+// spreads over the SMs. Where an image has several blocks, each writes its
+// sums to scratch and the last to finish, picked by an integer counter,
+// adds them in block order and finalises; it resets the counter, so the
+// counters stay zero between launches of one stream. No fp32 atomics:
+// every launch gives the same bits.
+//
+// Apply: a grid-stride elementwise pass, 32 neighbouring threads on 32
+// neighbouring channels of one pixel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -38,87 +52,207 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
-constexpr int kStatsLanes = 8;  // pixel lanes per stats block (threadIdx.y)
+// Loads of VEC channels of one pixel as one unit (16 bytes when VEC > 1).
+template <typename T, int VEC> struct VecLoad;
+template <> struct VecLoad<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void to_float(const Raw& r, float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+};
+template <> struct VecLoad<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void to_float(const Raw& r, float (&f)[4]) {
+    f[0] = r.x;
+    f[1] = r.y;
+    f[2] = r.z;
+    f[3] = r.w;
+  }
+};
+template <typename T> struct VecLoad<T, 1> {
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ void to_float(const Raw& r, float (&f)[1]) { f[0] = to_f(r); }
+};
 
-// grid (ceil(C / 32), R, B), block (32, kStatsLanes).
-// partial layout: (B, R, 2, C) fp32, [.., 0, c] = sum x, [.., 1, c] = sum x^2.
-template <typename T>
-__global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                                int hw, int c_total, int rows_per_block) {
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  const int r = blockIdx.y;
+constexpr int kStatsUnroll = 8;  // pixel loads in flight per thread
+
+// One launch: per-(B, C) fp32 affine (a, b) of the normalize pass.
+// grid (n_blk, C / span, B), block lanes_c * lanes_p threads, dynamic shared
+// memory 4 * (2 span + 2 blockDim.x VEC + 2 span / cpg) + 16 bytes. Block
+// (j, s, b) sums pixels [j * chunk, (j + 1) * chunk) of channels
+// [s span, (s + 1) span) of image b, each thread VEC channels of one pixel
+// at a time, and reduces its pixel lanes through shared memory in a fixed
+// order. With n_blk > 1 it writes its sums to scratch[b][s][j] (2 span fp32)
+// and the last block of (b, s) to arrive, as counted by counters[b * spans
+// + s], adds the n_blk partials in order j = 0 .. n_blk - 1, resets the
+// counter to 0 for the next launch, and finalises. The counter is an
+// integer: the fp32 sums never meet an atomic, so every launch gives the
+// same bits. The counters assume the launches that share them run one after
+// another (one stream), as the port's do.
+// out: (2, B, C) fp32, out[0] = a, out[1] = b.
+template <typename T, int VEC>
+__global__ void gn_stats_affine_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                                       const float* __restrict__ beta,
+                                       const float* __restrict__ film_scale,
+                                       const float* __restrict__ film_shift,
+                                       float* __restrict__ out, float* __restrict__ scratch,
+                                       unsigned* __restrict__ counters, int batch, int hw,
+                                       int c_total, int cpg, int span, int lanes_c, float eps) {
+  extern __shared__ float sm[];
+  const int nthreads = blockDim.x;
+  const int lanes_p = nthreads / lanes_c;
+  const int tc = threadIdx.x % lanes_c;  // channel lane
+  const int tp = threadIdx.x / lanes_c;  // pixel lane
+  const int n_blk = gridDim.x, blk = blockIdx.x;
   const int b = blockIdx.z;
-  const int p0 = r * rows_per_block;
-  const int p1 = min(hw, p0 + rows_per_block);
-  float s1 = 0.f, s2 = 0.f;
-  if (c < c_total) {
-    const T* xb = x + (size_t)b * hw * c_total + c;
-    for (int p = p0 + threadIdx.y; p < p1; p += kStatsLanes) {
-      const float v = to_f(xb[(size_t)p * c_total]);
-      s1 += v;
-      s2 += v * v;
-    }
-  }
-  __shared__ float sh1[kStatsLanes][33];
-  __shared__ float sh2[kStatsLanes][33];
-  sh1[threadIdx.y][threadIdx.x] = s1;
-  sh2[threadIdx.y][threadIdx.x] = s2;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < c_total) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int i = 0; i < kStatsLanes; ++i) {
-      t1 += sh1[i][threadIdx.x];
-      t2 += sh2[i][threadIdx.x];
-    }
-    float* out = partial + ((size_t)b * gridDim.y + r) * 2 * c_total;
-    out[c] = t1;
-    out[c_total + c] = t2;
-  }
-}
+  const int c0 = blockIdx.y * span;
+  const int width = lanes_c * VEC;          // channels of one slot
+  float* part = sm;                         // [2][span]: this block's sums
+  float* red = part + 2 * span;             // [2][lanes_p][width]
+  float* gstat = red + 2 * nthreads * VEC;  // [2][span / cpg]: group mean, rstd
+  unsigned* last = reinterpret_cast<unsigned*>(gstat + 2 * (span / cpg));
 
-// grid (G, B), block 32: one warp per (batch, group). Lane l sums elements
-// l, l + 32, ... of the group's R * (C / G) partials, then a fixed xor tree
-// combines the lanes; the order never changes between launches.
-__global__ void gn_finalize_kernel(const float* __restrict__ partial,
-                                   const float* __restrict__ gamma,
-                                   const float* __restrict__ beta,
-                                   const float* __restrict__ film_scale,
-                                   const float* __restrict__ film_shift,
-                                   float* __restrict__ a_out, float* __restrict__ b_out,
-                                   int rows, int c_total, float n_per_group, float eps) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int cpg = c_total / gridDim.x;
-  const int lane = threadIdx.x;
-  const float* pb = partial + (size_t)b * rows * 2 * c_total + (size_t)g * cpg;
-  float s1 = 0.f, s2 = 0.f;
-  const int n = rows * cpg;
-  for (int i = lane; i < n; i += 32) {
-    const int r = i / cpg;
-    const int j = i - r * cpg;
-    const float* pr = pb + (size_t)r * 2 * c_total;
-    s1 += pr[j];
-    s2 += pr[c_total + j];
+  const int chunk = (hw + n_blk - 1) / n_blk;
+  const int p_begin = blk * chunk, p_end = min(hw, p_begin + chunk);
+  const T* xb = x + (size_t)b * hw * c_total + c0;
+  // a span wider than lanes_c vectors is walked in slots of lanes_c vectors
+  for (int slot = 0; slot * width < span; ++slot) {
+    const int cv = slot * lanes_c + tc;  // channel vector of this thread
+    float s1[VEC], s2[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) s1[j] = s2[j] = 0.f;
+    if (cv * VEC < span) {
+      const T* xc = xb + cv * VEC;
+      int p = p_begin + tp;
+      for (; p + (kStatsUnroll - 1) * lanes_p < p_end; p += kStatsUnroll * lanes_p) {
+        typename VecLoad<T, VEC>::Raw raw[kStatsUnroll];
+#pragma unroll
+        for (int u = 0; u < kStatsUnroll; ++u)
+          raw[u] = VecLoad<T, VEC>::load(xc + (size_t)(p + u * lanes_p) * c_total);
+#pragma unroll
+        for (int u = 0; u < kStatsUnroll; ++u) {
+          float f[VEC];
+          VecLoad<T, VEC>::to_float(raw[u], f);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            s1[j] += f[j];
+            s2[j] += f[j] * f[j];
+          }
+        }
+      }
+      for (; p < p_end; p += lanes_p) {
+        float f[VEC];
+        VecLoad<T, VEC>::to_float(VecLoad<T, VEC>::load(xc + (size_t)p * c_total), f);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          s1[j] += f[j];
+          s2[j] += f[j] * f[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      red[tp * width + tc * VEC + j] = s1[j];
+      red[(lanes_p + tp) * width + tc * VEC + j] = s2[j];
+    }
+    __syncthreads();
+    // sum the pixel lanes of each channel in a fixed order
+    for (int col = threadIdx.x; col < 2 * width; col += nthreads) {
+      const int which = col / width, cc = col - which * width;
+      if (slot * width + cc < span) {
+        const float* r = red + which * lanes_p * width + cc;
+        float acc = 0.f;
+        for (int i = 0; i < lanes_p; ++i) acc += r[i * width];
+        part[which * span + slot * width + cc] = acc;
+      }
+    }
+    __syncthreads();
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+
+  if (n_blk > 1) {
+    // publish this block's sums; the last block of (b, s) adds them all
+    const size_t bs = (size_t)b * gridDim.y + blockIdx.y;
+    float* mine = scratch + (bs * n_blk + blk) * 2 * span;
+    for (int col = threadIdx.x; col < 2 * span; col += nthreads) mine[col] = part[col];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) *last = atomicAdd(counters + bs, 1u) == (unsigned)(n_blk - 1);
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    const float* all = scratch + bs * n_blk * 2 * span;
+    for (int col = threadIdx.x; col < 2 * span; col += nthreads) {
+      float acc = 0.f;
+      for (int j = 0; j < n_blk; ++j) acc += __ldcg(all + (size_t)j * 2 * span + col);
+      part[col] = acc;
+    }
+    if (threadIdx.x == 0) counters[bs] = 0;  // ready for the next launch
+    __syncthreads();
   }
-  const float mean = s1 / n_per_group;
-  const float var = fmaxf(s2 / n_per_group - mean * mean, 0.f);
-  const float rstd = 1.f / sqrtf(var + eps);
-  for (int j = lane; j < cpg; j += 32) {
-    const int c = g * cpg + j;
-    float a = rstd * gamma[c];
-    float bb = beta[c] - mean * a;
+
+  // fixed-order group sums -> mean and rstd (the fast variance E[x^2] -
+  // mean^2, clamped at 0), then the per-channel affine with FiLM folded in
+  const int ng = span / cpg;
+  const float n = static_cast<float>(static_cast<double>(hw) * cpg);
+  for (int gi = threadIdx.x; gi < ng; gi += nthreads) {
+    float g1 = 0.f, g2 = 0.f;
+    for (int j = 0; j < cpg; ++j) {
+      g1 += part[gi * cpg + j];
+      g2 += part[span + gi * cpg + j];
+    }
+    const float mean = g1 / n;
+    const float var = fmaxf(g2 / n - mean * mean, 0.f);
+    gstat[gi] = mean;
+    gstat[ng + gi] = 1.f / sqrtf(var + eps);
+  }
+  __syncthreads();
+  float* a_out = out + (size_t)b * c_total;
+  float* b_out = out + ((size_t)batch + b) * c_total;
+  for (int j = threadIdx.x; j < span; j += nthreads) {
+    const int c = c0 + j;
+    const int gi = j / cpg;
+    float a = gstat[ng + gi] * gamma[c];
+    float bb = beta[c] - gstat[gi] * a;
     if (film_scale != nullptr) {
       const float fs = 1.f + film_scale[(size_t)b * c_total + c];
       a = a * fs;
       bb = bb * fs + film_shift[(size_t)b * c_total + c];
     }
-    a_out[(size_t)b * c_total + c] = a;
-    b_out[(size_t)b * c_total + c] = bb;
+    a_out[c] = a;
+    b_out[c] = bb;
   }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_stats_affine(const void* x, const float* gamma, const float* beta,
+                                const float* film_scale, const float* film_shift, float* out,
+                                float* scratch, unsigned* counters, int batch, int hw,
+                                int c_total, int cpg, float eps, int span, int n_blk,
+                                int threads, int lanes_c, int smem_bytes, cudaStream_t stream) {
+  auto kernel = gn_stats_affine_kernel<T, VEC>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(n_blk, c_total / span, batch);
+  kernel<<<grid, threads, smem_bytes, stream>>>(static_cast<const T*>(x), gamma, beta,
+                                                film_scale, film_shift, out, scratch, counters,
+                                                batch, hw, c_total, cpg, span, lanes_c, eps);
+  return cudaGetLastError();
 }
 
 // grid (blocks, B), block 256; grid-stride over the H*W*C elements of one
@@ -148,35 +282,49 @@ __global__ void gn_apply_kernel(const T* __restrict__ x, const float* __restrict
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Every entry returns cudaGetLastError().
-int ddnm_gn_stats(const void* x, void* partial, int batch, int hw, int c_total,
-                  int rows_per_block, int dtype, void* stream) {
-  const int rows = (hw + rows_per_block - 1) / rows_per_block;
-  dim3 grid((c_total + 31) / 32, rows, batch);
-  dim3 block(32, kStatsLanes);
+// x: (batch, hw, c_total) contiguous; gamma, beta: (c_total,) fp32; film_scale,
+// film_shift: (batch, c_total) fp32 or both null; out: (2, batch, c_total)
+// fp32; scratch: batch * (c_total / span) * n_blk * 2 * span fp32 (unused when
+// n_blk == 1); counters: batch * (c_total / span) zeros, left zero. The
+// launch plan (vec, span, n_blk, threads, lanes_c, smem_bytes) is
+// ops/groupnorm.py `_stats_plan`; a plan the kernel cannot run returns
+// cudaErrorInvalidValue.
+int ddnm_gn_stats_affine(const void* x, const void* gamma, const void* beta,
+                         const void* film_scale, const void* film_shift, void* out,
+                         void* scratch, void* counters, int batch, int hw, int c_total,
+                         int groups, float eps, int vec, int span, int n_blk, int threads,
+                         int lanes_c, int smem_bytes, int dtype, void* stream) {
+  if (groups <= 0 || c_total % groups != 0 || span <= 0 || vec <= 0 || lanes_c <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cpg = c_total / groups;
+  const bool ok = c_total % span == 0 && span % cpg == 0 && span % vec == 0 && n_blk >= 1 &&
+                  threads % lanes_c == 0 && threads <= 1024 &&
+                  smem_bytes == 4 * (2 * span + 2 * threads * vec + 2 * (span / cpg)) + 16;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const float* g = static_cast<const float*>(gamma);
+  const float* bt = static_cast<const float*>(beta);
+  const float* fs = static_cast<const float*>(film_scale);
+  const float* ft = static_cast<const float*>(film_shift);
+  float* o = static_cast<float*>(out);
+  float* sc = static_cast<float*>(scratch);
+  unsigned* cn = static_cast<unsigned*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    gn_stats_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(partial), hw, c_total,
-        rows_per_block);
-  } else {
-    gn_stats_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(partial), hw,
-        c_total, rows_per_block);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int ddnm_gn_finalize(const void* partial, const void* gamma, const void* beta,
-                     const void* film_scale, const void* film_shift, void* a_out,
-                     void* b_out, int batch, int rows, int c_total, int groups,
-                     float n_per_group, float eps, void* stream) {
-  dim3 grid(groups, batch);
-  gn_finalize_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const float*>(film_scale),
-      static_cast<const float*>(film_shift), static_cast<float*>(a_out),
-      static_cast<float*>(b_out), rows, c_total, n_per_group, eps);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4)
+    err = launch_stats_affine<float, 4>(x, g, bt, fs, ft, o, sc, cn, batch, hw, c_total, cpg,
+                                        eps, span, n_blk, threads, lanes_c, smem_bytes, s);
+  else if (dtype == 0 && vec == 1)
+    err = launch_stats_affine<float, 1>(x, g, bt, fs, ft, o, sc, cn, batch, hw, c_total, cpg,
+                                        eps, span, n_blk, threads, lanes_c, smem_bytes, s);
+  else if (dtype == 1 && vec == 8)
+    err = launch_stats_affine<__nv_bfloat16, 8>(x, g, bt, fs, ft, o, sc, cn, batch, hw, c_total,
+                                                cpg, eps, span, n_blk, threads, lanes_c,
+                                                smem_bytes, s);
+  else if (dtype == 1 && vec == 1)
+    err = launch_stats_affine<__nv_bfloat16, 1>(x, g, bt, fs, ft, o, sc, cn, batch, hw, c_total,
+                                                cpg, eps, span, n_blk, threads, lanes_c,
+                                                smem_bytes, s);
+  return static_cast<int>(err);
 }
 
 int ddnm_gn_apply(const void* x, const void* a, const void* b, void* y, int batch,

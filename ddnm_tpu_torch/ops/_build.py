@@ -13,6 +13,7 @@ PyTorch's headers takes minutes to compile, a plain C interface seconds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,11 +22,16 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load_library", "check"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SMEM_PER_BLOCK", "build", "load_library",
+           "check", "device_guard", "raw_stream"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# dynamic shared memory one H100 block can take (each kernel's plan stays below it)
+SMEM_PER_BLOCK = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
@@ -33,10 +39,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (every pointer and the stream are
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int).
 _SIGNATURES = {
-    "ddnm_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _P],
-    "ddnm_gn_finalize": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "ddnm_gn_stats_affine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                             _I, _I, _I, _I, _I, _P],
     "ddnm_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ddnm_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "ddnm_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "ddnm_fwht": [_P, _P, _I, _I, _F, _P],
     "ddnm_fused_gn_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -132,3 +138,19 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = _lib.ddnm_cuda_error_string(rc).decode() if _lib else "?"
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def device_guard(device):
+    """Make `device` current for a launch: a no-op when it already is (the
+    common case, and the cheap one on the host)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device) -> int:
+    """The cudaStream_t of PyTorch's current stream on a CUDA `device`, as an
+    int (what torch.cuda.current_stream(device).cuda_stream gives, without
+    building a Stream object on every launch)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)

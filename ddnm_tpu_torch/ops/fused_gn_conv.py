@@ -12,9 +12,9 @@ the UNet. Three modes share one kernel entry point:
   - "conv": `_call(_kernel_noact)`: the 3x3 SAME convolution of the raw x;
   - "act": `_call(_kernel_nodot)`: silu(x * a + b) in fp32, one rounding.
 
-On a CUDA tensor the affine comes from the ported GroupNorm stats pair
-(`groupnorm._stats_affine`, 2 launches; the counterpart of the experiment's
-`gn_stats_affine`), then one launch of `csrc/fused_gn_conv.cu`: 3 launches
+On a CUDA tensor the affine comes from the ported GroupNorm stats kernel
+(`groupnorm._stats_affine`, 1 launch; the counterpart of the experiment's
+`gn_stats_affine`), then one launch of `csrc/fused_gn_conv.cu`: 2 launches
 for "full" and "act", 1 for "conv". On a CPU tensor `_torch_fused_gn_conv`
 runs the same arithmetic in plain PyTorch. `force="torch"` selects the plain
 version on any device, `force="kernel"` the kernel (and raises on a CPU

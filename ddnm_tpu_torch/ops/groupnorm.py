@@ -1,15 +1,16 @@
 """GroupNorm (+ optional FiLM, + optional SiLU) for NHWC activations.
 
 Port of `ddnm_tpu/ops/groupnorm.py`. On a CUDA tensor `group_norm` runs the
-hand-written kernels of `csrc/groupnorm.cu` in three launches: partial
-sums per (batch, channel block, row block), a fixed-order reduction that
-folds them into a per-(B, C) affine a, b (the `_effective_affine` glue,
-FiLM included), and y = x * a + b with an optional SiLU. On a CPU tensor it
-runs `_torch_group_norm`, the plain PyTorch version that follows the JAX
+hand-written kernels of `csrc/groupnorm.cu` in two launches: the stats
+kernel, which sums each image's pixels in blocks, combines the blocks' sums
+in a fixed order in the last block to finish, and folds them into a
+per-(B, C) affine a, b (the `_effective_affine` glue, FiLM included), then
+y = x * a + b with an optional SiLU. On a CPU tensor it runs
+`_torch_group_norm`, the plain PyTorch version that follows the JAX
 package's `_xla_group_norm` line for line; the tests hold the two against
-each other and against the JAX package. The two kernel wrappers, the stats
-pair (`_stats_affine`, for the Pallas `_pallas_stats` with its glue) and
-the apply pass (`_apply`, for `_pallas_group_norm`), each have a plain
+each other and against the JAX package. The two kernel wrappers,
+the stats (`_stats_affine`, for the Pallas `_pallas_stats` with its glue)
+and the apply pass (`_apply`, for `_pallas_group_norm`), each have a plain
 version of their own (`_torch_stats_affine`, `_torch_apply`).
 
 `force="torch"` selects the plain version on any device, `force="kernel"`
@@ -18,6 +19,9 @@ that fails to build or launch raises.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -29,7 +33,19 @@ __all__ = ["group_norm", "LAUNCHES"]
 LAUNCHES = {"groupnorm_stats": 0, "groupnorm_apply": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS_PER_BLOCK = 256  # pixels per stats block (32 per pixel lane)
+
+# the stats kernel's launch plan (`_stats_plan`; csrc/groupnorm.cu)
+_STATS_UNROLL = 8           # kStatsUnroll: pixel loads in flight per thread
+# an image of _STATS_WIDE_BYTES or more is read in whole pixel rows by blocks
+# of 512 threads, one per _STATS_BLOCK_BYTES of it, at most _STATS_MAX_BLOCKS
+# (the best of a sweep of block sizes at the DDPM UNet's maps on the H100)
+_STATS_WIDE_BYTES = 2 << 20
+_STATS_BLOCK_BYTES = 256 << 10
+_STATS_MAX_BLOCKS = 32
+STATS_MAX_SPAN = 4096       # channels of one span: bounds the shared memory
+# the stats kernel's launch counters, per device: zeros that each launch
+# leaves zero (csrc/groupnorm.cu)
+_COUNTERS: dict = {}
 
 
 def _torch_group_norm(x, scale, bias, num_groups, eps, swish,
@@ -98,12 +114,65 @@ def _check_input(x, num_groups):
         raise ValueError(f"channels {C} not divisible by {num_groups} groups")
     if H * W * C >= 2**31:
         raise ValueError("GroupNorm kernel takes H*W*C < 2^31 per image")
-    if B > 65535 or -(-H * W // _ROWS_PER_BLOCK) > 65535:  # CUDA grid y/z limits
-        raise ValueError(f"GroupNorm kernel takes B <= 65535 and H*W <= "
-                         f"{65535 * _ROWS_PER_BLOCK}, got {tuple(x.shape)}")
+    if B > 65535:  # CUDA grid z limit
+        raise ValueError(f"GroupNorm kernel takes B <= 65535, got {tuple(x.shape)}")
+
+
+@functools.lru_cache(maxsize=256)
+def _stats_plan(B: int, HW: int, C: int, G: int, elem_size: int,
+                aligned: bool = True) -> dict:
+    """The stats kernel's launch for (B, H*W, C) with G groups: channels per
+    16-byte load (`vec`), the channel span of a block (whole groups),
+    blocks per (image, span) (`n_blk`, each a contiguous run of pixels),
+    threads (`lanes_c` channel lanes x pixel lanes), grid, dynamic
+    shared-memory bytes, and the floats of partial sums and the launch
+    counters it needs. `aligned`: x starts on 16 bytes. Raises ValueError
+    for a shape the kernel does not take."""
+    if C % G:
+        raise ValueError(f"channels {C} not divisible by {G} groups")
+    cpg = C // G
+    if cpg > STATS_MAX_SPAN:
+        raise ValueError(f"GroupNorm kernel takes C / G <= {STATS_MAX_SPAN}, got {cpg}")
+    vec = 16 // elem_size if aligned else 1
+    base = math.lcm(cpg, vec)
+    if C % base or base > STATS_MAX_SPAN:
+        vec, base = 1, cpg
+    spans = [s for s in range(base, min(C, STATS_MAX_SPAN) + 1, base) if C % s == 0]
+    image_bytes = HW * C * elem_size
+    if image_bytes >= _STATS_WIDE_BYTES:
+        # big maps: whole rows (contiguous streams), several blocks an image
+        span, target = spans[-1], 512
+        n_blk = min(_STATS_MAX_BLOCKS, max(1, image_bytes // _STATS_BLOCK_BYTES))
+    else:
+        # small maps: one block per (image, span), spans of 64 bytes of a
+        # pixel or more, so that the grid still has many blocks
+        span = next((s for s in spans if s * elem_size >= 64), spans[-1])
+        target, n_blk = 256, 1
+    if C // span > 65535:  # CUDA grid y limit
+        raise ValueError(f"GroupNorm kernel takes C / span <= 65535, got {C} / {span}")
+    lanes_c = min(span // vec, target)
+    lanes_p = target // lanes_c
+    threads = lanes_c * lanes_p
+    n_blk = max(1, min(n_blk, HW // (2 * lanes_p)))
+    smem = 4 * (2 * span + 2 * threads * vec + 2 * (span // cpg)) + 16
+    return {"vec": vec, "span": span, "n_blk": n_blk, "threads": threads,
+            "lanes_c": lanes_c, "grid": (n_blk, C // span, B), "smem": smem,
+            "scratch": B * C * n_blk * 2 if n_blk > 1 else 0, "counters": B * (C // span)}
+
+
+def _counters(device, n):
+    """At least n launch counters (zeros) of `device`."""
+    c = _COUNTERS.get(device.index)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device.index] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                                  device=device)
+    return c
 
 
 def _vec(t, shape, device):
+    if (t.device == device and t.dtype == torch.float32 and t.is_contiguous()
+            and tuple(t.shape) == shape):
+        return t  # how GroupNormF32 keeps its affine: no conversion
     t = t.to(device=device, dtype=torch.float32).contiguous()
     if tuple(t.shape) != shape:
         raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
@@ -111,36 +180,37 @@ def _vec(t, shape, device):
 
 
 def _stats_affine(x, scale, bias, num_groups, eps, film_scale, film_shift):
-    """Per-(B, C) fp32 affine (a, b) of the normalize pass: the stats kernel
-    and the fixed-order finalize kernel."""
+    """Per-(B, C) fp32 affine (a, b) of the normalize pass: one launch of
+    the stats kernel; a, b in one (2, B, C) buffer."""
     _check_input(x, num_groups)
-    lib = _build.load_library()
     B, H, W, C = x.shape
-    hw = H * W
-    rows = -(-hw // _ROWS_PER_BLOCK)
+    plan = _stats_plan(B, H * W, C, num_groups, x.element_size(), x.data_ptr() % 16 == 0)
+    lib = _build.load_library()
     dev = x.device
     scale = _vec(scale, (C,), dev)
     bias = _vec(bias, (C,), dev)
     if film_scale is not None:
         film_scale = _vec(film_scale, (B, C), dev)
         film_shift = _vec(film_shift, (B, C), dev)
-    partial = torch.empty((B, rows, 2, C), device=dev, dtype=torch.float32)
-    a = torch.empty((B, C), device=dev, dtype=torch.float32)
-    b = torch.empty((B, C), device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        _build.check(lib.ddnm_gn_stats(
-            x.data_ptr(), partial.data_ptr(), B, hw, C, _ROWS_PER_BLOCK,
-            _DTYPE_CODE[x.dtype], stream), "ddnm_gn_stats")
-        _build.check(lib.ddnm_gn_finalize(
-            partial.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+    # a, b and the blocks' partial sums in one allocation
+    if plan["scratch"]:
+        buf = x.new_empty(2 * B * C + plan["scratch"], dtype=torch.float32)
+        out = buf[:2 * B * C].view(2, B, C)
+        scratch, counters = buf.data_ptr() + 8 * B * C, _counters(dev, plan["counters"])
+    else:
+        out = x.new_empty((2, B, C), dtype=torch.float32)
+        scratch = counters = None
+    with _build.device_guard(dev):
+        _build.check(lib.ddnm_gn_stats_affine(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             film_scale.data_ptr() if film_scale is not None else None,
             film_shift.data_ptr() if film_shift is not None else None,
-            a.data_ptr(), b.data_ptr(), B, rows, C, num_groups,
-            float(hw * (C // num_groups)), float(eps), stream),
-            "ddnm_gn_finalize")
+            out.data_ptr(), scratch, counters.data_ptr() if counters is not None else None,
+            B, H * W, C, num_groups, float(eps), plan["vec"], plan["span"], plan["n_blk"],
+            plan["threads"], plan["lanes_c"], plan["smem"], _DTYPE_CODE[x.dtype],
+            _build.raw_stream(dev)), "ddnm_gn_stats_affine")
     LAUNCHES["groupnorm_stats"] += 1
-    return a, b
+    return out.select(0, 0), out.select(0, 1)  # cheaper on the host than unbind
 
 
 def _apply(x, a, b, swish):

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from ddnm_tpu_torch import ops
-from ddnm_tpu_torch.ops.attention import _torch_attention
+from ddnm_tpu_torch.ops.attention import WHOLE_ROW_MAX_T, _torch_attention
 from ddnm_tpu_torch.ops.fused_gn_conv import _torch_fused_gn_conv
 from ddnm_tpu_torch.ops.fwht import _torch_fwht
 from ddnm_tpu_torch.ops.groupnorm import (
@@ -59,21 +59,60 @@ def test_group_norm_kernel_matches_plain(gen, dtype, tol, shape, swish, film):
                                    kw.get("film_shift"))
     for k, p in ((a_k, a_p), (b_k, b_p)):
         assert float((k - p).abs().max()) <= 1e-4 * max(1.0, float(p.abs().max()))
+    # one launch, the same bits on a second call
+    ops.reset_launch_counts()
+    a_2, b_2 = _stats_affine(x, g, b, 32, 1e-6, kw.get("film_scale"), kw.get("film_shift"))
+    assert ops.launch_counts()["groupnorm_stats"] == 1
+    assert torch.equal(a_k, a_2) and torch.equal(b_k, b_2)
     y_k, y_p = _apply(x, a_p, b_p, swish), _torch_apply(x, a_p, b_p, swish)
     assert float((y_k.float() - y_p.float()).abs().max()) <= tol * max(
         1.0, float(y_p.float().abs().max()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,offset", [
+    ((2, 7, 5, 36), 4, 0),         # C / G = 9: no 16-byte loads, span 36
+    ((2, 9, 9, 128), 32, 1),       # x one element past 16 bytes: 1-channel loads
+    ((4, 128, 128, 64), 32, 0),    # several blocks an image, the last one finalises
+    ((1, 64, 64, 8192), 4, 0),     # several blocks and two spans an image
+    ((1, 3, 3, 2048), 1, 0),       # one group of 2048 channels
+    ((1, 2, 2, 4096), 1, 0),       # the widest span, walked in slots
+])
+def test_group_norm_stats_plans_match_plain(gen, dtype, shape, groups, offset):
+    """Each branch of `_stats_plan` against the plain stats, and the same
+    bits on a second call (no atomics)."""
+    B, H, W, C = shape
+    n = B * H * W * C
+    buf = (torch.randn(n + offset, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    x = buf[offset:].view(shape)
+    g, b = (torch.randn(C, device="cuda", generator=gen) for _ in range(2))
+    fs, ft = (torch.randn(B, C, device="cuda", generator=gen) * 0.3 for _ in range(2))
+    a_k, b_k = _stats_affine(x, g, b, groups, 1e-6, fs, ft)
+    a_p, b_p = _torch_stats_affine(x, g, b, groups, 1e-6, fs, ft)
+    for k, p in ((a_k, a_p), (b_k, b_p)):
+        assert float((k - p).abs().max()) <= 1e-4 * max(1.0, float(p.abs().max()))
+    a_2, b_2 = _stats_affine(x, g, b, groups, 1e-6, fs, ft)
+    assert torch.equal(a_k, a_2) and torch.equal(b_k, b_2)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("shape", [(8, 256, 512), (8, 64, 512), (2, 100, 64), (1, 1024, 64)])
+@pytest.mark.parametrize("shape", [
+    (8, 256, 512), (8, 64, 512), (2, 100, 64), (1, 1024, 64),  # the DDPM UNet's, ragged T
+    (4, 1, 512), (3, 17, 512), (5, 33, 32),                    # T = 1, T = 17, C = 32
+    (2, WHOLE_ROW_MAX_T, 512), (2, WHOLE_ROW_MAX_T + 1, 512),  # both sides of the online path
+    (32, 64, 64), (32, 256, 64), (16, 1024, 64),               # ADM heads of 64 channels
+    (16, 1024, 32),                                            # ADM heads of 32 channels
+])
 def test_attention_kernel_matches_plain(gen, dtype, tol, shape):
     q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
     ops.reset_launch_counts()
     out = ops.fused_attention(q, k, v, shape[-1] ** -0.5)
     ref = _torch_attention(q, k, v, shape[-1] ** -0.5)
     assert ops.launch_counts()["attention"] == 1
+    assert out.dtype == dtype and out.shape == q.shape
     err = float((out.float() - ref.float()).abs().max())
     assert err <= tol * max(1.0, float(ref.float().abs().max()))
+    assert torch.equal(out, ops.fused_attention(q, k, v, shape[-1] ** -0.5))
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 65536), (8, 3, 65536), (3, 5, 2048), (4, 1, 64)])
@@ -128,6 +167,12 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
     q = torch.zeros(1, 8, 1024, device="cuda")
     with pytest.raises(ValueError, match="C % 32"):
         ops.fused_attention(q, q, q, 1.0)
+    with pytest.raises(ValueError, match="C % 32"):
+        q = torch.zeros(1, 8, 48, device="cuda", dtype=torch.bfloat16)
+        ops.fused_attention(q, q, q, 1.0)
+    with pytest.raises(ValueError, match="C / G"):
+        ops.group_norm(torch.zeros(1, 2, 2, 8194, device="cuda"), torch.ones(8194),
+                       torch.zeros(8194), num_groups=1)
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros(1, 64, 8, device="cuda").transpose(1, 2)
         ops.fused_attention(t, t, t, 1.0)

@@ -1,0 +1,213 @@
+"""The launch plans of the port's attention and GroupNorm stats kernels,
+checked without a card: the plain Python functions that choose tiles,
+grid, blocks and shared-memory bytes (`_attention_plan`, `_stats_plan`)
+for every shape the wrappers admit, and their refusals."""
+
+from pathlib import Path
+
+import pytest
+import torch
+
+from ddnm_tpu.config import load_config as j_load_config
+from ddnm_tpu.config import load_hq_config
+from ddnm_tpu.models.unet_adm import _backbone_plan, parse_channel_mult
+from ddnm_tpu_torch.config import load_config
+from ddnm_tpu_torch.models import DDPMUNet
+from ddnm_tpu_torch.models.nn import GroupNormF32
+from ddnm_tpu_torch.ops._build import SMEM_PER_BLOCK
+from ddnm_tpu_torch.ops.attention import (
+    WHOLE_ROW_MAX_T,
+    _attention_plan,
+    _kernel_attention,
+)
+from ddnm_tpu_torch.ops.groupnorm import STATS_MAX_SPAN, _stats_affine, _stats_plan
+
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+H100_SMS = 132
+
+
+def _blocks(plan):
+    n = 1
+    for d in plan["grid"]:
+        n *= d
+    return n
+
+
+@pytest.mark.parametrize("C", range(32, 513, 32))
+def test_attention_plan_fits_shared_memory_for_every_admitted_shape(C):
+    """bf16: every T from 1 past the whole-row limit, and long grids, fit in
+    one block's shared memory; the whole-row softmax up to the limit, the
+    online one above it. fp32 keeps the FMA kernel (static shared memory)."""
+    last = 0
+    for T in [*range(1, WHOLE_ROW_MAX_T + 40), 4096, 65536]:
+        plan = _attention_plan(8, T, C, torch.bfloat16)
+        assert plan["kernel"] == "mma" and plan["threads"] == 128
+        assert plan["whole"] == (T <= WHOLE_ROW_MAX_T)
+        assert plan["smem"] <= SMEM_PER_BLOCK
+        assert plan["grid"] == (-(-T // 16), 8)
+        assert plan["key_tile"] % 32 == 0  # 8 keys a warp and n8 tile
+        assert 16 * 1024 <= plan["key_tile"] * (C + 8) * 2 <= 70 * 1024  # one ring stage
+        assert plan["tma"] == (C % 64 == 0)  # 64-column boxes
+        if plan["whole"]:
+            assert plan["smem"] >= last  # the score rows grow with T
+            last = plan["smem"]
+        fp32 = _attention_plan(8, T, C, torch.float32)
+        assert fp32["kernel"] == "fma" and fp32["smem"] == 0
+
+
+def test_attention_plan_fills_the_card_at_the_main_path_shape():
+    plan = _attention_plan(8, 256, 512, torch.bfloat16)
+    assert _blocks(plan) >= 128 and plan["whole"]
+
+
+@pytest.mark.parametrize("B,T,C,dtype,err", [
+    (1, 8, 48, torch.bfloat16, "C % 32"),
+    (1, 8, 544, torch.float32, "C % 32"),
+    (1, 8, 1024, torch.bfloat16, "C % 32"),
+    (65536, 8, 64, torch.bfloat16, "B\\* <= 65535"),
+    (1, 0, 64, torch.bfloat16, "T >= 1"),
+    (1, 8, 64, torch.float16, "float32/bfloat16"),
+])
+def test_attention_plan_refuses_what_the_kernels_do_not_take(B, T, C, dtype, err):
+    with pytest.raises((ValueError, TypeError), match=err):
+        _attention_plan(B, T, C, dtype)
+
+
+def test_attention_wrapper_checks_before_it_builds():
+    """The wrapper refuses a CPU tensor and a non-(B, T, C) input before it
+    builds or launches anything."""
+    q = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernel_attention(q, q, q, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _stats_affine(torch.zeros(1, 2, 2, 32), torch.ones(32), torch.zeros(32), 32, 1e-6,
+                      None, None)
+
+
+def _ddpm_groupnorms():
+    """(C, G) of every GroupNorm of the DDPM UNet configs, read off the
+    port's model built on the meta device."""
+    found = set()
+    for path in sorted(CONFIGS.glob("*.yml")):
+        cfg = load_config(path)
+        if cfg.model.type != "simple":
+            continue
+        with torch.device("meta"):
+            model = DDPMUNet.from_config(cfg)
+        found |= {(m.weight.shape[0], m.num_groups) for m in model.modules()
+                  if isinstance(m, GroupNormF32)}
+    return found
+
+
+def _adm_channels(model_channels, channel_mult, num_res_blocks):
+    """Input channels of every GroupNorm of an ADM UNet (and its encoder):
+    the ResBlocks' in and out norms, down and up, with the skip
+    concatenations of the up path, the attention norms and the out norm."""
+    specs, skips, ch, _ = _backbone_plan(model_channels, channel_mult, num_res_blocks, ())
+    chans = {int(channel_mult[0] * model_channels)}
+    prev = int(channel_mult[0] * model_channels)
+    for _, ch_out, _ in specs:
+        chans |= {prev, ch_out}
+        prev = ch_out
+    skips = list(skips)
+    for mult in channel_mult[::-1]:
+        for _ in range(num_res_blocks + 1):
+            chans.add(ch + skips.pop())
+            ch = int(model_channels * mult)
+            chans.add(ch)
+    return chans
+
+
+def _adm_groupnorms():
+    found = set()
+    for path in sorted(CONFIGS.glob("*.yml")):
+        cfg = j_load_config(path)
+        if cfg.model.type != "openai":
+            continue
+        mult = parse_channel_mult(cfg.model.channel_mult, cfg.data.image_size)
+        found |= {(c, 32) for c in _adm_channels(cfg.model.num_channels, mult,
+                                                  cfg.model.num_res_blocks)}
+        clf = getattr(cfg, "classifier", None)
+        if clf is not None:
+            found |= {(c, 32) for c in _adm_channels(clf.classifier_width, mult,
+                                                      clf.classifier_depth)}
+    for path in sorted((CONFIGS / "hq").glob("*.yml")):
+        cfg = load_hq_config(path)
+        mult = parse_channel_mult(cfg.channel_mult, cfg.image_size)
+        found |= {(c, 32) for c in _adm_channels(cfg.num_channels, mult, cfg.num_res_blocks)}
+    return found
+
+
+def test_config_groupnorms_are_found():
+    ddpm, adm = _ddpm_groupnorms(), _adm_groupnorms()
+    assert {(128, 32), (768, 32), (1024, 32)} <= ddpm  # 256 px: C / G 4 ... 32
+    assert (96 * 3 + 96 * 4, 32) in adm  # adm128: 96-channel ladder, C / G 21
+    assert len(adm) > 10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_stats_plan_holds_whole_groups_for_every_config(dtype):
+    """For every (C, G) of the DDPM and ADM configs, at the maps they run
+    at and a ragged one, and with x on or off 16 bytes: a span is whole
+    groups, divides C and is a multiple of the load width; the blocks and
+    their scratch are consistent and the shared memory fits."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    for C, G in sorted(_ddpm_groupnorms() | _adm_groupnorms()):
+        for B, HW in ((8, 256 * 256), (8, 64 * 64), (8, 8 * 8), (3, 35), (1, 1)):
+            for aligned in (True, False):
+                p = _stats_plan(B, HW, C, G, elem, aligned)
+                span, vec = p["span"], p["vec"]
+                assert span % (C // G) == 0 and C % span == 0 and span % vec == 0
+                assert vec in ((16 // elem, 1) if aligned else (1,))
+                assert span <= STATS_MAX_SPAN
+                assert p["threads"] <= 1024 and p["threads"] % p["lanes_c"] == 0
+                assert p["grid"] == (p["n_blk"], C // span, B) and 1 <= p["n_blk"] <= HW
+                assert p["scratch"] == (2 * B * C * p["n_blk"] if p["n_blk"] > 1 else 0)
+                assert p["counters"] == B * (C // span)
+                assert p["smem"] == 4 * (2 * span + 2 * p["threads"] * vec
+                                         + 2 * span // (C // G)) + 16
+                assert p["smem"] <= SMEM_PER_BLOCK
+
+
+def test_groupnorm_stats_plan_fills_the_card_on_the_big_maps():
+    """The main path's big maps are read in whole pixel rows, 16 bytes a
+    thread, by about two blocks per SM; the small maps by one block per
+    (image, 64-byte channel span), with no partial sums and no counter."""
+    for HW, C in ((256 * 256, 128), (256 * 256, 256), (128 * 128, 256)):
+        big = _stats_plan(8, HW, C, 32, 2)
+        assert big["vec"] == 8 and big["span"] == C and big["threads"] == 512
+        assert _blocks(big) >= 2 * H100_SMS - 8
+    for HW, C in ((32 * 32, 256), (16 * 16, 512), (8 * 8, 1024)):
+        small = _stats_plan(8, HW, C, 32, 2)
+        assert small["n_blk"] == 1 and small["scratch"] == 0 and small["span"] == 32
+        assert _blocks(small) >= 64
+
+
+@pytest.mark.parametrize("B,HW,C,G,err", [
+    (1, 4, 30, 32, "divisible"),
+    (1, 4, 2 * (STATS_MAX_SPAN + 2), 2, "C / G"),
+])
+def test_groupnorm_stats_plan_refuses_what_the_kernel_does_not_take(B, HW, C, G, err):
+    with pytest.raises(ValueError, match=err):
+        _stats_plan(B, HW, C, G, 2)
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each C entry point of csrc/*.cu and its ctypes argument list agree in
+    number and kind (a pointer passed as a 32-bit int would be cut)."""
+    import ctypes
+    import re
+
+    from ddnm_tpu_torch.ops._build import _SIGNATURES, CSRC
+
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+    found = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        text = src.read_text()
+        for name, params in re.findall(r"^int (ddnm_\w+)\(([^)]*)\)", text, re.M):
+            args = []
+            for param in params.split(","):
+                words = param.replace("const ", "").replace("*", "* ").split()
+                args.append(kinds["".join(words[:-1])])
+            found[name] = args
+    assert found == _SIGNATURES

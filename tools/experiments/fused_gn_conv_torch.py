@@ -20,7 +20,7 @@ the UNet.
       route, each looped n_iter times with its output fed back, the median
       of 5 loops timed with CUDA events, and the conv's TFLOP/s;
   (b) the experiment's seven ablation variants the same way (the port pads
-      nothing, so "stats + pad" is the stats pair alone);
+      nothing, so "stats + pad" is the stats kernel alone);
   (c) device-busy ms per iteration of one variant from torch.profiler;
   (d) the fused route and the conv alone against the unfused chain and
       F.conv2d at the DDPM UNet's Cin = Cout 3x3 shapes at batch 8
@@ -82,7 +82,7 @@ def make_inputs(shape, device):
 
 
 def variant_fns(w, gamma, beta, eps):
-    """{variant: z -> z}: each takes and returns NHWC bf16 (the stats pair
+    """{variant: z -> z}: each takes and returns NHWC bf16 (the stats kernel
     returns its input; eager PyTorch neither hoists nor drops a call)."""
     w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)  # OIHW
 

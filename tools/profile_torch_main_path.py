@@ -39,8 +39,8 @@ if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
 KINDS = (  # first match wins; matched against the lower-cased kernel name
-    ("groupnorm (port)", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
-    ("attention (port)", ("attn_kernel",)),
+    ("groupnorm (port)", ("gn_stats_affine_kernel", "gn_apply_kernel")),
+    ("attention (port)", ("attn_mma_kernel", "attn_kernel")),
     ("fwht (port)", ("fwht_rows_kernel", "fwht_cols_kernel")),
     ("gather", ("index",)),
     ("convolution", ("conv", "cudnn", "implicit", "fprop", "dgrad", "winograd")),
