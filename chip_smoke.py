@@ -19,13 +19,15 @@ far it got. A failure in any phase raises.
      call's ms where one call computes the same function (F.group_norm for
      the whole GroupNorm, F.scaled_dot_product_attention; timed as a
      yardstick, never used by the port) and the least time the card could
-     take (bound). Kernel and library ms are timed back to back (the host's
+     take (bound); the apply kernel with and without its SiLU epilogue, as
+     the forward calls it (norm1, norm2 and norm_out end in the SiLU). Kernel and library ms are timed back to back (the host's
      launch cost included); device ms queue the calls behind a sleep kernel
      (the card's time alone). Then the edge shapes no UNet forward of phases 4-7
      gives: attention at T = 1, T = 17, C = 32, both sides of the
      whole-row softmax limit and the ADM heads (C = 64 at T = 64, 256 and
-     1024; C = 32 at T = 1024) in bf16 and fp32, and the stats kernel with
-     FiLM at (8, 16, 16, 768);
+     1024; C = 32 at T = 1024) in bf16 and fp32, the stats kernel with
+     FiLM at (8, 16, 16, 768), and the apply kernel's 1-channel path (an
+     unaligned view, C = 36) with and without SiLU in fp32 and bf16;
   4. full-width fp32 parity: the 114M DDPM UNet with the trained weights of
      tests/fixtures/flag_ddpm256.pt, zero noise, x_T from RandomState(42),
      2 images of exp/datasets/natural256, 25 steps, 4x average-pooling SR;
@@ -50,9 +52,12 @@ far it got. A failure in any phase raises.
      conv alone timed against the unfused chain and F.conv2d at the DDPM
      UNet's 3x3 Cin = Cout shapes at batch 8.
 
-Phase 3 also holds the Walsh-Hadamard kernel against its plain version at
-the SVD path's shapes, and the fused GN+SiLU+conv kernel in its three modes
-(full, conv, act) at the experiment's shape, a small one and a ragged one.
+Phase 2 prints the -Xptxas -v registers and spills of the conv and apply
+kernels. Phase 3 also holds the Walsh-Hadamard kernel against its plain
+version at the SVD path's shapes, and the fused GN+SiLU+conv kernel in its
+three modes (full, conv, act) at the experiment's shape, a small one and a
+ragged one (the conv kernel's bits equal on two calls), back to back and
+on the device beside F.conv2d and the unfused chain.
 Each of phases 4-8 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after.
 
@@ -66,6 +71,7 @@ import contextlib
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -223,21 +229,45 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# ------------------------------------------------------------------ phase 2
+
+
+def ptxas_summary(lines: list[str]) -> list[str]:
+    """One line per kernel of a `-Xptxas -v` report: registers, stack and
+    spills, and any note that ptxas serialised its wgmma instructions."""
+    def short(text):
+        found = re.search(r"\d((?:fgc|gn)_[a-z_]+kernel)(I\w*?E)?E", text)
+        return found.group(1) + (found.group(2) or "") if found else text
+
+    out, name = [], None
+    for line in lines:
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = short(line)
+        elif "spill" in line or "Used" in line:
+            out.append(f"ptxas {name}: {line.split(':')[-1].strip()}")
+        elif "wgmma" in line:
+            out.append(f"ptxas {short(line)}: {line.split(':', 1)[-1].split(' for the')[0].strip()}")
+    return out
+
+
 # ------------------------------------------------------------------ phase 3
 
 
 def op_shapes(model, x_nhwc) -> dict:
     """{("groupnorm"|"attention", shape, dtype): calls per forward} of one
-    UNet forward on x_nhwc (forward pre-hooks; the calls run the kernels)."""
+    UNet forward on x_nhwc (forward pre-hooks; the calls run the kernels);
+    ("groupnorm_swish", shape, dtype) counts the GroupNorm calls among them
+    that end in the SiLU epilogue."""
     from ddnm_tpu_torch.models.nn import GroupNormF32
     from ddnm_tpu_torch.models.unet_ddpm import AttnBlock
 
     seen: dict = {}
 
-    def gn_hook(_m, args):
+    def gn_hook(m, args):
         b, c, h, w = args[0].shape
-        key = ("groupnorm", (b, h, w, c), args[0].dtype)
-        seen[key] = seen.get(key, 0) + 1
+        for key in [("groupnorm", (b, h, w, c), args[0].dtype)] + (
+                [("groupnorm_swish", (b, h, w, c), args[0].dtype)] if m.swish else []):
+            seen[key] = seen.get(key, 0) + 1
 
     def attn_hook(_m, args):
         b, c, h, w = args[0].shape
@@ -255,17 +285,21 @@ def op_shapes(model, x_nhwc) -> dict:
 
 
 def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generator,
-                 film: bool = False):
+                 film: bool = False, swish: bool = False, offset: int = 0, groups: int = 32):
     """Kernel vs plain (vs library, where one call computes the same
     function) at one shape; returns a result dict. Kinds: groupnorm_stats
     (with FiLM if `film`; two kernel calls must give the same bits),
-    groupnorm_apply, groupnorm (the pair, against F.group_norm), attention,
-    fwht (against the einsum H_a X H_b in fp32, TF32 off)."""
+    groupnorm_apply (with the SiLU epilogue if `swish`), groupnorm (the
+    pair, against F.group_norm), attention, fwht (against the einsum H_a X
+    H_b in fp32, TF32 off). GroupNorm kinds: x starts `offset` elements
+    into its buffer (1: not on 16 bytes), `groups` groups."""
     dev = "cuda"
     library = None
     if kind.startswith("groupnorm"):
         B, H, W, C = shape
-        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        n = math.prod(shape)
+        buf = (torch.randn(n + offset, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        x = buf[offset:].view(shape)
         g = torch.randn(C, device=dev, generator=gen)
         b = torch.randn(C, device=dev, generator=gen)
         peak = PEAK_FLOPS[torch.float32]  # elementwise fp32 on the CUDA cores
@@ -273,25 +307,25 @@ def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generat
         if kind == "groupnorm_stats":
             fs, ft = ((torch.randn(B, C, device=dev, generator=gen) * 0.3 for _ in range(2))
                       if film else (None, None))
-            kern = lambda: _stats_affine(x, g, b, 32, 1e-6, fs, ft)
-            plain = lambda: _torch_stats_affine(x, g, b, 32, 1e-6, fs, ft)
+            kern = lambda: _stats_affine(x, g, b, groups, 1e-6, fs, ft)
+            plain = lambda: _torch_stats_affine(x, g, b, groups, 1e-6, fs, ft)
             first, second = kern(), kern()
             if not all(torch.equal(u, w) for u, w in zip(first, second)):
                 raise AssertionError(f"groupnorm_stats {shape} {dtype}: two calls differ")
             nbytes = x.numel() * x.element_size() + affine_bytes * (2 if film else 1)
             flops = 3 * x.numel()
         elif kind == "groupnorm_apply":
-            a_p, b_p = _torch_stats_affine(x, g, b, 32, 1e-6)
-            kern = lambda: _apply(x, a_p, b_p, False)
-            plain = lambda: _torch_apply(x, a_p, b_p, False)
+            a_p, b_p = _torch_stats_affine(x, g, b, groups, 1e-6)
+            kern = lambda: _apply(x, a_p, b_p, swish)
+            plain = lambda: _torch_apply(x, a_p, b_p, swish)
             nbytes = 2 * x.numel() * x.element_size() + affine_bytes
             flops = 2 * x.numel()
         else:
-            kern = lambda: _kernel_group_norm(x, g, b, 32, 1e-6, False)
-            plain = lambda: _torch_group_norm(x, g, b, 32, 1e-6, False)
+            kern = lambda: _kernel_group_norm(x, g, b, groups, 1e-6, False)
+            plain = lambda: _torch_group_norm(x, g, b, groups, 1e-6, False)
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last memory: the same bytes
             g_l, b_l = g.to(dtype), b.to(dtype)
-            library = lambda: F.group_norm(x_nchw, 32, g_l, b_l, 1e-6)
+            library = lambda: F.group_norm(x_nchw, groups, g_l, b_l, 1e-6)
             nbytes = 2 * x.numel() * x.element_size()
             flops = 5 * x.numel()
     elif kind == "fwht":
@@ -330,6 +364,7 @@ def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generat
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak * 1e3
     return {"kind": kind, "shape": shape, "dtype": str(dtype).replace("torch.", ""),
+            "swish": swish, "offset": offset,
             "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": device_ms(kern),
             "library_device_ms": device_ms(library) if library is not None else None,
             "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -343,7 +378,9 @@ def check_fused(mode: str, shape: tuple, gen: torch.Generator) -> dict:
     show), eps 1e-5. Times the kernel route (stats kernel included), the plain
     route, F.conv2d in bf16 on the same inputs (`library_ms`, conv mode) and
     the unfused chain (the GroupNorm kernels, F.silu and, in full mode,
-    F.conv2d: `chain_ms`, full and act). The bound counts the conv's flops
+    F.conv2d: `chain_ms`, full and act), back to back and on the device
+    (`*device_ms`); two kernel calls must give the same bits. The bound
+    counts the conv's flops
     at the bf16 tensor-core peak (the elementwise work, ~0.008 ms at the
     experiment's shape, is left out) against x and y moved once (and w)."""
     dev = "cuda"
@@ -355,12 +392,15 @@ def check_fused(mode: str, shape: tuple, gen: torch.Generator) -> dict:
     kern = lambda: _kernel_fused_gn_conv(x, w, g, b, 32, 1e-5, mode)
     plain = lambda: _torch_fused_gn_conv(x, w, g, b, 32, 1e-5, mode)
     ref = plain().float()
-    err = float((kern().float() - ref).abs().max())
+    first = kern()
+    err = float((first.float() - ref).abs().max())
     torch.cuda.synchronize()
     tol = TOL[("fused_gn_conv", torch.bfloat16)] * max(1.0, float(ref.abs().max()))
     if not err <= tol:
         raise AssertionError(f"fused_gn_conv {mode} {shape}: kernel vs plain max abs "
                              f"{err:.3e} > {tol:.3e}")
+    if not torch.equal(first, kern()):
+        raise AssertionError(f"fused_gn_conv {mode} {shape}: two calls differ")
     w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     conv = lambda z: F.conv2d(z, w_cl, padding=1)
     act = lambda: F.silu(_kernel_group_norm(x, g, b, 32, 1e-5, False)).permute(0, 3, 1, 2)
@@ -375,9 +415,12 @@ def check_fused(mode: str, shape: tuple, gen: torch.Generator) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak * 1e3
     return {"kind": f"fused_gn_conv/{mode}", "shape": shape, "dtype": "bfloat16",
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": device_ms(kern),
+            "plain_ms": plain_ms,
             "library_ms": cuda_ms(library) if library else None,
+            "library_device_ms": device_ms(library) if library else None,
             "chain_ms": cuda_ms(chain) if chain else None,
+            "chain_device_ms": device_ms(chain) if chain else None,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -667,6 +710,8 @@ def main() -> int:
         path, secs = _build.build()
         _build.load_library()
         print(f"built {path.name} with nvcc in {secs:.2f} s", flush=True)
+        for line in ptxas_summary(_build.ptxas_report("fgc_conv_kernel", "gn_apply_kernel")):
+            print(line, flush=True)
 
     with phase(3, "kernels against plain versions"):
         model = DDPMUNet(resolution=256)
@@ -682,43 +727,66 @@ def main() -> int:
         del bf16
         gen = torch.Generator(device="cuda").manual_seed(0)
         # each GroupNorm shape checks both kernels and, as a yardstick against
-        # F.group_norm, the pair
+        # F.group_norm, the pair; the apply kernel also with its SiLU epilogue
+        # where the forward calls it so
         kinds = {"groupnorm": ("groupnorm_stats", "groupnorm_apply", "groupnorm"),
+                 "groupnorm_swish": ("groupnorm_apply",),
                  "attention": ("attention",)}
         results = {}
         for op, shape, dtype in sorted(set(shapes) | set(main_shapes), key=str):
             for kind in kinds[op]:
-                r = check_kernel(kind, shape, dtype, gen)
-                results[(kind, shape, dtype)] = r
+                r = check_kernel(kind, shape, dtype, gen, swish=op == "groupnorm_swish")
+                results[(op, kind, shape, dtype)] = r
                 lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-                print(f"{kind:15s} {str(shape):22s} {r['dtype']:8s} "
-                      f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
+                print(f"{kind + (' +silu' if r['swish'] else ''):21s} {str(shape):22s} "
+                      f"{r['dtype']:8s} err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
                       f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
                       f"plain {r['plain_ms']:.4f} ms  library {lib}  "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+        def forward_rows(kind):
+            """(result, calls per forward) of the main path's forward: the
+            apply kernel's calls split by their SiLU epilogue."""
+            if kind == "attention":
+                return [(results[(o, kind, s, d)], c) for (o, s, d), c in main_shapes.items()
+                        if o == "attention"]
+            rows = []
+            for (o, s, d), c in main_shapes.items():
+                if o != "groupnorm":
+                    continue
+                n_silu = (main_shapes.get(("groupnorm_swish", s, d), 0)
+                          if kind == "groupnorm_apply" else 0)
+                rows += [(results[("groupnorm", kind, s, d)], c - n_silu)] if c > n_silu else []
+                rows += [(results[("groupnorm_swish", kind, s, d)], n_silu)] if n_silu else []
+            return rows
+
         # per UNet forward of the main path (bf16, batch 8): each shape's time
         # times its calls per forward
         per_forward = {}
-        for op, kind_list in kinds.items():
-            for kind in kind_list:
-                rows = [(results[(kind, s, d)], c) for (o, s, d), c in main_shapes.items()
-                        if o == op]
-                per_forward[kind] = {
-                    f: (None if rows[0][0][f] is None else sum(r[f] * c for r, c in rows))
-                    for f in ("ms", "device_ms", "plain_ms", "library_ms",
-                              "library_device_ms", "bound_ms")}
-                per_forward[kind]["max_abs_err"] = max(
-                    r["max_abs_err"] for k, r in results.items() if k[0] == kind)
-                per_forward[kind]["bound_by"] = rows[0][0]["bound_by"]
-                print(f"{kind}: per bf16 batch-8 forward ({sum(c for _, c in rows)} "
-                      "calls): " + json.dumps(per_forward[kind]), flush=True)
+        for kind in ("groupnorm_stats", "groupnorm_apply", "groupnorm", "attention"):
+            rows = forward_rows(kind)
+            per_forward[kind] = {
+                f: (None if rows[0][0][f] is None else sum(r[f] * c for r, c in rows))
+                for f in ("ms", "device_ms", "plain_ms", "library_ms",
+                          "library_device_ms", "bound_ms")}
+            per_forward[kind]["max_abs_err"] = max(
+                r["max_abs_err"] for k, r in results.items() if k[1] == kind)
+            per_forward[kind]["bound_by"] = rows[0][0]["bound_by"]
+            print(f"{kind}: per bf16 batch-8 forward ({sum(c for _, c in rows)} "
+                  "calls): " + json.dumps(per_forward[kind]), flush=True)
         edge = [check_kernel("attention", shape, dtype, gen)
                 for shape in EDGE_ATTENTION_SHAPES for dtype in (torch.bfloat16, torch.float32)]
         edge.append(check_kernel("groupnorm_stats", (8, 16, 16, 768), torch.float32, gen,
                                  film=True))
+        # the apply kernel's 1-channel path: x off 16 bytes, C not a multiple
+        # of the 16-byte width
+        edge += [check_kernel("groupnorm_apply", shape, dtype, gen, swish=swish, **kw)
+                 for shape, kw in (((2, 9, 9, 128), {"offset": 1}), ((2, 7, 5, 34), {"groups": 2}))
+                 for dtype in (torch.float32, torch.bfloat16) for swish in (False, True)]
         for r in edge:
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-            print(f"edge {r['kind']:10s} {str(r['shape']):22s} {r['dtype']:8s} "
+            tag = (" +silu" if r["swish"] else "") + (" off" if r["offset"] else "")
+            print(f"edge {r['kind'] + tag:25s} {str(r['shape']):22s} {r['dtype']:8s} "
                   f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
                   f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
                   f"plain {r['plain_ms']:.4f} ms  library {lib} (device "
@@ -745,14 +813,16 @@ def main() -> int:
         for shape in FUSED_SHAPES:
             for mode in ("full", "conv", "act"):
                 r = fused[(mode, shape)] = check_fused(mode, shape, gen)
-                extra = "".join(f"  {k.split('_')[0]} {r[k]:.4f} ms"
-                                for k in ("library_ms", "chain_ms") if r[k] is not None)
+                extra = "".join(f"  {k} {r[k + '_ms']:.4f} ms (device {r[k + '_device_ms']:.4f})"
+                                for k in ("library", "chain") if r[k + "_ms"] is not None)
                 print(f"{r['kind']:20s} {str(shape):22s} bfloat16 "
-                      f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
-                      f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms{extra}  "
+                      f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) same bits twice  "
+                      f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
+                      f"plain {r['plain_ms']:.4f} ms{extra}  "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
         # per call at the experiment's shape; full mode heads the entry
-        keys = ("ms", "plain_ms", "library_ms", "chain_ms", "bound_ms", "bound_by")
+        keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "chain_ms",
+                "chain_device_ms", "bound_ms", "bound_by")
         by_mode = {mode: {k: fused[(mode, FUSED_SHAPES[0])][k] for k in keys}
                    for mode in ("full", "conv", "act")}
         per_forward["fused_gn_conv"] = dict(by_mode["full"], by_mode=by_mode, max_abs_err=max(

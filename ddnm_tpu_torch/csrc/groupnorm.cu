@@ -32,8 +32,17 @@
 // counters stay zero between launches of one stream. No fp32 atomics:
 // every launch gives the same bits.
 //
-// Apply: a grid-stride elementwise pass, 32 neighbouring threads on 32
-// neighbouring channels of one pixel.
+// Apply (gn_apply_kernel): a bytes-bound elementwise pass, y = x * a + b
+// in fp32, cast, optional SiLU in fp32 on the cast value and one more cast
+// (the Pallas _apply_kernel's arithmetic). Each thread moves VEC channels of
+// one pixel as one 16-byte load and one 16-byte store (8 bf16 or 4 fp32; 1
+// where the pointer or C does not allow it). The grid is sized to the card
+// (whole blocks per SM x SMs over the batch, ops/groupnorm.py
+// `_apply_plan`): a row of blocks per image strides over its H W C / VEC
+// vectors, with a thread count that is a multiple of C / VEC, so a thread's
+// image and channels never change along its stride and its VEC values of a
+// and b are loaded once into registers (no per-element modulo, no
+// per-element loads of a and b).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -255,26 +264,89 @@ cudaError_t launch_stats_affine(const void* x, const float* gamma, const float* 
   return cudaGetLastError();
 }
 
-// grid (blocks, B), block 256; grid-stride over the H*W*C elements of one
-// image. hwc < 2^31 (checked by the wrapper).
-template <typename T>
-__global__ void gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                                const float* __restrict__ bias, T* __restrict__ y,
-                                int hwc, int c_total, int swish) {
-  const int b = blockIdx.y;
-  const T* xb = x + (size_t)b * hwc;
-  T* yb = y + (size_t)b * hwc;
-  const float* ab = a + (size_t)b * c_total;
-  const float* bb = bias + (size_t)b * c_total;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < hwc; i += gridDim.x * blockDim.x) {
-    const int c = i % c_total;
-    T out = from_f<T>(to_f(xb[i]) * ab[c] + bb[c]);
-    if (swish) {
-      const float f = to_f(out);
-      out = from_f<T>(f * (1.f / (1.f + expf(-f))));
-    }
-    yb[i] = out;
+// Stores of VEC channels of one pixel as one unit (16 bytes when VEC > 1).
+template <typename T, int VEC> struct VecStore;
+template <> struct VecStore<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&f)[8]) {
+    uint4 out;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = out;
   }
+};
+template <> struct VecStore<float, 4> {
+  static __device__ __forceinline__ void store(float* p, const float (&f)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+template <typename T> struct VecStore<T, 1> {
+  static __device__ __forceinline__ void store(T* p, const float (&f)[1]) { *p = from_f<T>(f[0]); }
+};
+
+// SiLU of the cast value: fp32 as the plain version computes it (f *
+// sigmoid(f), accurate exp and division); bf16 with the fast exp and divide
+// (a few fp32 ulp, far below the bf16 rounding that follows), since the
+// accurate pair made the swish pass visibly slower than the plain one on
+// the big maps.
+template <typename T> __device__ __forceinline__ float silu_of(float f);
+template <> __device__ __forceinline__ float silu_of<float>(float f) {
+  return f * (1.f / (1.f + expf(-f)));
+}
+template <> __device__ __forceinline__ float silu_of<__nv_bfloat16>(float f) {
+  return __fdividef(f, 1.f + __expf(-f));
+}
+
+// The value as the output type holds it (the cast the Pallas kernel makes
+// before the SiLU), back in fp32.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// grid (blocks, B), block threads; (blocks * threads) % cv == 0, cv =
+// c_total / VEC. Block row b strides over the img_vec vectors (VEC channels
+// of one pixel each) of image b; a thread's channel vector i % cv is fixed
+// along its stride, so its a and b are loaded once. H W C < 2^31 (checked by
+// the wrapper): 32-bit indices within an image.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256)
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                const float* __restrict__ bias, T* __restrict__ y, int img_vec, int cv,
+                int c_total, int swish) {
+  const int stride = gridDim.x * blockDim.x;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= img_vec) return;
+  const size_t img = blockIdx.y;
+  const int ch = (i % cv) * VEC;
+  float av[VEC], bv[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    av[j] = __ldg(a + img * c_total + ch + j);
+    bv[j] = __ldg(bias + img * c_total + ch + j);
+  }
+  const T* xb = x + img * img_vec * VEC;
+  T* yb = y + img * img_vec * VEC;
+  for (; i < img_vec; i += stride) {
+    float f[VEC];
+    VecLoad<T, VEC>::to_float(VecLoad<T, VEC>::load(xb + (size_t)i * VEC), f);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      f[j] = round_to<T>(f[j] * av[j] + bv[j]);
+      if (swish) f[j] = silu_of<T>(f[j]);
+    }
+    VecStore<T, VEC>::store(yb + (size_t)i * VEC, f);
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_apply(const void* x, const void* a, const void* b, void* y, int batch,
+                         int hwc, int c_total, int swish, int threads, int blocks,
+                         cudaStream_t stream) {
+  dim3 grid(blocks, batch);
+  gn_apply_kernel<T, VEC><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<T*>(y), hwc / VEC, c_total / VEC, c_total, swish);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -327,23 +399,33 @@ int ddnm_gn_stats_affine(const void* x, const void* gamma, const void* beta,
   return static_cast<int>(err);
 }
 
+// x, y: (batch, hwc / c_total, c_total) contiguous, dtype as above; a, b:
+// (batch, c_total) fp32. The launch plan (vec, threads, blocks per image) is
+// ops/groupnorm.py `_apply_plan`: vec is 1 or 16 bytes of channels, and the
+// thread count of an image's blocks is a multiple of c_total / vec; a plan
+// the kernel cannot run returns cudaErrorInvalidValue.
 int ddnm_gn_apply(const void* x, const void* a, const void* b, void* y, int batch,
-                  int hwc, int c_total, int swish, int dtype, void* stream) {
-  int blocks = (hwc + 255) / 256;
-  if (blocks > 2048) blocks = 2048;
-  dim3 grid(blocks, batch);
+                  int hwc, int c_total, int swish, int dtype, int vec, int threads,
+                  int blocks, void* stream) {
+  const int wide = dtype == 0 ? 4 : 8;
+  const bool ok = (dtype == 0 || dtype == 1) && (vec == 1 || vec == wide) && c_total > 0 &&
+                  c_total % vec == 0 && hwc % c_total == 0 && threads > 0 &&
+                  threads <= 256 && blocks > 0 && batch > 0 && batch <= 65535 &&
+                  ((long long)threads * blocks) % (c_total / vec) == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    gn_apply_kernel<float><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(a),
-        static_cast<const float*>(b), static_cast<float*>(y), hwc, c_total, swish);
-  } else {
-    gn_apply_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
-        static_cast<const float*>(b), static_cast<__nv_bfloat16*>(y), hwc, c_total,
-        swish);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (dtype == 0)
+    err = vec == 1 ? launch_apply<float, 1>(x, a, b, y, batch, hwc, c_total, swish, threads,
+                                            blocks, s)
+                   : launch_apply<float, 4>(x, a, b, y, batch, hwc, c_total, swish, threads,
+                                            blocks, s);
+  else
+    err = vec == 1 ? launch_apply<__nv_bfloat16, 1>(x, a, b, y, batch, hwc, c_total, swish,
+                                                    threads, blocks, s)
+                   : launch_apply<__nv_bfloat16, 8>(x, a, b, y, batch, hwc, c_total, swish,
+                                                    threads, blocks, s);
+  return static_cast<int>(err);
 }
 
 const char* ddnm_cuda_error_string(int err) {

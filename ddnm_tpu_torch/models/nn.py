@@ -49,12 +49,23 @@ class GroupNormF32(nn.Module):
     Takes and returns NCHW tensors; the work runs on the NHWC view through
     `ops.group_norm`. Its affine (`weight`, `bias`, named as the reference
     checkpoints name them) stays fp32 under a bf16 torso (`cast_torso`).
-    `force` is handed to ops.group_norm (None: the kernel on a card)."""
+    `force` is handed to ops.group_norm (None: the kernel on a card).
 
-    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5):
+    `swish=True` applies SiLU to the normalised value inside the same pass
+    (the apply kernel's epilogue on a card, `_torch_group_norm(swish=True)`
+    on the CPU): the JAX UNet's norm followed by `swish`. In fp32 that is
+    the same function as `swish(norm(x))` (ddnm_tpu/ops/groupnorm.py
+    `_xla_group_norm(swish=True)`), to about 1 ulp. In bf16 the SiLU runs in
+    fp32 on the rounded norm and rounds once, where `x * torch.sigmoid(x)`
+    on a bf16 tensor rounds the sigmoid and then the product: they differ by
+    at most 1 bf16 ulp per element."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 swish: bool = False):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
+        self.swish = swish
         self.force: str | None = None
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
@@ -64,7 +75,7 @@ class GroupNormF32(nn.Module):
         if not nhwc.is_contiguous():
             nhwc = nhwc.contiguous()
         y = group_norm(nhwc, self.weight, self.bias, num_groups=self.num_groups,
-                       eps=self.eps, force=self.force)
+                       eps=self.eps, swish=self.swish, force=self.force)
         return y.permute(0, 3, 1, 2)
 
 

@@ -3,7 +3,8 @@ ddnm_tpu/models/unet_ddpm.py).
 
 128 base channels x (1,1,2,2,4,4), 2 res blocks per level, single-head
 attention at `attn_resolutions`, GroupNorm(32, eps=1e-6) computed in fp32,
-swish as its own op after each norm, sin-first time embedding, a stride-2
+the swish after a norm (norm1, norm2, norm_out) inside the norm's own pass
+(`GroupNormF32(swish=True)`), sin-first time embedding, a stride-2
 downsample conv after an asymmetric (0,1,0,1) pad, nearest-x2 + conv
 upsample.
 
@@ -37,18 +38,18 @@ __all__ = ["DDPMUNet", "ResnetBlock", "AttnBlock", "Downsample", "Upsample",
            "set_op_force"]
 
 
-def _norm(channels: int) -> GroupNormF32:
-    return GroupNormF32(channels, num_groups=32, eps=1e-6)
+def _norm(channels: int, swish: bool = False) -> GroupNormF32:
+    return GroupNormF32(channels, num_groups=32, eps=1e-6, swish=swish)
 
 
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  conv_shortcut: bool = False):
         super().__init__()
-        self.norm1 = _norm(in_channels)
+        self.norm1 = _norm(in_channels, swish=True)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.temb_proj = nn.Linear(temb_channels, out_channels)
-        self.norm2 = _norm(out_channels)
+        self.norm2 = _norm(out_channels, swish=True)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             if conv_shortcut:
@@ -57,9 +58,9 @@ class ResnetBlock(nn.Module):
                 self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, temb):
-        h = self.conv1(swish(self.norm1(x)))
+        h = self.conv1(self.norm1(x))  # norm1 and norm2 end in the swish
         h = h + self.temb_proj(swish(temb))[:, :, None, None]
-        h = self.conv2(swish(self.norm2(h)))
+        h = self.conv2(self.norm2(h))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         elif hasattr(self, "nin_shortcut"):
@@ -195,7 +196,7 @@ class DDPMUNet(nn.Module):
             ups.insert(0, up)
         self.up = nn.ModuleList(ups)
 
-        self.norm_out = _norm(block_in)
+        self.norm_out = _norm(block_in, swish=True)
         self.conv_out = nn.Conv2d(block_in, out_ch, 3, padding=1)
         self.to(memory_format=torch.channels_last)
 
@@ -236,7 +237,7 @@ class DDPMUNet(nn.Module):
                     h = up.attn[i_block](h)
             if hasattr(up, "upsample"):
                 h = up.upsample(h)
-        h = swish(self.norm_out(h.to(orig_dtype)))
+        h = self.norm_out(h.to(orig_dtype))  # ends in the swish
         out = self.conv_out(h.to(self.dtype)).float()
         return out.permute(0, 2, 3, 1).contiguous()
 

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for the hot ops, each beside its plain version.
 
   - group_norm: GroupNorm(+FiLM+SiLU) over NHWC, two launches (the sums
-    folded into an affine in one, then apply) — replaces the Pallas
-    `_stats_kernel` / `_apply_kernel` pair of ddnm_tpu/ops/groupnorm.py;
+    folded into an affine in one, then a vectorised apply with an optional
+    SiLU epilogue) — replaces the Pallas `_stats_kernel` / `_apply_kernel`
+    pair of ddnm_tpu/ops/groupnorm.py;
   - fused_attention: single-head attention over (B*, T, C), bf16 on the
     tensor cores (mma.sync), fp32 by FMA —
     replaces the Pallas `_attn_kernel` of ddnm_tpu/ops/attention.py;
@@ -10,7 +11,8 @@
     launches (rows, then columns) — replaces the Pallas `_fwht_kernel` of
     ddnm_tpu/ops/fwht.py;
   - fused_gn_conv: GroupNorm affine -> SiLU -> 3x3 conv as an implicit GEMM
-    on bf16 tensor cores, behind the GroupNorm stats kernel, in three modes
+    on bf16 tensor cores (wgmma, TMA, a persistent warp-specialised grid),
+    behind the GroupNorm stats kernel, in three modes
     (full, conv, act) — replaces the Pallas kernels of the fused GN+SiLU+conv
     experiment (tools/experiments/fused_gn_conv.py `_pallas_raw`,
     fused_gn_conv_ablations.py `_call`), which is not a route of the UNet.

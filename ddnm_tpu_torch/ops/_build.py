@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SMEM_PER_BLOCK", "build", "load_library",
-           "check", "device_guard", "raw_stream"]
+           "check", "device_guard", "ptxas_report", "raw_stream", "sm_count"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "_build"
 # dynamic shared memory one H100 block can take (each kernel's plan stays below it)
 SMEM_PER_BLOCK = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (every pointer and the stream are
@@ -41,13 +41,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ddnm_gn_stats_affine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                              _I, _I, _I, _I, _I, _P],
-    "ddnm_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ddnm_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ddnm_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "ddnm_fwht": [_P, _P, _I, _I, _F, _P],
-    "ddnm_fused_gn_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ddnm_fused_gn_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
+_SMS: dict = {}
 
 
 def _nvcc() -> str:
@@ -95,9 +96,10 @@ def build() -> tuple[Path, float]:
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((obj, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
-    failed = []
+    failed, logs = [], []
     for _, cmd, proc in jobs:
         out, _ = proc.communicate()
+        logs.append(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
     objs = [str(obj) for obj, _, _ in jobs]
@@ -110,11 +112,28 @@ def build() -> tuple[Path, float]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
                                f"{proc.stdout}\n{proc.stderr}")
+        lib.with_suffix(".log").write_text("".join(logs))  # ptxas -v: registers, spills
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     finally:
         for obj in objs:
             Path(obj).unlink(missing_ok=True)
     return lib, time.perf_counter() - t0
+
+
+def ptxas_report(*names: str) -> list[str]:
+    """The `-Xptxas -v` lines (registers, spills, stack, wgmma notes) of the
+    kernels whose mangled names contain one of `names`, from the log of the
+    current build (empty when the library was built elsewhere)."""
+    log = _library_path().with_suffix(".log")
+    if not log.exists():
+        return []
+    out, keep = [], False
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            keep = any(n in line for n in names)
+        if keep or ("wgmma" in line and any(n in line for n in names)):
+            out.append(line.strip())
+    return out
 
 
 def load_library() -> ctypes.CDLL:
@@ -154,3 +173,13 @@ def raw_stream(device) -> int:
     building a Stream object on every launch)."""
     index = torch.cuda.current_device() if device.index is None else device.index
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA `device` (cached: the launch plans
+    size their grids to the card)."""
+    n = _SMS.get(device.index)
+    if n is None:
+        index = torch.cuda.current_device() if device.index is None else device.index
+        n = _SMS[device.index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n

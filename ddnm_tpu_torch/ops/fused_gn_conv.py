@@ -15,10 +15,11 @@ the UNet. Three modes share one kernel entry point:
 On a CUDA tensor the affine comes from the ported GroupNorm stats kernel
 (`groupnorm._stats_affine`, 1 launch; the counterpart of the experiment's
 `gn_stats_affine`), then one launch of `csrc/fused_gn_conv.cu`: 2 launches
-for "full" and "act", 1 for "conv". On a CPU tensor `_torch_fused_gn_conv`
-runs the same arithmetic in plain PyTorch. `force="torch"` selects the plain
-version on any device, `force="kernel"` the kernel (and raises on a CPU
-tensor). There is no fallback.
+for "full" and "act", 1 for "conv". "full" and "conv" run the wgmma + TMA
+implicit-GEMM kernel with the launch plan of `_conv_plan`. On a CPU tensor
+`_torch_fused_gn_conv` runs the same arithmetic in plain PyTorch.
+`force="torch"` selects the plain version on any device, `force="kernel"`
+the kernel (and raises on a CPU tensor). There is no fallback.
 
 Shapes follow the JAX experiment: x (B, H, W, C) bf16, w HWIO (3, 3, C, C)
 bf16, gamma and beta (C,) fp32, C a multiple of 32. The GroupNorm
@@ -27,6 +28,8 @@ experiment takes a two-pass variance.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.nn import functional as F
@@ -40,6 +43,14 @@ __all__ = ["fused_gn_conv", "LAUNCHES"]
 LAUNCHES = {"fused_gn_conv": 0}
 
 _MODE_CODE = {"full": 0, "conv": 1, "act": 2}
+
+# the conv kernel's launch plan (`_conv_plan`; csrc/fused_gn_conv.cu)
+_TILE = 16                    # output tile: 16 x 16 pixels of one image
+_HALO_PIX = (_TILE + 2) ** 2  # its halo
+_EPI_BYTES = 2 * 2 * 64 * 64 * 2  # two staging buffers (64 px x 64 ch) per consumer
+_HALO_STAGES = 2              # kHaloStages
+_MAX_W_STAGES = 8             # kMaxWStages
+_BAR_BYTES = 8 * (3 * _HALO_STAGES + 2 * _MAX_W_STAGES)  # the rings' mbarriers
 
 
 def _torch_act(x, a, b):
@@ -86,25 +97,61 @@ def _check(x, w, num_groups, mode):
             raise ValueError("x and w must be on the same device")
 
 
+@functools.lru_cache(maxsize=256)
+def _conv_plan(B: int, H: int, W: int, C: int, sms: int = 132) -> dict:
+    """The conv kernel's launch (modes "full" and "conv") for NHWC
+    (B, H, W, C): channels per K chunk (`kc`: 64, or 32 where C % 64 != 0;
+    also the swizzle, 128 or 64 bytes), output channels per tile (`bn`: 64
+    up to C = 64, else 128, or 64 where 128 leaves SMs idle), 16 x 16-pixel
+    tiles, the weights ring's stages (as many as fit beside the two halo
+    stages and the epilogue's buffers, at most 8), the persistent
+    grid (at most one block per SM) and the dynamic shared-memory bytes
+    (csrc/fused_gn_conv.cu conv_layout). Raises ValueError for a shape the
+    kernel does not take."""
+    if C % 32 or C <= 0:
+        raise ValueError(f"channels {C}: the conv kernel takes C % 32 == 0")
+    if min(B, H, W) < 1:
+        raise ValueError(f"the conv kernel takes a non-empty map, got {(B, H, W, C)}")
+    kc = 64 if C % 64 == 0 else 32
+    spatial = B * -(-H // _TILE) * -(-W // _TILE)
+    bn = 64 if C <= 64 or (C % 64 == 0 and spatial * -(-C // 128) < sms) else 128
+    tiles = spatial * -(-C // bn)
+    if tiles >= 2**31:
+        raise ValueError(f"the conv kernel takes fewer than 2^31 tiles, got {tiles}")
+    halo_stage = -(-_HALO_PIX * kc * 2 // 1024) * 1024
+    w_stage = kc * bn * 2
+    fixed = 1024 + _HALO_STAGES * halo_stage + _EPI_BYTES + _BAR_BYTES
+    w_stages = min(_MAX_W_STAGES, (_build.SMEM_PER_BLOCK - fixed) // w_stage)
+    return {"kc": kc, "bn": bn, "tile": (_TILE, _TILE), "w_stages": w_stages, "tiles": tiles,
+            "grid": min(tiles, sms), "threads": 384, "smem": fixed + w_stages * w_stage}
+
+
 def _kernel_fused_gn_conv(x, w, gamma, beta, num_groups, eps, mode):
     _check(x, w, num_groups, mode)
     lib = _build.load_library()
     B, H, W, C = x.shape
+    dev = x.device
     a = b = None
     if mode != "conv":
         a, b = _stats_affine(x, gamma, beta, num_groups, eps, None, None)
-    # rows (dy, dx, c_in), as tools/experiments/fused_gn_conv.py:113
-    w2 = None if mode == "act" else w.reshape(9 * C, C).contiguous()
+    plan = {"kc": 0, "bn": 0, "w_stages": 0, "grid": 0, "smem": 0}
+    w2 = None
+    if mode != "act":
+        plan = _conv_plan(B, H, W, C, _build.sm_count(dev))
+        # rows (dy, dx, c_in), as tools/experiments/fused_gn_conv.py:113
+        w2 = w.reshape(9 * C, C)
+        if not w2.is_contiguous():
+            w2 = w2.contiguous()
     y = torch.empty_like(x)
-    for t in (x, w2, y):  # 16-byte vector loads and stores
+    for t in (x, w2, y):  # TMA tensor maps and 16-byte vector loads
         if t is not None and t.data_ptr() % 16:
             raise ValueError("the fused GN+SiLU+conv kernel needs 16-byte aligned tensors")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(x.device):
+    with _build.device_guard(dev):
         _build.check(lib.ddnm_fused_gn_conv(
             x.data_ptr(), ptr(w2), ptr(a), ptr(b), y.data_ptr(), B, H, W, C,
-            _MODE_CODE[mode], stream), "ddnm_fused_gn_conv")
+            _MODE_CODE[mode], plan["kc"], plan["bn"], plan["w_stages"], plan["grid"],
+            plan["smem"], _build.raw_stream(dev)), "ddnm_fused_gn_conv")
     LAUNCHES["fused_gn_conv"] += 1
     return y
 

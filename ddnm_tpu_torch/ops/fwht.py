@@ -89,10 +89,9 @@ def _kernel_fwht(x: torch.Tensor, norm: float) -> torch.Tensor:
     if n == 0:
         return out
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x.device):
         _build.check(lib.ddnm_fwht(src.data_ptr(), out.data_ptr(), n, p, float(norm),
-                                   stream), "ddnm_fwht")
+                                   _build.raw_stream(x.device)), "ddnm_fwht")
     LAUNCHES["fwht"] += 1
     return out
 

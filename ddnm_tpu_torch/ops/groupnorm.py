@@ -5,7 +5,10 @@ hand-written kernels of `csrc/groupnorm.cu` in two launches: the stats
 kernel, which sums each image's pixels in blocks, combines the blocks' sums
 in a fixed order in the last block to finish, and folds them into a
 per-(B, C) affine a, b (the `_effective_affine` glue, FiLM included), then
-y = x * a + b with an optional SiLU. On a CPU tensor it runs
+the apply kernel, y = x * a + b with an optional SiLU epilogue (16-byte
+loads and stores, a and b held in registers; the launch plan
+`_apply_plan`). The UNet's norm -> swish pairs take that epilogue
+(`GroupNormF32(swish=True)`). On a CPU tensor it runs
 `_torch_group_norm`, the plain PyTorch version that follows the JAX
 package's `_xla_group_norm` line for line; the tests hold the two against
 each other and against the JAX package. The two kernel wrappers,
@@ -46,6 +49,10 @@ STATS_MAX_SPAN = 4096       # channels of one span: bounds the shared memory
 # the stats kernel's launch counters, per device: zeros that each launch
 # leaves zero (csrc/groupnorm.cu)
 _COUNTERS: dict = {}
+# the apply kernel's launch plan (`_apply_plan`): threads a block (rounded
+# down to a multiple of C / vec), resident threads an SM
+_APPLY_THREADS = 256
+_SM_THREADS = 2048
 
 
 def _torch_group_norm(x, scale, bias, num_groups, eps, swish,
@@ -213,16 +220,44 @@ def _stats_affine(x, scale, bias, num_groups, eps, film_scale, film_shift):
     return out.select(0, 0), out.select(0, 1)  # cheaper on the host than unbind
 
 
+@functools.lru_cache(maxsize=256)
+def _apply_plan(B: int, HW: int, C: int, dtype: torch.dtype, aligned: bool = True,
+                sms: int = 132) -> dict:
+    """The apply kernel's launch for (B, H*W, C): channels per 16-byte load
+    and store (`vec`; 1 where x is not on 16 bytes or C is not a multiple of
+    the width), threads a block, and a row of `blocks` per image (grid
+    (blocks, B)): whole blocks per SM times `sms` over the batch, at most one
+    vector a thread, with blocks * threads a multiple of C / vec so that a
+    thread's channels stay fixed along its stride through its image."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"GroupNorm kernel takes float32/bfloat16, got {dtype}")
+    wide = 16 // (4 if dtype == torch.float32 else 2)
+    vec = wide if aligned and C % wide == 0 else 1
+    cv = C // vec
+    if cv <= _APPLY_THREADS:
+        threads, unit = _APPLY_THREADS // cv * cv, 1
+    else:  # blocks a multiple of unit
+        threads, unit = _APPLY_THREADS, cv // math.gcd(cv, _APPLY_THREADS)
+    img_vec = HW * cv
+    blocks = min(-(-img_vec // threads), -(-_SM_THREADS // threads * sms // B))
+    blocks = -(-blocks // unit) * unit
+    return {"vec": vec, "threads": threads, "blocks": blocks, "grid": (blocks, B), "cv": cv,
+            "img_vec": img_vec}
+
+
 def _apply(x, a, b, swish):
-    """y = x * a + b (fp32), cast to x.dtype, optional SiLU: the apply kernel."""
+    """y = x * a + b (fp32), cast to x.dtype, optional SiLU: the apply kernel,
+    one launch and one allocation."""
     lib = _build.load_library()
     B, H, W, C = x.shape
+    dev = x.device
+    plan = _apply_plan(B, H * W, C, x.dtype, x.data_ptr() % 16 == 0, _build.sm_count(dev))
     y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with _build.device_guard(dev):
         _build.check(lib.ddnm_gn_apply(
-            x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, H * W * C,
-            C, int(bool(swish)), _DTYPE_CODE[x.dtype], stream), "ddnm_gn_apply")
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, H * W * C, C,
+            int(bool(swish)), _DTYPE_CODE[x.dtype], plan["vec"], plan["threads"],
+            plan["blocks"], _build.raw_stream(dev)), "ddnm_gn_apply")
     LAUNCHES["groupnorm_apply"] += 1
     return y
 

@@ -95,6 +95,57 @@ def test_group_norm_stats_plans_match_plain(gen, dtype, shape, groups, offset):
     assert torch.equal(a_k, a_2) and torch.equal(b_k, b_2)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,groups,offset", [
+    ((8, 64, 64, 128), 32, 0),   # 16-byte loads and stores
+    ((2, 9, 9, 128), 32, 1),     # x one element past 16 bytes: 1-channel path
+    ((2, 7, 5, 34), 2, 0),       # C not a multiple of the 16-byte width
+    ((1, 2, 2, 4096), 32, 0),    # C / vec > 256 threads: blocks in units
+])
+@pytest.mark.parametrize("swish", [False, True])
+def test_group_norm_apply_paths_match_plain(gen, dtype, tol, shape, groups, offset, swish):
+    """The apply kernel on each path of `_apply_plan`, with and without its
+    SiLU epilogue, against its plain version (on the same affine); one
+    launch, the same bits on a second call."""
+    B, H, W, C = shape
+    buf = (torch.randn(B * H * W * C + offset, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    x = buf[offset:].view(shape)
+    g, b = (torch.randn(C, device="cuda", generator=gen) for _ in range(2))
+    a_p, b_p = _torch_stats_affine(x, g, b, groups, 1e-6)
+    ops.reset_launch_counts()
+    y = _apply(x, a_p, b_p, swish)
+    assert ops.launch_counts()["groupnorm_apply"] == 1
+    ref = _torch_apply(x, a_p, b_p, swish)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert float((y.float() - ref.float()).abs().max()) <= tol * max(
+        1.0, float(ref.float().abs().max()))
+    assert torch.equal(y, _apply(x, a_p, b_p, swish))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_module_swish_route_matches_plain(gen, dtype):
+    """GroupNormF32(swish=True), as the UNet's norm1 / norm2 / norm_out run
+    it: two launches (stats, apply with the SiLU epilogue) against the
+    plain route of the same module."""
+    from ddnm_tpu_torch.models.nn import GroupNormF32
+
+    m = GroupNormF32(256, num_groups=32, eps=1e-6, swish=True).cuda()
+    with torch.no_grad():
+        m.weight.normal_(generator=gen)
+        m.bias.normal_(generator=gen)
+    x = (torch.randn(4, 256, 32, 32, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        y = m(x)
+        assert ops.launch_counts()["groupnorm_apply"] == 1
+        m.force = "torch"
+        ref = m(x)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert float((y.float() - ref.float()).abs().max()) <= tol * max(
+        1.0, float(ref.float().abs().max()))
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("shape", [
     (8, 256, 512), (8, 64, 512), (2, 100, 64), (1, 1024, 64),  # the DDPM UNet's, ragged T
@@ -135,12 +186,15 @@ def test_fwht_kernel_matches_plain(gen, shape):
 
 @pytest.mark.parametrize("mode", ["full", "conv", "act"])
 @pytest.mark.parametrize("shape", [(8, 256, 256, 128), (2, 32, 32, 64), (3, 20, 36, 96),
-                                   (1, 8, 8, 512), (2, 16, 16, 128), (1, 5, 3, 32)])
+                                   (1, 8, 8, 512), (2, 16, 16, 128), (1, 5, 3, 32),
+                                   (8, 16, 16, 512), (2, 17, 33, 224), (1, 1, 1, 160)])
 def test_fused_gn_conv_kernel_matches_plain(gen, mode, shape):
     """bf16 out: both sides sum the same bf16 products in fp32 (in another
     order) and round once, so they may land one bf16 ulp (<= 2^-7 relative)
     apart; the plain conv runs in fp32 with TF32 off. Inputs with a non-zero
-    mean and random gamma, beta: an unmasked border would show."""
+    mean and random gamma, beta: an unmasked border would show. Shapes: the
+    experiment's, the UNet's C = 512 at 16 px (64-wide N tiles), ragged H,
+    W and N tiles, C % 64 != 0 (32-channel chunks, the 64-byte swizzle)."""
     torch.backends.cudnn.allow_tf32 = False
     B, H, W, C = shape
     x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).bfloat16()

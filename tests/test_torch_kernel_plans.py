@@ -1,8 +1,10 @@
-"""The launch plans of the port's attention and GroupNorm stats kernels,
-checked without a card: the plain Python functions that choose tiles,
-grid, blocks and shared-memory bytes (`_attention_plan`, `_stats_plan`)
-for every shape the wrappers admit, and their refusals."""
+"""The launch plans of the port's attention, GroupNorm (stats and apply)
+and fused GN+SiLU+conv kernels, checked without a card: the plain Python
+functions that choose tiles, grid, blocks, stages and shared-memory bytes
+(`_attention_plan`, `_stats_plan`, `_apply_plan`, `_conv_plan`) for every
+shape the wrappers admit, and their refusals."""
 
+import math
 from pathlib import Path
 
 import pytest
@@ -20,7 +22,13 @@ from ddnm_tpu_torch.ops.attention import (
     _attention_plan,
     _kernel_attention,
 )
-from ddnm_tpu_torch.ops.groupnorm import STATS_MAX_SPAN, _stats_affine, _stats_plan
+from ddnm_tpu_torch.ops.fused_gn_conv import _conv_plan
+from ddnm_tpu_torch.ops.groupnorm import (
+    STATS_MAX_SPAN,
+    _apply_plan,
+    _stats_affine,
+    _stats_plan,
+)
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 H100_SMS = 132
@@ -190,6 +198,103 @@ def test_groupnorm_stats_plan_fills_the_card_on_the_big_maps():
 def test_groupnorm_stats_plan_refuses_what_the_kernel_does_not_take(B, HW, C, G, err):
     with pytest.raises(ValueError, match=err):
         _stats_plan(B, HW, C, G, 2)
+
+
+# the fused kernel's shapes in chip_smoke.py (FUSED_SHAPES) and the DDPM
+# UNet's six Cin = Cout 3x3 shapes at batch 8
+# (tools/experiments/fused_gn_conv_torch.py UNET_SHAPES)
+FUSED_SHAPES = ((8, 256, 256, 128), (2, 32, 32, 64), (3, 20, 36, 96))
+UNET_CONV_SHAPES = ((8, 256, 256, 128), (8, 128, 128, 128), (8, 64, 64, 256),
+                    (8, 32, 32, 256), (8, 16, 16, 512), (8, 8, 8, 512))
+
+
+def _conv_layout_total(kc, bn, ws):
+    """csrc/fused_gn_conv.cu conv_layout(kc, bn, ws).total, restated: two
+    halo stages, ws weights stages, two staging buffers per consumer
+    warpgroup, the mbarriers of 2 + 8 stages, 1024 bytes of slack."""
+    halo_stage = -(-18 * 18 * kc * 2 // 1024) * 1024
+    return 1024 + 2 * halo_stage + ws * kc * bn * 2 + 2 * 2 * 8192 + 8 * (3 * 2 + 2 * 8)
+
+
+@pytest.mark.parametrize("shape", sorted(set(FUSED_SHAPES + UNET_CONV_SHAPES)
+                                         | {(1, 5, 3, 32), (2, 16, 16, 128), (1, 8, 8, 512),
+                                            (1, 1, 1, 160), (4, 17, 33, 224)}))
+def test_conv_plan_fits_and_covers_every_shape(shape):
+    """Chunks and N tiles cover C, 16 x 16 tiles cover the map, the weights
+    ring has 3-8 stages beside two halo stages, the shared memory is the
+    kernel's layout and fits one H100 block, the persistent grid is at most
+    one block per SM and at most the tiles."""
+    B, H, W, C = shape
+    p = _conv_plan(B, H, W, C)
+    assert p["kc"] == (64 if C % 64 == 0 else 32) and C % p["kc"] == 0
+    assert p["bn"] in (64, 128) and (p["bn"] == 64 or C > 64)
+    assert p["tile"] == (16, 16) and p["threads"] == 384
+    assert p["tiles"] == B * -(-H // 16) * -(-W // 16) * -(-C // p["bn"])
+    assert 3 <= p["w_stages"] <= 8
+    assert p["smem"] == _conv_layout_total(p["kc"], p["bn"], p["w_stages"])
+    assert p["smem"] <= SMEM_PER_BLOCK
+    assert _conv_layout_total(p["kc"], p["bn"], p["w_stages"] + 1) > SMEM_PER_BLOCK or \
+        p["w_stages"] == 8  # as many weights stages as fit
+    assert p["grid"] == min(p["tiles"], H100_SMS)
+
+
+def test_conv_plan_at_the_experiment_shape():
+    """(8, 256, 256, 128): 256 x 128 tiles, 64-channel chunks with the
+    128-byte swizzle, six weights stages, a full persistent wave; 64-wide N
+    tiles only where 128 would leave SMs idle (C = 512 at 16 and 8 px)."""
+    p = _conv_plan(8, 256, 256, 128)
+    assert (p["kc"], p["bn"], p["w_stages"], p["grid"], p["tiles"]) == (64, 128, 6, 132, 2048)
+    assert p["smem"] == 216240
+    assert _conv_plan(8, 64, 64, 256)["bn"] == 128
+    for shape in ((8, 16, 16, 512), (8, 8, 8, 512), (8, 32, 32, 256)):
+        assert _conv_plan(*shape)["bn"] == 64
+
+
+@pytest.mark.parametrize("shape,err", [
+    ((1, 4, 4, 48), "C % 32"),
+    ((1, 4, 4, 0), "C % 32"),
+    ((0, 4, 4, 64), "non-empty"),
+    ((65535, 4096, 4096, 32), "2\\^31 tiles"),
+])
+def test_conv_plan_refuses_what_the_kernel_does_not_take(shape, err):
+    with pytest.raises(ValueError, match=err):
+        _conv_plan(*shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_plan_keeps_each_threads_channels_fixed(dtype):
+    """16-byte loads where x is aligned and C allows them, one channel
+    otherwise; a row of blocks per image whose thread count is a multiple of
+    C / vec (a thread's channels never change along its stride), at most
+    2048 threads an SM over the batch, and no more blocks than one vector a
+    thread needs."""
+    wide = 4 if dtype == torch.float32 else 8
+    for C in sorted({c for c, _ in _ddpm_groupnorms()} | {36, 34, 96, 4096, 8194}):
+        for B, HW in ((8, 256 * 256), (8, 8 * 8), (3, 35), (1, 1)):
+            for aligned in (True, False):
+                p = _apply_plan(B, HW, C, dtype, aligned, H100_SMS)
+                assert p["vec"] == (wide if aligned and C % wide == 0 else 1)
+                assert p["cv"] == C // p["vec"] and p["img_vec"] == HW * p["cv"]
+                assert p["grid"] == (p["blocks"], B)
+                assert (p["blocks"] * p["threads"]) % p["cv"] == 0
+                assert 0 < p["threads"] <= 256
+                unit = p["cv"] // math.gcd(p["cv"], p["threads"])
+                assert p["blocks"] <= min(-(-p["img_vec"] // p["threads"]),
+                                          -(-2048 // p["threads"] * H100_SMS // B)) + unit - 1
+
+
+def test_apply_plan_fills_the_card_on_the_big_maps():
+    """The main path's big maps: 8 blocks of 256 threads on each of the 132
+    SMs over the batch of 8, 16 bytes a thread."""
+    for C in (128, 256):
+        p = _apply_plan(8, 256 * 256, C, torch.bfloat16, True, H100_SMS)
+        assert p["vec"] == 8 and p["threads"] == 256 and p["grid"] == (H100_SMS, 8)
+    assert _apply_plan(8, 256 * 256, 128, torch.float32, True, H100_SMS)["vec"] == 4
+
+
+def test_apply_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        _apply_plan(1, 4, 32, torch.float16)
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

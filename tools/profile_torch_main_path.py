@@ -153,6 +153,10 @@ def main(argv=None) -> int:
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
         "ms_per_step_by_kind": {k: v / args.steps for k, v in
                                 sorted(by_kind.items(), key=lambda kv: -kv[1])},
+        # the swish passes left outside the GroupNorm kernel (the time
+        # embedding's; the norms' run in the apply kernel's SiLU epilogue)
+        "sigmoid_ms_per_step": sum(ms for name, ms in by_kernel.items()
+                                   if "sigmoid" in name.lower()) / args.steps,
     }), flush=True)
     return 0
 
