@@ -52,9 +52,13 @@ far it got. A failure in any phase raises.
      conv alone timed against the unfused chain and F.conv2d at the DDPM
      UNet's 3x3 Cin = Cout shapes at batch 8.
 
-Phase 2 prints the -Xptxas -v registers and spills of the conv and apply
-kernels. Phase 3 also holds the Walsh-Hadamard kernel against its plain
-version at the SVD path's shapes, and the fused GN+SiLU+conv kernel in its
+Phase 2 prints the -Xptxas -v registers and spills of the conv, apply and
+Walsh-Hadamard kernels. Phase 3 also holds the Walsh-Hadamard kernel
+against its plain version at the SVD paths' shapes and at edge shapes (one
+slab, a ragged slab count, every tier's P, P = 1 and 2, 100 MB), each with
+the same bits on a second call and on a strided view, one wrapper call and
+one CUDA launch a call (torch.profiler), and its share of the bound on the
+device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
@@ -171,9 +175,14 @@ SOURCES = {
 EDGE_ATTENTION_SHAPES = ((4, 1, 512), (3, 17, 512), (5, 33, 32),
                          (2, WHOLE_ROW_MAX_T, 512), (2, WHOLE_ROW_MAX_T + 1, 512),
                          (64, 1024, 64), (128, 256, 64), (128, 64, 64), (24, 1024, 32))
-# the Walsh-Hadamard transform's shapes on the SVD paths: 3 planes of 65536
-# per image, batch 2 (phase 6) and 8 (phase 7)
-FWHT_SHAPES = ((2, 3, 65536), (8, 3, 65536))
+# the Walsh-Hadamard transform's shapes: on the SVD paths, 3 planes of 65536
+# per image, batch 2 (phase 6) and 8 (phase 7, the per-call entry of the
+# summary); one slab (one cluster); a ragged slab count; the toy32, mid64
+# and 128 px tiers' P; P = 1 and 2 (ragged 16-byte tails); and 100 MB, more
+# than the 50 MB L2, which keeps the share of the HBM bound honest
+FWHT_SHAPES = ((2, 3, 65536), (8, 3, 65536), (1, 1, 65536), (25, 65536), (8, 3, 1024),
+               (8, 3, 4096), (8, 3, 16384), (7, 1), (5, 3, 2), (64, 3, 65536))
+FWHT_MAIN_SHAPE = (8, 3, 65536)
 # the fused GN+SiLU+conv kernel: the experiment's shape, the CPU test's, a
 # ragged one (H, W not multiples of the tile, C = 96 = 3 x 32)
 FUSED_SHAPES = ((8, 256, 256, 128), (2, 32, 32, 64), (3, 20, 36, 96))
@@ -236,7 +245,7 @@ def ptxas_summary(lines: list[str]) -> list[str]:
     """One line per kernel of a `-Xptxas -v` report: registers, stack and
     spills, and any note that ptxas serialised its wgmma instructions."""
     def short(text):
-        found = re.search(r"\d((?:fgc|gn)_[a-z_]+kernel)(I\w*?E)?E", text)
+        found = re.search(r"\d((?:fgc|gn|fwht)_[a-z_]*kernel)(I\w*?E)?E", text)
         return found.group(1) + (found.group(2) or "") if found else text
 
     out, name = [], None
@@ -370,6 +379,50 @@ def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generat
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def cuda_launches(fn, calls: int = 4) -> tuple[float, list[str]]:
+    """CUDA kernel launches per call of fn(), counted from torch.profiler's
+    host-side launch calls (cudaLaunchKernel*) over `calls` calls after one
+    warm-up, and the names of the kernels the card ran (device events; the
+    profiler may miss one of those, so they are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum(e.device_type == torch.autograd.DeviceType.CPU
+                   and e.name.startswith("cudaLaunchKernel") for e in events)
+    if not launches:
+        raise AssertionError("the profiler recorded no cudaLaunchKernel* call: " + str(sorted(
+            {e.name for e in events if "aunch" in e.name})))
+    names = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
+    return launches / calls, sorted(names)
+
+
+def check_fwht(shape: tuple, gen: torch.Generator) -> dict:
+    """The Walsh-Hadamard kernel at one shape: check_kernel's comparison and
+    times, then the same bits on a second call and on a strided view, one
+    wrapper call counted a call, and one CUDA launch a call (profiler)."""
+    r = check_kernel("fwht", shape, torch.float32, gen)
+    x = torch.randn(shape, device="cuda", generator=gen)
+    norm = float(shape[-1]) ** 0.5
+    ops.reset_launch_counts()
+    out = _kernel_fwht(x, norm)
+    if ops.launch_counts()["fwht"] != 1:
+        raise AssertionError(f"fwht {shape}: {ops.launch_counts()['fwht']} wrapper calls counted")
+    view = x.transpose(0, 1).contiguous().transpose(0, 1)
+    if not (torch.equal(out, _kernel_fwht(x, norm)) and torch.equal(out, _kernel_fwht(view, norm))):
+        raise AssertionError(f"fwht {shape}: two calls, or a view, give other bits")
+    per_call, names = cuda_launches(lambda: _kernel_fwht(x, norm))
+    if per_call != 1 or not names or not all("fwht_kernel" in n for n in names):
+        raise AssertionError(f"fwht {shape}: {per_call} CUDA launches a call ({names})")
+    return dict(r, cuda_launches_per_call=per_call, kernel_names=names,
+                device_share_of_bound=r["bound_ms"] / r["device_ms"])
 
 
 def check_fused(mode: str, shape: tuple, gen: torch.Generator) -> dict:
@@ -710,7 +763,8 @@ def main() -> int:
         path, secs = _build.build()
         _build.load_library()
         print(f"built {path.name} with nvcc in {secs:.2f} s", flush=True)
-        for line in ptxas_summary(_build.ptxas_report("fgc_conv_kernel", "gn_apply_kernel")):
+        for line in ptxas_summary(_build.ptxas_report("fgc_conv_kernel", "gn_apply_kernel",
+                                                      "fwht_kernel")):
             print(line, flush=True)
 
     with phase(3, "kernels against plain versions"):
@@ -796,18 +850,22 @@ def main() -> int:
             per_forward[kind]["max_abs_err"] = max(
                 [per_forward[kind]["max_abs_err"]]
                 + [r["max_abs_err"] for r in edge if r["kind"] == kind])
-        fwht_rows = [check_kernel("fwht", shape, torch.float32, gen) for shape in FWHT_SHAPES]
-        for r in fwht_rows:
+        fwht_rows = {shape: check_fwht(shape, gen) for shape in FWHT_SHAPES}
+        for r in fwht_rows.values():
             print(f"{'fwht':15s} {str(r['shape']):22s} {r['dtype']:8s} "
-                  f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
-                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-                  f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                  f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) same bits twice and on a "
+                  f"view, {r['cuda_launches_per_call']:g} CUDA launch a call  "
+                  f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
+                  f"{100 * r['device_share_of_bound']:.1f}% of the bound)  "
+                  f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms (device "
+                  f"{r['library_device_ms']:.4f})  bound {r['bound_ms']:.5f} ms "
                   f"({r['bound_by']})", flush=True)
         # per call at the SVD main path's shape (batch 8)
-        per_forward["fwht"] = {f: fwht_rows[-1][f] for f in
-                               ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")}
-        per_forward["fwht"]["max_abs_err"] = max(r["max_abs_err"] for r in fwht_rows)
+        per_forward["fwht"] = {f: fwht_rows[FWHT_MAIN_SHAPE][f] for f in
+                               ("ms", "device_ms", "plain_ms", "library_ms",
+                                "library_device_ms", "bound_ms", "bound_by",
+                                "device_share_of_bound", "cuda_launches_per_call")}
+        per_forward["fwht"]["max_abs_err"] = max(r["max_abs_err"] for r in fwht_rows.values())
         print("fwht: per (8, 3, 65536) call: " + json.dumps(per_forward["fwht"]), flush=True)
         fused = {}
         for shape in FUSED_SHAPES:
@@ -878,7 +936,9 @@ def main() -> int:
          "bound_ms": per_forward[kind]["bound_ms"],
          "bound_by": per_forward[kind]["bound_by"],
          "library_ms": per_forward[kind]["library_ms"],
-         **({"by_mode": per_forward[kind]["by_mode"]} if kind == "fused_gn_conv" else {})}
+         **({"by_mode": per_forward[kind]["by_mode"]} if kind == "fused_gn_conv" else {}),
+         **({k: per_forward[kind][k] for k in ("device_share_of_bound", "cuda_launches_per_call")}
+            if kind == "fwht" else {})}
         for kind in SOURCES]}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)

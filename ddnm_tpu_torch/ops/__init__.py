@@ -7,9 +7,10 @@
   - fused_attention: single-head attention over (B*, T, C), bf16 on the
     tensor cores (mma.sync), fp32 by FMA —
     replaces the Pallas `_attn_kernel` of ddnm_tpu/ops/attention.py;
-  - fwht: the Walsh-Hadamard transform as a shared-memory butterfly, two
-    launches (rows, then columns) — replaces the Pallas `_fwht_kernel` of
-    ddnm_tpu/ops/fwht.py;
+  - fwht: the Walsh-Hadamard transform as a butterfly in one launch (its
+    stages in registers, shared memory and, for a slab wider than a CTA,
+    a thread-block cluster's distributed shared memory) — replaces the
+    Pallas `_fwht_kernel` of ddnm_tpu/ops/fwht.py;
   - fused_gn_conv: GroupNorm affine -> SiLU -> 3x3 conv as an implicit GEMM
     on bf16 tensor cores (wgmma, TMA, a persistent warp-specialised grid),
     behind the GroupNorm stats kernel, in three modes

@@ -43,7 +43,7 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _P],
     "ddnm_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ddnm_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
-    "ddnm_fwht": [_P, _P, _I, _I, _F, _P],
+    "ddnm_fwht": [_P, _P, _I, _I, _I, _I, _F, _P],
     "ddnm_fused_gn_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -6,10 +6,13 @@ norm = sqrt(P) it is self-inverse. H_P = H_a (x) H_b for P = a b, so with x
 reshaped row-major to (a, b) the transform is H_a X H_b.
 
 On a CUDA tensor `fwht` runs the hand-written butterfly kernel of
-`csrc/fwht.cu` (two launches: the log2(b) stages along each row, then the
-log2(a) stages along each column, divided by `norm` on the way out). On a
-CPU tensor it runs `_torch_fwht`, the plain version: the JAX package's
-default algebra, one fp32 einsum H_a X H_b, then the division.
+`csrc/fwht.cu` in one launch: each CTA holds a tile of 2^S floats in its
+threads' registers and shared memory and runs the stages of the index bits
+it holds; a slab wider than a tile is split over a thread-block cluster,
+whose last log2(K) stages read the peers' shared memory (DSMEM) on the way
+out. The launch plan is `_fwht_plan`. On a CPU tensor it runs
+`_torch_fwht`, the plain version: the JAX package's default algebra, one
+fp32 einsum H_a X H_b, then the division.
 
 `force="torch"` selects the plain version on any device, `force="kernel"`
 the kernel (and raises on a CPU tensor). There is no fallback.
@@ -29,6 +32,13 @@ __all__ = ["fwht", "hadamard_matrix", "LAUNCHES"]
 LAUNCHES = {"fwht": 0}
 
 _MAX_P = 65536  # kMaxP in csrc/fwht.cu
+# the kernel's tiles (csrc/fwht.cu): 2^11..2^13 floats a CTA, 64 a thread,
+# at most 8 CTAs a cluster (the portable limit)
+_TILE_MIN, _TILE_MAX = 11, 13
+_FLOATS_PER_THREAD = 64
+_MAX_CLUSTER = 8
+# CTAs an SM that the plan aims for before it grows the tile
+_CTAS_PER_SM = 2
 
 
 def hadamard_matrix(n: int) -> np.ndarray:
@@ -69,6 +79,37 @@ def _torch_fwht(x: torch.Tensor, norm: float) -> torch.Tensor:
     return (out / norm).reshape(shape)
 
 
+@functools.lru_cache(maxsize=256)
+def _fwht_plan(n: int, p: int, sms: int = 132) -> dict:
+    """The kernel's launch for n slabs of p floats on a card of `sms` SMs.
+
+    A CTA holds a tile of 2^log_tile floats (`threads` x 64): a slab wider
+    than a tile is split over a cluster of `cluster` CTAs (p = cluster x
+    tile), a narrower one shares a tile (`slabs_per_cta` = tile / p). Of
+    the tiles that fit, the plan takes the largest that still gives
+    `_CTAS_PER_SM` CTAs an SM, else the one with the most CTAs (the
+    smaller tile on a tie). Raises ValueError for what the kernel does not
+    take."""
+    _check_length(p)
+    if p > _MAX_P:
+        raise ValueError(f"fwht kernel takes P <= {_MAX_P}, got {p}")
+    if not 0 < n < 2**31:
+        raise ValueError(f"fwht kernel takes 1 <= n < 2**31 slabs, got {n}")
+    m = p.bit_length() - 1
+    options = []
+    for s in range(_TILE_MIN, _TILE_MAX + 1):
+        k = 1 << max(0, m - s)
+        if k <= _MAX_CLUSTER:
+            options.append((s, k, n * k if k > 1 else -(-n * p >> s)))
+    wide = [o for o in options if o[2] >= _CTAS_PER_SM * sms]
+    s, k, ctas = wide[-1] if wide else max(options, key=lambda o: (o[2], -o[0]))
+    if ctas >= 2**31:
+        raise ValueError(f"fwht kernel takes fewer than 2**31 CTAs, got {ctas}")
+    return {"log_tile": s, "cluster": k, "slabs_per_cta": max(1, (1 << s) // p),
+            "threads": (1 << s) // _FLOATS_PER_THREAD, "floats_per_thread": _FLOATS_PER_THREAD,
+            "grid": (ctas,), "smem": 4 << s}
+
+
 def _kernel_fwht(x: torch.Tensor, norm: float) -> torch.Tensor:
     """The CUDA butterfly. A contiguous fp32 input is read in place; any
     other (another dtype, a strided view) is first copied once into a
@@ -81,16 +122,18 @@ def _kernel_fwht(x: torch.Tensor, norm: float) -> torch.Tensor:
     _check_length(p)
     if p > _MAX_P:
         raise ValueError(f"fwht kernel takes P <= {_MAX_P}, got {p}")
-    src = x.to(torch.float32).contiguous()
-    n = src.numel() // p
-    if n > 2**31 - 1:
-        raise ValueError(f"fwht kernel takes fewer than 2**31 slabs, got {n}")
+    n = x.numel() // p
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if n == 0:
         return out
+    plan = _fwht_plan(n, p, _build.sm_count(x.device))
+    src = x.to(torch.float32).contiguous()
+    if src.data_ptr() % 16:  # 16-byte loads
+        src = src.clone()
     lib = _build.load_library()
     with _build.device_guard(x.device):
-        _build.check(lib.ddnm_fwht(src.data_ptr(), out.data_ptr(), n, p, float(norm),
+        _build.check(lib.ddnm_fwht(src.data_ptr(), out.data_ptr(), n, p, plan["log_tile"],
+                                   plan["cluster"], float(norm),
                                    _build.raw_stream(x.device)), "ddnm_fwht")
     LAUNCHES["fwht"] += 1
     return out

@@ -166,8 +166,15 @@ def test_attention_kernel_matches_plain(gen, dtype, tol, shape):
     assert torch.equal(out, ops.fused_attention(q, k, v, shape[-1] ** -0.5))
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 65536), (8, 3, 65536), (3, 5, 2048), (4, 1, 64)])
+@pytest.mark.parametrize("shape", [
+    (2, 3, 65536), (8, 3, 65536), (3, 5, 2048), (4, 1, 64),  # the SVD paths, small P
+    (1, 1, 65536), (25, 65536), (64, 3, 65536),  # one cluster, a ragged count, > L2
+    (8, 3, 1024), (8, 3, 4096), (8, 3, 16384),   # the toy32, mid64 and 128 px tiers
+    (7, 1), (5, 3, 2),                           # P = 1 and 2: ragged 16-byte tails
+])
 def test_fwht_kernel_matches_plain(gen, shape):
+    """One launch a call (a cluster of CTAs where a slab is wider than one),
+    against the plain einsum, the same bits twice and on a strided view."""
     x = torch.randn(shape, device="cuda", generator=gen)
     norm = float(shape[-1]) ** 0.5
     ops.reset_launch_counts()

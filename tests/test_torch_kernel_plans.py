@@ -1,8 +1,9 @@
-"""The launch plans of the port's attention, GroupNorm (stats and apply)
-and fused GN+SiLU+conv kernels, checked without a card: the plain Python
-functions that choose tiles, grid, blocks, stages and shared-memory bytes
-(`_attention_plan`, `_stats_plan`, `_apply_plan`, `_conv_plan`) for every
-shape the wrappers admit, and their refusals."""
+"""The launch plans of the port's attention, GroupNorm (stats and apply),
+fused GN+SiLU+conv and Walsh-Hadamard kernels, checked without a card: the
+plain Python functions that choose tiles, grid, blocks, clusters, stages
+and shared-memory bytes (`_attention_plan`, `_stats_plan`, `_apply_plan`,
+`_conv_plan`, `_fwht_plan`) for every shape the wrappers admit, and their
+refusals."""
 
 import math
 from pathlib import Path
@@ -23,6 +24,7 @@ from ddnm_tpu_torch.ops.attention import (
     _kernel_attention,
 )
 from ddnm_tpu_torch.ops.fused_gn_conv import _conv_plan
+from ddnm_tpu_torch.ops.fwht import _fwht_plan
 from ddnm_tpu_torch.ops.groupnorm import (
     STATS_MAX_SPAN,
     _apply_plan,
@@ -295,6 +297,55 @@ def test_apply_plan_fills_the_card_on_the_big_maps():
 def test_apply_plan_refuses_other_dtypes():
     with pytest.raises(TypeError, match="float32/bfloat16"):
         _apply_plan(1, 4, 32, torch.float16)
+
+
+@pytest.mark.parametrize("p", [1 << m for m in range(17)])
+def test_fwht_plan_covers_every_slab_once(p):
+    """Every P = 2^0..2^16 at slab counts from one to the (64, 3) of phase
+    3: the CTAs' tiles cover the n P floats exactly once (a cluster of K
+    CTAs per slab, or whole slabs per CTA), a tile fits a block's shared
+    memory as 64 floats a thread, and K is a power of two <= 8 (the portable
+    cluster size) that csrc/fwht.cu instantiates."""
+    for n in (1, 3, 6, 24, 25, 192):
+        plan = _fwht_plan(n, p, H100_SMS)
+        tile, k = 1 << plan["log_tile"], plan["cluster"]
+        assert 11 <= plan["log_tile"] <= 13 and k in (1, 2, 4, 8)
+        assert plan["smem"] == 4 * tile <= SMEM_PER_BLOCK
+        assert plan["threads"] * plan["floats_per_thread"] == tile
+        assert plan["threads"] % 32 == 0 and plan["floats_per_thread"] == 64
+        covered = [0] * n
+        for cta in range(plan["grid"][0]):
+            lo, hi = cta * tile, min((cta + 1) * tile, n * p)
+            assert lo < hi  # no CTA without work
+            for slab in range(lo // p, -(-hi // p)):
+                covered[slab] += min(hi, (slab + 1) * p) - max(lo, slab * p)
+        assert covered == [p] * n
+        if k > 1:
+            assert p == k * tile and plan["grid"][0] == n * k
+        else:
+            assert plan["slabs_per_cta"] == tile // p >= 1
+
+
+def test_fwht_plan_fills_the_card_at_the_svd_shapes():
+    """(24, 65536), the SVD main path: 8-CTA clusters of 32 KB, 192 CTAs in
+    flight, more than one per SM; narrower slabs take smaller tiles and
+    larger clusters rather than leave SMs idle; big batches take the
+    largest tiles that still give every SM two CTAs."""
+    plan = _fwht_plan(24, 65536, H100_SMS)
+    assert (plan["log_tile"], plan["cluster"], plan["grid"]) == (13, 8, (192,))
+    assert _blocks(plan) >= H100_SMS
+    assert _fwht_plan(6, 65536, H100_SMS)["grid"] == (48,)
+    assert _fwht_plan(24, 16384, H100_SMS)["cluster"] == 8  # 128 px: 192 CTAs of 8 KB
+    assert _fwht_plan(192, 65536, H100_SMS)["grid"] == (1536,)
+    big = _fwht_plan(192, 16384, H100_SMS)
+    assert (big["log_tile"], big["cluster"]) == (13, 2) and _blocks(big) >= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("n,p,err", [(3, 96, "power-of-two"), (3, 131072, "P <= 65536"),
+                                     (0, 1024, "n >= 1|1 <= n"), (2**31, 1, "n < 2")])
+def test_fwht_plan_refuses_what_the_kernel_does_not_take(n, p, err):
+    with pytest.raises(ValueError, match=err):
+        _fwht_plan(n, p, H100_SMS)
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

@@ -10,10 +10,11 @@ compressed sensing (cs_walshhadamard, perm from the seed). It reports:
 
   - ms per step (host clock around steps that end in a synchronize);
   - from torch.profiler over a second window: device time by kernel and by
-    kind (the port's GroupNorm and attention kernels, convolutions, other
-    matrix products, elementwise, reductions, copies), device busy time
-    (kernels run on one stream, so their sum) and the idle share of the
-    window;
+    kind (the port's GroupNorm, attention and Walsh-Hadamard kernels,
+    convolutions, other matrix products, elementwise, reductions, copies),
+    device busy time (kernels run on one stream, so their sum) and the idle
+    share of the window; the Walsh-Hadamard wrapper calls and kernel
+    launches per step;
   - the chrome trace, written to --out.
 
     python3 tools/profile_torch_main_path.py --out <dir> [--steps 10] [--mode svd]
@@ -41,7 +42,7 @@ if str(REPO) not in sys.path:
 KINDS = (  # first match wins; matched against the lower-cased kernel name
     ("groupnorm (port)", ("gn_stats_affine_kernel", "gn_apply_kernel")),
     ("attention (port)", ("attn_mma_kernel", "attn_kernel")),
-    ("fwht (port)", ("fwht_rows_kernel", "fwht_cols_kernel")),
+    ("fwht (port)", ("fwht_kernel",)),
     ("gather", ("index",)),
     ("convolution", ("conv", "cudnn", "implicit", "fprop", "dgrad", "winograd")),
     ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "xmma", "sm90_")),
@@ -125,6 +126,9 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from ddnm_tpu_torch import ops
+
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         window(2 * args.steps)
@@ -134,10 +138,13 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / f"{args.mode}_trace.json"))
 
+    calls = ops.launch_counts()
     by_kernel: dict[str, float] = {}
+    runs: dict[str, int] = {}
     for ev in prof.events():  # device-side events: one per kernel run
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+            runs[ev.name] = runs.get(ev.name, 0) + 1
     busy_ms = sum(by_kernel.values())
     by_kind: dict[str, float] = {}
     for name, ms in by_kernel.items():
@@ -157,6 +164,11 @@ def main(argv=None) -> int:
         # embedding's; the norms' run in the apply kernel's SiLU epilogue)
         "sigmoid_ms_per_step": sum(ms for name, ms in by_kernel.items()
                                    if "sigmoid" in name.lower()) / args.steps,
+        # the Walsh-Hadamard transform: wrapper calls (ops.launch_counts) and
+        # CUDA launches of its kernel per step (one launch a call)
+        "fwht_calls_per_step": calls["fwht"] / args.steps,
+        "fwht_kernel_launches_per_step": sum(n for name, n in runs.items()
+                                             if "fwht_kernel" in name) / args.steps,
     }), flush=True)
     return 0
 
