@@ -50,8 +50,25 @@ far it got. A failure in any phase raises.
      run and the ablations at the experiment's (8, 256, 256, 128), each
      variant's launch counts checked exactly, and the fused route and the
      conv alone timed against the unfused chain and F.conv2d at the DDPM
-     UNet's 3x3 Cin = Cout shapes at batch 8.
+     UNet's 3x3 Cin = Cout shapes at batch 8;
+  9. hq parity on the toy32 ADM UNet (tests/fixtures/toy_adm32.pt): the six
+     unguided hq golden tasks through sample_posterior in fp32 through the
+     kernels, each within 0.01 dB of the JAX package's PSNR
+     (tests/fixtures/toy_adm32_psnr.json), the first also through the plain
+     versions; the bf16 PSNRs printed beside the bf16 goldens (not gated);
+     Mask-Shift on a 48 x 48 canvas (tile 32, stride 16, 2 x 2 tiles) in
+     the sequential fresh, wavefront and carry orders, the wavefront equal to
+     the sequential fresh order bit for bit;
+ 10. the hq main path through hq_main_torch: the full-width ADM UNet of
+     configs/hq/inet256.yml (classifier_scale 0, random weights from the
+     seed, bf16 torso), 4x average-pooling SR with --resize_y of a 96 x 96
+     PNG made from exp/datasets/imagenet: a 384 x 384 canvas, 2 x 2 tiles of
+     280 model calls; wall seconds, seconds per tile, model calls per second,
+     the kernels' launches per model call and max |A(final) - y|.
 
+Phase 3 also holds the GroupNorm (with FiLM) and attention kernels against
+their plain versions at every shape of phase 10's ADM forward (one tile,
+bf16) and sums their times per such forward.
 Phase 2 prints the -Xptxas -v registers and spills of the conv, apply and
 Walsh-Hadamard kernels. Phase 3 also holds the Walsh-Hadamard kernel
 against its plain version at the SVD paths' shapes and at edge shapes (one
@@ -62,7 +79,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-8 sets the launch counts to 0 just before each run it
+Each of phases 4-10 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after.
 
 The line before the last is the JSON summary of the kernels; the last line
@@ -262,32 +279,42 @@ def ptxas_summary(lines: list[str]) -> list[str]:
 # ------------------------------------------------------------------ phase 3
 
 
-def op_shapes(model, x_nhwc) -> dict:
+def op_shapes(model, x_nhwc, *args) -> dict:
     """{("groupnorm"|"attention", shape, dtype): calls per forward} of one
-    UNet forward on x_nhwc (forward pre-hooks; the calls run the kernels);
+    UNet forward (the DDPM UNet, or the ADM UNet with its `args`, e.g. the
+    labels) on x_nhwc (forward pre-hooks; the calls run the kernels);
     ("groupnorm_swish", shape, dtype) counts the GroupNorm calls among them
-    that end in the SiLU epilogue."""
+    that end in the SiLU epilogue, ("groupnorm_film", shape, dtype) those
+    that take the ADM ResBlock's FiLM scale and shift. Attention shapes are
+    the kernel's (B * heads, T, C / heads)."""
     from ddnm_tpu_torch.models.nn import GroupNormF32
+    from ddnm_tpu_torch.models.unet_adm import AttentionBlock
     from ddnm_tpu_torch.models.unet_ddpm import AttnBlock
 
     seen: dict = {}
 
+    def count(key):
+        seen[key] = seen.get(key, 0) + 1
+
     def gn_hook(m, args):
         b, c, h, w = args[0].shape
-        for key in [("groupnorm", (b, h, w, c), args[0].dtype)] + (
-                [("groupnorm_swish", (b, h, w, c), args[0].dtype)] if m.swish else []):
-            seen[key] = seen.get(key, 0) + 1
+        count(("groupnorm", (b, h, w, c), args[0].dtype))
+        if m.swish:
+            count(("groupnorm_swish", (b, h, w, c), args[0].dtype))
+        if len(args) > 1 and args[1] is not None:
+            count(("groupnorm_film", (b, h, w, c), args[0].dtype))
 
-    def attn_hook(_m, args):
+    def attn_hook(m, args):
         b, c, h, w = args[0].shape
-        key = ("attention", (b, h * w, c), args[0].dtype)
-        seen[key] = seen.get(key, 0) + 1
+        heads = getattr(m, "num_heads", 1)
+        count(("attention", (b * heads, h * w, c // heads), args[0].dtype))
 
     handles = [m.register_forward_pre_hook(gn_hook if isinstance(m, GroupNormF32)
                                            else attn_hook)
-               for m in model.modules() if isinstance(m, (GroupNormF32, AttnBlock))]
+               for m in model.modules()
+               if isinstance(m, (GroupNormF32, AttnBlock, AttentionBlock))]
     with torch.no_grad():
-        model(x_nhwc, torch.full((x_nhwc.shape[0],), 500.0, device=x_nhwc.device))
+        model(x_nhwc, torch.full((x_nhwc.shape[0],), 500.0, device=x_nhwc.device), *args)
     for h in handles:
         h.remove()
     return seen
@@ -697,6 +724,236 @@ def experiment() -> dict:
     return {"default": default, "ablations": ablations}
 
 
+# ------------------------------------------------------------ phases 9 and 10
+
+TOY_ADM_PT = REPO / "tests" / "fixtures" / "toy_adm32.pt"
+TOY_ADM_JSON = REPO / "tests" / "fixtures" / "toy_adm32.json"
+TOY_ADM_PSNR = REPO / "tests" / "fixtures" / "toy_adm32_psnr.json"
+TOY_ADM_PSNR_BF16 = REPO / "tests" / "fixtures" / "toy_adm32_psnr_bf16.json"
+INET256 = REPO / "configs" / "hq" / "inet256.yml"
+# (name, deg, scale, sigma_y): the unguided hq task matrix at toy scale (a
+# copy of tests/_golden_adm.py TASKS_HQ without the guided row), its
+# protocol: 2 images of exp/datasets/toy32, x_T from RandomState(7), zero
+# noise, respacing "25" and the jump schedule below
+TASKS_HQ = [
+    ("hq_sr_ap_4x", "sr_averagepooling", 4, 0.0),
+    ("hq_colorization", "colorization", 0, 0.0),
+    ("hq_inpainting", "inpainting", 0, 0.0),
+    ("hq_mask_color_sr", "mask_color_sr", 2, 0.0),
+    ("hq_sr_color", "sr_color", 2, 0.0),
+    ("hq_sr_ap_4x_noisy", "sr_averagepooling", 4, 0.25),
+]
+HQ_RESPACING = "25"
+HQ_JUMP = dict(t_T=25, n_sample=1, jump_length=10, jump_n_sample=2)
+HQ_PSNR_TOL = 0.01  # dB, fp32 on the card against the JAX package's fp32
+
+
+def toy_adm(device, dtype=torch.float32):
+    """The toy32 ADM UNet of tests/fixtures/toy_adm32.pt."""
+    from ddnm_tpu_torch.models import ADMUNet, cast_torso
+    from ddnm_tpu_torch.runner import load_checkpoint
+
+    model = ADMUNet(**json.loads(TOY_ADM_JSON.read_text())["adm_kw"])
+    load_checkpoint(model, TOY_ADM_PT)
+    model = model.to(device).eval()
+    return cast_torso(model, dtype) if dtype != torch.float32 else model
+
+
+def hq_adm():
+    """The full-width ADM UNet of configs/hq/inet256.yml on the card, bf16
+    torso, random weights from seed 1234 (as hq_main_torch --random_init)."""
+    from ddnm_tpu_torch.config import load_hq_config
+    from ddnm_tpu_torch.models import cast_torso
+    from ddnm_tpu_torch.models.unet_adm import init_like_flax
+    from hq_main_torch import build_adm_from_hq
+
+    model = init_like_flax(build_adm_from_hq(load_hq_config(INET256), "cuda"), 1234)
+    return cast_torso(model.eval(), torch.bfloat16)
+
+
+def hq_golden_run(model, device, task) -> tuple[float, torch.Tensor, float]:
+    """One unguided hq golden task through the port's sample_posterior
+    under the golden protocol (tests/_golden_adm.py run_hq_task): returns
+    (PSNR of the 2-image batch against the ground truth, final images,
+    seconds)."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.data.io import load_image
+    from ddnm_tpu_torch.operators import build_functional_operator
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, sample_posterior
+
+    _, deg, scale, sigma_y = task
+    paths = sorted((REPO / "exp" / "datasets" / "toy32").glob("*.png"))[:2]
+    gt = torch.from_numpy(np.stack([load_image(p) for p in paths]) * 2.0 - 1.0).to(device)
+    xt = np.random.RandomState(7).randn(2, 3, 32, 32).astype(np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(xt.transpose(0, 2, 3, 1))).to(device)
+    kw = ({"mask": golden_mask(32).astype(np.float32)}
+          if deg in ("inpainting", "mask_color_sr") else {})
+    op = build_functional_operator(deg, image_size=32, deg_scale=float(scale or 1),
+                                   device=device, **kw)
+    tables = build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing=HQ_RESPACING, sigma_y=sigma_y, schedule_jump_params=HQ_JUMP)
+    zero = lambda gens, shape: torch.zeros(shape, device=device)
+    t0 = time.perf_counter()
+    x, _ = sample_posterior(lambda z, t: model(z, t), xt, op.Ap(op.A(gt)), op, tables,
+                            [None, None], noise_fn=zero)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    to01 = lambda a: torch.clamp((a + 1) / 2, 0, 1)
+    mse = float(((to01(x) - to01(gt)) ** 2).mean())
+    return 10.0 * math.log10(1.0 / max(mse, 1e-12)), x, secs
+
+
+def hq_parity(n_gn: int, n_attn: int) -> dict:
+    """Phase 9: the six unguided toy32 hq goldens in fp32 through the
+    kernels (TF32 off), each within HQ_PSNR_TOL of the JAX package's
+    ours_psnr, launch counts exact; the first also through the plain
+    versions; the bf16 PSNRs beside the bf16 goldens (not gated); then
+    Mask-Shift on a 48 x 48 canvas, tile 32, stride 16 (2 x 2 tiles):
+    the wavefront order equal to the sequential fresh order bit for bit."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.data.io import load_image
+    from ddnm_tpu_torch.models.unet_ddpm import set_op_force
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, n_model_calls
+    from ddnm_tpu_torch.tiling import mask_shift_sample
+
+    golden = json.loads(TOY_ADM_PSNR.read_text())
+    golden_bf16 = json.loads(TOY_ADM_PSNR_BF16.read_text())
+    model = toy_adm("cuda")
+    tables = build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing=HQ_RESPACING, schedule_jump_params=HQ_JUMP)
+    calls = n_model_calls(tables)
+    out = {"tasks": {}}
+    for task in TASKS_HQ:
+        name = task[0]
+        ops.reset_launch_counts()
+        psnr, x, secs = hq_golden_run(model, "cuda", task)
+        counts = ops.launch_counts()
+        r = {"psnr": psnr, "golden": golden[name]["ours_psnr"], "seconds": secs,
+             "launches": counts}
+        print(f"{name:18s} fp32 kernels: PSNR {psnr:.4f} (JAX {r['golden']:.4f}) "
+              f"{secs:.2f} s launches {counts}", flush=True)
+        if not abs(psnr - r["golden"]) <= HQ_PSNR_TOL:
+            raise AssertionError(f"{name}: PSNR {psnr:.4f} vs JAX {r['golden']:.4f}")
+        want = {"groupnorm_stats": n_gn * calls, "groupnorm_apply": n_gn * calls,
+                "attention": n_attn * calls, "fwht": 0, "fused_gn_conv": 0}
+        if counts != want:
+            raise AssertionError(f"{name}: launch counts {counts} != {want}")
+        if name == TASKS_HQ[0][0]:
+            set_op_force(model, "torch")
+            ops.reset_launch_counts()
+            plain_psnr, x_plain, _ = hq_golden_run(model, "cuda", task)
+            set_op_force(model, None)
+            if any(ops.launch_counts().values()):
+                raise AssertionError(f"plain run launched kernels: {ops.launch_counts()}")
+            r["plain_psnr"] = plain_psnr
+            r["kernel_vs_plain_max_abs"] = float((x - x_plain).abs().max())
+            print(f"{name:18s} fp32 plain  : PSNR {plain_psnr:.4f}; kernel vs plain final "
+                  f"max abs {r['kernel_vs_plain_max_abs']:.3e}", flush=True)
+            if not r["kernel_vs_plain_max_abs"] <= 1e-3:
+                raise AssertionError(f"{name}: kernel vs plain {r['kernel_vs_plain_max_abs']}")
+        out["tasks"][name] = r
+    bf16 = toy_adm("cuda", torch.bfloat16)
+    for task in TASKS_HQ:
+        name = task[0]
+        psnr, _, _ = hq_golden_run(bf16, "cuda", task)
+        out["tasks"][name]["bf16_psnr"] = psnr
+        print(f"{name:18s} bf16 kernels: PSNR {psnr:.4f} (JAX bf16 "
+              f"{golden_bf16[name]['ours_psnr']:.4f}, difference "
+              f"{psnr - golden_bf16[name]['ours_psnr']:+.4f} dB; not gated)", flush=True)
+    del bf16
+
+    # Mask-Shift at toy scale: 4x SR of a 48 x 48 crop of a natural64 image
+    img = load_image(sorted((REPO / "exp" / "datasets" / "natural64").glob("*.png"))[0])
+    gt = (img[:48, :48] * 2.0 - 1.0)[None]
+    zero = lambda gens, shape: torch.zeros(shape, device="cuda")
+    runs = {}
+    for label, kw in (("sequential fresh", dict(tile_init="fresh")),
+                      ("wavefront", dict(parallel=True)),
+                      ("sequential carry", dict(tile_init="carry"))):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mask_shift_sample(lambda z, t: model(z, t), gt, "sr_averagepooling", tables, 0,
+                                scale=4, noise_fn=zero, tile=32, stride=16, device="cuda",
+                                **kw)
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        runs[label] = res["final"]
+        err = float(np.abs(res["final"].reshape(1, 12, 4, 12, 4, 3).mean(axis=(2, 4))
+                           - res["y"]).max())
+        print(f"mask-shift 48x48 {label:16s}: {secs:.2f} s, max |A(final) - y| {err:.2e}, "
+              f"launches {counts}", flush=True)
+        if not (np.isfinite(res["final"]).all() and err <= 1e-4):
+            raise AssertionError(f"mask-shift {label}: range-space error {err}")
+        if counts["attention"] != 4 * n_attn * calls:
+            raise AssertionError(f"mask-shift {label}: launch counts {counts}")
+    if not np.array_equal(runs["wavefront"], runs["sequential fresh"]):
+        raise AssertionError("mask-shift: wavefront and sequential fresh differ")
+    print("mask-shift 48x48: wavefront == sequential fresh, bit for bit", flush=True)
+    out["mask_shift_bit_equal"] = True
+    return out
+
+
+def hq_main_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
+    """Phase 10: hq_main_torch on configs/hq/inet256.yml with
+    classifier_scale 0 (the unguided configuration), random weights from
+    seed 1234, bf16 torso, 4x average-pooling SR of a 96 x 96 PNG (the 4x
+    mean pool of a 384 x 384 mosaic of the 192 x 192 centres of
+    exp/datasets/imagenet/0000[0-3].png) with --resize_y: a 384 x 384
+    canvas, 2 x 2 tiles of 280 model calls, in the reference's sequential
+    carry order. Checks the output PNGs, the range-space error and every
+    kernel's launch count exactly. Returns (stats, launches)."""
+    import hq_main_torch
+    from ddnm_tpu_torch.data.io import load_image, save_image
+
+    quads = [load_image(REPO / "exp" / "datasets" / "imagenet" / f"0000{i}.png")[32:224, 32:224]
+             for i in range(4)]
+    mosaic = np.concatenate([np.concatenate(quads[:2], axis=1),
+                             np.concatenate(quads[2:], axis=1)], axis=0)
+    small = mosaic.reshape(96, 4, 96, 4, 3).mean(axis=(1, 3))
+    conf = INET256.read_text()
+    if conf.count("classifier_scale: 1.0") != 1:
+        raise AssertionError("configs/hq/inet256.yml: expected one classifier_scale: 1.0")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "inet256_unguided.yml").write_text(
+            conf.replace("classifier_scale: 1.0", "classifier_scale: 0.0"))
+        save_image(small, tmp / "y96.png")
+        ops.reset_launch_counts()
+        out = hq_main_torch.main([
+            "--config", str(tmp / "inet256_unguided.yml"), "--path_y", str(tmp / "y96.png"),
+            "--deg", "sr_averagepooling", "--scale", "4", "--resize_y", "--class", "0",
+            "--random_init", "--seed", "1234", "--dtype", "bfloat16",
+            "-i", str(tmp / "out")])
+        launches = ops.launch_counts()
+        pngs = sorted(p.name for p in (tmp / "out").glob("*.png"))
+        tiles = sorted(p.name for p in (tmp / "out" / "tiles").glob("*.png"))
+    stats = dict(out["stats"])
+    final, y = out["final"], out["y"]
+    stats["range_space_max_abs"] = float(np.abs(
+        final.reshape(1, 96, 4, 96, 4, 3).mean(axis=(2, 4)) - y).max())
+    calls = stats["model_calls"]
+    per_call = {k: v / calls for k, v in launches.items()}
+    print(f"hq main path (inet256 ADM, bf16, 384 x 384, 4 tiles): "
+          f"{stats['wall_seconds']:.2f} s wall, {stats['seconds_per_tile']:.2f} s per tile, "
+          f"{stats['model_calls_per_second']:.2f} model calls/s ({calls} calls); launches "
+          f"{launches}, per model call {per_call}; max |A(final) - y| "
+          f"{stats['range_space_max_abs']:.3e}", flush=True)
+    if pngs != ["Apy.png", "final.png", "y.png"] or len(tiles) != 4:
+        raise AssertionError(f"hq outputs: {pngs}, tiles {tiles}")
+    if final.shape != (1, 384, 384, 3) or not np.isfinite(final).all():
+        raise AssertionError(f"hq final: shape {final.shape} or non-finite values")
+    if not stats["range_space_max_abs"] <= 1e-4:
+        raise AssertionError(f"hq range-space error {stats['range_space_max_abs']:.3e}")
+    want = {"groupnorm_stats": n_gn * calls, "groupnorm_apply": n_gn * calls,
+            "attention": n_attn * calls, "fwht": 0, "fused_gn_conv": 0}
+    if calls != 4 * 280 or launches != want:
+        raise AssertionError(f"hq launch counts {launches} != {want} ({calls} calls)")
+    return stats, launches
+
+
 # ------------------------------------------------------------ phases 5 and 7
 
 
@@ -746,6 +1003,7 @@ def main() -> int:
                            "chip_smoke.py runs only on a card")
     from ddnm_tpu_torch.models import DDPMUNet, cast_torso
     from ddnm_tpu_torch.models.nn import GroupNormF32
+    from ddnm_tpu_torch.models.unet_adm import AttentionBlock
     from ddnm_tpu_torch.models.unet_ddpm import AttnBlock
     from ddnm_tpu_torch.runner import load_checkpoint
 
@@ -779,55 +1037,77 @@ def main() -> int:
         bf16 = bf16.cuda().eval()
         main_shapes = op_shapes(bf16, torch.zeros(8, 256, 256, 3, device="cuda"))
         del bf16
+        # the hq path's forward: the inet256 ADM UNet, bf16, one 256 px tile
+        adm = hq_adm()
+        n_gn_hq = sum(isinstance(m, GroupNormF32) for m in adm.modules())
+        n_attn_hq = sum(isinstance(m, AttentionBlock) for m in adm.modules())
+        hq_shapes = op_shapes(adm, torch.zeros(1, 256, 256, 3, device="cuda"),
+                              torch.zeros(1, dtype=torch.long, device="cuda"))
+        del adm
+        torch.cuda.empty_cache()
         gen = torch.Generator(device="cuda").manual_seed(0)
         # each GroupNorm shape checks both kernels and, as a yardstick against
         # F.group_norm, the pair; the apply kernel also with its SiLU epilogue
-        # where the forward calls it so
+        # and the stats kernel also with FiLM where the forward calls them so
         kinds = {"groupnorm": ("groupnorm_stats", "groupnorm_apply", "groupnorm"),
                  "groupnorm_swish": ("groupnorm_apply",),
+                 "groupnorm_film": ("groupnorm_stats",),
                  "attention": ("attention",)}
         results = {}
-        for op, shape, dtype in sorted(set(shapes) | set(main_shapes), key=str):
+        for op, shape, dtype in sorted(set(shapes) | set(main_shapes) | set(hq_shapes),
+                                       key=str):
             for kind in kinds[op]:
-                r = check_kernel(kind, shape, dtype, gen, swish=op == "groupnorm_swish")
+                r = check_kernel(kind, shape, dtype, gen, swish=op == "groupnorm_swish",
+                                 film=op == "groupnorm_film")
                 results[(op, kind, shape, dtype)] = r
-                lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-                print(f"{kind + (' +silu' if r['swish'] else ''):21s} {str(shape):22s} "
+                lib = ("-" if r["library_ms"] is None else
+                       f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})")
+                tag = {"groupnorm_swish": " +silu", "groupnorm_film": " +film"}.get(op, "")
+                print(f"{kind + tag:21s} {str(shape):22s} "
                       f"{r['dtype']:8s} err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}) "
                       f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
                       f"plain {r['plain_ms']:.4f} ms  library {lib}  "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
-        def forward_rows(kind):
-            """(result, calls per forward) of the main path's forward: the
-            apply kernel's calls split by their SiLU epilogue."""
+        def forward_rows(kind, table):
+            """(result, calls per forward) of one forward's shape table: the
+            apply kernel's calls split by their SiLU epilogue, the stats
+            kernel's by their FiLM."""
             if kind == "attention":
-                return [(results[(o, kind, s, d)], c) for (o, s, d), c in main_shapes.items()
+                return [(results[(o, kind, s, d)], c) for (o, s, d), c in table.items()
                         if o == "attention"]
+            special = {"groupnorm_apply": "groupnorm_swish",
+                       "groupnorm_stats": "groupnorm_film"}.get(kind)
             rows = []
-            for (o, s, d), c in main_shapes.items():
+            for (o, s, d), c in table.items():
                 if o != "groupnorm":
                     continue
-                n_silu = (main_shapes.get(("groupnorm_swish", s, d), 0)
-                          if kind == "groupnorm_apply" else 0)
-                rows += [(results[("groupnorm", kind, s, d)], c - n_silu)] if c > n_silu else []
-                rows += [(results[("groupnorm_swish", kind, s, d)], n_silu)] if n_silu else []
+                n_sp = table.get((special, s, d), 0)
+                rows += [(results[("groupnorm", kind, s, d)], c - n_sp)] if c > n_sp else []
+                rows += [(results[(special, kind, s, d)], n_sp)] if n_sp else []
             return rows
 
-        # per UNet forward of the main path (bf16, batch 8): each shape's time
-        # times its calls per forward
-        per_forward = {}
+        def per_call_sum(rows):
+            out = {f: (None if rows[0][0][f] is None else sum(r[f] * c for r, c in rows))
+                   for f in ("ms", "device_ms", "plain_ms", "library_ms",
+                             "library_device_ms", "bound_ms")}
+            out["calls"] = sum(c for _, c in rows)
+            out["bound_by"] = rows[0][0]["bound_by"]
+            return out
+
+        # per UNet forward of the main path (bf16, batch 8) and of the hq
+        # path (the inet256 ADM, bf16, one tile): each shape's time times its
+        # calls per forward
+        per_forward, hq_forward = {}, {}
         for kind in ("groupnorm_stats", "groupnorm_apply", "groupnorm", "attention"):
-            rows = forward_rows(kind)
-            per_forward[kind] = {
-                f: (None if rows[0][0][f] is None else sum(r[f] * c for r, c in rows))
-                for f in ("ms", "device_ms", "plain_ms", "library_ms",
-                          "library_device_ms", "bound_ms")}
+            per_forward[kind] = per_call_sum(forward_rows(kind, main_shapes))
             per_forward[kind]["max_abs_err"] = max(
                 r["max_abs_err"] for k, r in results.items() if k[1] == kind)
-            per_forward[kind]["bound_by"] = rows[0][0]["bound_by"]
-            print(f"{kind}: per bf16 batch-8 forward ({sum(c for _, c in rows)} "
-                  "calls): " + json.dumps(per_forward[kind]), flush=True)
+            print(f"{kind}: per bf16 batch-8 forward: " + json.dumps(per_forward[kind]),
+                  flush=True)
+            hq_forward[kind] = per_call_sum(forward_rows(kind, hq_shapes))
+            print(f"{kind}: per hq ADM forward (bf16, one tile): "
+                  + json.dumps(hq_forward[kind]), flush=True)
         edge = [check_kernel("attention", shape, dtype, gen)
                 for shape in EDGE_ATTENTION_SHAPES for dtype in (torch.bfloat16, torch.float32)]
         edge.append(check_kernel("groupnorm_stats", (8, 16, 16, 768), torch.float32, gen,
@@ -920,26 +1200,43 @@ def main() -> int:
                                       exp_runs["default"]["variants"].values())
                                for k in launches}
 
-    # launches: the SVD main path's (phase 7, which runs the four kernels of
-    # the restoration paths) and, for fused_gn_conv, the experiment's default
-    # run (phase 8, its only path); launches_by_path has all three
+    with phase(9, "hq parity on the toy32 ADM (fp32 goldens, bf16, Mask-Shift orders)"):
+        toy = toy_adm("cpu")
+        hq_parity(sum(isinstance(m, GroupNormF32) for m in toy.modules()),
+                  sum(isinstance(m, AttentionBlock) for m in toy.modules()))
+        del toy
+
+    with phase(10, "hq main path through hq_main_torch (inet256 ADM, bf16, 2 x 2 tiles)"):
+        hq_stats, launches_hq = hq_main_path(n_gn_hq, n_attn_hq)
+
+    # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
+    # stats and apply, attention), the SVD main path's (phase 7) for the
+    # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
+    # only paths that run those two; launches_by_path has all four. ms and
+    # the other numbers are per bf16 batch-8 DDPM forward (GroupNorm,
+    # attention), as before; hq_forward has them per hq ADM forward.
+    launches_of = {"groupnorm_stats": launches_hq, "groupnorm_apply": launches_hq,
+                   "attention": launches_hq, "fwht": launches,
+                   "fused_gn_conv": launches_experiment}
     summary = {"kernels": [
         {"name": kind, "route": "cuda", "source": SOURCES[kind][0],
          "replaces": SOURCES[kind][1],
-         "launches": (launches_experiment if kind == "fused_gn_conv" else launches)[kind],
+         "launches": launches_of[kind][kind],
          "launches_by_path": {"simplified": launches_simplified[kind],
                               "svd": launches[kind],
-                              "experiment": launches_experiment[kind]},
+                              "experiment": launches_experiment[kind],
+                              "hq": launches_hq[kind]},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
          "device_ms": per_forward[kind].get("device_ms"),
          "plain_ms": per_forward[kind]["plain_ms"],
          "bound_ms": per_forward[kind]["bound_ms"],
          "bound_by": per_forward[kind]["bound_by"],
          "library_ms": per_forward[kind]["library_ms"],
+         **({"hq_forward": hq_forward[kind]} if kind in hq_forward else {}),
          **({"by_mode": per_forward[kind]["by_mode"]} if kind == "fused_gn_conv" else {}),
          **({k: per_forward[kind][k] for k in ("device_share_of_bound", "cuda_launches_per_call")}
             if kind == "fwht" else {})}
-        for kind in SOURCES]}
+        for kind in SOURCES], "hq_main_path": hq_stats}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Configuration layer: the main pipeline's nested YAML as a dataclass tree.
 
-Port of the main layer of `ddnm_tpu/config.py` (the dataclasses,
-`Config.from_dict` and `load_config`). The hq layer (`load_hq_config`) is
-not ported yet.
+Port of `ddnm_tpu/config.py`: the main layer (the dataclasses,
+`Config.from_dict` and `load_config`) and the hq pipeline's flat layer
+(`HQConfig`, `load_hq_config`: one dict, missing keys read as None, dotted
+lookups with `pget`).
 
 The machine that runs the port has no `yaml` package, so `parse_yaml` is a
 small reader of the YAML subset the shipped configs use: block mappings,
@@ -29,6 +30,8 @@ __all__ = [
     "ClassifierConfig",
     "Config",
     "load_config",
+    "HQConfig",
+    "load_hq_config",
     "parse_yaml",
 ]
 
@@ -448,3 +451,24 @@ def load_config(path: str | Path) -> Config:
         if "model" in raw and key in raw["model"] and raw["model"][key] is not None:
             raw["model"][key] = tuple(raw["model"][key])
     return Config.from_dict(raw)
+
+
+class HQConfig(dict):
+    """Flat hq-pipeline config: attribute access, missing keys read as None
+    (the reference's NoneDict / Default_Conf behaviour)."""
+
+    def __getattr__(self, name: str):
+        return self.get(name)
+
+    def pget(self, dotted: str, default=None):
+        """Dotted-path lookup, e.g. pget('schedule_jump_params.t_T')."""
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, dict) or part not in node:
+                return default
+            node = node[part]
+        return node
+
+
+def load_hq_config(path: str | Path) -> HQConfig:
+    return HQConfig(parse_yaml(Path(path).read_text(encoding="utf-8")) or {})

@@ -1,0 +1,83 @@
+"""Paired gt / keep-mask loader of the hq pipeline's sweep (port of
+ddnm_tpu/data/inpaint_pairs.py).
+
+Pairs the sorted image trees `gt_path` and `mask_path` by file name (or,
+when the names overlap only in part, by position, as the reference does)
+and yields {"GT": [-1, 1] (H, W, 3), "GT_name": str, "gt_keep_mask":
+{0, 1} (H, W, 3)}.
+
+The JAX package centre-crops each image with PIL (BOX halving, BICUBIC,
+crop) after a round trip through uint8. This port has no imaging package:
+an image already at `image_size` x `image_size` takes the same round trip
+(so its values equal the JAX package's), and any other size raises, as the
+port's `load_image` does. The PNG-only rule of `load_image` holds too.
+"""
+
+from __future__ import annotations
+
+import logging
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+
+from ddnm_tpu_torch.data.io import load_image
+
+__all__ = ["InpaintPairs"]
+
+_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
+
+
+def _tree(root: str | Path) -> list[Path]:
+    return sorted(p for p in Path(root).rglob("*") if p.suffix.lower() in _EXTS)
+
+
+def _center_crop(img: np.ndarray, size: int, name: str) -> np.ndarray:
+    """The JAX package's centre crop for an image already at size x size:
+    its uint8 round trip, then the identity."""
+    if img.shape[:2] != (size, size):
+        raise ValueError(f"{name} is {img.shape[1]}x{img.shape[0]}, expected "
+                         f"{size}x{size}; resizing and cropping are not ported")
+    return np.asarray((img * 255).astype(np.uint8), dtype=np.float32) / 255.0
+
+
+class InpaintPairs:
+    """Filename-paired (ground truth, keep-mask) dataset."""
+
+    def __init__(self, gt_path: str | Path, mask_path: str | Path,
+                 image_size: int = 256, max_len: int | None = None):
+        gts = _tree(gt_path)
+        masks = {p.name: p for p in _tree(mask_path)}
+        named = [(g, masks[g.name]) for g in gts if g.name in masks]
+        if len(named) == len(gts):
+            self.pairs = named
+        else:
+            # a partial name overlap must not silently drop the unmatched
+            # gts: pair the sorted trees by position, as the reference does
+            if named:
+                logging.getLogger("ddnm_tpu_torch").warning(
+                    "gt/mask name overlap is partial (%d/%d): pairing by position",
+                    len(named), len(gts))
+            self.pairs = list(zip(gts, _tree(mask_path)))
+        if max_len:
+            self.pairs = self.pairs[:max_len]
+        if not self.pairs:
+            raise FileNotFoundError(f"no gt/mask pairs under {gt_path} / {mask_path}")
+        self.image_size = image_size
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, i: int) -> dict:
+        gt_p, mask_p = self.pairs[i]
+        gt = _center_crop(load_image(gt_p), self.image_size, gt_p.name)
+        mask = _center_crop(load_image(mask_p), self.image_size, mask_p.name)
+        return {
+            "GT": gt * 2.0 - 1.0,
+            "GT_name": gt_p.name,
+            "gt_keep_mask": (mask > 0.5).astype(np.float32),
+        }
+
+    def __iter__(self) -> Iterator[dict]:
+        for i in range(len(self)):
+            yield self[i]

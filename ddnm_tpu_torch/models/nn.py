@@ -1,4 +1,5 @@
-"""Shared NN primitives of the DDPM UNet (port of ddnm_tpu/models/nn.py).
+"""Shared NN primitives of the DDPM and ADM UNets (port of
+ddnm_tpu/models/nn.py).
 
 Public functions take NHWC tensors, as the JAX ones do. Modules inside the
 UNet hold NCHW tensors in channels_last memory, which is the NHWC byte
@@ -19,7 +20,9 @@ from ddnm_tpu_torch.ops import fused_attention, group_norm
 __all__ = [
     "swish",
     "timestep_embedding_ddpm",
+    "timestep_embedding_adm",
     "GroupNormF32",
+    "avg_pool2",
     "nearest_upsample",
     "attention",
     "cast_torso",
@@ -43,6 +46,20 @@ def timestep_embedding_ddpm(timesteps, embedding_dim: int):
     return emb
 
 
+def timestep_embedding_adm(timesteps, dim: int, max_period: int = 10000):
+    """Cos-first sinusoidal embedding (float32), the ADM family's order:
+    frequencies exp(-log(max_period) * i / half)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+                      / half)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2 == 1:
+        emb = torch.nn.functional.pad(emb, (0, 1))
+    return emb
+
+
 class GroupNormF32(nn.Module):
     """GroupNorm computed in fp32 whatever the input dtype, cast back.
 
@@ -58,7 +75,11 @@ class GroupNormF32(nn.Module):
     `_xla_group_norm(swish=True)`), to about 1 ulp. In bf16 the SiLU runs in
     fp32 on the rounded norm and rounds once, where `x * torch.sigmoid(x)`
     on a bf16 tensor rounds the sigmoid and then the product: they differ by
-    at most 1 bf16 ulp per element."""
+    at most 1 bf16 ulp per element.
+
+    `forward(x, film_scale, film_shift)` takes the ADM ResBlock's FiLM
+    (B, C) scale and shift, applied after the normalisation as
+    y * (1 + scale) + shift, before the SiLU, in the same two launches."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
                  swish: bool = False):
@@ -70,13 +91,19 @@ class GroupNormF32(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x):
+    def forward(self, x, film_scale=None, film_shift=None):
         nhwc = x.permute(0, 2, 3, 1)
         if not nhwc.is_contiguous():
             nhwc = nhwc.contiguous()
         y = group_norm(nhwc, self.weight, self.bias, num_groups=self.num_groups,
-                       eps=self.eps, swish=self.swish, force=self.force)
+                       eps=self.eps, swish=self.swish, film_scale=film_scale,
+                       film_shift=film_shift, force=self.force)
         return y.permute(0, 3, 1, 2)
+
+
+def avg_pool2(x):
+    """2x2 mean pool of an NCHW tensor (the ADM ResBlock's down path)."""
+    return torch.nn.functional.avg_pool2d(x, 2)
 
 
 def nearest_upsample(x, factor: int = 2):

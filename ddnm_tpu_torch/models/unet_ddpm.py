@@ -118,10 +118,11 @@ class Upsample(nn.Module):
 
 
 def set_op_force(model: nn.Module, force: str | None) -> None:
-    """Route every GroupNorm and attention of `model` through `force`
+    """Route every GroupNorm and attention of `model` (a DDPM or an ADM
+    UNet: each module that hands a `force` to its op) through `force`
     ("kernel", "torch", or None for the default of the tensor's device)."""
     for m in model.modules():
-        if isinstance(m, (GroupNormF32, AttnBlock)):
+        if hasattr(m, "force"):
             m.force = force
 
 

@@ -2,7 +2,10 @@
 
 Every image gets its own `torch.Generator`, seeded from (seed, global image
 index, stream), so an image draws the same numbers whatever batch it runs
-in. torch's generators do not reproduce JAX's threefry bits: tests that
+in. Every Mask-Shift tile gets its own too, seeded from (seed, image index,
+tile row, tile column, stream) (`tile_generators`), so a tile draws the
+same noise whatever wavefront group it runs in (the JAX package folds a
+key per tile for the same reason). torch's generators do not reproduce JAX's threefry bits: tests that
 compare the two frameworks inject the noise through `noise_fn`.
 """
 
@@ -18,6 +21,7 @@ __all__ = [
     "STREAM_MEASUREMENT",
     "STREAM_SAMPLE",
     "image_generators",
+    "tile_generators",
     "default_noise",
     "draw_noise",
     "NoiseFn",
@@ -42,6 +46,19 @@ def image_generators(seed: int, indices: Sequence[int], stream: int,
     for idx in indices:
         g = torch.Generator(device=device)
         g.manual_seed(_seed(seed, int(idx), stream))
+        gens.append(g)
+    return gens
+
+
+def tile_generators(seed: int, image_index: int, tiles: Sequence[tuple[int, int]],
+                    stream: int, device: torch.device | str) -> list[torch.Generator]:
+    """One generator per tile (row, column) of image `image_index`."""
+    gens = []
+    for i, j in tiles:
+        words = np.random.SeedSequence([seed, image_index, i, j, stream]).generate_state(
+            2, np.uint32)
+        g = torch.Generator(device=device)
+        g.manual_seed((int(words[0]) << 32 | int(words[1])) & 0x7FFF_FFFF_FFFF_FFFF)
         gens.append(g)
     return gens
 

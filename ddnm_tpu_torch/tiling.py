@@ -1,0 +1,404 @@
+"""Mask-Shift tiling for arbitrary-size restoration (port of
+ddnm_tpu/tiling.py).
+
+An H x W canvas is restored as overlapping square tiles (default 256 px)
+slid in strides (default 128 px); inside every denoising step each tile's
+overlap strips (the top strip if a row above exists, the left strip if a
+tile to the left exists) are overwritten with the already-solved canvas,
+so the seams stay consistent. The last tile of a row or column is shifted
+back to end at the canvas edge, which enlarges its overlap.
+
+The tile and stride are arguments (`tile`, `stride`); callers size them to
+the model (hq_main_torch.py: the config's image_size and half of it).
+Nothing here changes module state.
+
+Sequential mode runs the tiles in the reference's row-major order, each
+starting from the previous tile's final state ("carry", the reference's)
+or from its own noise ("fresh"). Wavefront mode (`parallel=True`, fresh
+only) batches the tiles of one skewed anti-diagonal s = 2i + j, which read
+and write disjoint canvas regions, into one sampler call
+(`_plan_groups`). Every tile draws its init and its sampler noise from its
+own generators (sampling/rng.py `tile_generators`), so a tile's noise does
+not depend on its group: with deterministic noise the wavefront order
+equals the sequential fresh order, and with stochastic noise each tile
+draws what it draws sequentially. The JAX package pads a wavefront group of
+4-7 tiles to 8 so that one compiled executable serves every width; an
+eager run has no executable to reuse, so groups run at their own size.
+
+Not ported yet (raise NotImplementedError): `mesh` (ROADMAP.md Queue 1 F),
+`encoder_cache > 1` and `solver="multistep"` (Queue 1 D), and the
+tile-granular `checkpoint_dir` / `resume` (Queue 1 C, the hq CLI's rest).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from itertools import groupby
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ddnm_tpu_torch.operators.functional import (
+    FunctionalOperator,
+    as_mask,
+    avg_pool,
+    build_functional_operator,
+    color2gray,
+    gray2color,
+    mean_upsample,
+)
+from ddnm_tpu_torch.runtime import resolve_device
+from ddnm_tpu_torch.sampling.posterior import PosteriorTables, n_model_calls, sample_posterior
+from ddnm_tpu_torch.sampling.rng import (
+    STREAM_INIT,
+    STREAM_SAMPLE,
+    default_noise,
+    tile_generators,
+)
+
+logger = logging.getLogger("ddnm_tpu_torch")
+
+__all__ = [
+    "Tile",
+    "tile_grid",
+    "build_hq_operators",
+    "mask_shift_sample",
+    "batched_tile_sample",
+    "n_model_calls",
+]
+
+TILE = 256
+STRIDE = 128
+GROUP_SIZE = 8  # wavefront chunk size (_plan_groups)
+MIN_PAD_BATCH = 4  # smallest remainder of a wavefront that runs as one group
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """One size x size window on the canvas: top-left (h0, w0) and the
+    heights of its top / left strips pasted from the solved canvas (0 in
+    the first row / column)."""
+
+    index: tuple[int, int]
+    h0: int
+    w0: int
+    row_overlap: int
+    col_overlap: int
+    size: int = TILE
+
+    def paste_mask(self) -> np.ndarray:
+        m = np.zeros((self.size, self.size, 1), dtype=np.float32)
+        if self.row_overlap:
+            m[: self.row_overlap, :, :] = 1.0
+        if self.col_overlap:
+            m[:, : self.col_overlap, :] = 1.0
+        return m
+
+
+def tile_grid(h_target: int, w_target: int, tile: int = TILE,
+              stride: int = STRIDE) -> list[Tile]:
+    """Row-major tiles as the reference's shift loops place them:
+    ceil(dim / stride) - 1 per axis, the last snapped to the canvas edge
+    when dim % stride != 0."""
+    if h_target < tile or w_target < tile:
+        raise ValueError(f"canvas must be at least {tile}x{tile} (use a larger scale)")
+
+    def starts(dim: int) -> list[tuple[int, int]]:
+        n = int(np.ceil(dim / stride)) - 1
+        out = []
+        for s in range(n):
+            x0 = stride * s
+            overlap = 0 if s == 0 else stride
+            if s == n - 1 and dim % stride != 0:
+                x0 = dim - tile
+                if s > 0:
+                    overlap = tile - dim % stride
+            out.append((x0, overlap))
+        return out
+
+    return [Tile((i, j), h0, w0, r_ov, c_ov, tile)
+            for i, (h0, r_ov) in enumerate(starts(h_target))
+            for j, (w0, c_ov) in enumerate(starts(w_target))]
+
+
+def build_hq_operators(
+    deg: str,
+    *,
+    scale: int = 4,
+    gt_shape: tuple[int, int],
+    mask: Optional[np.ndarray] = None,
+    tile: int = TILE,
+    device=None,
+) -> tuple[FunctionalOperator, Callable]:
+    """(tile-size operator, canvas-size A_temp) of an hq task. A_temp maps
+    the whole ground truth to the measurement. The mask tasks take a
+    canvas-sized mask and a context-parameterised operator
+    (FunctionalOperator.A_ctx / Ap_ctx): each tile's mask slice rides into
+    the sampler as its op_ctx."""
+    if deg == "sr_averagepooling":
+        op = build_functional_operator(deg, image_size=tile, deg_scale=scale)
+        a_temp = lambda z: avg_pool(z, scale)
+    elif deg == "colorization":
+        op = build_functional_operator(deg, image_size=tile)
+        a_temp = op.A
+    elif deg == "sr_color":
+        op = build_functional_operator(deg, image_size=tile, deg_scale=scale)
+        a_temp = lambda z: color2gray(avg_pool(z, scale))
+    elif deg in ("inpainting", "mask_color_sr"):
+        if mask is None:
+            raise ValueError(f"{deg} requires a mask")
+        m = as_mask(mask, device)
+        if tuple(m.shape[:2]) != tuple(gt_shape):
+            raise ValueError(
+                f"{deg} mask shape {tuple(m.shape[:2])} must match the "
+                f"canvas {tuple(gt_shape)} (the reference's gt_keep_mask is gt-sized)")
+        if deg == "inpainting":
+            A_full = lambda z: z * m
+            mask_ctx = lambda z, c: z * c
+            op = FunctionalOperator(deg, A_full, A_full, mask_ctx, mask_ctx)
+        else:
+            A_full = lambda z: avg_pool(color2gray(z * m), scale)
+            Ap_full = lambda z: gray2color(mean_upsample(z, scale)) * m
+            A_ctx = lambda z, c: avg_pool(color2gray(z * c), scale)
+            Ap_ctx = lambda z, c: gray2color(mean_upsample(z, scale)) * c
+            op = FunctionalOperator(deg, A_full, Ap_full, A_ctx, Ap_ctx)
+        a_temp = op.A
+    else:
+        raise NotImplementedError(f"hq degradation {deg} not supported")
+    return op, a_temp
+
+
+def _plan_groups(tiles: Sequence[Tile], group_size: int = GROUP_SIZE,
+                 min_pad_batch: int = MIN_PAD_BATCH) -> list[list[Tile]]:
+    """Chunk the tiles into wavefront groups: the tiles of one skewed
+    anti-diagonal (2 * row + col) are independent, so they may share a
+    sampler call. Each wavefront runs in chunks of `group_size`; a
+    remainder of `min_pad_batch` tiles or more is one group, a smaller one
+    runs tile by tile (the JAX package's chunking, measured there)."""
+    skew = lambda t: 2 * t.index[0] + t.index[1]
+    ordered = sorted(tiles, key=lambda t: (skew(t), t.index))
+    groups = []
+    for _, wave in groupby(ordered, key=skew):
+        wave = list(wave)
+        i = 0
+        while len(wave) - i >= min_pad_batch:
+            groups.append(wave[i: i + group_size])
+            i += group_size
+        groups.extend([t] for t in wave[i:])
+    return groups
+
+
+def _not_ported(mesh=None, encoder_cache: int = 1, solver: str = "ddim",
+                checkpoint_dir=None, resume: bool = False) -> None:
+    if mesh is not None:
+        raise NotImplementedError("mesh (sharded tiles) is not ported yet (ROADMAP.md "
+                                  "Queue 1 F: multi-device and serving)")
+    if encoder_cache > 1:
+        raise NotImplementedError("encoder_cache > 1 is not ported yet (ROADMAP.md "
+                                  "Queue 1 D: solvers and acceleration)")
+    if solver == "multistep":
+        raise NotImplementedError("solver='multistep' is not ported yet (ROADMAP.md "
+                                  "Queue 1 D: solvers and acceleration)")
+    if solver != "ddim":
+        raise ValueError(f"unknown solver {solver!r} (ddim | multistep)")
+    if checkpoint_dir is not None or resume:
+        raise NotImplementedError("checkpoint_dir / resume are not ported yet "
+                                  "(ROADMAP.md Queue 1 C: the rest of the hq CLI)")
+
+
+def _device(x, device) -> torch.device:
+    if device is not None:
+        return resolve_device(device)
+    return x.device if torch.is_tensor(x) else resolve_device()
+
+
+def _images(x, dev) -> torch.Tensor:
+    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                        dtype=torch.float32).to(dev)
+    return x[None] if x.ndim == 3 else x
+
+
+def _tile_init(seed: int, image_index: int, tile: Tile, dev) -> torch.Tensor:
+    """A tile's fresh x_T, from its own init generator."""
+    gens = tile_generators(seed, image_index, [tile.index], STREAM_INIT, dev)
+    return default_noise(gens, (1, tile.size, tile.size, 3)).to(dev)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def batched_tile_sample(
+    model_fn,
+    gts,
+    deg: str,
+    tables: PosteriorTables,
+    seed: int,
+    image_indices: Optional[Sequence[int]] = None,
+    *,
+    scale: int = 4,
+    resize_y: bool = False,
+    masks: Optional[list] = None,
+    guidance_fn=None,
+    noise_fn=default_noise,
+    tile: int = TILE,
+    device=None,
+    mesh=None,
+    encoder_cache: int = 1,
+    solver: str = "ddim",
+) -> dict:
+    """B single-tile (tile x tile) restorations in one sampler call.
+
+    Equal per image to B `mask_shift_sample` calls on tile-sized canvases
+    with the same `seed` and `image_index`: each image draws its init and
+    its sampler noise from the generators of its tile (0, 0), so grouping
+    changes throughput only. `masks[i]`: image i's (H, W[, 1]) keep-mask for
+    the mask tasks, its op_ctx. Raises ValueError for a canvas that is not
+    one tile (callers then run mask_shift_sample per image)."""
+    _not_ported(mesh, encoder_cache, solver)
+    dev = _device(gts, device)
+    gts = _images(gts, dev)
+    n = int(gts.shape[0])
+    idxs = list(range(n)) if image_indices is None else [int(i) for i in image_indices]
+    if len(idxs) != n:
+        raise ValueError(f"need one image index per image: {len(idxs)} for {n} images")
+    if tile % scale != 0:
+        raise ValueError(f"SR scale must divide the tile size {tile}")
+    if resize_y:
+        gts = mean_upsample(gts, scale)
+    if tuple(gts.shape[1:3]) != (tile, tile):
+        raise ValueError(
+            f"batched_tile_sample needs single-tile {tile}x{tile} canvases, "
+            f"got {tuple(gts.shape[1:3])}: use mask_shift_sample per image")
+
+    if deg in ("inpainting", "mask_color_sr"):
+        if masks is None or len(masks) != n:
+            raise ValueError(f"{deg} needs one mask per image")
+        ctx_b = torch.stack([as_mask(m, dev) for m in masks])  # (B, H, W, 1)
+        op, _ = build_hq_operators(deg, scale=scale, gt_shape=(tile, tile), mask=masks[0],
+                                   tile=tile, device=dev)
+        y = op.A_ctx(gts, ctx_b)
+        apy = op.Ap_ctx(y, ctx_b)
+    else:
+        ctx_b = None
+        op, a_temp = build_hq_operators(deg, scale=scale, gt_shape=(tile, tile), tile=tile,
+                                        device=dev)
+        y = a_temp(gts)
+        apy = op.Ap(y)
+
+    origin = Tile((0, 0), 0, 0, 0, 0, tile)
+    x_init = torch.cat([_tile_init(seed, i, origin, dev) for i in idxs])
+    gens = [tile_generators(seed, i, [(0, 0)], STREAM_SAMPLE, dev)[0] for i in idxs]
+    # single tiles paste nothing; passed explicitly, as mask_shift_sample's
+    # step does
+    paste_mask = torch.zeros((n, tile, tile, 1), device=dev)
+    _, x0_b = sample_posterior(model_fn, x_init, apy, op, tables, gens,
+                               paste_mask=paste_mask, paste_content=torch.zeros_like(gts),
+                               guidance_fn=guidance_fn, noise_fn=noise_fn, op_ctx=ctx_b)
+    return {"final": _numpy(x0_b), "apy": _numpy(apy), "y": _numpy(y)}
+
+
+def mask_shift_sample(
+    model_fn,
+    gt,
+    deg: str,
+    tables: PosteriorTables,
+    seed: int,
+    *,
+    image_index: int = 0,
+    scale: int = 4,
+    resize_y: bool = False,
+    mask: Optional[np.ndarray] = None,
+    guidance_fn=None,
+    parallel: bool = False,
+    noise_fn=default_noise,
+    progress_fn: Optional[Callable[[Tile, np.ndarray], None]] = None,
+    tile_init: Optional[str] = None,
+    init_noise=None,
+    tile: int = TILE,
+    stride: int = STRIDE,
+    device=None,
+    mesh=None,
+    encoder_cache: int = 1,
+    checkpoint_dir=None,
+    resume: bool = False,
+    solver: str = "ddim",
+) -> dict:
+    """Restore an arbitrary-size image with Mask-Shift DDNM.
+
+    gt: (1, H, W, 3) float32 in [-1, 1] (NHWC, numpy or a tensor; a tensor
+    keeps its device unless `device` is given). Returns the final canvas,
+    the A+y canvas and y as NHWC numpy arrays in [-1, 1].
+
+    `seed`, `image_index`: the tiles' generators (sampling/rng.py). With
+    `parallel=True` each wavefront's independent tiles share a sampler call
+    (module docstring). `tile_init`: "carry" (the sequential default, the
+    reference's: every tile after the first starts from the previous tile's
+    final state) or "fresh" (each tile from its own noise; the wavefront
+    default, and its only choice). `init_noise`: an optional (1, tile,
+    tile, 3) init of the first tile. `progress_fn(tile, x0_hat)` is called
+    after each tile."""
+    _not_ported(mesh, encoder_cache, solver, checkpoint_dir, resume)
+    if tile_init is None:
+        tile_init = "fresh" if parallel else "carry"
+    if tile_init not in ("carry", "fresh"):
+        raise ValueError(f"tile_init must be 'carry' or 'fresh', got {tile_init!r}")
+    if tile_init == "carry" and parallel:
+        raise ValueError("tile_init='carry' serialises the tile chain; use "
+                         "tile_init='fresh' with parallel=True (fresh is the parallel default)")
+    dev = _device(gt, device)
+    gt = _images(gt, dev)
+    if tile % scale != 0:
+        raise ValueError(f"SR scale must divide the tile size {tile}")
+    if resize_y:
+        # the input is the measurement: upsample it to the target canvas
+        gt = mean_upsample(gt, scale)
+
+    op, a_temp = build_hq_operators(deg, scale=scale, gt_shape=tuple(gt.shape[1:3]),
+                                    mask=mask, tile=tile, device=dev)
+    y_temp = a_temp(gt)
+    apy = op.Ap(y_temp)
+    h_target, w_target = int(apy.shape[1]), int(apy.shape[2])
+    tiles = tile_grid(h_target, w_target, tile, stride)
+    canvas = torch.zeros((1, h_target, w_target, 3), device=dev)
+    ctx_canvas = as_mask(mask, dev)[None] if op.has_ctx else None
+    samp_gens = dict(zip((t.index for t in tiles),
+                         tile_generators(seed, image_index, [t.index for t in tiles],
+                                         STREAM_SAMPLE, dev)))
+    paste = {t.index: torch.from_numpy(t.paste_mask()).to(dev) for t in tiles}
+    groups = _plan_groups(tiles) if parallel else [[t] for t in tiles]
+    logger.info("mask-shift: canvas %dx%d, %d tiles in %d %s steps", h_target, w_target,
+                len(tiles), len(groups), "wavefront" if parallel else "sequential")
+
+    def window(img, t):
+        return img[:, t.h0:t.h0 + tile, t.w0:t.w0 + tile, :]
+
+    first_init = None
+    if init_noise is not None:
+        first_init = _images(init_noise, dev).reshape(1, tile, tile, 3)
+    carry_x = first_init if tile_init == "carry" else None
+    for group in groups:
+        apy_b = torch.cat([window(apy, t) for t in group])
+        mask_b = torch.stack([paste[t.index] for t in group])
+        content_b = torch.cat([window(canvas, t) for t in group])
+        ctx_b = (torch.cat([window(ctx_canvas, t) for t in group])
+                 if ctx_canvas is not None else None)
+        if tile_init == "carry" and carry_x is not None:
+            x_init_b = carry_x  # the previous tile's final state (or init_noise)
+        else:
+            x_init_b = torch.cat([
+                first_init if (t.index == (0, 0) and first_init is not None)
+                else _tile_init(seed, image_index, t, dev) for t in group])
+        x_b, x0_b = sample_posterior(
+            model_fn, x_init_b, apy_b, op, tables, [samp_gens[t.index] for t in group],
+            paste_mask=mask_b, paste_content=content_b, guidance_fn=guidance_fn,
+            noise_fn=noise_fn, op_ctx=ctx_b)
+        if tile_init == "carry":
+            carry_x = x_b
+        for i, t in enumerate(group):
+            window(canvas, t).copy_(x0_b[i:i + 1])
+            if progress_fn is not None:
+                progress_fn(t, _numpy(x0_b[i:i + 1]))
+    return {"final": _numpy(canvas), "apy": _numpy(apy), "y": _numpy(y_temp)}

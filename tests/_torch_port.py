@@ -5,6 +5,7 @@ committed fixture."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from tests._golden import MID64, TOY32, _trainer, load_our_model
@@ -47,3 +48,14 @@ def x_T(n: int, res: int) -> np.ndarray:
     """The golden protocol's shared initial noise, NHWC."""
     x = np.random.RandomState(42).randn(n, 3, res, res).astype(np.float32)
     return np.ascontiguousarray(np.transpose(x, (0, 2, 3, 1)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module's torch ops on one intra-op thread: toy sizes gain
+    nothing from more, and the suite's workers share the machine's cores
+    (idle OpenMP threads of one worker spin while the others wait)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

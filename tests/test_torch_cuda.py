@@ -153,6 +153,7 @@ def test_groupnorm_module_swish_route_matches_plain(gen, dtype):
     (2, WHOLE_ROW_MAX_T, 512), (2, WHOLE_ROW_MAX_T + 1, 512),  # both sides of the online path
     (32, 64, 64), (32, 256, 64), (16, 1024, 64),               # ADM heads of 64 channels
     (16, 1024, 32),                                            # ADM heads of 32 channels
+    (8, 1024, 64), (16, 256, 64), (16, 64, 64),                # the hq path's, one tile
 ])
 def test_attention_kernel_matches_plain(gen, dtype, tol, shape):
     q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
@@ -247,3 +248,48 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
                           torch.ones(48), torch.zeros(48), num_groups=16)
     with pytest.raises(ValueError, match="bf16"):
         ops.fused_gn_conv(xb.float(), None, torch.ones(48), torch.zeros(48), mode="act")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_adm_forward_kernels_match_plain(gen, dtype, tol):
+    """The toy32 ADM UNet (tests/fixtures/toy_adm32.pt) and a small
+    class-conditional one with random weights: the forward through the
+    kernels against the forward through the plain versions; every
+    GroupNorm (FiLM included) and attention of a forward launches its
+    kernels once."""
+    import json
+    from pathlib import Path
+
+    from ddnm_tpu_torch.models import ADMUNet, cast_torso
+    from ddnm_tpu_torch.models.nn import GroupNormF32
+    from ddnm_tpu_torch.models.unet_adm import AttentionBlock
+    from ddnm_tpu_torch.models.unet_ddpm import set_op_force
+    from ddnm_tpu_torch.runner import load_checkpoint
+
+    fixtures = Path(__file__).resolve().parent / "fixtures"
+    toy = ADMUNet(**json.loads((fixtures / "toy_adm32.json").read_text())["adm_kw"])
+    load_checkpoint(toy, fixtures / "toy_adm32.pt")
+    torch.manual_seed(0)  # torch's default init: every layer live
+    cc = ADMUNet(image_size=64, model_channels=64, channel_mult=(1, 2, 2),
+                 num_res_blocks=1, attention_resolutions=(2, 4), num_head_channels=64,
+                 num_classes=10)
+    for m, size, labels in ((toy, 32, ()), (cc, 64, (torch.tensor([1, 7], device="cuda"),))):
+        m = m.cuda().eval()
+        if dtype == torch.bfloat16:
+            cast_torso(m, dtype)
+        x = torch.randn(2, size, size, 3, device="cuda", generator=gen)
+        t = torch.tensor([10.0, 900.0], device="cuda")
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            y = m(x, t, *labels)
+            counts = ops.launch_counts()
+            set_op_force(m, "torch")
+            ref = m(x, t, *labels)
+            set_op_force(m, None)
+        n_gn = sum(isinstance(mod, GroupNormF32) for mod in m.modules())
+        n_attn = sum(isinstance(mod, AttentionBlock) for mod in m.modules())
+        assert counts["groupnorm_stats"] == counts["groupnorm_apply"] == n_gn
+        assert counts["attention"] == n_attn
+        assert y.dtype == torch.float32 and torch.isfinite(y).all()
+        err = float((y - ref).abs().max())
+        assert err <= tol * max(1.0, float(ref.abs().max()))

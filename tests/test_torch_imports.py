@@ -19,7 +19,7 @@ PKG = REPO / "ddnm_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "ddnm_tpu", "yaml", "PIL", "tqdm")
 EXPERIMENT = REPO / "tools" / "experiments" / "fused_gn_conv_torch.py"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "main_torch.py",
-                                          EXPERIMENT]
+                                          REPO / "hq_main_torch.py", EXPERIMENT]
 
 
 def _blocked(name: str) -> bool:
@@ -27,9 +27,10 @@ def _blocked(name: str) -> bool:
 
 
 def test_port_imports_with_foreign_packages_blocked():
-    """Every module of the port, main_torch, chip_smoke and the ported
-    experiment import in a process where the blocked packages cannot be
-    found; importing runs nothing (no output, no build directory)."""
+    """Every module of the port, main_torch, hq_main_torch, chip_smoke and
+    the ported experiment import in a process where the blocked packages
+    cannot be found; importing runs nothing (no output, no build
+    directory)."""
     script = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
         BLOCKED = {BLOCKED!r}
@@ -47,7 +48,7 @@ def test_port_imports_with_foreign_packages_blocked():
                                                        "ddnm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke, main_torch
+        import chip_smoke, hq_main_torch, main_torch
         spec = importlib.util.spec_from_file_location("fused_gn_conv_torch",
                                                       {str(EXPERIMENT)!r})
         spec.loader.exec_module(importlib.util.module_from_spec(spec))

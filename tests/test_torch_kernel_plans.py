@@ -2,8 +2,9 @@
 fused GN+SiLU+conv and Walsh-Hadamard kernels, checked without a card: the
 plain Python functions that choose tiles, grid, blocks, clusters, stages
 and shared-memory bytes (`_attention_plan`, `_stats_plan`, `_apply_plan`,
-`_conv_plan`, `_fwht_plan`) for every shape the wrappers admit, and their
-refusals."""
+`_conv_plan`, `_fwht_plan`) for every shape the wrappers admit (the
+hq path's ADM forwards included, their shapes read off a forward on the
+meta device), and their refusals."""
 
 import math
 from pathlib import Path
@@ -367,3 +368,71 @@ def test_ctypes_signatures_match_the_c_entry_points():
                 args.append(kinds["".join(words[:-1])])
             found[name] = args
     assert found == _SIGNATURES
+
+
+def _hq_forward_shapes(tier: str, batch: int) -> dict:
+    """{(op, shape, dtype): calls} of one ADM UNet forward (chip_smoke.py
+    op_shapes) on the meta device: the inet256 ADM of configs/hq/inet256.yml
+    at `batch` 256 px tiles, or the toy32 ADM of the hq golden tier."""
+    import json
+
+    import chip_smoke
+    import hq_main_torch
+    from ddnm_tpu_torch.config import load_hq_config
+    from ddnm_tpu_torch.models import ADMUNet
+
+    with torch.device("meta"):
+        if tier == "inet256":
+            model = hq_main_torch.build_adm_from_hq(
+                load_hq_config(CONFIGS / "hq" / "inet256.yml"), "meta")
+        else:
+            fixtures = CONFIGS.parent / "tests" / "fixtures"
+            model = ADMUNet(**json.loads((fixtures / "toy_adm32.json").read_text())["adm_kw"])
+    size = model.image_size
+    args = ((torch.zeros(batch, dtype=torch.long, device="meta"),)
+            if model.num_classes else ())
+    return chip_smoke.op_shapes(model, torch.zeros(batch, size, size, 3, device="meta"), *args)
+
+
+@pytest.mark.parametrize("tier,batch", [("inet256", 1), ("inet256", 2), ("inet256", 8),
+                                        ("toy32", 1), ("toy32", 2), ("toy32", 8)])
+def test_plans_admit_every_shape_of_the_hq_forward(tier, batch):
+    """Every GroupNorm (B, H*W, C, 32 groups) and attention (B * heads, T,
+    C / heads) of an ADM forward on the hq path, in fp32 and bf16, x on or
+    off 16 bytes: the stats plan spans whole groups and fits, the apply
+    plan keeps each thread's channels fixed, the attention plan admits it
+    and fits. The inet256 ADM: C up to 2048 in the decoder's
+    concatenations, 1024 on 8 px maps, heads of 64 channels at T = 1024,
+    256 and 64."""
+    shapes = _hq_forward_shapes(tier, batch)
+    gn = {s for (op, s, _), _ in shapes.items() if op == "groupnorm"}
+    attn = {s for (op, s, _), _ in shapes.items() if op == "attention"}
+    if tier == "inet256":
+        assert {c for *_, c in gn} >= {256, 512, 768, 1024, 1536, 2048}
+        assert (batch, 8, 8, 1024) in gn
+        assert attn == {(8 * batch, 1024, 64), (16 * batch, 256, 64), (16 * batch, 64, 64)}
+        assert sum(n for (op, *_), n in shapes.items() if op == "groupnorm") == 101
+        assert sum(n for (op, *_), n in shapes.items() if op == "attention") == 16
+    else:
+        assert attn == {(2 * batch, 256, 32)}
+    for dtype in (torch.float32, torch.bfloat16):
+        elem = torch.empty((), dtype=dtype).element_size()
+        for B, H, W, C in gn:
+            for aligned in (True, False):
+                p = _stats_plan(B, H * W, C, 32, elem, aligned)
+                assert p["span"] % (C // 32) == 0 and C % p["span"] == 0
+                assert p["span"] % p["vec"] == 0 and p["span"] <= STATS_MAX_SPAN
+                assert p["grid"] == (p["n_blk"], C // p["span"], B)
+                assert 1 <= p["n_blk"] <= H * W and p["threads"] <= 1024
+                assert p["smem"] <= SMEM_PER_BLOCK
+                a = _apply_plan(B, H * W, C, dtype, aligned, H100_SMS)
+                assert (a["blocks"] * a["threads"]) % a["cv"] == 0 and 0 < a["threads"] <= 256
+                assert a["grid"] == (a["blocks"], B)
+        for BH, T, C in attn:
+            plan = _attention_plan(BH, T, C, dtype)
+            assert plan["smem"] <= SMEM_PER_BLOCK
+            assert plan["grid"] == (-(-T // 16), BH)
+            if dtype == torch.bfloat16:
+                assert plan["kernel"] == "mma" and plan["whole"] and plan["tma"] == (C % 64 == 0)
+            else:
+                assert plan["kernel"] == "fma"

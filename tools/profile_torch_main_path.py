@@ -6,7 +6,13 @@ with tests/fixtures/flag_ddpm256.pt, bf16 torso, batch 8 from
 exp/datasets/celeba_hq, sigma_y 0) for a window of steps of the 100-step
 schedule: `--mode simplified` (default) is simplified DDNM+ 4x
 average-pooling SR, `--mode svd` SVD-mode DDNM on 25% Walsh-Hadamard
-compressed sensing (cs_walshhadamard, perm from the seed). It reports:
+compressed sensing (cs_walshhadamard, perm from the seed). `--mode hq` is
+the hq path of chip_smoke.py phase 10: the posterior sampler on one 256 px
+tile (--batch tiles) of the 553.8M ADM UNet of configs/hq/inet256.yml
+(random weights from seed 1234, bf16 torso, class 0), 4x average-pooling
+SR of exp/datasets/imagenet/00000.png, on the config's jump schedule; its
+"step" is a model call (the undo steps between the window's calls run
+too). It reports:
 
   - ms per step (host clock around steps that end in a synchronize);
   - from torch.profiler over a second window: device time by kernel and by
@@ -17,7 +23,7 @@ compressed sensing (cs_walshhadamard, perm from the seed). It reports:
     launches per step;
   - the chrome trace, written to --out.
 
-    python3 tools/profile_torch_main_path.py --out <dir> [--steps 10] [--mode svd]
+    python3 tools/profile_torch_main_path.py --out <dir> [--steps 10] [--mode svd|hq]
 
 Prints one JSON object as its last line. Needs a CUDA card.
 """
@@ -64,12 +70,75 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", required=True, help="directory for the chrome trace")
     ap.add_argument("--steps", type=int, default=10, help="steps per window")
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--mode", choices=["simplified", "svd"], default="simplified")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="images (8) or, with --mode hq, tiles (1)")
+    ap.add_argument("--mode", choices=["simplified", "svd", "hq"], default="simplified")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile runs only on a card")
+    if args.batch is None:
+        args.batch = 1 if args.mode == "hq" else 8
 
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    window = hq_window(args) if args.mode == "hq" else ddpm_window(args)
+    window(0)  # warm-up: cuDNN algorithm choice, the kernels' build and load
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window(args.steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    return profile_window(args, window, step_ms, smi)
+
+
+def hq_window(args):
+    """window(start): the posterior sampler over the model calls start ..
+    start + steps of the inet256 schedule (with the undo steps among
+    them), on args.batch tiles."""
+    import hq_main_torch
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.config import load_hq_config
+    from ddnm_tpu_torch.data.io import load_image
+    from ddnm_tpu_torch.models import cast_torso
+    from ddnm_tpu_torch.models.unet_adm import init_like_flax
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, sample_posterior
+    from ddnm_tpu_torch.sampling.rng import STREAM_SAMPLE, default_noise, image_generators
+    from ddnm_tpu_torch.tiling import build_hq_operators
+
+    conf = load_hq_config(REPO / "configs" / "hq" / "inet256.yml")
+    model = init_like_flax(hq_main_torch.build_adm_from_hq(conf, "cuda"), 1234)
+    model = cast_torso(model.eval(), torch.bfloat16)
+    n, size = args.batch, int(conf.image_size)
+    labels = torch.zeros(n, dtype=torch.long, device="cuda")
+    gt = torch.from_numpy(load_image(REPO / "exp" / "datasets" / "imagenet" / "00000.png"))
+    gt = (gt * 2 - 1).cuda()[None].expand(n, size, size, 3)
+    op, a_temp = build_hq_operators("sr_averagepooling", scale=4, gt_shape=(size, size),
+                                    tile=size, device="cuda")
+    apy = op.Ap(a_temp(gt))
+    full = build_posterior_tables(
+        betas=sch.named_beta_schedule(conf.noise_schedule, int(conf.diffusion_steps)),
+        timestep_respacing=str(conf.timestep_respacing),
+        schedule_jump_params=dict(conf.schedule_jump_params))
+    calls = np.flatnonzero(~full.is_travel)  # schedule positions of the model calls
+    x_init = default_noise(image_generators(0, range(n), STREAM_SAMPLE, "cuda"),
+                           (n, size, size, 3))
+    zeros = torch.zeros(n, size, size, 1, device="cuda")
+
+    def window(start: int):
+        lo, hi = calls[start], calls[start + args.steps - 1] + 1
+        tables = dataclasses.replace(full, t_cur=full.t_cur[lo:hi],
+                                     is_travel=full.is_travel[lo:hi])
+        return sample_posterior(lambda x, t: model(x, t, labels), x_init, apy, op, tables,
+                                image_generators(0, range(n), STREAM_SAMPLE, "cuda"),
+                                paste_mask=zeros, paste_content=torch.zeros_like(apy))
+
+    return window
+
+
+def ddpm_window(args):
+    """window(start): the DDPM main path's sampler over steps start ..
+    start + steps of the 100-step schedule."""
     from ddnm_tpu_torch import schedules as sch
     from ddnm_tpu_torch.config import load_config
     from ddnm_tpu_torch.data.datasets import get_dataset, iterate_batches
@@ -82,9 +151,6 @@ def main(argv=None) -> int:
     from ddnm_tpu_torch.sampling.rng import (STREAM_INIT, STREAM_SAMPLE, default_noise,
                                              image_generators)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = load_config(REPO / "configs" / "celeba_hq.yml")
     model = DDPMUNet.from_config(cfg)
     load_checkpoint(model, REPO / "tests" / "fixtures" / "flag_ddpm256.pt")
@@ -117,13 +183,12 @@ def main(argv=None) -> int:
         return sample(model, x_init, y, op, sched,
                       image_generators(0, idxs, STREAM_SAMPLE, "cuda"))
 
-    window(0)  # warm-up: cuDNN algorithm choice, the kernels' build and load
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    window(args.steps)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    return window
 
+
+def profile_window(args, window, step_ms: float, smi: str) -> int:
+    """torch.profiler over window(2 * steps): device time by kernel and kind,
+    busy time and idle share, the chrome trace; prints the JSON summary."""
     from torch.profiler import ProfilerActivity, profile
 
     from ddnm_tpu_torch import ops
@@ -169,6 +234,8 @@ def main(argv=None) -> int:
         "fwht_calls_per_step": calls["fwht"] / args.steps,
         "fwht_kernel_launches_per_step": sum(n for name, n in runs.items()
                                              if "fwht_kernel" in name) / args.steps,
+        # wrapper calls of every port kernel per step (per model call in hq mode)
+        "port_calls_per_step": {k: v / args.steps for k, v in calls.items()},
     }), flush=True)
     return 0
 
