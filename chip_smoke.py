@@ -64,11 +64,27 @@ far it got. A failure in any phase raises.
      seed, bf16 torso), 4x average-pooling SR with --resize_y of a 96 x 96
      PNG made from exp/datasets/imagenet: a 384 x 384 canvas, 2 x 2 tiles of
      280 model calls; wall seconds, seconds per tile, model calls per second,
-     the kernels' launches per model call and max |A(final) - y|.
+     the kernels' launches per model call and max |A(final) - y|;
+ 11. main-runner parity on the toy32 ADM UNet (tests/fixtures/toy_adm32.pt):
+     the six ImageNet rows of evaluation.py (SVD mode) through the model,
+     operator and dataset that the port's Runner builds from the golden's
+     config, fp32, zero noise, x_T from RandomState(42), 20 steps; each once
+     through the kernels and once through the plain versions, every image
+     within 0.01 dB of the JAX package's PSNR
+     (tests/fixtures/toy_adm32_main_golden.json), kernel against plain;
+ 12. the ImageNet rows through evaluation_torch: configs/imagenet_256.yml
+     (the 552.8M ADM UNet, unconditional), random weights from seed 1234,
+     bf16 torso, the 8 PNGs of exp/datasets/imagenet, batch 8, 100 steps,
+     exp/inp_masks/mask.npy for inpainting, one row at a time; images/s in
+     the sampler and end to end, launches per step, max |A(x) - y| of the
+     sampler's output on the SR and inpainting rows; then the two noisy
+     CelebA rows (--add_noise, sigma_y 0.2) on flag_ddpm256.pt at 25 steps,
+     each with a finite PSNR.
 
 Phase 3 also holds the GroupNorm (with FiLM) and attention kernels against
 their plain versions at every shape of phase 10's ADM forward (one tile,
-bf16) and sums their times per such forward.
+bf16) and of phase 12's (batch 8, 256 px, bf16) and sums their times per
+such forward.
 Phase 2 prints the -Xptxas -v registers and spills of the conv, apply and
 Walsh-Hadamard kernels. Phase 3 also holds the Walsh-Hadamard kernel
 against its plain version at the SVD paths' shapes and at edge shapes (one
@@ -79,7 +95,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-10 sets the launch counts to 0 just before each run it
+Each of phases 4-12 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after.
 
 The line before the last is the JSON summary of the kernels; the last line
@@ -408,26 +424,32 @@ def check_kernel(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generat
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def cuda_launches(fn, calls: int = 4) -> tuple[float, list[str]]:
+def cuda_launches(fn, calls: int = 4, tries: int = 3) -> tuple[float, list[str]]:
     """CUDA kernel launches per call of fn(), counted from torch.profiler's
     host-side launch calls (cudaLaunchKernel*) over `calls` calls after one
     warm-up, and the names of the kernels the card ran (device events; the
-    profiler may miss one of those, so they are not counted)."""
+    profiler may miss one of those, so they are not counted). A window in
+    which the profiler recorded no device event at all (seen once on a
+    4 us kernel) is profiled again, up to `tries` windows; the last
+    window's counts are returned."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.events()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        names = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
     launches = sum(e.device_type == torch.autograd.DeviceType.CPU
                    and e.name.startswith("cudaLaunchKernel") for e in events)
     if not launches:
         raise AssertionError("the profiler recorded no cudaLaunchKernel* call: " + str(sorted(
             {e.name for e in events if "aunch" in e.name})))
-    names = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
     return launches / calls, sorted(names)
 
 
@@ -954,6 +976,177 @@ def hq_main_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
     return stats, launches
 
 
+# ------------------------------------------------------------ phases 11 and 12
+
+TOY_ADM_MAIN_GOLDEN = REPO / "tests" / "fixtures" / "toy_adm32_main_golden.json"
+IMAGENET_CONFIG = REPO / "configs" / "imagenet_256.yml"
+MAIN_PSNR_TOL = 0.01  # dB per image, fp32 on the card against the JAX package's fp32
+RANGE_SPACE_TOL = 1e-3  # max |A(x) - y| of the sampler's output, noise-free rows
+
+
+def main_golden_runner(proto: dict, task, device):
+    """The port's Runner for one task of the main-runner golden
+    (tools/emit_toy_adm32_main_golden.py): the golden's config and seed,
+    its image folder and fixture."""
+    import copy
+
+    from ddnm_tpu_torch.config import Config
+    from ddnm_tpu_torch.runner import RunArgs, Runner
+
+    _, deg, deg_scale = task
+    args = RunArgs(deg=deg, deg_scale=deg_scale, sigma_y=proto["sigma_y"], eta=proto["eta"],
+                   seed=proto["seed"], exp=str(REPO / "exp"),
+                   path_y=str(REPO / proto["eval_dir"]), ckpt=str(REPO / proto["fixture"]),
+                   device=device)
+    return Runner(args, Config.from_dict(copy.deepcopy(proto["config"])))
+
+
+def main_golden_run(model, runner, proto: dict, force=None):
+    """One task of the main-runner golden through the model, operator and
+    dataset the Runner builds, SVD mode, zero noise, the golden's shared
+    x_T; `force` "torch" runs the plain versions. Returns (per-image PSNRs,
+    final images, seconds)."""
+    from ddnm_tpu_torch.models.unet_ddpm import set_op_force
+    from ddnm_tpu_torch.sampling import sample_svd
+    from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
+
+    dev = runner.device
+    n, res = proto["n_images"], proto["res"]
+    dataset = runner.build_dataset()
+    gt01 = torch.from_numpy(np.stack([dataset[i][0] for i in range(n)])).to(dev)
+    xt = np.random.RandomState(proto["x_T_seed"]).randn(n, 3, res, res).astype(np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(xt.transpose(0, 2, 3, 1))).to(dev)
+    op = runner.build_operator()
+    op.force = force
+    set_op_force(model, force)
+    zero = lambda gens, shape: torch.zeros(shape, device=dev)
+    t0 = time.perf_counter()
+    y = op.A(_nhwc_to_vec(gt01 * 2.0 - 1.0))
+    x, _ = sample_svd(runner.model_fn(model), xt, y, op, runner.sched, [None] * n,
+                      eta=proto["eta"], sigma_y=proto["sigma_y"], noise_fn=zero)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    set_op_force(model, None)
+    mse = ((torch.clamp((x + 1) / 2, 0, 1) - gt01) ** 2).reshape(n, -1).mean(dim=1)
+    return [float(10 * torch.log10(1 / m)) for m in mse], x, secs
+
+
+def main_runner_parity(n_gn: int, n_attn: int) -> dict:
+    """Phase 11: the six ImageNet rows on the toy32 ADM under the golden's
+    protocol, through the kernels and through the plain versions, every
+    image within MAIN_PSNR_TOL of the JAX package's PSNR, kernel against
+    plain within 1e-3, launch counts exact."""
+    golden = json.loads(TOY_ADM_MAIN_GOLDEN.read_text())
+    proto = golden["protocol"]
+    model, out = None, {}
+    for task in proto["tasks"]:
+        name, deg = task[0], task[1]
+        runner = main_golden_runner(proto, task, "cuda")
+        model = model if model is not None else runner.build_model()
+        steps = int((~runner.sched.is_travel).sum())
+        want_psnr = golden["tasks"][name]["per_image_psnr"]
+        finals = {}
+        for route, force in (("kernel", None), ("plain", "torch")):
+            ops.reset_launch_counts()
+            psnrs, finals[route], secs = main_golden_run(model, runner, proto, force)
+            counts = ops.launch_counts()
+            print(f"{name:23s} fp32 {route:6s}: PSNR {['%.4f' % v for v in psnrs]} (JAX "
+                  f"{['%.4f' % v for v in want_psnr]}) {secs:.2f} s launches {counts}",
+                  flush=True)
+            if not all(abs(a - b) <= MAIN_PSNR_TOL for a, b in zip(psnrs, want_psnr)):
+                raise AssertionError(f"{name} {route}: PSNR {psnrs} vs JAX {want_psnr}")
+            want = ({"groupnorm_stats": n_gn * steps, "groupnorm_apply": n_gn * steps,
+                     "attention": n_attn * steps, "fwht": fwht_launches(deg, 0.0, steps),
+                     "fused_gn_conv": 0} if force is None else dict.fromkeys(counts, 0))
+            if counts != want:
+                raise AssertionError(f"{name} {route}: launch counts {counts} != {want}")
+            out[f"{name}/{route}"] = {"psnr": psnrs, "seconds": secs}
+        diff = float((finals["kernel"] - finals["plain"]).abs().max())
+        out[f"{name}/kernel_vs_plain_max_abs"] = diff
+        print(f"{name}: kernel vs plain final images max abs {diff:.3e}", flush=True)
+        if not diff <= 1e-3:
+            raise AssertionError(f"{name}: kernel vs plain trajectories differ by {diff:.3e}")
+    return out
+
+
+def imagenet_adm():
+    """The full-width ADM UNet of configs/imagenet_256.yml on the card, bf16
+    torso, random weights from seed 1234 (as the Runner under --random_init)."""
+    from ddnm_tpu_torch.config import load_config
+    from ddnm_tpu_torch.models import ADMUNet, cast_torso
+    from ddnm_tpu_torch.models.unet_adm import init_like_flax
+
+    with torch.device("cuda"):
+        model = ADMUNet.from_config(load_config(IMAGENET_CONFIG))
+    return cast_torso(init_like_flax(model, 1234).eval(), torch.bfloat16)
+
+
+def sweep_row(name: str, argv: list[str], out_dir: Path) -> tuple[dict, dict]:
+    """One row of evaluation_torch's table, alone, with the launch counts set
+    to 0 just before it and read just after; returns (stats, launches)."""
+    import evaluation_torch
+
+    ops.reset_launch_counts()
+    report = evaluation_torch.main(["--tasks", name, "--exp", str(REPO / "exp"),
+                                    "-i", str(out_dir), "--dtype", "bfloat16",
+                                    "--device", "cuda", *argv])
+    launches = ops.launch_counts()
+    if list(report) != [name]:
+        raise AssertionError(f"sweep row {name}: the report holds {list(report)}")
+    return report[name], launches
+
+
+def imagenet_rows(n_gn: int, n_attn: int, n_gn_ddpm: int, n_attn_ddpm: int,
+                  ) -> tuple[dict, dict]:
+    """Phase 12: the six ImageNet rows of evaluation_torch on the 552.8M ADM
+    (bf16, random weights, batch 8, 100 steps), then its two noisy CelebA
+    rows on flag_ddpm256.pt at 25 steps. Checks 8 restored images and a
+    finite PSNR per row, launch counts exactly, and max |A(x) - y| of the
+    sampler's output <= RANGE_SPACE_TOL on the SR and inpainting rows.
+    Returns ({row: stats}, the six ImageNet rows' launches summed)."""
+    import evaluation_torch
+
+    rows, summed = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, _, deg, _, sigma_y, _, _ in (evaluation_torch.IMAGENET_RUNS
+                                               + evaluation_torch.CELEBA_RUNS[-2:]):
+            imagenet = name.startswith("imagenet")
+            steps = 100 if imagenet else 25
+            argv = (["--datasets", "imagenet", "--random-init"] if imagenet else
+                    ["--datasets", "celeba", "--ckpt-celeba", str(FLAG_PT),
+                     "--t-sampling", str(steps)])
+            stats, launches = sweep_row(name, argv, Path(tmp) / "eval")
+            gn, attn = (n_gn, n_attn) if imagenet else (n_gn_ddpm, n_attn_ddpm)
+            # the runner's A+y preview and its range-space check (one each)
+            # on top of sample_svd's
+            fwht = 2 + fwht_launches(deg, 2 * sigma_y, steps) if deg == "cs_walshhadamard" else 0
+            want = {"groupnorm_stats": gn * steps, "groupnorm_apply": gn * steps,
+                    "attention": attn * steps, "fwht": fwht, "fused_gn_conv": 0}
+            per_step = {k: v / steps for k, v in launches.items()}
+            stats = dict(stats, launches=launches, launches_per_step=per_step,
+                         sampler_images_per_second=stats["num_samples"] / stats["sample_seconds"])
+            rows[name] = stats
+            print(f"{name:23s}: {stats['num_samples']} images, PSNR {stats['avg_psnr']:.4f}, "
+                  f"{stats['sampler_images_per_second']:.4f} images/s in the sampler "
+                  f"({stats['sample_seconds']:.2f} s), {stats['images_per_second']:.4f} "
+                  f"end to end ({stats['wall_seconds']:.2f} s); max |A(x) - y| "
+                  f"{stats['range_space_max_abs']:.3e}; launches per step {per_step}",
+                  flush=True)
+            if stats["num_samples"] != 8 or not np.isfinite(stats["avg_psnr"]):
+                raise AssertionError(f"{name}: {stats['num_samples']} images, PSNR "
+                                     f"{stats['avg_psnr']}")
+            if launches != want:
+                raise AssertionError(f"{name}: launch counts {launches} != {want}")
+            if deg in ("sr_averagepooling", "inpainting") and imagenet and not (
+                    stats["range_space_max_abs"] <= RANGE_SPACE_TOL):
+                raise AssertionError(f"{name}: max |A(x) - y| {stats['range_space_max_abs']}")
+            if imagenet:
+                summed = launches if summed is None else {k: summed[k] + v
+                                                          for k, v in launches.items()}
+    return rows, summed
+
+
 # ------------------------------------------------------------ phases 5 and 7
 
 
@@ -1044,6 +1237,12 @@ def main() -> int:
         hq_shapes = op_shapes(adm, torch.zeros(1, 256, 256, 3, device="cuda"),
                               torch.zeros(1, dtype=torch.long, device="cuda"))
         del adm
+        # the ImageNet rows' forward: configs/imagenet_256.yml, bf16, batch 8
+        adm = imagenet_adm()
+        n_gn_inet = sum(isinstance(m, GroupNormF32) for m in adm.modules())
+        n_attn_inet = sum(isinstance(m, AttentionBlock) for m in adm.modules())
+        inet_shapes = op_shapes(adm, torch.zeros(8, 256, 256, 3, device="cuda"))
+        del adm
         torch.cuda.empty_cache()
         gen = torch.Generator(device="cuda").manual_seed(0)
         # each GroupNorm shape checks both kernels and, as a yardstick against
@@ -1054,8 +1253,8 @@ def main() -> int:
                  "groupnorm_film": ("groupnorm_stats",),
                  "attention": ("attention",)}
         results = {}
-        for op, shape, dtype in sorted(set(shapes) | set(main_shapes) | set(hq_shapes),
-                                       key=str):
+        for op, shape, dtype in sorted(set(shapes) | set(main_shapes) | set(hq_shapes)
+                                       | set(inet_shapes), key=str):
             for kind in kinds[op]:
                 r = check_kernel(kind, shape, dtype, gen, swish=op == "groupnorm_swish",
                                  film=op == "groupnorm_film")
@@ -1095,10 +1294,11 @@ def main() -> int:
             out["bound_by"] = rows[0][0]["bound_by"]
             return out
 
-        # per UNet forward of the main path (bf16, batch 8) and of the hq
-        # path (the inet256 ADM, bf16, one tile): each shape's time times its
-        # calls per forward
-        per_forward, hq_forward = {}, {}
+        # per UNet forward of the main path (bf16, batch 8), of the hq path
+        # (the inet256 ADM, bf16, one tile) and of the ImageNet rows (the
+        # imagenet_256 ADM, bf16, batch 8): each shape's time times its calls
+        # per forward
+        per_forward, hq_forward, inet_forward = {}, {}, {}
         for kind in ("groupnorm_stats", "groupnorm_apply", "groupnorm", "attention"):
             per_forward[kind] = per_call_sum(forward_rows(kind, main_shapes))
             per_forward[kind]["max_abs_err"] = max(
@@ -1108,6 +1308,9 @@ def main() -> int:
             hq_forward[kind] = per_call_sum(forward_rows(kind, hq_shapes))
             print(f"{kind}: per hq ADM forward (bf16, one tile): "
                   + json.dumps(hq_forward[kind]), flush=True)
+            inet_forward[kind] = per_call_sum(forward_rows(kind, inet_shapes))
+            print(f"{kind}: per ImageNet ADM forward (bf16, batch 8): "
+                  + json.dumps(inet_forward[kind]), flush=True)
         edge = [check_kernel("attention", shape, dtype, gen)
                 for shape in EDGE_ATTENTION_SHAPES for dtype in (torch.bfloat16, torch.float32)]
         edge.append(check_kernel("groupnorm_stats", (8, 16, 16, 768), torch.float32, gen,
@@ -1189,9 +1392,10 @@ def main() -> int:
 
     with phase(7, "SVD main path through main_torch (cs_walshhadamard 0.25, bf16, "
                   "batch 8, 100 steps)"):
-        # the runner's A+y preview (1) on top of A(x), the set-up and the steps
+        # the runner's A+y preview and its range-space check (1 each) on top
+        # of A(x), the set-up and the steps
         _, launches = main_path("cs_walshhadamard", "0.25", False, n_gn, n_attn,
-                                1 + fwht_launches("cs_walshhadamard", 0.0, 100))
+                                2 + fwht_launches("cs_walshhadamard", 0.0, 100))
 
     with phase(8, "fused GN+SiLU+conv experiment (default run, ablations, UNet shapes)"):
         exp_runs = experiment()
@@ -1209,6 +1413,16 @@ def main() -> int:
     with phase(10, "hq main path through hq_main_torch (inet256 ADM, bf16, 2 x 2 tiles)"):
         hq_stats, launches_hq = hq_main_path(n_gn_hq, n_attn_hq)
 
+    with phase(11, "main-runner parity on the toy32 ADM (six ImageNet rows, fp32 goldens)"):
+        toy = toy_adm("cpu")
+        main_runner_parity(sum(isinstance(m, GroupNormF32) for m in toy.modules()),
+                           sum(isinstance(m, AttentionBlock) for m in toy.modules()))
+        del toy
+
+    with phase(12, "ImageNet rows through evaluation_torch (imagenet_256 ADM, bf16, batch 8, "
+                   "100 steps) and the noisy CelebA rows"):
+        inet_rows, launches_inet = imagenet_rows(n_gn_inet, n_attn_inet, n_gn, n_attn)
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -1225,7 +1439,8 @@ def main() -> int:
          "launches_by_path": {"simplified": launches_simplified[kind],
                               "svd": launches[kind],
                               "experiment": launches_experiment[kind],
-                              "hq": launches_hq[kind]},
+                              "hq": launches_hq[kind],
+                              "imagenet": launches_inet[kind]},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
          "device_ms": per_forward[kind].get("device_ms"),
          "plain_ms": per_forward[kind]["plain_ms"],
@@ -1233,10 +1448,11 @@ def main() -> int:
          "bound_by": per_forward[kind]["bound_by"],
          "library_ms": per_forward[kind]["library_ms"],
          **({"hq_forward": hq_forward[kind]} if kind in hq_forward else {}),
+         **({"imagenet_forward": inet_forward[kind]} if kind in inet_forward else {}),
          **({"by_mode": per_forward[kind]["by_mode"]} if kind == "fused_gn_conv" else {}),
          **({k: per_forward[kind][k] for k in ("device_share_of_bound", "cuda_launches_per_call")}
             if kind == "fwht" else {})}
-        for kind in SOURCES], "hq_main_path": hq_stats}
+        for kind in SOURCES], "hq_main_path": hq_stats, "imagenet_rows": inet_rows}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

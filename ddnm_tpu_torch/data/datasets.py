@@ -1,12 +1,18 @@
-"""Image-folder datasets (port of the folder part of
-ddnm_tpu/data/datasets.py).
+"""Evaluation datasets (port of ddnm_tpu/data/datasets.py without PIL).
 
-CelebA_HQ / FFHQ-style evaluation sets are plain PNG folders: files are
-listed recursively in sorted order and, unless the config marks the set
-out-of-distribution, shuffled with numpy's legacy RandomState(2019) as the
-reference does, so per-index outputs and subset ranges line up with the
-JAX package. Images load at their stored size; resizing and cropping are
-not ported yet and a size mismatch raises.
+  - CelebA_HQ / FFHQ-style folders: files listed recursively in sorted
+    order and, unless the config marks the set out-of-distribution,
+    shuffled with numpy's legacy RandomState(2019) as the reference does,
+    so per-index outputs and subset ranges line up with the JAX package;
+    each image is squash-resized (BILINEAR) to image_size.
+  - ImageNet: a `(filename class)` manifest (`ImageNetManifestDataset`,
+    short-edge centre crop then BILINEAR, with labels) or a folder
+    (`center_crop_arr`: BOX halving, BICUBIC, centre crop).
+  - The ood LSUN folders: `center_crop_arr` as ImageNet's.
+
+Images decode with the port's PNG reader and resize with data/resize.py,
+which reproduces PIL's uint8 resampler. LSUN's lmdb splits and CelebA's
+attribute split (the JAX package's extra_datasets.py) are not ported.
 """
 
 from __future__ import annotations
@@ -16,9 +22,10 @@ from typing import Iterator
 
 import numpy as np
 
-from ddnm_tpu_torch.data.io import load_image
+from ddnm_tpu_torch.data.io import read_rgb8
+from ddnm_tpu_torch.data.resize import CROP_MODES, crop_and_resize
 
-__all__ = ["FolderDataset", "get_dataset", "iterate_batches"]
+__all__ = ["FolderDataset", "ImageNetManifestDataset", "get_dataset", "iterate_batches"]
 
 IMG_EXTENSIONS = {".png", ".jpg", ".jpeg", ".ppm", ".bmp", ".webp", ".tif", ".tiff"}
 
@@ -29,11 +36,19 @@ def _list_images(root: Path) -> list[Path]:
 
 class FolderDataset:
     """Image folder with the reference's fixed shuffle; items are
-    (float32 (H, W, 3) in [0, 1], label 0)."""
+    (float32 (image_size, image_size, 3) in [0, 1], label 0).
+
+    `crop` is the reference's preprocessing of the dataset family:
+    "squash" (CelebA_HQ / FFHQ: BILINEAR to (s, s), no crop), "long_edge"
+    (the ImageNet manifest: short-edge centre crop, then BILINEAR) or
+    "center_arr" (ImageNet and ood folders: BOX halving, BICUBIC, crop)."""
 
     def __init__(self, root: str | Path, image_size: int = 256,
-                 shuffle_seed: int | None = 2019):
+                 shuffle_seed: int | None = 2019, crop: str = "squash"):
+        if crop not in CROP_MODES:
+            raise ValueError(f"unknown crop mode {crop!r}")
         self.paths = _list_images(Path(root))
+        self.crop = crop
         if not self.paths:
             raise FileNotFoundError(f"no images under {root}")
         if shuffle_seed is not None:
@@ -45,8 +60,39 @@ class FolderDataset:
     def __len__(self):
         return len(self.paths)
 
+    def _image(self, i: int) -> np.ndarray:
+        img = crop_and_resize(read_rgb8(self.paths[i]), self.image_size, self.crop)
+        return img.astype(np.float32) / 255.0
+
     def __getitem__(self, i: int) -> tuple[np.ndarray, int]:
-        return load_image(self.paths[i], self.image_size), 0
+        return self._image(i), 0
+
+
+class ImageNetManifestDataset(FolderDataset):
+    """Images and class labels from a `(filename class)` manifest txt (a
+    missing class reads as 0, a listed file that does not exist is left
+    out), in manifest order, short-edge centre crop then BILINEAR."""
+
+    def __init__(self, root: str | Path, manifest: str | Path, image_size: int = 256):
+        self.crop = "long_edge"
+        root = Path(root)
+        entries = []
+        with open(manifest) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                name, cls = parts[0], int(parts[1]) if len(parts) > 1 else 0
+                if (root / name).exists():
+                    entries.append((root / name, cls))
+        if not entries:
+            raise FileNotFoundError(f"no manifest images found under {root}")
+        self.paths = [p for p, _ in entries]
+        self.labels = [c for _, c in entries]
+        self.image_size = image_size
+
+    def __getitem__(self, i: int) -> tuple[np.ndarray, int]:
+        return self._image(i), self.labels[i]
 
 
 def get_dataset(
@@ -54,21 +100,35 @@ def get_dataset(
     *,
     root: str | Path,
     image_size: int = 256,
+    manifest: str | Path | None = None,
     subset: tuple[int, int] | None = None,
     out_of_dist: bool = False,
 ) -> FolderDataset:
-    """Build a folder dataset by the reference config's dataset name.
+    """Build a dataset by the reference config's dataset name.
 
     `out_of_dist` folders are not shuffled (the seed-2019 shuffle applies
-    only to the reference's non-ood branch)."""
-    if name.lower() not in ("celeba_hq", "ffhq", "solvay", "oldphoto", "folder"):
+    only to the reference's non-ood branch). `subset` (start, end) slices
+    the paths and, where the dataset has them, the labels."""
+    low = name.lower()
+    if low in ("celeba_hq", "ffhq", "solvay", "oldphoto", "folder"):
+        ds = FolderDataset(root, image_size, shuffle_seed=None if out_of_dist else 2019)
+    elif low == "lsun" and out_of_dist:
+        ds = FolderDataset(root, image_size, shuffle_seed=None, crop="center_arr")
+    elif low == "imagenet" and manifest is not None:
+        ds = ImageNetManifestDataset(root, manifest, image_size)
+    elif low == "imagenet":
+        ds = FolderDataset(root, image_size, shuffle_seed=None, crop="center_arr")
+    elif low in ("lsun", "celeba"):
         raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (folder datasets only: "
-            "CelebA_HQ, FFHQ, solvay, oldphoto, folder)")
-    ds = FolderDataset(root, image_size, shuffle_seed=None if out_of_dist else 2019)
+            f"dataset {name!r} (its lmdb / attribute split) is not ported yet "
+            "(ROADMAP.md Queue 1 E2: the data long tail)")
+    else:
+        raise ValueError(f"unknown dataset {name}")
     if subset is not None:
         start, end = subset
         ds.paths = ds.paths[start:end]
+        if hasattr(ds, "labels"):
+            ds.labels = ds.labels[start:end]
     return ds
 
 

@@ -16,7 +16,10 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["decode_png", "encode_png", "load_image", "save_image", "load_mask"]
+from ddnm_tpu_torch.data.resize import resize
+
+__all__ = ["decode_png", "encode_png", "read_rgb8", "load_image", "save_image",
+           "load_mask"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # PNG color type -> samples per pixel
@@ -118,22 +121,27 @@ def encode_png(arr: np.ndarray) -> bytes:
             + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
 
 
-def load_image(path: str | Path, size: int | None = None) -> np.ndarray:
-    """Read a PNG -> float32 (H, W, 3) in [0, 1] (gray replicated, alpha
-    dropped). Resizing is not ported: a `size` that differs raises."""
+def read_rgb8(path: str | Path) -> np.ndarray:
+    """Read a PNG -> uint8 (H, W, 3) (gray replicated, alpha dropped), as
+    PIL's `Image.open(path).convert("RGB")`. Other formats raise."""
     path = Path(path)
     if path.suffix.lower() != ".png":
         raise ValueError(f"only PNG images are supported, got {path.name}")
     img = decode_png(path.read_bytes())
     if img.ndim == 2:
-        img = np.repeat(img[:, :, None], 3, axis=2)
-    elif img.shape[-1] == 2:  # gray + alpha
-        img = np.repeat(img[:, :, :1], 3, axis=2)
-    else:
-        img = img[:, :, :3]
+        return np.repeat(img[:, :, None], 3, axis=2)
+    if img.shape[-1] == 2:  # gray + alpha
+        return np.repeat(img[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(img[:, :, :3])
+
+
+def load_image(path: str | Path, size: int | None = None) -> np.ndarray:
+    """Read a PNG -> float32 (H, W, 3) in [0, 1]; with `size`, an image of
+    another size is resized to size x size with BICUBIC, as the JAX
+    package's load_image (data/resize.py reproduces PIL's resampler)."""
+    img = read_rgb8(path)
     if size is not None and img.shape[:2] != (size, size):
-        raise ValueError(f"{path.name} is {img.shape[1]}x{img.shape[0]}, expected "
-                         f"{size}x{size}; resizing is not ported")
+        img = resize(img, size, size, "bicubic")
     return img.astype(np.float32) / 255.0
 
 

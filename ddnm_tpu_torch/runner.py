@@ -1,17 +1,20 @@
 """Restoration runner: config -> model -> operator -> sampler -> PNGs + PSNR
-(port of ddnm_tpu/runner.py: simplified mode and SVD mode).
+(port of ddnm_tpu/runner.py: simplified mode and SVD mode, on the DDPM
+("simple") and ADM ("openai") UNets).
 
 The model comes from a torch checkpoint (`--ckpt`, the reference's state
 dict, fp16 storage upcast to fp32) or from `--random_init` (weights from
-the seed). Images run in batches; every image draws its x_T and sampler
-noise from its own generators keyed by (seed, global image index), so the
-outputs do not depend on the batch size. Progress is plain log lines.
+the seed). A class-conditional ADM gets the label GUIDED_CLASS for every
+image, as in the JAX runner. Images run in batches; every image draws its
+x_T, its measurement noise (`--add_noise`) and its sampler noise from its
+own generators keyed by (seed, global image index), so the outputs do not
+depend on the batch size. Progress is plain log lines.
 
 Paths of the JAX runner that are not ported yet raise
-NotImplementedError: the ADM model family, classifier guidance (where the
-config would run it), the encoder cache, measurement noise. A run uses the
-one device given by `device`; the JAX runner's sharding over several
-devices is not ported.
+NotImplementedError: classifier guidance (wherever the JAX runner would
+build it), the multistep solver and the encoder cache. A run uses the one
+device given by `device`; the JAX runner's sharding over several devices is
+not ported.
 """
 
 from __future__ import annotations
@@ -31,14 +34,17 @@ from ddnm_tpu_torch.config import Config
 from ddnm_tpu_torch.data.datasets import get_dataset, iterate_batches
 from ddnm_tpu_torch.data.io import load_mask, save_image
 from ddnm_tpu_torch.data.metrics import psnr, ssim
+from ddnm_tpu_torch.data.noise import add_noise
 from ddnm_tpu_torch.data.transforms import data_transform, inverse_data_transform
-from ddnm_tpu_torch.models import DDPMUNet, cast_torso
+from ddnm_tpu_torch.models import ADMUNet, DDPMUNet, cast_torso
+from ddnm_tpu_torch.models.unet_adm import init_like_flax
 from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
 from ddnm_tpu_torch.runtime import resolve_device
 from ddnm_tpu_torch.sampling import build_schedule, sample_simplified, sample_svd
 from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
 from ddnm_tpu_torch.sampling.rng import (
     STREAM_INIT,
+    STREAM_MEASUREMENT,
     STREAM_SAMPLE,
     default_noise,
     image_generators,
@@ -46,7 +52,11 @@ from ddnm_tpu_torch.sampling.rng import (
 
 logger = logging.getLogger("ddnm_tpu_torch")
 
-__all__ = ["RunArgs", "Runner", "load_checkpoint"]
+__all__ = ["GUIDED_CLASS", "RunArgs", "Runner", "load_checkpoint"]
+
+# the ImageNet class every image of a class-conditional run is given (the
+# reference's svd_ddnm.py:7, ddnm_tpu/runner.py:47)
+GUIDED_CLASS = 951
 
 
 @dataclasses.dataclass
@@ -64,6 +74,7 @@ class RunArgs:
     image_folder: str = "output"
     simplified: bool = False
     add_noise: bool = False
+    noise_type: str = "gaussian"  # data/noise.py NOISE_TYPES
     subset_start: int = -1
     subset_end: int = -1
     ckpt: Optional[str] = None
@@ -72,6 +83,7 @@ class RunArgs:
     batch_size: Optional[int] = None
     dtype: str = "float32"  # model torso dtype: float32 | bfloat16
     mask_path: Optional[str] = None
+    manifest: Optional[str] = None  # ImageNet (filename class) manifest
     max_images: Optional[int] = None
     resume: bool = False  # skip images whose output PNG already exists
     solver: str = "ddim"
@@ -89,19 +101,26 @@ def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
 class Runner:
     def __init__(self, args: RunArgs, config: Config):
         self.device = resolve_device(args.device)
-        if config.model.type != "simple":
+        if config.model.type not in ("simple", "openai"):
+            raise ValueError(f"unknown model type {config.model.type}")
+        # the JAX runner's refusals of the multistep solver (ddnm_tpu/runner.py:112-123)
+        if args.solver == "multistep" and (args.sigma_y != 0.0 or args.add_noise):
+            raise ValueError(
+                "--solver multistep is deterministic and supports noise-free "
+                "tasks only (sigma_y == 0, no --add_noise)")
+        if args.solver == "multistep" and args.encoder_cache > 1:
+            raise ValueError(
+                "--solver multistep does not compose with --encoder_cache (the "
+                "encoder-propagation sampler is DDIM-only); drop one of the two")
+        # the JAX runner builds a classifier and guides whenever the model is
+        # a class-conditional ADM and the config has a classifier block
+        # (ddnm_tpu/runner.py:174-191), with --classifier_ckpt or a random
+        # classifier under --random_init; elsewhere the flag is ignored
+        if (config.model.type == "openai" and config.model.class_cond
+                and config.classifier is not None):
             raise NotImplementedError(
-                f"model type {config.model.type!r} is not ported yet "
-                "(ROADMAP.md Queue 1, later slice C: hq/ADM)")
-        # guidance runs only for a class-conditional ADM model with a
-        # classifier config (ddnm_tpu/runner.py:161,174); otherwise the flag
-        # is ignored, as in the JAX runner
-        guided = (config.model.type == "openai" and config.model.class_cond
-                  and config.classifier is not None)
-        if args.classifier_ckpt and guided:
-            raise NotImplementedError(
-                "classifier guidance is not ported yet: ADMClassifier comes with "
-                "the hq/ADM models (ROADMAP.md Queue 1, later slice C)")
+                "classifier guidance is not ported yet: this config guides with "
+                "an ADM classifier (ROADMAP.md Queue 1 C2: classifier guidance)")
         if args.solver == "multistep":
             raise NotImplementedError(
                 "--solver multistep is not ported yet (ROADMAP.md Queue 1, later "
@@ -110,10 +129,6 @@ class Runner:
             raise NotImplementedError(
                 "--encoder_cache is not ported yet (ROADMAP.md Queue 1, later "
                 "slice D: solvers and acceleration)")
-        if args.add_noise:
-            raise NotImplementedError(
-                "--add_noise is not ported yet (data/noise.py, ROADMAP.md "
-                "Queue 1, later slice E)")
         if args.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be float32 or bfloat16, got {args.dtype!r}")
         self.args = args
@@ -137,24 +152,41 @@ class Runner:
         return self.args.batch_size or self.config.sampling.batch_size
 
     # ------------------------------------------------------------------ model
-    def build_model(self) -> DDPMUNet:
-        args = self.args
-        model = DDPMUNet.from_config(self.config)
-        if args.ckpt and Path(args.ckpt).exists():
-            logger.info("loading checkpoint %s", args.ckpt)
-            load_checkpoint(model, args.ckpt)
-        elif args.random_init:
-            logger.warning("random-init model (no checkpoint): smoke/bench mode")
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(args.seed)
-                model = DDPMUNet.from_config(self.config)
-        else:
+    def build_model(self) -> DDPMUNet | ADMUNet:
+        """The config's UNet on the run's device: a checkpoint loaded
+        strictly, or under --random_init weights drawn from the seed (the
+        ADM's as the JAX package's init draws them, init_like_flax)."""
+        args, cfg = self.args, self.config
+        ckpt = args.ckpt if args.ckpt and Path(args.ckpt).exists() else None
+        if ckpt is None and not args.random_init:
             raise FileNotFoundError(
                 f"checkpoint {args.ckpt!r} not found; pass --ckpt or --random_init")
+        if cfg.model.type == "openai":
+            with torch.device(self.device):
+                model = ADMUNet.from_config(cfg)
+            if ckpt is None:
+                init_like_flax(model, args.seed)
+        else:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(args.seed)
+                model = DDPMUNet.from_config(cfg)
+        if ckpt is None:
+            logger.warning("random-init model (no checkpoint): smoke/bench mode")
+        else:
+            logger.info("loading checkpoint %s", ckpt)
+            load_checkpoint(model, ckpt)
         model = model.to(self.device).eval()
         if self.dtype == torch.bfloat16:
             cast_torso(model, torch.bfloat16)
         return model
+
+    def model_fn(self, model):
+        """model(x, t), with the label GUIDED_CLASS for every image where the
+        model is class-conditional (ddnm_tpu/runner.py:161-171)."""
+        if not (self.config.model.type == "openai" and self.config.model.class_cond):
+            return model
+        return lambda x, t: model(x, t, torch.full((x.shape[0],), GUIDED_CLASS,
+                                                   dtype=torch.long, device=x.device))
 
     # -------------------------------------------------------------- operators
     def _mask(self) -> np.ndarray:
@@ -227,17 +259,30 @@ class Runner:
             cfg.data.dataset,
             root=root,
             image_size=cfg.data.image_size,
+            manifest=args.manifest,
             subset=subset,
             out_of_dist=bool(getattr(cfg.data, "out_of_dist", False)),
         )
         if args.max_images:
             ds.paths = ds.paths[: args.max_images]
+            if hasattr(ds, "labels"):
+                ds.labels = ds.labels[: args.max_images]
         return ds
+
+    def _measurement_noise(self, y, idxs, sigma_y):
+        """y with --add_noise's noise, each image's drawn from its own
+        STREAM_MEASUREMENT generator (the JAX runner's k_noise)."""
+        if not self.args.add_noise or sigma_y <= 0.0:
+            return y
+        gens = image_generators(self.args.seed, idxs, STREAM_MEASUREMENT, self.device)
+        return torch.stack([add_noise(g, y[i], sigma_y, self.args.noise_type)
+                            for i, g in enumerate(gens)])
 
     # ---------------------------------------------------------------- running
     def run(self) -> dict:
         args, cfg, dev = self.args, self.config, self.device
         model = self.build_model()
+        model_fn = self.model_fn(model)
         operator = self.build_operator()
         dataset = self.build_dataset()
         logger.info("dataset size %d, batch size %d, device %s, dtype %s",
@@ -247,7 +292,7 @@ class Runner:
         out_dir = Path(args.image_folder)
         (out_dir / "Apy").mkdir(parents=True, exist_ok=True)
         size = cfg.data.image_size
-        total_psnr, count, sample_seconds = 0.0, 0, 0.0
+        total_psnr, count, sample_seconds, consistency = 0.0, 0, 0.0, 0.0
         idx_so_far = max(args.subset_start, 0)
         wall_start = time.perf_counter()
         with open(out_dir / "metrics.jsonl", "a") as metrics:
@@ -266,25 +311,30 @@ class Runner:
                 x_init = default_noise(
                     image_generators(args.seed, idxs, STREAM_INIT, dev), (n, size, size, 3))
                 gens = image_generators(args.seed, idxs, STREAM_SAMPLE, dev)
+                # the noise enters after A and before A+ y, in both modes
                 if args.simplified:
-                    y = operator.A(x_orig)
+                    y = self._measurement_noise(operator.A(x_orig), idxs, sigma_y)
                     apy = operator.Ap(y)
                     t0 = time.perf_counter()
                     x, _ = sample_simplified(
-                        model, x_init, y, operator, self.sched, gens,
+                        model_fn, x_init, y, operator, self.sched, gens,
                         eta=args.eta, sigma_y=sigma_y, solver=args.solver,
                     )
                 else:
-                    y = operator.A(_nhwc_to_vec(x_orig))
+                    y = self._measurement_noise(operator.A(_nhwc_to_vec(x_orig)), idxs,
+                                                sigma_y)
                     apy = self._apy_visualisation(operator, y, n)
                     t0 = time.perf_counter()
                     x, _ = sample_svd(
-                        model, x_init, y, operator, self.sched, gens,
+                        model_fn, x_init, y, operator, self.sched, gens,
                         eta=args.eta, sigma_y=sigma_y, solver=args.solver,
                     )
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 sample_seconds += time.perf_counter() - t0
+                # range-space consistency of the sampler's output, unclipped
+                ax = operator.A(x if args.simplified else _nhwc_to_vec(x))
+                consistency = max(consistency, float((ax - y)[:valid].abs().max()))
 
                 x01 = inverse_data_transform(x, rescaled=cfg.data.rescaled)
                 orig01 = inverse_data_transform(x_orig, rescaled=cfg.data.rescaled)
@@ -317,4 +367,5 @@ class Runner:
             "wall_seconds": wall,
             "images_per_second": count / wall if wall > 0 else 0.0,
             "sample_seconds": sample_seconds,
+            "range_space_max_abs": consistency,
         }

@@ -4,7 +4,9 @@
 Takes main.py's flags plus --device (default cuda; without a card it raises
 unless --device cpu is given). With --simplified it runs the functional
 A / A+ path, without it SVD mode (the matrix-free SVD operators of every
-task). Examples at full width on the card:
+task), on the DDPM UNet ("simple" configs) or the ADM UNet ("openai"
+configs). --add_noise corrupts each measurement with -n/--noise_type noise
+of level 2 * sigma_y. Examples at full width on the card:
 
   python main_torch.py --config configs/celeba_hq.yml --path_y celeba_hq \
       --deg sr_averagepooling --deg_scale 4 --sigma_y 0 --simplified \
@@ -13,6 +15,10 @@ task). Examples at full width on the card:
   python main_torch.py --config configs/celeba_hq.yml --path_y celeba_hq \
       --deg cs_walshhadamard --deg_scale 0.25 --sigma_y 0 \
       --ckpt tests/fixtures/flag_ddpm256.pt --dtype bfloat16 -i demo_cs --ni
+
+  python main_torch.py --config configs/imagenet_256.yml --path_y imagenet \
+      --deg sr_averagepooling --deg_scale 4 --random_init --dtype bfloat16 \
+      -i demo_inet --ni
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from pathlib import Path
 REPO_ROOT = Path(__file__).resolve().parent
 if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
+
+
+from ddnm_tpu_torch.data.noise import NOISE_TYPES  # noqa: E402
 
 
 def parse_args(argv=None):
@@ -43,13 +52,15 @@ def parse_args(argv=None):
     p.add_argument("-i", "--image_folder", type=str, default="output")
     p.add_argument("--deg_scale", type=float, default=4.0)
     p.add_argument("--add_noise", action="store_true")
+    p.add_argument("-n", "--noise_type", type=str, default="gaussian", choices=NOISE_TYPES)
     p.add_argument("--subset_start", type=int, default=-1)
     p.add_argument("--subset_end", type=int, default=-1)
     p.add_argument("--verbose", type=str, default="info")
     p.add_argument("--ni", action="store_true", help="non-interactive (overwrite outputs)")
     p.add_argument("--ckpt", type=str, default=None, help="torch checkpoint (.pt) to load")
     p.add_argument("--classifier_ckpt", type=str, default=None,
-                   help="classifier guidance (not ported yet, slice C: raises)")
+                   help="classifier guidance (not ported yet: a config that "
+                        "guides raises; elsewhere ignored)")
     p.add_argument("--random_init", action="store_true",
                    help="random weights from --seed (no checkpoint)")
     p.add_argument("--batch_size", type=int, default=None, help="override config batch size")
@@ -57,6 +68,7 @@ def parse_args(argv=None):
                    help="override time_travel.T_sampling")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--mask_path", type=str, default=None)
+    p.add_argument("--manifest", type=str, default=None, help="imagenet manifest txt")
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--solver", type=str, default="ddim", choices=["ddim", "multistep"])
     p.add_argument("--encoder_cache", type=int, default=1,
@@ -104,6 +116,7 @@ def main(argv=None):
         config=str(cfg_path), deg=ns.deg, deg_scale=ns.deg_scale, sigma_y=ns.sigma_y,
         eta=ns.eta, seed=ns.seed, exp=ns.exp, path_y=ns.path_y,
         image_folder=str(out), simplified=ns.simplified, add_noise=ns.add_noise,
+        noise_type=ns.noise_type, manifest=ns.manifest,
         subset_start=ns.subset_start, subset_end=ns.subset_end, ckpt=ns.ckpt,
         classifier_ckpt=ns.classifier_ckpt, random_init=ns.random_init,
         batch_size=ns.batch_size, dtype=ns.dtype, mask_path=ns.mask_path,

@@ -18,7 +18,7 @@ from ddnm_tpu_torch.config import parse_yaml
 from ddnm_tpu_torch.data import io as tio
 from ddnm_tpu_torch.data import metrics as tmetrics
 from ddnm_tpu_torch.data import transforms as ttransforms
-from ddnm_tpu_torch.data.datasets import FolderDataset, iterate_batches
+from ddnm_tpu_torch.data.datasets import FolderDataset, get_dataset, iterate_batches
 
 REPO = Path(__file__).resolve().parents[1]
 PNGS = sorted((REPO / "exp" / "datasets").rglob("*.png"))
@@ -117,3 +117,50 @@ def test_folder_dataset_order_and_pixels_match_jax(seed):
     batches = list(iterate_batches(ours, 3))
     assert [v for _, _, v in batches] == [3, 3, 2]
     assert batches[-1][0].shape == (3, 32, 32, 3)
+
+
+MANIFEST = "00003.png 17\n00000.png 951\n\nmissing.png 3\n00005.png\n00001.png 2\n"
+
+
+def _assert_pixels_close(a: np.ndarray, b: np.ndarray):
+    """Within 1 uint8 level, at most 0.1% of the values differing (PIL's
+    fixed-point resampler against the port's; tests/test_torch_resize.py)."""
+    assert a.shape == b.shape and a.dtype == b.dtype == np.float32
+    diff = np.abs(np.rint(a * 255) - np.rint(b * 255))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("image_size", [256, 64])
+@pytest.mark.parametrize("name,manifest,ood", [("ImageNet", False, False),
+                                               ("ImageNet", True, False),
+                                               ("LSUN", False, True)])
+def test_get_dataset_matches_jax(tmp_path, name, manifest, ood, image_size):
+    """Paths, labels and pixels of the ImageNet branches (folder:
+    center_crop_arr; manifest: labels, short-edge crop + BILINEAR) and the
+    ood LSUN folder, whole and with a subset, against the JAX package's
+    get_dataset on exp/datasets/imagenet."""
+    from ddnm_tpu.data.datasets import get_dataset as j_get_dataset
+
+    root = REPO / "exp" / "datasets" / "imagenet"
+    kw = dict(root=root, image_size=image_size, out_of_dist=ood)
+    if manifest:
+        (tmp_path / "val.txt").write_text(MANIFEST)
+        kw["manifest"] = tmp_path / "val.txt"
+    for subset in (None, (1, 3)):
+        ours = get_dataset(name, subset=subset, **kw)
+        ref = j_get_dataset(name, subset=subset, **kw)
+        assert ours.paths == ref.paths and len(ours) == (2 if subset else 4 if manifest else 8)
+        assert getattr(ours, "labels", None) == getattr(ref, "labels", None)
+        for i in range(len(ours)):
+            (a, la), (b, lb) = ours[i], ref[i]
+            assert la == lb
+            _assert_pixels_close(a, b)
+    if manifest:
+        assert get_dataset(name, **kw).labels == [17, 951, 0, 2]
+
+
+@pytest.mark.parametrize("name,ood", [("LSUN", False), ("CELEBA", False), ("cifar", False)])
+def test_get_dataset_refuses_what_is_not_ported(name, ood):
+    exc = ValueError if name == "cifar" else NotImplementedError
+    with pytest.raises(exc):
+        get_dataset(name, root=REPO / "exp" / "datasets" / "imagenet", out_of_dist=ood)

@@ -100,19 +100,21 @@ def test_multistep_solver_not_ported():
                           op, sched, image_generators(0, [0], 0, "cpu"), solver="multistep")
 
 
-@pytest.mark.parametrize("kw,config", [
-    (dict(solver="multistep"), "toy32.yml"),
-    (dict(encoder_cache=2), "toy32.yml"),
-    (dict(add_noise=True), "toy32.yml"),
-    ({}, "smoke_openai.yml"),
-    (dict(classifier_ckpt="clf.pt"), "imagenet_256_cc.yml"),
+@pytest.mark.parametrize("kw,config,exc,match", [
+    (dict(solver="multistep"), "toy32.yml", NotImplementedError, "not ported"),
+    (dict(encoder_cache=2), "toy32.yml", NotImplementedError, "not ported"),
+    # the JAX runner's refusal, ahead of the port's own
+    (dict(solver="multistep", add_noise=True), "toy32.yml", ValueError, "noise-free"),
+    # random_init: JAX would guide with a random classifier
+    ({}, "imagenet_256_cc.yml", NotImplementedError, "not ported"),
+    (dict(classifier_ckpt="clf.pt"), "imagenet_256_cc.yml", NotImplementedError, "not ported"),
 ])
-def test_runner_raises_on_paths_not_ported(kw, config):
+def test_runner_raises_on_paths_not_ported(kw, config, exc, match):
     from ddnm_tpu_torch.config import load_config
     from ddnm_tpu_torch.runner import RunArgs, Runner
 
     args = RunArgs(config=config, random_init=True, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(exc, match=match):
         Runner(args, load_config(REPO / "configs" / config))
 
 
