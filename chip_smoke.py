@@ -79,8 +79,33 @@ far it got. A failure in any phase raises.
      the sampler and end to end, launches per step, max |A(x) - y| of the
      sampler's output on the SR and inpainting rows; then the two noisy
      CelebA rows (--add_noise, sigma_y 0.2) on flag_ddpm256.pt at 25 steps,
-     each with a finite PSNR.
+     each with a finite PSNR;
+ 13. guided parity on the toy32 ADM guided by the toy32 classifier
+     (tests/fixtures/toy_adm32.pt, toy_clf32.pt): the guided hq golden
+     (tests/fixtures/toy_adm32_guided_golden.json) through sample_posterior
+     with classifier_guidance_fn, fp32 through the kernels (the classifier's
+     backward through the backward kernels) within 0.01 dB of the JAX
+     package's PSNR, per-image max |delta| against the JAX output, launch
+     counts exact; the same through the plain versions, kernel against
+     plain; one guidance gradient through the kernels against force="torch";
+     bf16 printed beside JAX's bf16 PSNR (not gated; ROADMAP's watch item);
+ 14. the guided configurations at full width, bf16, random weights from
+     seed 1234: one 256 px tile of configs/hq/inet256.yml (classifier_scale
+     1.0: the 553.8M ADM and the 54,096,360-parameter classifier, 280 model
+     calls) through hq_main_torch, and the configs/imagenet_256_cc.yml row
+     through main_torch (SVD 4x average-pooling SR, batch 8, 100 steps,
+     --random_init); s per tile, images/s, launches per model call of
+     every forward and backward kernel against the module counts, max
+     |A(x) - y|; per guidance call at batch 1 and 8, its ms, launches and
+     gradient norm (finite, non-zero).
 
+Phase 3 also holds the four backward kernels (gn_bwd_reduce, gn_bwd_dx,
+attn_bwd_dq, attn_bwd_dkdv; no TPU counterpart) against their plain
+versions, and each pair against autograd through the plain forward, in
+fp32 and bf16 at every shape of three classifier forwards (the toy32
+classifier at batch 2; the 256 px classifier at batch 1 and 8), timed
+beside the library's autograd backward (F.group_norm, SDPA), and sums
+their times per guidance call.
 Phase 3 also holds the GroupNorm (with FiLM) and attention kernels against
 their plain versions at every shape of phase 10's ADM forward (one tile,
 bf16) and of phase 12's (batch 8, 256 px, bf16) and sums their times per
@@ -95,7 +120,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-12 sets the launch counts to 0 just before each run it
+Each of phases 4-14 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after.
 
 The line before the last is the JSON summary of the kernels; the last line
@@ -127,8 +152,13 @@ from ddnm_tpu_torch import ops  # noqa: E402
 from ddnm_tpu_torch.ops import _build  # noqa: E402
 from ddnm_tpu_torch.ops.attention import (  # noqa: E402
     WHOLE_ROW_MAX_T,
+    _attn_bwd_dkdv,
+    _attn_bwd_dq,
     _kernel_attention,
     _torch_attention,
+    _torch_attention_backward,
+    _torch_attn_bwd_dkdv,
+    _torch_attn_bwd_dq,
 )
 from ddnm_tpu_torch.ops.fused_gn_conv import (  # noqa: E402
     _kernel_fused_gn_conv,
@@ -142,10 +172,15 @@ from ddnm_tpu_torch.ops.fwht import (  # noqa: E402
 )
 from ddnm_tpu_torch.ops.groupnorm import (  # noqa: E402
     _apply,
+    _bwd_dx,
+    _bwd_reduce,
     _kernel_group_norm,
     _stats_affine,
     _torch_apply,
+    _torch_bwd_dx,
+    _torch_bwd_reduce,
     _torch_group_norm,
+    _torch_group_norm_backward,
     _torch_stats_affine,
 )
 
@@ -188,6 +223,30 @@ TOL = {
     ("attention", torch.bfloat16): 3e-2,
     ("fwht", torch.float32): 1e-4,
     ("fused_gn_conv", torch.bfloat16): 1e-2,
+    # the backward kernels (new in the port; no TPU counterpart) against
+    # their plain versions, both in fp32 arithmetic on the same inputs:
+    #  - gn_bwd_reduce: (3, B, C) fp32 coefficients from fp32 sums taken in
+    #    another order (as the stats kernel);
+    #  - gn_bwd_dx: one FMA chain against the plain version's; bf16 output
+    #    may land one ulp (<= 2^-7 relative) apart;
+    #  - attn_bwd_dq / attn_bwd_dkdv: T-term fp32 sums in another order,
+    #    exp against torch.exp; bf16 outputs one ulp apart;
+    #  - gn_bwd / attn_bwd (each pair, whole backward) against autograd
+    #    through the plain forward: fp32 the same function by another
+    #    formula; bf16 autograd rounds the forward's scores (attention) and
+    #    norm to bf16 and back-propagates through them, the kernels keep fp32
+    ("gn_bwd_reduce", torch.float32): 1e-4,
+    ("gn_bwd_reduce", torch.bfloat16): 1e-4,
+    ("gn_bwd_dx", torch.float32): 1e-5,
+    ("gn_bwd_dx", torch.bfloat16): 1e-2,
+    ("attn_bwd_dq", torch.float32): 1e-4,
+    ("attn_bwd_dq", torch.bfloat16): 1e-2,
+    ("attn_bwd_dkdv", torch.float32): 1e-4,
+    ("attn_bwd_dkdv", torch.bfloat16): 1e-2,
+    ("gn_bwd", torch.float32): 1e-4,
+    ("gn_bwd", torch.bfloat16): 3e-2,
+    ("attn_bwd", torch.float32): 1e-4,
+    ("attn_bwd", torch.bfloat16): 5e-2,
 }
 # the kernels of the JSON summary: source, and the pl.pallas_call it replaces
 SOURCES = {
@@ -199,7 +258,19 @@ SOURCES = {
     "fused_gn_conv": ("ddnm_tpu_torch/csrc/fused_gn_conv.cu",
                       "tools/experiments/fused_gn_conv.py:114 + "
                       "tools/experiments/fused_gn_conv_ablations.py:132"),
+    # the backward kernels replace no pl.pallas_call: the JAX package takes
+    # the guidance gradient with jax.grad through its XLA GroupNorm and
+    # attention
+    "gn_bwd_reduce": ("ddnm_tpu_torch/csrc/groupnorm.cu",
+                      "ddnm_tpu/models/unet_adm.py:556 (jax.grad through XLA)"),
+    "gn_bwd_dx": ("ddnm_tpu_torch/csrc/groupnorm.cu",
+                  "ddnm_tpu/models/unet_adm.py:556 (jax.grad through XLA)"),
+    "attn_bwd_dq": ("ddnm_tpu_torch/csrc/attention.cu",
+                    "ddnm_tpu/models/unet_adm.py:556 (jax.grad through XLA)"),
+    "attn_bwd_dkdv": ("ddnm_tpu_torch/csrc/attention.cu",
+                      "ddnm_tpu/models/unet_adm.py:556 (jax.grad through XLA)"),
 }
+BACKWARD = ("gn_bwd_reduce", "gn_bwd_dx", "attn_bwd_dq", "attn_bwd_dkdv")
 # attention shapes beyond the UNet forwards': T = 1, T = 17, C = 32, both
 # sides of the whole-row softmax limit (the last runs the online softmax),
 # the ADM heads of configs/imagenet_256.yml (64 channels; 1024, 256 and 64
@@ -220,6 +291,17 @@ FWHT_MAIN_SHAPE = (8, 3, 65536)
 # ragged one (H, W not multiples of the tile, C = 96 = 3 x 32)
 FUSED_SHAPES = ((8, 256, 256, 128), (2, 32, 32, 64), (3, 20, 36, 96))
 EXPERIMENT = REPO / "tools" / "experiments" / "fused_gn_conv_torch.py"
+
+
+def expected_launches(n_gn: int = 0, n_attn: int = 0, n_gn_bwd: int = 0, n_attn_bwd: int = 0,
+                      **others) -> dict:
+    """Every kernel wrapper's launch count as a run should leave it: `n_gn`
+    GroupNorms forward (stats and apply), `n_attn` attentions forward,
+    `n_gn_bwd` and `n_attn_bwd` of each backward (both kernels), `others`
+    by name, 0 for the rest."""
+    return dict(dict.fromkeys(ops.launch_counts(), 0), groupnorm_stats=n_gn,
+                groupnorm_apply=n_gn, gn_bwd_reduce=n_gn_bwd, gn_bwd_dx=n_gn_bwd,
+                attention=n_attn, attn_bwd_dq=n_attn_bwd, attn_bwd_dkdv=n_attn_bwd, **others)
 
 
 @contextlib.contextmanager
@@ -304,7 +386,7 @@ def op_shapes(model, x_nhwc, *args) -> dict:
     that take the ADM ResBlock's FiLM scale and shift. Attention shapes are
     the kernel's (B * heads, T, C / heads)."""
     from ddnm_tpu_torch.models.nn import GroupNormF32
-    from ddnm_tpu_torch.models.unet_adm import AttentionBlock
+    from ddnm_tpu_torch.models.unet_adm import AttentionBlock, AttentionPool2d
     from ddnm_tpu_torch.models.unet_ddpm import AttnBlock
 
     seen: dict = {}
@@ -323,12 +405,13 @@ def op_shapes(model, x_nhwc, *args) -> dict:
     def attn_hook(m, args):
         b, c, h, w = args[0].shape
         heads = getattr(m, "num_heads", 1)
-        count(("attention", (b * heads, h * w, c // heads), args[0].dtype))
+        t = h * w + isinstance(m, AttentionPool2d)  # the pool's mean token
+        count(("attention", (b * heads, t, c // heads), args[0].dtype))
 
     handles = [m.register_forward_pre_hook(gn_hook if isinstance(m, GroupNormF32)
                                            else attn_hook)
                for m in model.modules()
-               if isinstance(m, (GroupNormF32, AttnBlock, AttentionBlock))]
+               if isinstance(m, (GroupNormF32, AttnBlock, AttentionBlock, AttentionPool2d))]
     with torch.no_grad():
         model(x_nhwc, torch.full((x_nhwc.shape[0],), 500.0, device=x_nhwc.device), *args)
     for h in handles:
@@ -585,8 +668,7 @@ def parity_fp32(model, n_gn: int, n_attn: int) -> dict:
     if not out["kernel_vs_torch_max_abs"] <= 1e-3:
         raise AssertionError(f"kernel vs plain trajectories differ by "
                              f"{out['kernel_vs_torch_max_abs']:.3e}")
-    want = {"groupnorm_stats": n_gn * steps, "groupnorm_apply": n_gn * steps,
-            "attention": n_attn * steps, "fwht": 0, "fused_gn_conv": 0}
+    want = expected_launches(n_gn * steps, n_attn * steps)
     if runs["kernel"][2] != want:
         raise AssertionError(f"launch counts {runs['kernel'][2]} != {want}")
     if any(runs["torch"][2].values()):
@@ -697,9 +779,8 @@ def parity_svd(model, n_gn: int, n_attn: int) -> dict:
                 if not r["pool8_max_abs_vs_golden"] <= POOL8_TOL:
                     raise AssertionError(f"{name} {mode}: pooled output vs golden "
                                          f"{r['pool8_max_abs_vs_golden']:.3e}")
-            want = ({"groupnorm_stats": n_gn * steps, "groupnorm_apply": n_gn * steps,
-                     "attention": n_attn * steps,
-                     "fwht": fwht_launches(deg, sigma_y, steps), "fused_gn_conv": 0}
+            want = (expected_launches(n_gn * steps, n_attn * steps,
+                                      fwht=fwht_launches(deg, sigma_y, steps))
                     if mode == "kernel" else dict.fromkeys(counts, 0))
             if counts != want:
                 raise AssertionError(f"{name} {mode}: launch counts {counts} != {want}")
@@ -859,8 +940,7 @@ def hq_parity(n_gn: int, n_attn: int) -> dict:
               f"{secs:.2f} s launches {counts}", flush=True)
         if not abs(psnr - r["golden"]) <= HQ_PSNR_TOL:
             raise AssertionError(f"{name}: PSNR {psnr:.4f} vs JAX {r['golden']:.4f}")
-        want = {"groupnorm_stats": n_gn * calls, "groupnorm_apply": n_gn * calls,
-                "attention": n_attn * calls, "fwht": 0, "fused_gn_conv": 0}
+        want = expected_launches(n_gn * calls, n_attn * calls)
         if counts != want:
             raise AssertionError(f"{name}: launch counts {counts} != {want}")
         if name == TASKS_HQ[0][0]:
@@ -969,8 +1049,7 @@ def hq_main_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
         raise AssertionError(f"hq final: shape {final.shape} or non-finite values")
     if not stats["range_space_max_abs"] <= 1e-4:
         raise AssertionError(f"hq range-space error {stats['range_space_max_abs']:.3e}")
-    want = {"groupnorm_stats": n_gn * calls, "groupnorm_apply": n_gn * calls,
-            "attention": n_attn * calls, "fwht": 0, "fused_gn_conv": 0}
+    want = expected_launches(n_gn * calls, n_attn * calls)
     if calls != 4 * 280 or launches != want:
         raise AssertionError(f"hq launch counts {launches} != {want} ({calls} calls)")
     return stats, launches
@@ -1056,9 +1135,9 @@ def main_runner_parity(n_gn: int, n_attn: int) -> dict:
                   flush=True)
             if not all(abs(a - b) <= MAIN_PSNR_TOL for a, b in zip(psnrs, want_psnr)):
                 raise AssertionError(f"{name} {route}: PSNR {psnrs} vs JAX {want_psnr}")
-            want = ({"groupnorm_stats": n_gn * steps, "groupnorm_apply": n_gn * steps,
-                     "attention": n_attn * steps, "fwht": fwht_launches(deg, 0.0, steps),
-                     "fused_gn_conv": 0} if force is None else dict.fromkeys(counts, 0))
+            want = (expected_launches(n_gn * steps, n_attn * steps,
+                                      fwht=fwht_launches(deg, 0.0, steps))
+                    if force is None else dict.fromkeys(counts, 0))
             if counts != want:
                 raise AssertionError(f"{name} {route}: launch counts {counts} != {want}")
             out[f"{name}/{route}"] = {"psnr": psnrs, "seconds": secs}
@@ -1121,8 +1200,7 @@ def imagenet_rows(n_gn: int, n_attn: int, n_gn_ddpm: int, n_attn_ddpm: int,
             # the runner's A+y preview and its range-space check (one each)
             # on top of sample_svd's
             fwht = 2 + fwht_launches(deg, 2 * sigma_y, steps) if deg == "cs_walshhadamard" else 0
-            want = {"groupnorm_stats": gn * steps, "groupnorm_apply": gn * steps,
-                    "attention": attn * steps, "fwht": fwht, "fused_gn_conv": 0}
+            want = expected_launches(gn * steps, attn * steps, fwht=fwht)
             per_step = {k: v / steps for k, v in launches.items()}
             stats = dict(stats, launches=launches, launches_per_step=per_step,
                          sampler_images_per_second=stats["num_samples"] / stats["sample_seconds"])
@@ -1145,6 +1223,432 @@ def imagenet_rows(n_gn: int, n_attn: int, n_gn_ddpm: int, n_attn_ddpm: int,
                 summed = launches if summed is None else {k: summed[k] + v
                                                           for k, v in launches.items()}
     return rows, summed
+
+
+# ------------------------------------------- phase 3 (backward), 13 and 14
+
+TOY_CLF_PT = REPO / "tests" / "fixtures" / "toy_clf32.pt"
+TOY_CLF_JSON = REPO / "tests" / "fixtures" / "toy_clf32.json"
+GUIDED_GOLDEN = REPO / "tests" / "fixtures" / "toy_adm32_guided_golden.json"
+IMAGENET_CC_CONFIG = REPO / "configs" / "imagenet_256_cc.yml"
+# ROADMAP's "bf16 hq runs" watch item: the port's bf16 hq runs land up to
+# 0.26 dB from JAX's bf16 (it folds FiLM into the norm and rounds once)
+BF16_HQ_WATCH_DB = 0.26
+
+
+def grad_shapes(model, x_nhwc, *args) -> dict:
+    """{("gn", shape, swish, film) | ("attn", shape): calls} of one forward
+    of `model` (forward pre-hooks, under no_grad): each GroupNorm's NHWC
+    shape with the SiLU and FiLM it runs with, each attention's kernel
+    shape (B * heads, T, C / heads); what its backward gives the backward
+    kernels."""
+    from ddnm_tpu_torch.models.nn import GroupNormF32
+    from ddnm_tpu_torch.models.unet_adm import AttentionBlock, AttentionPool2d
+
+    seen: dict = {}
+
+    def count(key):
+        seen[key] = seen.get(key, 0) + 1
+
+    def gn_hook(m, a):
+        b, c, h, w = a[0].shape
+        count(("gn", (b, h, w, c), m.swish, len(a) > 1 and a[1] is not None))
+
+    def attn_hook(m, a):
+        b, c, h, w = a[0].shape
+        t = h * w + isinstance(m, AttentionPool2d)
+        count(("attn", (b * m.num_heads, t, c // m.num_heads)))
+
+    handles = [m.register_forward_pre_hook(gn_hook if isinstance(m, GroupNormF32) else attn_hook)
+               for m in model.modules()
+               if isinstance(m, (GroupNormF32, AttentionBlock, AttentionPool2d))]
+    with torch.no_grad():
+        model(x_nhwc, torch.full((x_nhwc.shape[0],), 500.0, device=x_nhwc.device), *args)
+    for h in handles:
+        h.remove()
+    return seen
+
+
+def check_backward(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generator,
+                   swish: bool = False, film: bool = False) -> dict:
+    """A backward kernel (gn_bwd_reduce, gn_bwd_dx, attn_bwd_dq,
+    attn_bwd_dkdv) or a pair (gn_bwd: reduce then dx; attn_bwd: dq then
+    dkdv) against its plain version at one shape, with the forward's
+    saved tensors made by the forward kernels; a pair also against
+    autograd through the plain forward and timed beside the library's
+    autograd backward (F.group_norm, without FiLM or SiLU; SDPA), with the
+    graph built once and only the backward timed. gn_bwd_reduce must give
+    the same bits on a second call. Returns a result dict as check_kernel's."""
+    dev = "cuda"
+    library = autograd_ref = None
+    elem = torch.empty((), dtype=dtype).element_size()
+    if kind.startswith("gn"):
+        B, H, W, C = shape
+        n = math.prod(shape)
+        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        g, b = (torch.randn(C, device=dev, generator=gen) for _ in range(2))
+        fs = ft = None
+        if film:
+            fs, ft = (torch.randn(B, C, device=dev, generator=gen) * 0.3 for _ in range(2))
+        a_, b_ = _stats_affine(x, g, b, 32, 1e-5, fs, ft)  # as the Function saves them
+        peak = PEAK_FLOPS[torch.float32]
+        silu = 12 if swish else 0
+        if kind == "gn_bwd_reduce":
+            kern = lambda: _bwd_reduce(x, dy, g, 32, 1e-5, swish, a_, b_, fs)
+            plain = lambda: _torch_bwd_reduce(x, dy, g, 32, 1e-5, swish, a_, b_, fs)
+            if not torch.equal(kern(), kern()):
+                raise AssertionError(f"gn_bwd_reduce {shape} {dtype}: two calls differ")
+            nbytes, flops = 2 * n * elem + 3 * B * C * 4, (6 + silu) * n
+        elif kind == "gn_bwd_dx":
+            coef = _torch_bwd_reduce(x, dy, g, 32, 1e-5, swish, a_, b_, fs)
+            kern = lambda: _bwd_dx(x, dy, coef, swish, a_, b_)
+            plain = lambda: _torch_bwd_dx(x, dy, coef, swish, a_, b_)
+            nbytes, flops = 3 * n * elem + 3 * B * C * 4, (4 + silu) * n
+        else:
+            kern = lambda: _bwd_dx(x, dy, _bwd_reduce(x, dy, g, 32, 1e-5, swish, a_, b_, fs),
+                                   swish, a_, b_)
+            plain = lambda: _torch_group_norm_backward(x, dy, g, b, 32, 1e-5, swish, fs, ft)
+            xr = x.clone().requires_grad_(True)
+            autograd_ref = torch.autograd.grad(
+                _torch_group_norm(xr, g, b, 32, 1e-5, swish, fs, ft), xr, dy)[0]
+            xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)  # channels_last bytes
+            yl = F.group_norm(xl, 32, g.to(dtype), b.to(dtype), 1e-5)
+            dyl = dy.permute(0, 3, 1, 2)
+            library = lambda: torch.autograd.grad(yl, xl, dyl, retain_graph=True)
+            nbytes, flops = 3 * n * elem, (10 + 2 * silu) * n
+    else:
+        B, T, C = shape
+        q, k, v, do = (torch.randn(shape, device=dev, generator=gen).to(dtype) for _ in range(4))
+        scale = C ** -0.25  # the ADM heads' q and k scale, here on the product
+        o = _kernel_attention(q, k, v, scale)
+        peak = PEAK_FLOPS[dtype]
+        rows = 2 * B * T * 4  # LSE and D
+        if kind == "attn_bwd_dq":
+            kern = lambda: _attn_bwd_dq(q, k, v, o, do, scale)
+            plain = lambda: _torch_attn_bwd_dq(q, k, v, o, do, scale)
+            nbytes, flops = 6 * q.numel() * elem + rows, 6 * B * T * T * C
+        elif kind == "attn_bwd_dkdv":
+            _, lse, dsum = _torch_attn_bwd_dq(q, k, v, o, do, scale)
+            kern = lambda: _attn_bwd_dkdv(q, k, v, do, lse, dsum, scale)
+            plain = lambda: _torch_attn_bwd_dkdv(q, k, v, do, lse, dsum, scale)
+            nbytes, flops = 6 * q.numel() * elem + rows, 8 * B * T * T * C
+        else:
+            def kern():
+                dq, lse, dsum = _attn_bwd_dq(q, k, v, o, do, scale)
+                return (dq, *_attn_bwd_dkdv(q, k, v, do, lse, dsum, scale))
+
+            plain = lambda: _torch_attention_backward(q, k, v, o, do, scale)
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            autograd_ref = torch.autograd.grad(_torch_attention(*ins, scale), ins, do)
+            lin = [t[:, None].detach().requires_grad_(True) for t in (q, k, v)]
+            lout = F.scaled_dot_product_attention(*lin, scale=scale)
+            library = lambda: torch.autograd.grad(lout, lin, do[:, None], retain_graph=True)
+            nbytes, flops = 8 * q.numel() * elem, 10 * B * T * T * C
+    as_list = lambda out: list(out) if isinstance(out, (tuple, list)) else [out]
+    refs = [t.float() for t in as_list(plain())]
+    got = as_list(kern())
+    err = max(float((k.float() - r).abs().max()) for k, r in zip(got, refs))
+    torch.cuda.synchronize()
+    tol = TOL[(kind, dtype)] * max(1.0, max(float(r.abs().max()) for r in refs))
+    if not err <= tol:
+        raise AssertionError(f"{kind} {shape} {dtype} swish={swish} film={film}: kernel vs "
+                             f"plain max abs {err:.3e} > {tol:.3e}")
+    out = {"kind": kind, "shape": shape, "dtype": str(dtype).replace("torch.", ""),
+           "swish": swish, "film": film, "max_abs_err": err, "tol": tol}
+    if autograd_ref is not None:
+        ref = [t.float() for t in as_list(autograd_ref)]
+        a_err = max(float((k.float() - r).abs().max()) for k, r in zip(got, ref))
+        a_tol = TOL[(kind, dtype)] * max(1.0, max(float(r.abs().max()) for r in ref))
+        if not a_err <= a_tol:
+            raise AssertionError(f"{kind} {shape} {dtype} swish={swish} film={film}: kernels "
+                                 f"vs autograd through the plain forward {a_err:.3e} > "
+                                 f"{a_tol:.3e}")
+        out.update(autograd_err=a_err, autograd_tol=a_tol)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    out.update(ms=cuda_ms(kern, iters=10), device_ms=device_ms(kern, iters=10),
+               plain_ms=cuda_ms(plain, iters=5, warmup=1),
+               library_ms=cuda_ms(library, iters=10) if library else None,
+               library_device_ms=device_ms(library, iters=10) if library else None,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def toy_classifier(device, dtype=torch.float32):
+    """The trained toy32 classifier of tests/fixtures/toy_clf32.pt."""
+    from ddnm_tpu_torch.models import ADMClassifier, cast_torso
+    from ddnm_tpu_torch.runner import load_checkpoint
+
+    clf = ADMClassifier(**json.loads(TOY_CLF_JSON.read_text())["clf_kw"])
+    load_checkpoint(clf, TOY_CLF_PT)
+    clf = clf.to(device).eval()
+    return cast_torso(clf, dtype) if dtype != torch.float32 else clf
+
+
+def cc_classifier(device="cuda"):
+    """The 54,096,360-parameter classifier of configs/imagenet_256_cc.yml
+    (and configs/hq/inet256.yml), bf16, random weights from seed 1234 (as
+    the Runner and hq_main_torch build it under --random_init)."""
+    from ddnm_tpu_torch.config import load_config
+    from ddnm_tpu_torch.models import ADMClassifier, cast_torso
+    from ddnm_tpu_torch.models.unet_adm import init_like_flax
+
+    with torch.device(device):
+        clf = ADMClassifier.from_config(load_config(IMAGENET_CC_CONFIG).classifier, 256)
+    return cast_torso(init_like_flax(clf, 1234).eval(), torch.bfloat16)
+
+
+def decode_f32(d: dict) -> np.ndarray:
+    """A float32 array of the guided golden (shape and little-endian bytes
+    in base64; tools/emit_toy_adm32_guided_golden.py `encode`)."""
+    import base64
+
+    return np.frombuffer(base64.b64decode(d["f32_b64"]), dtype="<f4").reshape(d["shape"])
+
+
+def guided_golden_run(model, classifier, device, tier: str = "toy32"):
+    """The guided hq golden protocol (tests/fixtures/toy_adm32_guided_golden.json)
+    through the port's sample_posterior with `classifier_guidance_fn`:
+    the golden's ground truth, x_T from RandomState(11), zero noise, 4x
+    average-pooling SR, respacing 25 with the jump schedule, class 2, scale
+    2.0. Returns (batch PSNR, final images, per-image max |final - JAX
+    output|, seconds)."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+    from ddnm_tpu_torch.operators import build_functional_operator
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, sample_posterior
+
+    golden = json.loads(GUIDED_GOLDEN.read_text())
+    proto, t = golden["protocol"], golden["tiers"][tier]
+    n, res = proto["n_images"], t["res"]
+    gt = torch.from_numpy(decode_f32(t["gt"]).copy()).to(device)
+    xt = np.random.RandomState(proto["x_T_seed"]).randn(n, 3, res, res).astype(np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(xt.transpose(0, 2, 3, 1))).to(device)
+    op = build_functional_operator(proto["deg"], image_size=res,
+                                   deg_scale=float(proto["scale"]), device=device)
+    tables = build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing=proto["timestep_respacing"],
+        schedule_jump_params=proto["schedule_jump_params"])
+    guidance = classifier_guidance_fn(classifier, proto["guided_class"],
+                                      proto["classifier_scale"])
+    zero = lambda gens, shape: torch.zeros(shape, device=device)
+    t0 = time.perf_counter()
+    x, _ = sample_posterior(lambda z, s: model(z, s), xt, op.Ap(op.A(gt)), op, tables,
+                            [None] * n, noise_fn=zero, guidance_fn=guidance)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    to01 = lambda a: torch.clamp((a + 1) / 2, 0, 1)
+    mse = float(((to01(x) - to01(gt)) ** 2).mean())
+    jax_x = decode_f32(t["jax_output"])
+    per_image = [float(np.abs(x[i].cpu().numpy() - jax_x[i]).max()) for i in range(n)]
+    return 10.0 * math.log10(1.0 / max(mse, 1e-12)), x, per_image, secs
+
+
+def module_counts(model) -> tuple[int, int]:
+    """(GroupNorms, attentions) of a model: each one launch of its kernels
+    a forward, and of its backward kernels a backward."""
+    from ddnm_tpu_torch.models.nn import GroupNormF32
+    from ddnm_tpu_torch.models.unet_adm import AttentionBlock, AttentionPool2d
+    from ddnm_tpu_torch.models.unet_ddpm import AttnBlock
+
+    return (sum(isinstance(m, GroupNormF32) for m in model.modules()),
+            sum(isinstance(m, (AttentionBlock, AttentionPool2d, AttnBlock))
+                for m in model.modules()))
+
+
+def guided_parity() -> dict:
+    """Phase 13: the toy32 guided golden (toy_adm32.pt guided by
+    toy_clf32.pt) in fp32 through the kernels, within HQ_PSNR_TOL of
+    the JAX package's PSNR, per-image max |delta| against the JAX output,
+    launch counts exact (the classifier's forward and backward kernels
+    once per GroupNorm / attention a model call); the same through the
+    plain versions (no launches), kernel against plain; the guidance
+    gradient through the kernels against the same classifier with
+    force="torch"; then bf16, reported beside JAX's bf16 PSNR."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+    from ddnm_tpu_torch.models.unet_ddpm import set_op_force
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, n_model_calls
+
+    golden = json.loads(GUIDED_GOLDEN.read_text())
+    want = golden["tiers"]["toy32"]["recorded_psnr"]
+    want_bf16 = json.loads(TOY_ADM_PSNR_BF16.read_text())["hq_guided_sr"]["ours_psnr"]
+    proto = golden["protocol"]
+    calls = n_model_calls(build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing=proto["timestep_respacing"],
+        schedule_jump_params=proto["schedule_jump_params"]))
+    model, clf = toy_adm("cuda"), toy_classifier("cuda")
+    (n_gn, n_attn), (n_gn_c, n_attn_c) = module_counts(model), module_counts(clf)
+    out = {}
+    finals = {}
+    for route, force in (("kernel", None), ("plain", "torch")):
+        set_op_force(model, force)
+        set_op_force(clf, force)
+        ops.reset_launch_counts()
+        psnr, finals[route], per_image, secs = guided_golden_run(model, clf, "cuda")
+        counts = ops.launch_counts()
+        print(f"guided toy32 fp32 {route:6s}: PSNR {psnr:.4f} (JAX {want:.4f}, difference "
+              f"{psnr - want:+.4f} dB); per-image max |x - JAX| "
+              f"{['%.2e' % e for e in per_image]}; {secs:.2f} s ({calls} model calls); "
+              f"launches {counts}", flush=True)
+        if not abs(psnr - want) <= HQ_PSNR_TOL:
+            raise AssertionError(f"guided toy32 {route}: PSNR {psnr:.4f} vs JAX {want:.4f}")
+        expect = (expected_launches((n_gn + n_gn_c) * calls, (n_attn + n_attn_c) * calls,
+                                    n_gn_c * calls, n_attn_c * calls)
+                  if force is None else dict.fromkeys(counts, 0))
+        if counts != expect:
+            raise AssertionError(f"guided toy32 {route}: launch counts {counts} != {expect}")
+        out[route] = {"psnr": psnr, "per_image_max_abs_vs_jax": per_image, "seconds": secs,
+                      "launches": counts}
+    set_op_force(model, None)
+    out["kernel_vs_plain_max_abs"] = float((finals["kernel"] - finals["plain"]).abs().max())
+    print(f"guided toy32: kernel vs plain final images max abs "
+          f"{out['kernel_vs_plain_max_abs']:.3e}", flush=True)
+    if not out["kernel_vs_plain_max_abs"] <= 1e-3:
+        raise AssertionError(f"guided toy32: kernel vs plain {out['kernel_vs_plain_max_abs']}")
+    # one guidance gradient, through the kernels and with force="torch"
+    x = torch.randn(2, 32, 32, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    tb = torch.tensor([120.0, 640.0], device="cuda")
+    grads = {}
+    for force in (None, "torch"):
+        set_op_force(clf, force)
+        grads[force] = classifier_guidance_fn(clf, 2, 2.0)(x, tb)
+    set_op_force(clf, None)
+    rel = float((grads[None] - grads["torch"]).abs().max() / grads["torch"].abs().max())
+    out["guidance_kernel_vs_plain_rel"] = rel
+    print(f"guided toy32: guidance gradient through the kernels vs force='torch': max "
+          f"relative {rel:.2e} (norm {float(grads[None].norm()):.4f})", flush=True)
+    if not (rel <= 1e-4 and torch.isfinite(grads[None]).all() and grads[None].abs().max() > 0):
+        raise AssertionError(f"guided toy32: guidance gradient kernel vs plain {rel}")
+    bf16, clf16 = toy_adm("cuda", torch.bfloat16), toy_classifier("cuda", torch.bfloat16)
+    psnr, _, per_image, secs = guided_golden_run(bf16, clf16, "cuda")
+    out["bf16_psnr"] = psnr
+    print(f"guided toy32 bf16 kernels: PSNR {psnr:.4f} (JAX bf16 {want_bf16:.4f}, difference "
+          f"{psnr - want_bf16:+.4f} dB; ROADMAP's bf16 hq watch: up to {BF16_HQ_WATCH_DB} dB; "
+          f"not gated) {secs:.2f} s", flush=True)
+    return out
+
+
+def guidance_call(clf, batch: int) -> dict:
+    """One guidance call of the 256 px classifier at `batch` (bf16, random
+    weights): ms per call back to back (forward and backward of the
+    classifier), launches per call against the module counts, the
+    gradient's norm (finite, non-zero) and its difference from the same
+    classifier with force="torch"."""
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+    from ddnm_tpu_torch.models.unet_ddpm import set_op_force
+
+    g = torch.Generator("cuda").manual_seed(batch)
+    x = torch.randn(batch, 256, 256, 3, device="cuda", generator=g)
+    t = torch.full((batch,), 500.0, device="cuda")
+    guide = classifier_guidance_fn(clf, 951, 1.0)
+    ops.reset_launch_counts()
+    grad = guide(x, t)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_gn, n_attn = module_counts(clf)
+    if counts != expected_launches(n_gn, n_attn, n_gn, n_attn):
+        raise AssertionError(f"guidance at batch {batch}: launches {counts}")
+    set_op_force(clf, "torch")
+    plain = guide(x, t)
+    set_op_force(clf, None)
+    rel = float((grad - plain).abs().max() / max(float(plain.abs().max()), 1e-30))
+    norm = float(grad.norm())
+    if not (math.isfinite(norm) and norm > 0 and grad.dtype == torch.float32):
+        raise AssertionError(f"guidance at batch {batch}: norm {norm}, dtype {grad.dtype}")
+    if not rel <= 5e-2:
+        raise AssertionError(f"guidance at batch {batch}: kernels vs plain {rel:.3e}")
+    return {"ms": cuda_ms(lambda: guide(x, t), iters=5, warmup=1), "launches": counts,
+            "grad_norm": norm, "kernel_vs_plain_rel": rel}
+
+
+def guided_full_width(n_gn_hq: int, n_attn_hq: int, n_gn_inet: int, n_attn_inet: int
+                      ) -> tuple[dict, dict, dict]:
+    """Phase 14: the guided configurations at full width, bf16, random
+    weights from seed 1234: one 256 px tile of configs/hq/inet256.yml
+    (classifier_scale 1.0, the 553.8M ADM and the 54,096,360-parameter
+    classifier) through hq_main_torch, 280 model calls, 4x SR of a 64 x 64
+    PNG with --resize_y; and the configs/imagenet_256_cc.yml row through
+    main_torch (SVD sr_averagepooling 4x, batch 8, 100 steps,
+    --random_init): s per tile, images/s, launches per model call of every
+    forward and backward kernel against the module counts, max |A(x) - y|,
+    and per guidance call (the classifier's forward and backward) at
+    batch 1 and 8 its ms, launches and gradient norm. Returns (stats,
+    hq launches, cc launches)."""
+    import hq_main_torch
+    import main_torch
+    from ddnm_tpu_torch.data.io import load_image, save_image
+
+    clf = cc_classifier()
+    n_gn_c, n_attn_c = module_counts(clf)
+    calls_of = {b: guidance_call(clf, b) for b in (1, 8)}
+    del clf
+    torch.cuda.empty_cache()
+    for b, r in calls_of.items():
+        print(f"guidance call (256 px classifier, bf16, batch {b}): {r['ms']:.2f} ms, "
+              f"gradient norm {r['grad_norm']:.4e}, kernels vs plain relative "
+              f"{r['kernel_vs_plain_rel']:.2e}, launches {r['launches']}", flush=True)
+    img = load_image(REPO / "exp" / "datasets" / "imagenet" / "00000.png")
+    small = img[:256, :256].reshape(64, 4, 64, 4, 3).mean(axis=(1, 3))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_image(small, tmp / "y64.png")
+        ops.reset_launch_counts()
+        out = hq_main_torch.main([
+            "--config", str(INET256), "--path_y", str(tmp / "y64.png"),
+            "--deg", "sr_averagepooling", "--scale", "4", "--resize_y", "--class", "951",
+            "--random_init", "--seed", "1234", "--dtype", "bfloat16", "-i", str(tmp / "hq")])
+        launches_hq = ops.launch_counts()
+        ops.reset_launch_counts()
+        cc = main_torch.main([
+            "--config", str(IMAGENET_CC_CONFIG), "--random_init", "--exp", str(REPO / "exp"),
+            "--path_y", "imagenet", "--deg", "sr_averagepooling", "--deg_scale", "4",
+            "--sigma_y", "0", "--dtype", "bfloat16", "--batch_size", "8",
+            "-i", str(tmp / "cc"), "--ni", "--verbose", "warning"])
+        launches_cc = ops.launch_counts()
+        n_png = len(list((tmp / "cc").glob("*_0.png")))
+    hq = dict(out["stats"])
+    hq["range_space_max_abs"] = float(np.abs(
+        out["final"].reshape(1, 64, 4, 64, 4, 3).mean(axis=(2, 4)) - out["y"]).max())
+    calls, steps = hq["model_calls"], 100
+    hq_want = expected_launches((n_gn_hq + n_gn_c) * calls, (n_attn_hq + n_attn_c) * calls,
+                                n_gn_c * calls, n_attn_c * calls)
+    cc_want = expected_launches((n_gn_inet + n_gn_c) * steps, (n_attn_inet + n_attn_c) * steps,
+                                n_gn_c * steps, n_attn_c * steps)
+    hq["launches_per_call"] = {k: v / calls for k, v in launches_hq.items()}
+    cc = dict(cc, launches_per_step={k: v / steps for k, v in launches_cc.items()},
+              sampler_images_per_second=cc["num_samples"] / cc["sample_seconds"])
+    print(f"guided hq tile (inet256 ADM + classifier, bf16, 256 x 256): "
+          f"{hq['seconds_per_tile']:.2f} s per tile, {1 / hq['wall_seconds']:.4f} images/s, "
+          f"{hq['model_calls_per_second']:.2f} model calls/s ({calls} calls); launches per "
+          f"call {hq['launches_per_call']}; max |A(final) - y| "
+          f"{hq['range_space_max_abs']:.3e}", flush=True)
+    print(f"guided ImageNet-cc row (imagenet_256_cc, bf16, batch 8, 100 steps): "
+          f"{cc['num_samples']} images, {cc['sampler_images_per_second']:.4f} images/s in the "
+          f"sampler ({cc['sample_seconds']:.2f} s), {cc['images_per_second']:.4f} end to end; "
+          f"max |A(x) - y| {cc['range_space_max_abs']:.3e}; launches per step "
+          f"{cc['launches_per_step']}", flush=True)
+    if (out["final"].shape != (1, 256, 256, 3) or not np.isfinite(out["final"]).all()
+            or hq["tiles"] != 1 or calls != 280):
+        raise AssertionError(f"guided hq: shape {out['final'].shape}, {hq['tiles']} tiles, "
+                             f"{calls} calls")
+    if launches_hq != hq_want:
+        raise AssertionError(f"guided hq launch counts {launches_hq} != {hq_want}")
+    if cc["num_samples"] != 8 or n_png != 8 or not np.isfinite(cc["avg_psnr"]):
+        raise AssertionError(f"guided cc: {cc['num_samples']} images ({n_png} PNGs), "
+                             f"PSNR {cc['avg_psnr']}")
+    if launches_cc != cc_want:
+        raise AssertionError(f"guided cc launch counts {launches_cc} != {cc_want}")
+    for name, r in (("hq", hq), ("cc", cc)):
+        if not r["range_space_max_abs"] <= RANGE_SPACE_TOL:
+            raise AssertionError(f"guided {name}: max |A(x) - y| {r['range_space_max_abs']}")
+    return ({"hq": hq, "cc": cc, "guidance_call": calls_of,
+             "classifier_modules": {"groupnorm": n_gn_c, "attention": n_attn_c}},
+            launches_hq, launches_cc)
 
 
 # ------------------------------------------------------------ phases 5 and 7
@@ -1183,8 +1687,7 @@ def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int
                              f" ({n_png} PNGs)")
     if not (np.isfinite(stats["avg_psnr"]) and stats["avg_psnr"] > 14.0):
         raise AssertionError(f"main-path PSNR {stats['avg_psnr']} is not a restoration")
-    want = {"groupnorm_stats": n_gn * steps, "groupnorm_apply": n_gn * steps,
-            "attention": n_attn * steps, "fwht": want_fwht, "fused_gn_conv": 0}
+    want = expected_launches(n_gn * steps, n_attn * steps, fwht=want_fwht)
     if launches != want:
         raise AssertionError(f"main-path launch counts {launches} != {want}")
     return stats, launches
@@ -1195,9 +1698,6 @@ def main() -> int:
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False; "
                            "chip_smoke.py runs only on a card")
     from ddnm_tpu_torch.models import DDPMUNet, cast_torso
-    from ddnm_tpu_torch.models.nn import GroupNormF32
-    from ddnm_tpu_torch.models.unet_adm import AttentionBlock
-    from ddnm_tpu_torch.models.unet_ddpm import AttnBlock
     from ddnm_tpu_torch.runner import load_checkpoint
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1222,8 +1722,7 @@ def main() -> int:
         model = DDPMUNet(resolution=256)
         load_checkpoint(model, FLAG_PT)
         model = model.cuda().eval()
-        n_gn = sum(isinstance(m, GroupNormF32) for m in model.modules())
-        n_attn = sum(isinstance(m, AttnBlock) for m in model.modules())
+        n_gn, n_attn = module_counts(model)
         shapes = op_shapes(model, torch.zeros(2, 256, 256, 3, device="cuda"))
         bf16 = cast_torso(DDPMUNet(resolution=256), torch.bfloat16)
         bf16.load_state_dict(model.state_dict())
@@ -1232,15 +1731,13 @@ def main() -> int:
         del bf16
         # the hq path's forward: the inet256 ADM UNet, bf16, one 256 px tile
         adm = hq_adm()
-        n_gn_hq = sum(isinstance(m, GroupNormF32) for m in adm.modules())
-        n_attn_hq = sum(isinstance(m, AttentionBlock) for m in adm.modules())
+        n_gn_hq, n_attn_hq = module_counts(adm)
         hq_shapes = op_shapes(adm, torch.zeros(1, 256, 256, 3, device="cuda"),
                               torch.zeros(1, dtype=torch.long, device="cuda"))
         del adm
         # the ImageNet rows' forward: configs/imagenet_256.yml, bf16, batch 8
         adm = imagenet_adm()
-        n_gn_inet = sum(isinstance(m, GroupNormF32) for m in adm.modules())
-        n_attn_inet = sum(isinstance(m, AttentionBlock) for m in adm.modules())
+        n_gn_inet, n_attn_inet = module_counts(adm)
         inet_shapes = op_shapes(adm, torch.zeros(8, 256, 256, 3, device="cuda"))
         del adm
         torch.cuda.empty_cache()
@@ -1370,6 +1867,50 @@ def main() -> int:
             r["max_abs_err"] for r in fused.values()))
         print("fused_gn_conv: per (8, 256, 256, 128) call: "
               + json.dumps(per_forward["fused_gn_conv"]), flush=True)
+        # the backward kernels at every shape of three classifier forwards:
+        # the toy32 classifier (batch 2, the guided golden's) and the 256 px
+        # classifier of configs/imagenet_256_cc.yml at batch 1 (the hq tile)
+        # and batch 8 (the ImageNet-cc row), each shape in bf16 and fp32
+        clf = toy_classifier("cuda")
+        clf_tables = {"toy32": grad_shapes(clf, torch.zeros(2, 32, 32, 3, device="cuda"))}
+        clf = cc_classifier()
+        for b in (1, 8):
+            clf_tables[f"cc256_b{b}"] = grad_shapes(clf, torch.zeros(b, 256, 256, 3,
+                                                                    device="cuda"))
+        del clf
+        torch.cuda.empty_cache()
+        bwd_results = {}
+        for key in sorted({k for t in clf_tables.values() for k in t}, key=str):
+            for dtype in (torch.float32, torch.bfloat16):
+                kinds = (("gn_bwd_reduce", "gn_bwd_dx", "gn_bwd") if key[0] == "gn"
+                         else ("attn_bwd_dq", "attn_bwd_dkdv", "attn_bwd"))
+                for kind in kinds:
+                    extra = dict(swish=key[2], film=key[3]) if key[0] == "gn" else {}
+                    r = bwd_results[(key, kind, dtype)] = check_backward(
+                        kind, key[1], dtype, gen, **extra)
+                    lib = ("-" if r["library_ms"] is None else
+                           f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})")
+                    tag = "".join(f" +{k}" for k in ("swish", "film") if extra.get(k))
+                    auto = (f" vs autograd {r['autograd_err']:.2e} (tol {r['autograd_tol']:.1e})"
+                            if "autograd_err" in r else "")
+                    print(f"{kind + tag:22s} {str(key[1]):22s} {r['dtype']:8s} "
+                          f"err {r['max_abs_err']:.2e} (tol {r['tol']:.1e}){auto} "
+                          f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
+                          f"plain {r['plain_ms']:.4f} ms  library {lib}  "
+                          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+        # per guidance call (one classifier forward's backward) of each table,
+        # bf16 for the 256 px classifier (as the guided runs), fp32 for toy32
+        bwd_per_call = {}
+        for name, table in clf_tables.items():
+            dtype = torch.float32 if name == "toy32" else torch.bfloat16
+            for kind in BACKWARD + ("gn_bwd", "attn_bwd"):
+                rows = [(bwd_results[(key, kind, dtype)], c) for key, c in table.items()
+                        if (key, kind, dtype) in bwd_results]
+                bwd_per_call[(name, kind)] = dict(per_call_sum(rows), max_abs_err=max(
+                    r["max_abs_err"] for k, r in bwd_results.items() if k[1] == kind))
+                print(f"{kind}: per {name} guidance call ({str(dtype)[6:]}): "
+                      + json.dumps(bwd_per_call[(name, kind)]), flush=True)
         print("kernels: " + json.dumps(sorted(SOURCES)), flush=True)
 
     with phase(4, "full-width fp32 parity with the JAX golden"):
@@ -1406,8 +1947,7 @@ def main() -> int:
 
     with phase(9, "hq parity on the toy32 ADM (fp32 goldens, bf16, Mask-Shift orders)"):
         toy = toy_adm("cpu")
-        hq_parity(sum(isinstance(m, GroupNormF32) for m in toy.modules()),
-                  sum(isinstance(m, AttentionBlock) for m in toy.modules()))
+        hq_parity(*module_counts(toy))
         del toy
 
     with phase(10, "hq main path through hq_main_torch (inet256 ADM, bf16, 2 x 2 tiles)"):
@@ -1415,13 +1955,19 @@ def main() -> int:
 
     with phase(11, "main-runner parity on the toy32 ADM (six ImageNet rows, fp32 goldens)"):
         toy = toy_adm("cpu")
-        main_runner_parity(sum(isinstance(m, GroupNormF32) for m in toy.modules()),
-                           sum(isinstance(m, AttentionBlock) for m in toy.modules()))
+        main_runner_parity(*module_counts(toy))
         del toy
 
     with phase(12, "ImageNet rows through evaluation_torch (imagenet_256 ADM, bf16, batch 8, "
                    "100 steps) and the noisy CelebA rows"):
         inet_rows, launches_inet = imagenet_rows(n_gn_inet, n_attn_inet, n_gn, n_attn)
+
+    with phase(13, "guided parity on the toy32 ADM and classifier (fp32 golden, bf16)"):
+        guided_toy = guided_parity()
+
+    with phase(14, "guided runs at full width (inet256 hq tile, imagenet_256_cc row; bf16)"):
+        guided, launches_ghq, launches_gcc = guided_full_width(n_gn_hq, n_attn_hq,
+                                                               n_gn_inet, n_attn_inet)
 
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
@@ -1429,9 +1975,16 @@ def main() -> int:
     # only paths that run those two; launches_by_path has all four. ms and
     # the other numbers are per bf16 batch-8 DDPM forward (GroupNorm,
     # attention), as before; hq_forward has them per hq ADM forward.
+    # The backward kernels: launches from the guided hq tile (phase 14),
+    # ms and the other numbers per guidance call of the 256 px classifier at
+    # batch 8, bf16 (the ImageNet-cc row's; the hq tile's at batch 1 and the
+    # toy32 run's are under per_guidance_call).
+    for kind in BACKWARD:
+        per_forward[kind] = bwd_per_call[("cc256_b8", kind)]
     launches_of = {"groupnorm_stats": launches_hq, "groupnorm_apply": launches_hq,
                    "attention": launches_hq, "fwht": launches,
-                   "fused_gn_conv": launches_experiment}
+                   "fused_gn_conv": launches_experiment,
+                   **dict.fromkeys(BACKWARD, launches_ghq)}
     summary = {"kernels": [
         {"name": kind, "route": "cuda", "source": SOURCES[kind][0],
          "replaces": SOURCES[kind][1],
@@ -1440,7 +1993,10 @@ def main() -> int:
                               "svd": launches[kind],
                               "experiment": launches_experiment[kind],
                               "hq": launches_hq[kind],
-                              "imagenet": launches_inet[kind]},
+                              "imagenet": launches_inet[kind],
+                              "guided_toy32": guided_toy["kernel"]["launches"][kind],
+                              "guided_hq": launches_ghq[kind],
+                              "guided_imagenet_cc": launches_gcc[kind]},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
          "device_ms": per_forward[kind].get("device_ms"),
          "plain_ms": per_forward[kind]["plain_ms"],
@@ -1451,8 +2007,13 @@ def main() -> int:
          **({"imagenet_forward": inet_forward[kind]} if kind in inet_forward else {}),
          **({"by_mode": per_forward[kind]["by_mode"]} if kind == "fused_gn_conv" else {}),
          **({k: per_forward[kind][k] for k in ("device_share_of_bound", "cuda_launches_per_call")}
-            if kind == "fwht" else {})}
-        for kind in SOURCES], "hq_main_path": hq_stats, "imagenet_rows": inet_rows}
+            if kind == "fwht" else {}),
+         **({"per_guidance_call": {name: bwd_per_call[(name, kind)] for name in clf_tables},
+             "pair": {name: bwd_per_call[(name, "gn_bwd" if kind.startswith("gn")
+                                          else "attn_bwd")] for name in clf_tables}}
+            if kind in BACKWARD else {})}
+        for kind in SOURCES], "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
+        "guided_toy32": guided_toy, "guided": guided}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -72,6 +72,24 @@
 // shared memory as fp32, K and V are streamed kDC columns at a time, and
 // each thread keeps its share of the (kBQ, C) accumulator in registers; the
 // kernel is bound by shared-memory reads (two per FMA).
+//
+// Backward (dQ, dK, dV of O = softmax(Q K^T scale) V, for the classifier-
+// guidance gradient; no TPU counterpart: the JAX package differentiates
+// its XLA attention). With P the probabilities, D = rowsum(dO o O),
+// dS = P o (dO V^T - D), dQ = dS K scale, dK = dS^T Q scale, dV = P^T dO.
+// Two kernels on the CUDA cores in fp32 whatever the input type (a first,
+// simple design: no tensor cores), each writing its outputs once, with no
+// atomics:
+//   attn_bwd_dq_kernel<T, C>: one block per kBwdQ query rows of one slab.
+//     A first sweep over the key tiles recomputes each row's log-sum-exp
+//     (an online max and sum per thread, combined over the row's 8 lanes),
+//     a second recomputes P from it, forms dS with D and accumulates dQ in
+//     registers; it stores the rows' LSE and D for the other kernel.
+//   attn_bwd_dkdv_kernel<T, C>: one block per kBwdKV keys of one slab,
+//     sweeping the query tiles: P from the stored LSE, dS from the stored
+//     D, dK and dV accumulated in registers.
+// Rows and keys past T are zeros in shared memory and are masked out of
+// every sum. C (the head dimension) is a template parameter: 32, 64, 128.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -736,6 +754,300 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
+// ------------------------------------------------- backward (fp32 FMA)
+
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdQ = 32;    // dq kernel: query rows per block (8 threads a row)
+constexpr int kBwdK = 64;    // dq kernel: keys per tile (8 per thread)
+constexpr int kBwdKV = 32;   // dkdv kernel: keys per block (8 threads a key)
+constexpr int kBwdQT = 64;   // dkdv kernel: query rows per tile (8 per thread)
+
+// Dynamic shared memory (floats) of the two kernels: rows padded by one
+// float (C + 1) so the 8 rows a warp reads sit in 8 different banks.
+__host__ __device__ constexpr int bwd_dq_smem_floats(int c) {
+  return (2 * kBwdQ + 2 * kBwdK) * (c + 1) + kBwdQ * (kBwdK + 1) + kBwdQ;
+}
+__host__ __device__ constexpr int bwd_dkdv_smem_floats(int c) {
+  return (2 * kBwdKV + 2 * kBwdQT) * (c + 1) + 2 * kBwdKV * (kBwdQT + 1) + 2 * kBwdQT;
+}
+
+// Rows [r0, r0 + rows) of a (t_len, C) slab into shared memory as fp32,
+// rows past t_len as zeros.
+template <typename T, int C>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int r0,
+                                          int rows, int t_len) {
+  for (int e = threadIdx.x; e < rows * C; e += kBwdThreads) {
+    const int r = e / C, c = e - r * C;
+    dst[r * (C + 1) + c] = r0 + r < t_len ? to_f(src[(size_t)(r0 + r) * C + c]) : 0.f;
+  }
+}
+
+// grid (ceil(T / kBwdQ), B*), block kBwdThreads. Thread t owns query row
+// t / 8 and keys t % 8 + 8 u (u < 8) of each key tile for the scores, and
+// channels t % 8 + 8 w (w < C / 8) of its row for dQ.
+template <typename T, int C>
+__global__ void __launch_bounds__(kBwdThreads)
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
+                   float* __restrict__ lse, float* __restrict__ dsum, int t_len, float scale) {
+  constexpr int LD = C + 1, SD = kBwdK + 1, NW = C / 8;
+  extern __shared__ float sm[];
+  float* qs = sm;                  // [kBwdQ][LD]
+  float* dos = qs + kBwdQ * LD;    // [kBwdQ][LD]
+  float* ks = dos + kBwdQ * LD;    // [kBwdK][LD]
+  float* vs = ks + kBwdK * LD;     // [kBwdK][LD]
+  float* ss = vs + kBwdK * LD;     // [kBwdQ][SD]: dS of the tile
+  float* row_d = ss + kBwdQ * SD;  // [kBwdQ]
+
+  const int tid = threadIdx.x, r = tid >> 3, lane = tid & 7;
+  const int q0 = blockIdx.x * kBwdQ;
+  const size_t base = (size_t)blockIdx.y * t_len * C;
+  load_rows<T, C>(qs, q + base, q0, kBwdQ, t_len);
+  load_rows<T, C>(dos, dout + base, q0, kBwdQ, t_len);
+  {  // D = rowsum(dO o O): 8 lanes a row
+    float acc = 0.f;
+    if (q0 + r < t_len)
+      for (int c = lane; c < C; c += 8)
+        acc += to_f(dout[base + (size_t)(q0 + r) * C + c]) * to_f(o[base + (size_t)(q0 + r) * C + c]);
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) row_d[r] = acc;
+  }
+
+  // sweep 1: each row's log-sum-exp
+  float m = -INFINITY, l = 0.f;
+  for (int kt = 0; kt < t_len; kt += kBwdK) {
+    __syncthreads();
+    load_rows<T, C>(ks, k + base, kt, kBwdK, t_len);
+    __syncthreads();
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int c = 0; c < C; ++c) {
+      const float qv = qs[r * LD + c];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s[u] = fmaf(qv, ks[(lane + 8 * u) * LD + c], s[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (kt + lane + 8 * u < t_len) {
+        const float x = s[u] * scale;
+        if (x > m) {
+          l = l * expf(m - x) + 1.f;
+          m = x;
+        } else {
+          l += expf(x - m);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mn = fmaxf(m, m2);
+    l = (m == -INFINITY ? 0.f : l * expf(m - mn)) + (m2 == -INFINITY ? 0.f : l2 * expf(m2 - mn));
+    m = mn;
+  }
+  const float row_lse = m + logf(l);  // every thread of the row holds it
+  const float d_r = row_d[r];
+
+  // sweep 2: dS and dQ
+  float acc[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) acc[w] = 0.f;
+  for (int kt = 0; kt < t_len; kt += kBwdK) {
+    __syncthreads();
+    load_rows<T, C>(ks, k + base, kt, kBwdK, t_len);
+    load_rows<T, C>(vs, v + base, kt, kBwdK, t_len);
+    __syncthreads();
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float dp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int c = 0; c < C; ++c) {
+      const float qv = qs[r * LD + c], dv = dos[r * LD + c];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        s[u] = fmaf(qv, ks[(lane + 8 * u) * LD + c], s[u]);
+        dp[u] = fmaf(dv, vs[(lane + 8 * u) * LD + c], dp[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const bool ok = q0 + r < t_len && kt + lane + 8 * u < t_len;
+      const float p = ok ? expf(s[u] * scale - row_lse) : 0.f;
+      ss[r * SD + lane + 8 * u] = p * (dp[u] - d_r);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kBwdK; ++j) {
+      const float ds = ss[r * SD + j];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) acc[w] = fmaf(ds, ks[j * LD + lane + 8 * w], acc[w]);
+    }
+  }
+  if (q0 + r < t_len) {
+    T* dqr = dq + base + (size_t)(q0 + r) * C;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) dqr[lane + 8 * w] = from_f<T>(acc[w] * scale);
+    if (lane == 0) {
+      lse[(size_t)blockIdx.y * t_len + q0 + r] = row_lse;
+      dsum[(size_t)blockIdx.y * t_len + q0 + r] = d_r;
+    }
+  }
+}
+
+// grid (ceil(T / kBwdKV), B*), block kBwdThreads. Thread t owns key t / 8
+// and query rows t % 8 + 8 u (u < 8) of each query tile for the scores,
+// and channels t % 8 + 8 w (w < C / 8) of its key for dK and dV.
+template <typename T, int C>
+__global__ void __launch_bounds__(kBwdThreads)
+attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv,
+                     int t_len, float scale) {
+  constexpr int LD = C + 1, PD = kBwdQT + 1, NW = C / 8;
+  extern __shared__ float sm[];
+  float* ks = sm;                   // [kBwdKV][LD]
+  float* vs = ks + kBwdKV * LD;     // [kBwdKV][LD]
+  float* qs = vs + kBwdKV * LD;     // [kBwdQT][LD]
+  float* dos = qs + kBwdQT * LD;    // [kBwdQT][LD]
+  float* ps = dos + kBwdQT * LD;    // [kBwdKV][PD]
+  float* dss = ps + kBwdKV * PD;    // [kBwdKV][PD]
+  float* lse_s = dss + kBwdKV * PD; // [kBwdQT]
+  float* d_s = lse_s + kBwdQT;      // [kBwdQT]
+
+  const int tid = threadIdx.x, j = tid >> 3, lane = tid & 7;
+  const int k0 = blockIdx.x * kBwdKV;
+  const size_t base = (size_t)blockIdx.y * t_len * C;
+  const size_t rows = (size_t)blockIdx.y * t_len;
+  load_rows<T, C>(ks, k + base, k0, kBwdKV, t_len);
+  load_rows<T, C>(vs, v + base, k0, kBwdKV, t_len);
+  float adk[NW], adv[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) adk[w] = adv[w] = 0.f;
+  for (int qt = 0; qt < t_len; qt += kBwdQT) {
+    __syncthreads();
+    load_rows<T, C>(qs, q + base, qt, kBwdQT, t_len);
+    load_rows<T, C>(dos, dout + base, qt, kBwdQT, t_len);
+    for (int i = tid; i < kBwdQT; i += kBwdThreads) {
+      lse_s[i] = qt + i < t_len ? lse[rows + qt + i] : 0.f;
+      d_s[i] = qt + i < t_len ? dsum[rows + qt + i] : 0.f;
+    }
+    __syncthreads();
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float dp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int c = 0; c < C; ++c) {
+      const float kv = ks[j * LD + c], vv = vs[j * LD + c];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        s[u] = fmaf(qs[(lane + 8 * u) * LD + c], kv, s[u]);
+        dp[u] = fmaf(dos[(lane + 8 * u) * LD + c], vv, dp[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = lane + 8 * u;
+      const bool ok = k0 + j < t_len && qt + i < t_len;
+      const float p = ok ? expf(s[u] * scale - lse_s[i]) : 0.f;
+      ps[j * PD + i] = p;
+      dss[j * PD + i] = p * (dp[u] - d_s[i]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < kBwdQT; ++i) {
+      const float p = ps[j * PD + i], ds = dss[j * PD + i];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        adv[w] = fmaf(p, dos[i * LD + lane + 8 * w], adv[w]);
+        adk[w] = fmaf(ds, qs[i * LD + lane + 8 * w], adk[w]);
+      }
+    }
+  }
+  if (k0 + j < t_len) {
+    T* dkr = dk + base + (size_t)(k0 + j) * C;
+    T* dvr = dv + base + (size_t)(k0 + j) * C;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      dkr[lane + 8 * w] = from_f<T>(adk[w] * scale);
+      dvr[lane + 8 * w] = from_f<T>(adv[w]);
+    }
+  }
+}
+
+template <typename T, int C>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
+                       int batch, int t_len, float scale, int which, cudaStream_t s) {
+  if (which == 0) {
+    auto kernel = attn_bwd_dq_kernel<T, C>;
+    const int smem = bwd_dq_smem_floats(C) * 4;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((t_len + kBwdQ - 1) / kBwdQ, batch);
+    kernel<<<grid, kBwdThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<T*>(dq), lse, dsum,
+        t_len, scale);
+  } else {
+    auto kernel = attn_bwd_dkdv_kernel<T, C>;
+    const int smem = bwd_dkdv_smem_floats(C) * 4;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((t_len + kBwdKV - 1) / kBwdKV, batch);
+    kernel<<<grid, kBwdThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), t_len,
+        scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(int c_dim, const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
+                         int batch, int t_len, float scale, int which, cudaStream_t s) {
+  switch (c_dim) {
+    case 32:
+      return launch_bwd<T, 32>(q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, t_len, scale,
+                               which, s);
+    case 64:
+      return launch_bwd<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, t_len, scale,
+                               which, s);
+    case 128:
+      return launch_bwd<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, t_len, scale,
+                                which, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, void* dq, void* dk, void* dv, void* lse, void* dsum,
+                          int batch, int t_len, int c_dim, float scale, int dtype, int which,
+                          int smem_bytes, void* stream) {
+  const int want = (which == 0 ? bwd_dq_smem_floats(c_dim) : bwd_dkdv_smem_floats(c_dim)) * 4;
+  if (batch <= 0 || batch > 65535 || t_len <= 0 || smem_bytes != want ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  float* d = static_cast<float*>(dsum);
+  return dtype == 0 ? dispatch_bwd<float>(c_dim, q, k, v, o, dout, dq, dk, dv, l, d, batch, t_len,
+                                          scale, which, s)
+                    : dispatch_bwd<__nv_bfloat16>(c_dim, q, k, v, o, dout, dq, dk, dv, l, d,
+                                                  batch, t_len, scale, which, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -764,4 +1076,30 @@ int ddnm_attention(const void* q, const void* k, const void* v, void* o, int bat
       dispatch_mma(c_dim, q, k, v, o, batch, t_len, scale, whole, smem_bytes, s));
 }
 
-}  // extern "C"
+// Attention backward, first pass: q, k, v, o, dout, dq: (batch, t_len,
+// c_dim) contiguous, dtype as above; c_dim 32, 64 or 128; lse, dsum:
+// (batch, t_len) fp32, written (each row's log-sum-exp of the scaled
+// scores and rowsum(dout o o)). smem_bytes: the kernel's dynamic shared
+// memory (ops/attention.py `_bwd_plan`). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or plan the kernel does not take.
+int ddnm_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, void* dq, void* lse, void* dsum, int batch,
+                          int t_len, int c_dim, float scale, int dtype, int smem_bytes,
+                          void* stream) {
+  return static_cast<int>(attention_bwd(q, k, v, o, dout, dq, nullptr, nullptr, lse, dsum,
+                                        batch, t_len, c_dim, scale, dtype, 0, smem_bytes,
+                                        stream));
+}
+
+// Attention backward, second pass: dk, dv (batch, t_len, c_dim) written
+// from q, k, v, dout and the first pass's lse and dsum.
+int ddnm_attention_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* dsum, void* dk, void* dv, int batch,
+                            int t_len, int c_dim, float scale, int dtype, int smem_bytes,
+                            void* stream) {
+  return static_cast<int>(attention_bwd(q, k, v, nullptr, dout, nullptr, dk, dv,
+                                        const_cast<void*>(lse), const_cast<void*>(dsum), batch,
+                                        t_len, c_dim, scale, dtype, 1, smem_bytes, stream));
+}
+
+}  // extern "C\"

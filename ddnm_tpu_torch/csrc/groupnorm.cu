@@ -43,6 +43,25 @@
 // image and channels never change along its stride and its VEC values of a
 // and b are loaded once into registers (no per-element modulo, no
 // per-element loads of a and b).
+//
+// Backward (dx only: the classifier-guidance gradient grad_x log p(y|x),
+// where x requires grad and the affine, FiLM included, is frozen). With
+// u = a x + b the forward's pre-activation, f = u as the output type holds
+// it, and dy the incoming gradient, the SiLU (when it ran) takes dy to
+// dy' = dy sigma(f) (1 + f (1 - sigma(f))) (the rounding to the output type
+// passes the gradient through, as JAX's gradient of astype does). With
+// g = gamma (1 + film_scale) per (B, C) and x^ = (x - mean) rstd, per
+// (image, group):
+//   dx = rstd (g dy' - mean_g(g dy') - x^ mean_g(g dy' x^)).
+// gn_bwd_reduce_kernel: one pass over x and dy for the per-(B, G) sums of
+// x, x^2, g dy' and g dy' x (the block layout, the fixed-order combine and
+// the integer launch counters of the stats kernel, so the same bits every
+// launch), from which it recomputes mean and rstd (not from a, which
+// cannot give rstd back where gamma (1 + s) = 0) and folds the formula
+// into a per-(B, C) affine of dy' and x: dx = A dy' + Bx x + Cx.
+// gn_bwd_dx_kernel: the elementwise pass (the apply kernel's layout:
+// 16-byte loads and stores, a thread's channels and coefficients fixed in
+// registers), the SiLU factor recomputed from x, a and b.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -349,6 +368,239 @@ cudaError_t launch_apply(const void* x, const void* a, const void* b, void* y, i
   return cudaGetLastError();
 }
 
+// SiLU'(f) = sigma(f) (1 + f (1 - sigma(f))) at the value the forward
+// applied the SiLU to (u rounded to the output type), in fp32.
+template <typename T> __device__ __forceinline__ float silu_grad(float u) {
+  const float f = round_to<T>(u);
+  const float s = 1.f / (1.f + expf(-f));
+  return s * (1.f + f * (1.f - s));
+}
+
+constexpr int kBwdUnroll = 4;  // pixel loads of x and dy in flight per thread
+
+// One launch: the per-(B, C) coefficients (A, Bx, Cx) of dx = A dy' + Bx x
+// + Cx. The layout of gn_stats_affine_kernel: grid (n_blk, C / span, B),
+// block lanes_c * lanes_p threads, block (j, s, b) sums a contiguous run of
+// pixels of channels [s span, (s + 1) span) of image b, VEC channels a
+// thread, pixel lanes reduced through shared memory in a fixed order; with
+// n_blk > 1 the blocks publish to scratch[b][s][j] (4 span fp32) and the
+// last to arrive (integer counter) adds them in block order, resets the
+// counter and finalises. Dynamic shared memory 4 * (4 span + 4 blockDim.x
+// VEC + 2 span / cpg) + 16 bytes. a, b: the forward's affine (read only
+// when swish); film_scale may be null. out: (3, B, C) fp32.
+template <typename T, int VEC>
+__global__ void gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ film_scale,
+                                     const float* __restrict__ aff_a,
+                                     const float* __restrict__ aff_b, float* __restrict__ out,
+                                     float* __restrict__ scratch,
+                                     unsigned* __restrict__ counters, int batch, int hw,
+                                     int c_total, int cpg, int span, int lanes_c, float eps,
+                                     int swish) {
+  extern __shared__ float sm[];
+  const int nthreads = blockDim.x;
+  const int lanes_p = nthreads / lanes_c;
+  const int tc = threadIdx.x % lanes_c;
+  const int tp = threadIdx.x / lanes_c;
+  const int n_blk = gridDim.x, blk = blockIdx.x;
+  const int b = blockIdx.z;
+  const int c0 = blockIdx.y * span;
+  const int width = lanes_c * VEC;
+  float* part = sm;                         // [4][span]: x, x^2, dy', dy' x
+  float* red = part + 4 * span;             // [4][lanes_p][width]
+  float* gstat = red + 4 * nthreads * VEC;  // [2][span / cpg]: Bx, Cx per group
+  unsigned* last = reinterpret_cast<unsigned*>(gstat + 2 * (span / cpg));
+
+  const int chunk = (hw + n_blk - 1) / n_blk;
+  const int p_begin = blk * chunk, p_end = min(hw, p_begin + chunk);
+  const size_t img = (size_t)b * hw * c_total + c0;
+  for (int slot = 0; slot * width < span; ++slot) {
+    const int cv = slot * lanes_c + tc;
+    float s[4][VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) s[0][j] = s[1][j] = s[2][j] = s[3][j] = 0.f;
+    if (cv * VEC < span) {
+      float av[VEC], bv[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        av[j] = swish ? __ldg(aff_a + (size_t)b * c_total + c0 + cv * VEC + j) : 0.f;
+        bv[j] = swish ? __ldg(aff_b + (size_t)b * c_total + c0 + cv * VEC + j) : 0.f;
+      }
+      const T* xc = x + img + cv * VEC;
+      const T* dc = dy + img + cv * VEC;
+      for (int p = p_begin + tp; p < p_end; p += kBwdUnroll * lanes_p) {
+        typename VecLoad<T, VEC>::Raw rx[kBwdUnroll], rd[kBwdUnroll];
+#pragma unroll
+        for (int u = 0; u < kBwdUnroll; ++u) {
+          const int pu = p + u * lanes_p;
+          if (pu < p_end) {
+            rx[u] = VecLoad<T, VEC>::load(xc + (size_t)pu * c_total);
+            rd[u] = VecLoad<T, VEC>::load(dc + (size_t)pu * c_total);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBwdUnroll; ++u) {
+          if (p + u * lanes_p >= p_end) break;
+          float fx[VEC], fd[VEC];
+          VecLoad<T, VEC>::to_float(rx[u], fx);
+          VecLoad<T, VEC>::to_float(rd[u], fd);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float d = swish ? fd[j] * silu_grad<T>(fx[j] * av[j] + bv[j]) : fd[j];
+            s[0][j] += fx[j];
+            s[1][j] += fx[j] * fx[j];
+            s[2][j] += d;
+            s[3][j] += d * fx[j];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) red[(q * lanes_p + tp) * width + tc * VEC + j] = s[q][j];
+    __syncthreads();
+    for (int col = threadIdx.x; col < 4 * width; col += nthreads) {
+      const int which = col / width, cc = col - which * width;
+      if (slot * width + cc < span) {
+        const float* r = red + which * lanes_p * width + cc;
+        float acc = 0.f;
+        for (int i = 0; i < lanes_p; ++i) acc += r[i * width];
+        part[which * span + slot * width + cc] = acc;
+      }
+    }
+    __syncthreads();
+  }
+
+  if (n_blk > 1) {
+    const size_t bs = (size_t)b * gridDim.y + blockIdx.y;
+    float* mine = scratch + (bs * n_blk + blk) * 4 * span;
+    for (int col = threadIdx.x; col < 4 * span; col += nthreads) mine[col] = part[col];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) *last = atomicAdd(counters + bs, 1u) == (unsigned)(n_blk - 1);
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    const float* all = scratch + bs * n_blk * 4 * span;
+    for (int col = threadIdx.x; col < 4 * span; col += nthreads) {
+      float acc = 0.f;
+      for (int j = 0; j < n_blk; ++j) acc += __ldcg(all + (size_t)j * 4 * span + col);
+      part[col] = acc;
+    }
+    if (threadIdx.x == 0) counters[bs] = 0;
+    __syncthreads();
+  }
+
+  // fixed-order group sums; g = gamma (1 + film_scale) weighs the dy' sums
+  const int ng = span / cpg;
+  const float n = static_cast<float>(static_cast<double>(hw) * cpg);
+  float* a_out = out + (size_t)b * c_total;
+  for (int gi = threadIdx.x; gi < ng; gi += nthreads) {
+    float g1 = 0.f, g2 = 0.f, g3 = 0.f, g4 = 0.f;
+    for (int j = 0; j < cpg; ++j) {
+      const int c = c0 + gi * cpg + j;
+      float g = gamma[c];
+      if (film_scale != nullptr) g *= 1.f + film_scale[(size_t)b * c_total + c];
+      g1 += part[gi * cpg + j];
+      g2 += part[span + gi * cpg + j];
+      g3 += g * part[2 * span + gi * cpg + j];
+      g4 += g * part[3 * span + gi * cpg + j];
+    }
+    const float mean = g1 / n;
+    const float rstd = 1.f / sqrtf(fmaxf(g2 / n - mean * mean, 0.f) + eps);
+    const float c1 = g3 / n;                      // mean_g(g dy')
+    const float c2 = rstd * (g4 / n - mean * c1);  // mean_g(g dy' x^)
+    gstat[gi] = rstd;
+    gstat[ng + gi] = -rstd * rstd * c2;                  // Bx
+    gstat[2 * ng + gi] = rstd * (mean * rstd * c2 - c1);  // Cx
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < span; j += nthreads) {
+    const int c = c0 + j;
+    const int gi = j / cpg;
+    float g = gamma[c];
+    if (film_scale != nullptr) g *= 1.f + film_scale[(size_t)b * c_total + c];
+    a_out[c] = gstat[gi] * g;
+    a_out[(size_t)batch * c_total + c] = gstat[ng + gi];
+    a_out[(size_t)2 * batch * c_total + c] = gstat[2 * ng + gi];
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd_reduce(const void* x, const void* dy, const float* gamma,
+                              const float* film_scale, const float* aff_a, const float* aff_b,
+                              float* out, float* scratch, unsigned* counters, int batch, int hw,
+                              int c_total, int cpg, float eps, int swish, int span, int n_blk,
+                              int threads, int lanes_c, int smem_bytes, cudaStream_t stream) {
+  auto kernel = gn_bwd_reduce_kernel<T, VEC>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(n_blk, c_total / span, batch);
+  kernel<<<grid, threads, smem_bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), gamma, film_scale, aff_a, aff_b, out,
+      scratch, counters, batch, hw, c_total, cpg, span, lanes_c, eps, swish);
+  return cudaGetLastError();
+}
+
+// dx = A dy' + Bx x + Cx, dy' = dy SiLU'(a x + b) when swish: the apply
+// kernel's layout (grid (blocks, B), (blocks * threads) % cv == 0, a
+// thread's VEC channels and their coefficients fixed along its stride).
+// coef: (3, B, C) fp32 from gn_bwd_reduce_kernel; a, b read only when swish.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256)
+gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                 const float* __restrict__ aff_a, const float* __restrict__ aff_b,
+                 const float* __restrict__ coef, T* __restrict__ dx, int batch, int img_vec,
+                 int cv, int c_total, int swish) {
+  const int stride = gridDim.x * blockDim.x;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= img_vec) return;
+  const size_t img = blockIdx.y;
+  const size_t bc = (size_t)batch * c_total;
+  const int ch = (i % cv) * VEC;
+  float ca[VEC], cx[VEC], cc[VEC], av[VEC], bv[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const size_t o = img * c_total + ch + j;
+    ca[j] = __ldg(coef + o);
+    cx[j] = __ldg(coef + bc + o);
+    cc[j] = __ldg(coef + 2 * bc + o);
+    av[j] = swish ? __ldg(aff_a + o) : 0.f;
+    bv[j] = swish ? __ldg(aff_b + o) : 0.f;
+  }
+  const T* xb = x + img * img_vec * VEC;
+  const T* db = dy + img * img_vec * VEC;
+  T* ob = dx + img * img_vec * VEC;
+  for (; i < img_vec; i += stride) {
+    float fx[VEC], fd[VEC];
+    VecLoad<T, VEC>::to_float(VecLoad<T, VEC>::load(xb + (size_t)i * VEC), fx);
+    VecLoad<T, VEC>::to_float(VecLoad<T, VEC>::load(db + (size_t)i * VEC), fd);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float d = swish ? fd[j] * silu_grad<T>(fx[j] * av[j] + bv[j]) : fd[j];
+      fd[j] = ca[j] * d + cx[j] * fx[j] + cc[j];
+    }
+    VecStore<T, VEC>::store(ob + (size_t)i * VEC, fd);
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd_dx(const void* x, const void* dy, const void* a, const void* b,
+                          const void* coef, void* dx, int batch, int hwc, int c_total, int swish,
+                          int threads, int blocks, cudaStream_t stream) {
+  dim3 grid(blocks, batch);
+  gn_bwd_dx_kernel<T, VEC><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(coef), static_cast<T*>(dx), batch,
+      hwc / VEC, c_total / VEC, c_total, swish);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -425,6 +677,81 @@ int ddnm_gn_apply(const void* x, const void* a, const void* b, void* y, int batc
                                                     threads, blocks, s)
                    : launch_apply<__nv_bfloat16, 8>(x, a, b, y, batch, hwc, c_total, swish,
                                                     threads, blocks, s);
+  return static_cast<int>(err);
+}
+
+// GroupNorm backward, first pass. x, dy: (batch, hw, c_total) contiguous,
+// dtype as above; gamma: (c_total,) fp32; film_scale: (batch, c_total) fp32
+// or null; a, b: the forward's (batch, c_total) fp32 affine (read only when
+// swish; may be null otherwise); out: (3, batch, c_total) fp32 (A, Bx, Cx);
+// scratch: batch * (c_total / span) * n_blk * 4 * span fp32 (unused when
+// n_blk == 1); counters: batch * (c_total / span) zeros, left zero (shared
+// with the stats kernel: one stream). The launch plan is ops/groupnorm.py
+// `_bwd_reduce_plan` (the stats plan's blocks with four sums).
+int ddnm_gn_bwd_reduce(const void* x, const void* dy, const void* gamma, const void* film_scale,
+                       const void* a, const void* b, void* out, void* scratch, void* counters,
+                       int batch, int hw, int c_total, int groups, float eps, int swish, int vec,
+                       int span, int n_blk, int threads, int lanes_c, int smem_bytes, int dtype,
+                       void* stream) {
+  if (groups <= 0 || c_total % groups != 0 || span <= 0 || vec <= 0 || lanes_c <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cpg = c_total / groups;
+  const bool ok = c_total % span == 0 && span % cpg == 0 && span % vec == 0 && n_blk >= 1 &&
+                  threads % lanes_c == 0 && threads <= 1024 && (!swish || (a && b)) &&
+                  smem_bytes == 4 * (4 * span + 4 * threads * vec + 2 * (span / cpg)) + 16;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const float* g = static_cast<const float*>(gamma);
+  const float* fs = static_cast<const float*>(film_scale);
+  const float* fa = static_cast<const float*>(a);
+  const float* fb = static_cast<const float*>(b);
+  float* o = static_cast<float*>(out);
+  float* sc = static_cast<float*>(scratch);
+  unsigned* cn = static_cast<unsigned*>(counters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4)
+    err = launch_bwd_reduce<float, 4>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw, c_total, cpg,
+                                      eps, swish, span, n_blk, threads, lanes_c, smem_bytes, s);
+  else if (dtype == 0 && vec == 1)
+    err = launch_bwd_reduce<float, 1>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw, c_total, cpg,
+                                      eps, swish, span, n_blk, threads, lanes_c, smem_bytes, s);
+  else if (dtype == 1 && vec == 8)
+    err = launch_bwd_reduce<__nv_bfloat16, 8>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw,
+                                              c_total, cpg, eps, swish, span, n_blk, threads,
+                                              lanes_c, smem_bytes, s);
+  else if (dtype == 1 && vec == 1)
+    err = launch_bwd_reduce<__nv_bfloat16, 1>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw,
+                                              c_total, cpg, eps, swish, span, n_blk, threads,
+                                              lanes_c, smem_bytes, s);
+  return static_cast<int>(err);
+}
+
+// GroupNorm backward, second pass. x, dy, dx: (batch, hwc / c_total,
+// c_total) contiguous, dtype as above; a, b: (batch, c_total) fp32 (read
+// only when swish); coef: (3, batch, c_total) fp32 from ddnm_gn_bwd_reduce.
+// The launch plan is the apply kernel's (`_apply_plan`).
+int ddnm_gn_bwd_dx(const void* x, const void* dy, const void* a, const void* b,
+                   const void* coef, void* dx, int batch, int hwc, int c_total, int swish,
+                   int dtype, int vec, int threads, int blocks, void* stream) {
+  const int wide = dtype == 0 ? 4 : 8;
+  const bool ok = (dtype == 0 || dtype == 1) && (vec == 1 || vec == wide) && c_total > 0 &&
+                  c_total % vec == 0 && hwc % c_total == 0 && threads > 0 &&
+                  threads <= 256 && blocks > 0 && batch > 0 && batch <= 65535 &&
+                  (!swish || (a && b)) &&
+                  ((long long)threads * blocks) % (c_total / vec) == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = vec == 1 ? launch_bwd_dx<float, 1>(x, dy, a, b, coef, dx, batch, hwc, c_total, swish,
+                                             threads, blocks, s)
+                   : launch_bwd_dx<float, 4>(x, dy, a, b, coef, dx, batch, hwc, c_total, swish,
+                                             threads, blocks, s);
+  else
+    err = vec == 1 ? launch_bwd_dx<__nv_bfloat16, 1>(x, dy, a, b, coef, dx, batch, hwc, c_total,
+                                                     swish, threads, blocks, s)
+                   : launch_bwd_dx<__nv_bfloat16, 8>(x, dy, a, b, coef, dx, batch, hwc, c_total,
+                                                     swish, threads, blocks, s);
   return static_cast<int>(err);
 }
 

@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package's parameter tree.
 
 `params_from_flax` inverts ddnm_tpu/models/convert.py
-(`torch_state_dict_to_flax`) for the DDPM and the ADM UNet: it turns the
+(`torch_state_dict_to_flax`) for the DDPM and the ADM UNet and the ADM
+classifier: it turns the
 JAX package's parameter tree (nested dicts of arrays) into this port's
 state dict:
 
@@ -10,6 +11,10 @@ state dict:
     `qkv` / `proj_out` (the reference's 1-d convolutions) weight (O, I, 1)
   - `<module>/gn/scale|bias`   -> `<module>.weight|bias`
   - `label_emb/embedding`      -> `label_emb.weight` (num_classes, D)
+  - the classifier's attention pool: `out_2/positional_embedding` as it
+    is (C, T + 1); its `qkv_proj` / `c_proj` kernels (I, O) -> (O, I, 1),
+    the reference's 1-d convolutions; the other heads' `out_*` Linears,
+    norm and 1x1 conv by the rules above
 
 The port keeps its own copy of the forward key rule (`ddpm_key_map`, which
 is also the ADM family's `adm_key_map`) and checks every produced key
@@ -93,8 +98,8 @@ def _leaves(tree: Mapping, prefix=()):
 
 
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """JAX DDPM or ADM UNet parameter tree (optionally under "params") ->
-    this port's state dict of fp32 CPU tensors."""
+    """JAX DDPM UNet, ADM UNet or ADM classifier parameter tree (optionally
+    under "params") -> this port's state dict of fp32 CPU tensors."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
     out: dict[str, torch.Tensor] = {}
@@ -110,14 +115,16 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
                 arr = np.transpose(arr, (3, 2, 0, 1))
             elif arr.ndim == 2:
                 arr = arr.T
-                if mods and mods[-1] in ("qkv", "proj_out"):
-                    arr = arr[:, :, None]  # the ADM attention's 1-d convolutions
+                if mods and mods[-1] in ("qkv", "proj_out", "qkv_proj", "c_proj"):
+                    arr = arr[:, :, None]  # the ADM attentions' 1-d convolutions
             else:
                 raise ValueError(f"unhandled kernel ndim {arr.ndim} at {path}")
         elif leaf == "bias":
             name = "bias"
         elif leaf == "embedding":  # nn.Embed -> nn.Embedding
             name = "weight"
+        elif leaf == "positional_embedding":  # AttentionPool2d's raw parameter
+            name = leaf
         else:
             raise ValueError(f"unhandled parameter {path}")
         mod_path = _torch_path(tuple(mods))

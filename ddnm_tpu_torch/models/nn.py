@@ -6,6 +6,17 @@ UNet hold NCHW tensors in channels_last memory, which is the NHWC byte
 order: `x.permute(0, 2, 3, 1)` of such a tensor is a contiguous NHWC view,
 so the NHWC kernels and cuDNN's channels_last convolutions share buffers
 without copies.
+
+Gradients (classifier guidance differentiates the classifier with respect
+to its input): with grad enabled and an input that requires grad,
+`GroupNormF32` and `attention` go through `ops.GroupNormFunction` and
+`ops.AttentionFunction`, whose backward runs the backward kernels on a
+card. Under `torch.no_grad`, or when no input requires grad, they call the
+forward alone and save nothing, as every sampler does. The one exception
+is the plain route (a CPU tensor or `force="torch"`) of a GroupNorm whose
+affine or FiLM requires grad (a model that is not frozen): the plain
+forward's own autograd gives every gradient there, and GroupNormFunction
+gives dx only.
 """
 
 from __future__ import annotations
@@ -15,7 +26,7 @@ import math
 import torch
 from torch import nn
 
-from ddnm_tpu_torch.ops import fused_attention, group_norm
+from ddnm_tpu_torch.ops import AttentionFunction, GroupNormFunction, fused_attention, group_norm
 
 __all__ = [
     "swish",
@@ -95,6 +106,14 @@ class GroupNormF32(nn.Module):
         nhwc = x.permute(0, 2, 3, 1)
         if not nhwc.is_contiguous():
             nhwc = nhwc.contiguous()
+        if _needs_grad(nhwc, film_scale, film_shift):
+            mode = self.force or ("kernel" if nhwc.is_cuda else "torch")
+            frozen = not _needs_grad(self.weight, self.bias, film_scale, film_shift)
+            if mode == "kernel" or frozen:
+                y = GroupNormFunction.apply(nhwc, self.weight, self.bias, film_scale,
+                                            film_shift, self.num_groups, self.eps,
+                                            self.swish, mode)
+                return y.permute(0, 3, 1, 2)
         y = group_norm(nhwc, self.weight, self.bias, num_groups=self.num_groups,
                        eps=self.eps, swish=self.swish, film_scale=film_scale,
                        film_shift=film_shift, force=self.force)
@@ -115,15 +134,27 @@ def nearest_upsample(x, factor: int = 2):
 
 def attention(q, k, v, scale: float, force: str | None = None):
     """Scaled dot-product attention over (B*, T, C) token grids, fp32
-    softmax; dispatches through ops.fused_attention."""
+    softmax; dispatches through ops.fused_attention, or through
+    ops.AttentionFunction where a gradient is wanted."""
+    if _needs_grad(q, k, v):
+        return AttentionFunction.apply(q, k, v, scale,
+                                       force or ("kernel" if q.is_cuda else "torch"))
     return fused_attention(q, k, v, scale, force=force)
+
+
+def _needs_grad(*tensors) -> bool:
+    """Grad mode is on and one of `tensors` (None allowed) requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
 
 
 def cast_torso(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast floating parameters to `dtype` in place, EXCEPT GroupNorm
-    affines, which stay fp32 (the fp32 GroupNorm of a bf16 torso)."""
+    affines, which stay fp32 (the fp32 GroupNorm of a bf16 torso), and the
+    own parameters of a module marked `keep_fp32` (a layer that JAX
+    computes in fp32 under a bf16 classifier)."""
     for module in model.modules():
-        if isinstance(module, GroupNormF32):
+        if isinstance(module, GroupNormF32) or getattr(module, "keep_fp32", False):
             continue
         for p in module.parameters(recurse=False):
             if p.is_floating_point():

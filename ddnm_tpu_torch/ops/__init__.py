@@ -21,19 +21,26 @@
 A CUDA tensor goes through the kernel, a CPU tensor through the plain
 version; `force=` picks one explicitly. Each kernel wrapper counts its
 launches, so a run can show that it went through the kernels.
+
+GroupNormFunction and AttentionFunction are group_norm and fused_attention
+with a backward (dx of the GroupNorm; dq, dk, dv of attention), which runs
+hand-written backward kernels of their own on a card (gn_bwd_reduce,
+gn_bwd_dx; attn_bwd_dq, attn_bwd_dkdv). They have no TPU counterpart: the
+JAX package takes the classifier-guidance gradient with jax.grad through
+its XLA GroupNorm and attention.
 """
 
 from ddnm_tpu_torch.ops import attention as _attention
 from ddnm_tpu_torch.ops import fused_gn_conv as _fused_gn_conv
 from ddnm_tpu_torch.ops import fwht as _fwht
 from ddnm_tpu_torch.ops import groupnorm as _groupnorm
-from ddnm_tpu_torch.ops.attention import fused_attention
+from ddnm_tpu_torch.ops.attention import AttentionFunction, fused_attention
 from ddnm_tpu_torch.ops.fused_gn_conv import fused_gn_conv
 from ddnm_tpu_torch.ops.fwht import fwht, hadamard_matrix
-from ddnm_tpu_torch.ops.groupnorm import group_norm
+from ddnm_tpu_torch.ops.groupnorm import GroupNormFunction, group_norm
 
-__all__ = ["fused_attention", "fused_gn_conv", "fwht", "group_norm", "hadamard_matrix",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["AttentionFunction", "GroupNormFunction", "fused_attention", "fused_gn_conv", "fwht",
+           "group_norm", "hadamard_matrix", "launch_counts", "reset_launch_counts"]
 
 _TABLES = (_groupnorm.LAUNCHES, _attention.LAUNCHES, _fwht.LAUNCHES,
            _fused_gn_conv.LAUNCHES)

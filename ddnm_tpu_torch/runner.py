@@ -10,11 +10,16 @@ x_T, its measurement noise (`--add_noise`) and its sampler noise from its
 own generators keyed by (seed, global image index), so the outputs do not
 depend on the batch size. Progress is plain log lines.
 
+A class-conditional ADM whose config has a `classifier:` block is guided
+toward GUIDED_CLASS in SVD mode, as in the JAX runner: the ADM classifier
+from --classifier_ckpt, or from the seed under --random_init (otherwise
+FileNotFoundError); with --simplified the classifier is built and not used,
+as JAX does.
+
 Paths of the JAX runner that are not ported yet raise
-NotImplementedError: classifier guidance (wherever the JAX runner would
-build it), the multistep solver and the encoder cache. A run uses the one
-device given by `device`; the JAX runner's sharding over several devices is
-not ported.
+NotImplementedError: the multistep solver and the encoder cache. A run uses
+the one device given by `device`; the JAX runner's sharding over several
+devices is not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +41,13 @@ from ddnm_tpu_torch.data.io import load_mask, save_image
 from ddnm_tpu_torch.data.metrics import psnr, ssim
 from ddnm_tpu_torch.data.noise import add_noise
 from ddnm_tpu_torch.data.transforms import data_transform, inverse_data_transform
-from ddnm_tpu_torch.models import ADMUNet, DDPMUNet, cast_torso
+from ddnm_tpu_torch.models import (
+    ADMClassifier,
+    ADMUNet,
+    DDPMUNet,
+    cast_torso,
+    classifier_guidance_fn,
+)
 from ddnm_tpu_torch.models.unet_adm import init_like_flax
 from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
 from ddnm_tpu_torch.runtime import resolve_device
@@ -78,7 +89,7 @@ class RunArgs:
     subset_start: int = -1
     subset_end: int = -1
     ckpt: Optional[str] = None
-    classifier_ckpt: Optional[str] = None  # guidance is not ported: raises where it would run
+    classifier_ckpt: Optional[str] = None  # the guidance classifier (.pt)
     random_init: bool = False
     batch_size: Optional[int] = None
     dtype: str = "float32"  # model torso dtype: float32 | bfloat16
@@ -112,15 +123,6 @@ class Runner:
             raise ValueError(
                 "--solver multistep does not compose with --encoder_cache (the "
                 "encoder-propagation sampler is DDIM-only); drop one of the two")
-        # the JAX runner builds a classifier and guides whenever the model is
-        # a class-conditional ADM and the config has a classifier block
-        # (ddnm_tpu/runner.py:174-191), with --classifier_ckpt or a random
-        # classifier under --random_init; elsewhere the flag is ignored
-        if (config.model.type == "openai" and config.model.class_cond
-                and config.classifier is not None):
-            raise NotImplementedError(
-                "classifier guidance is not ported yet: this config guides with "
-                "an ADM classifier (ROADMAP.md Queue 1 C2: classifier guidance)")
         if args.solver == "multistep":
             raise NotImplementedError(
                 "--solver multistep is not ported yet (ROADMAP.md Queue 1, later "
@@ -179,6 +181,36 @@ class Runner:
         if self.dtype == torch.bfloat16:
             cast_torso(model, torch.bfloat16)
         return model
+
+    def build_guidance(self):
+        """The guidance hook, where the JAX runner builds one
+        (ddnm_tpu/runner.py:173-191: a class-conditional ADM and a config
+        with a classifier block; elsewhere None and --classifier_ckpt is
+        ignored): the config's ADM classifier on the run's device in the
+        run's dtype, loaded strictly from --classifier_ckpt or, under
+        --random_init, drawn from the model's seed; guidance toward
+        GUIDED_CLASS with the config's classifier_scale."""
+        args, cfg = self.args, self.config
+        if not (cfg.model.type == "openai" and cfg.model.class_cond
+                and cfg.classifier is not None):
+            return None
+        ckpt = (args.classifier_ckpt if args.classifier_ckpt
+                and Path(args.classifier_ckpt).exists() else None)
+        if ckpt is None and not args.random_init:
+            raise FileNotFoundError(
+                f"classifier checkpoint {args.classifier_ckpt!r} not found; pass "
+                "--classifier_ckpt or --random_init")
+        with torch.device(self.device):
+            classifier = ADMClassifier.from_config(cfg.classifier, cfg.data.image_size)
+        if ckpt is not None:
+            logger.info("loading classifier checkpoint %s", ckpt)
+            load_checkpoint(classifier, ckpt)
+        else:
+            init_like_flax(classifier, args.seed)
+        if self.dtype == torch.bfloat16:
+            cast_torso(classifier, torch.bfloat16)
+        return classifier_guidance_fn(classifier, GUIDED_CLASS,
+                                      cfg.classifier.classifier_scale)
 
     def model_fn(self, model):
         """model(x, t), with the label GUIDED_CLASS for every image where the
@@ -282,6 +314,7 @@ class Runner:
     def run(self) -> dict:
         args, cfg, dev = self.args, self.config, self.device
         model = self.build_model()
+        guidance_fn = self.build_guidance()
         model_fn = self.model_fn(model)
         operator = self.build_operator()
         dataset = self.build_dataset()
@@ -327,7 +360,8 @@ class Runner:
                     t0 = time.perf_counter()
                     x, _ = sample_svd(
                         model_fn, x_init, y, operator, self.sched, gens,
-                        eta=args.eta, sigma_y=sigma_y, solver=args.solver,
+                        eta=args.eta, sigma_y=sigma_y, guidance_fn=guidance_fn,
+                        solver=args.solver,
                     )
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)

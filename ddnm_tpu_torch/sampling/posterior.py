@@ -19,8 +19,9 @@ from the host (`_host_step` / `_host_undo`), chosen by
 schedule does both jobs, as `sample_svd` does: the per-step scalars live on
 the device from the start, so the loop never waits for the card. There is
 no counterpart of `_run_scan` or `_resolve_posterior_loop`. The multistep
-solver is a later slice; `guidance_fn` stays a parameter (classifier
-guidance itself is a later slice, so only None reaches it from the CLI).
+solver is a later slice. `guidance_fn` is the classifier-guidance hook
+(models/unet_adm.py `classifier_guidance_fn`), which takes its gradient
+under `torch.enable_grad()` inside this `torch.no_grad()` loop.
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
 #!/usr/bin/env python
 """hq pipeline CLI of the PyTorch/CUDA port: arbitrary-size DDNM
-restoration with Mask-Shift tiling on the ADM UNet (unguided).
+restoration with Mask-Shift tiling on the ADM UNet, with classifier
+guidance where the config asks for it (class_cond and classifier_scale > 0:
+the ADM classifier from --classifier_ckpt or the config's classifier_path,
+or random weights from --seed under --random_init).
 
 Takes hq_main.py's flags plus --device (default cuda; without a card it
 raises unless --device cpu is given). Single-image mode restores --path_y
@@ -13,8 +16,7 @@ the config's image_size and the stride half of it. Example on the card:
       --deg sr_averagepooling --scale 4 --resize_y --class 950 \\
       --random_init --dtype bfloat16 -i exp/hq_out_torch
 
-Not ported yet (each raises NotImplementedError): classifier guidance
-(class_cond with classifier_scale > 0), --solver multistep,
+Not ported yet (each raises NotImplementedError): --solver multistep,
 --encoder_cache > 1, --sp / --dp > 1 and --resume.
 """
 
@@ -58,7 +60,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--ckpt", type=str, default=None, help="torch checkpoint (.pt) to load")
     p.add_argument("--classifier_ckpt", type=str, default=None,
-                   help="classifier guidance is not ported yet: raises where it would run")
+                   help="torch checkpoint (.pt) of the guidance classifier (default: the "
+                        "config's classifier_path)")
     p.add_argument("--random_init", action="store_true",
                    help="random weights from --seed (no checkpoint)")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
@@ -110,9 +113,33 @@ def build_adm_from_hq(conf, device="cpu"):
         )
 
 
+def build_classifier_from_hq(conf, device="cpu"):
+    """The ADM classifier of a flat hq config (hq_main.py
+    build_classifier_from_hq): the reference's create_classifier sizes
+    (channel_mult by image size), or the config's classifier_channel_mult
+    for toy and test sizes; built on `device` with torch's default init."""
+    import torch
+
+    from ddnm_tpu_torch.models import ADMClassifier
+
+    size = int(conf.image_size or 256)
+    with torch.device(device):
+        if not conf.classifier_channel_mult:
+            return ADMClassifier.from_config(conf, image_size=size)
+        return ADMClassifier(
+            image_size=size,
+            model_channels=int(conf.classifier_width),
+            num_res_blocks=int(conf.classifier_depth),
+            attention_resolutions=tuple(
+                size // int(r) for r in str(conf.classifier_attention_resolutions).split(",")),
+            channel_mult=tuple(int(m) for m in str(conf.classifier_channel_mult).split(",")),
+            use_scale_shift_norm=bool(conf.classifier_use_scale_shift_norm),
+            resblock_updown=bool(conf.classifier_resblock_updown),
+            pool=str(conf.classifier_pool),
+        )
+
+
 def _not_ported(ns, conf):
-    if conf.class_cond and float(conf.classifier_scale or 0) > 0:
-        raise NotImplementedError("classifier guidance: a later slice")
     if ns.solver == "multistep":
         raise NotImplementedError("--solver multistep is not ported yet (ROADMAP.md "
                                   "Queue 1 D: solvers and acceleration)")
@@ -139,7 +166,7 @@ def main(argv=None):
     from ddnm_tpu_torch.config import load_hq_config
     from ddnm_tpu_torch.data.io import load_image, load_mask, save_image
     from ddnm_tpu_torch.data.metrics import ssim
-    from ddnm_tpu_torch.models import cast_torso
+    from ddnm_tpu_torch.models import cast_torso, classifier_guidance_fn
     from ddnm_tpu_torch.models.unet_adm import init_like_flax
     from ddnm_tpu_torch.runner import load_checkpoint
     from ddnm_tpu_torch.runtime import resolve_device
@@ -178,8 +205,30 @@ def main(argv=None):
             return model(x, t, torch.full((x.shape[0],), label, dtype=torch.long,
                                           device=x.device))
     else:
+        label = None
+
         def model_fn(x, t):
             return model(x, t)
+
+    # classifier guidance (hq_main.py:241-262): its weights from the seed of
+    # the model's under --random_init, as the JAX CLI draws both from one key
+    guidance_fn = None
+    cckpt = ns.classifier_ckpt or conf.classifier_path
+    if conf.class_cond and float(conf.classifier_scale or 0) > 0:
+        classifier = build_classifier_from_hq(conf, dev)
+        if cckpt and Path(cckpt).exists():
+            logger.info("loading classifier checkpoint %s", cckpt)
+            load_checkpoint(classifier, cckpt)
+        elif ns.random_init:
+            init_like_flax(classifier, ns.seed)
+        else:
+            raise FileNotFoundError(
+                "classifier_scale > 0 but no classifier checkpoint at "
+                f"{cckpt!r}; pass --classifier_ckpt or --random_init")
+        if ns.dtype == "bfloat16":
+            cast_torso(classifier, torch.bfloat16)
+        guidance_fn = classifier_guidance_fn(classifier, label,
+                                             float(conf.classifier_scale))
 
     tables = build_posterior_tables(
         betas=named_beta_schedule(str(conf.noise_schedule or "linear"),
@@ -213,7 +262,7 @@ def main(argv=None):
             model_fn, gt, ns.deg, tables, ns.seed, image_index=image_index,
             scale=ns.scale, resize_y=ns.resize_y, mask=mask, parallel=ns.parallel_tiles,
             progress_fn=progress, tile_init=tile_init, tile=tile, stride=stride,
-            device=dev)
+            guidance_fn=guidance_fn, device=dev)
 
     # --- sweep mode (conf-declared eval dataset or --gt_path) -------------
     # an explicit --path_y always means single-image mode
@@ -268,7 +317,7 @@ def main(argv=None):
                 out = batched_tile_sample(
                     model_fn, np.stack([it["GT"] for it in chunk]), ns.deg, tables,
                     ns.seed, range(c0, c0 + len(chunk)), scale=ns.scale, masks=masks,
-                    tile=tile, device=dev)
+                    tile=tile, guidance_fn=guidance_fn, device=dev)
             else:
                 out = run_one(chunk[0]["GT"][None], masks[0], c0,
                               out_dir / "tiles" / Path(chunk[0]["GT_name"]).stem)

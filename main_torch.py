@@ -59,8 +59,9 @@ def parse_args(argv=None):
     p.add_argument("--ni", action="store_true", help="non-interactive (overwrite outputs)")
     p.add_argument("--ckpt", type=str, default=None, help="torch checkpoint (.pt) to load")
     p.add_argument("--classifier_ckpt", type=str, default=None,
-                   help="classifier guidance (not ported yet: a config that "
-                        "guides raises; elsewhere ignored)")
+                   help="torch checkpoint (.pt) of the guidance classifier of a "
+                        "class-conditional config with a classifier block (elsewhere "
+                        "ignored)")
     p.add_argument("--random_init", action="store_true",
                    help="random weights from --seed (no checkpoint)")
     p.add_argument("--batch_size", type=int, default=None, help="override config batch size")

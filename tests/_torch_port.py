@@ -59,3 +59,42 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# A cut of configs/imagenet_256_cc.yml (the class-conditional ADM guided by
+# its classifier, in the same sections) at 64 px, the smallest size whose
+# classifier channel_mult the reference's create_classifier defines: the
+# UNet 32 channels wide, the classifier 64, one res block each, attention
+# at 16 px, 3 steps, batch 1, the ImageNet folder exp/datasets/imagenet.
+TOY_CC_CONFIG = """\
+data: { dataset: ImageNet, image_size: 64, channels: 3, rescaled: true }
+model:
+  type: openai
+  num_channels: 32
+  num_res_blocks: 1
+  num_heads: 4
+  num_head_channels: 32
+  attention_resolutions: "16"
+  channel_mult: "1,2,2"
+  use_scale_shift_norm: true
+  resblock_updown: true
+  learn_sigma: true
+  class_cond: true
+classifier:
+  classifier_width: 64
+  classifier_depth: 1
+  classifier_attention_resolutions: "16"
+  classifier_pool: attention
+  classifier_resblock_updown: true
+  classifier_use_scale_shift_norm: true
+  classifier_scale: 1.0
+diffusion: { beta_schedule: linear, beta_start: 1.0e-4, beta_end: 0.02, num_diffusion_timesteps: 1000 }
+time_travel: { T_sampling: 3, travel_length: 1, travel_repeat: 1 }
+sampling: { batch_size: 1 }
+"""
+
+
+def write_toy_cc_config(path):
+    """TOY_CC_CONFIG written to `path`; returns the path."""
+    path.write_text(TOY_CC_CONFIG)
+    return path

@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import hq_main_torch
 from ddnm_tpu.config import load_hq_config as j_load_hq_config
@@ -104,11 +105,25 @@ def test_inpaint_pairs_match_jax(tmp_path):
         InpaintPairs(tmp_path / "none", masks)
 
 
+# the toy classifier of a guided toy32 hq config (hq_main.py
+# build_classifier_from_hq: classifier_channel_mult for a non-standard size)
+TOY_CLASSIFIER = """\
+classifier_width: 32
+classifier_depth: 1
+classifier_attention_resolutions: "16"
+classifier_channel_mult: "1,2"
+classifier_pool: attention
+classifier_use_scale_shift_norm: true
+classifier_resblock_updown: true
+"""
+
+
 @pytest.fixture
 def toy_conf(tmp_path):
     def write(class_cond="false", classifier_scale="0.0"):
         path = tmp_path / f"toy_{class_cond}_{classifier_scale}.yml"
-        path.write_text(TOY_CONF.format(class_cond=class_cond, classifier_scale=classifier_scale))
+        path.write_text(TOY_CONF.format(class_cond=class_cond, classifier_scale=classifier_scale)
+                        + TOY_CLASSIFIER)
         return path
     return write
 
@@ -168,7 +183,6 @@ def test_sweep_from_the_conf_data_eval(tmp_path, toy_conf):
 
 
 @pytest.mark.parametrize("flags,conf_kw,err", [
-    ([], dict(class_cond="true", classifier_scale="1.0"), "classifier guidance"),
     (["--solver", "multistep"], {}, "multistep"),
     (["--encoder_cache", "2"], {}, "encoder_cache"),
     (["--sp", "2"], {}, "mesh"),
@@ -180,6 +194,24 @@ def test_unported_paths_raise(tmp_path, toy_conf, flags, conf_kw, err):
         hq_main_torch.main(["--config", str(toy_conf(**conf_kw)), "--deg", "sr_averagepooling",
                             "--random_init", "--device", "cpu", "--path_y", "x.png",
                             "-i", str(tmp_path / "o")] + flags)
+    assert not (tmp_path / "o").exists()
+
+
+def test_guided_config_needs_a_classifier_checkpoint_or_random_init(tmp_path, toy_conf):
+    """Classifier guidance is ported (class_cond with classifier_scale > 0):
+    with a model checkpoint but neither --classifier_ckpt, the config's
+    classifier_path nor --random_init, it raises FileNotFoundError where
+    hq_main.py does, before writing anything (the guided run itself:
+    tests/test_torch_guidance.py)."""
+    from ddnm_tpu_torch.config import load_hq_config
+
+    conf = toy_conf(class_cond="true", classifier_scale="1.0")
+    ckpt = tmp_path / "cc.pt"
+    torch.save(hq_main_torch.build_adm_from_hq(load_hq_config(conf)).state_dict(), ckpt)
+    with pytest.raises(FileNotFoundError, match="classifier"):
+        hq_main_torch.main(["--config", str(conf), "--deg", "sr_averagepooling",
+                            "--ckpt", str(ckpt), "--device", "cpu", "--path_y", "x.png",
+                            "-i", str(tmp_path / "o")])
     assert not (tmp_path / "o").exists()
 
 

@@ -1,10 +1,12 @@
 """The launch plans of the port's attention, GroupNorm (stats and apply),
-fused GN+SiLU+conv and Walsh-Hadamard kernels, checked without a card: the
-plain Python functions that choose tiles, grid, blocks, clusters, stages
-and shared-memory bytes (`_attention_plan`, `_stats_plan`, `_apply_plan`,
-`_conv_plan`, `_fwht_plan`) for every shape the wrappers admit (the
-hq path's ADM forwards included, their shapes read off a forward on the
-meta device), and their refusals."""
+fused GN+SiLU+conv and Walsh-Hadamard kernels and of the GroupNorm and
+attention backward kernels, checked without a card: the plain Python
+functions that choose tiles, grid, blocks, clusters, stages and
+shared-memory bytes (`_attention_plan`, `_stats_plan`, `_apply_plan`,
+`_conv_plan`, `_fwht_plan`, `_bwd_reduce_plan`, `_bwd_plan`) for every
+shape the wrappers admit (the hq path's ADM forwards and every classifier
+forward included, their shapes read off a forward on the meta device), and
+their refusals."""
 
 import math
 from pathlib import Path
@@ -22,6 +24,7 @@ from ddnm_tpu_torch.ops._build import SMEM_PER_BLOCK
 from ddnm_tpu_torch.ops.attention import (
     WHOLE_ROW_MAX_T,
     _attention_plan,
+    _bwd_plan,
     _kernel_attention,
 )
 from ddnm_tpu_torch.ops.fused_gn_conv import _conv_plan
@@ -29,6 +32,7 @@ from ddnm_tpu_torch.ops.fwht import _fwht_plan
 from ddnm_tpu_torch.ops.groupnorm import (
     STATS_MAX_SPAN,
     _apply_plan,
+    _bwd_reduce_plan,
     _stats_affine,
     _stats_plan,
 )
@@ -436,3 +440,136 @@ def test_plans_admit_every_shape_of_the_hq_forward(tier, batch):
                 assert plan["kernel"] == "mma" and plan["whole"] and plan["tma"] == (C % 64 == 0)
             else:
                 assert plan["kernel"] == "fma"
+
+
+def _classifier_grad_shapes() -> dict:
+    """{name: chip_smoke.grad_shapes(...)} of every ADM classifier the repo
+    runs, on the meta device: the 256 px classifier of
+    configs/imagenet_256_cc.yml and configs/hq/inet256.yml (the same
+    network) at batch 1 and 8, and the trained toy32, mid64 and big128
+    fixtures' classifiers at batch 2."""
+    import json
+
+    import chip_smoke
+    from ddnm_tpu_torch.models import ADMClassifier
+
+    fixtures = CONFIGS.parent / "tests" / "fixtures"
+    with torch.device("meta"):
+        nets = {"cc256": ADMClassifier.from_config(
+            load_config(CONFIGS / "imagenet_256_cc.yml").classifier, 256)}
+        for name, key in (("toy_clf32", "clf_kw"), ("mid_clf64", "arch"),
+                          ("big_clf128", "arch")):
+            nets[name] = ADMClassifier(**json.loads((fixtures / f"{name}.json").read_text())[key])
+    out = {}
+    for name, net in nets.items():
+        res = net.image_size
+        for b in ((1, 8) if name == "cc256" else (2,)):
+            out[f"{name}_b{b}"] = chip_smoke.grad_shapes(
+                net, torch.zeros(b, res, res, 3, device="meta"))
+    return out
+
+
+def test_classifier_shapes_are_found():
+    shapes = _classifier_grad_shapes()
+    cc8 = shapes["cc256_b8"]
+    assert sum(n for k, n in cc8.items() if k[0] == "gn") == 46
+    assert sum(n for k, n in cc8.items() if k[0] == "attn") == 8
+    assert {k[1] for k in cc8 if k[0] == "attn"} == {(32, 1024, 64), (64, 256, 64),
+                                                    (64, 64, 64), (64, 65, 64)}
+    assert {k[1] for k in shapes["toy_clf32_b2"] if k[0] == "attn"} == {(4, 256, 32),
+                                                                       (4, 257, 32)}
+    assert ("gn", (8, 256, 256, 128), True, False) in cc8  # the biggest map, norm -> SiLU
+    assert any(k[0] == "gn" and k[3] for k in cc8)  # FiLM in the out norms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_plans_admit_every_classifier_shape(dtype):
+    """For every GroupNorm and attention of every classifier forward, x on
+    or off 16 bytes: the backward reduce plan is the stats plan's blocks
+    with four sums (whole groups a span, its shared memory and scratch),
+    the dx pass takes the apply plan; the attention backward plan admits
+    the head and fits both kernels' shared memory, one block per 32 query
+    rows (dq) and per 32 keys (dkdv)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    for table in _classifier_grad_shapes().values():
+        for key in table:
+            if key[0] == "gn":
+                B, H, W, C = key[1]
+                for aligned in (True, False):
+                    s = _stats_plan(B, H * W, C, 32, elem, aligned)
+                    p = _bwd_reduce_plan(B, H * W, C, 32, elem, aligned)
+                    span, vec = p["span"], p["vec"]
+                    assert {k: p[k] for k in ("vec", "span", "n_blk", "threads", "lanes_c",
+                                              "grid", "counters")} == {
+                        k: s[k] for k in ("vec", "span", "n_blk", "threads", "lanes_c", "grid",
+                                          "counters")}
+                    assert span % (C // 32) == 0 and C % span == 0
+                    assert p["smem"] == 4 * (4 * span + 4 * p["threads"] * vec
+                                             + 2 * span // (C // 32)) + 16
+                    assert p["smem"] <= SMEM_PER_BLOCK
+                    assert p["scratch"] == (4 * B * C * p["n_blk"] if p["n_blk"] > 1 else 0)
+                    a = _apply_plan(B, H * W, C, dtype, aligned, H100_SMS)
+                    assert (a["blocks"] * a["threads"]) % a["cv"] == 0
+            else:
+                B, T, C = key[1]
+                p = _bwd_plan(B, T, C, dtype)
+                assert p["threads"] == 256
+                assert p["dq"]["grid"] == (-(-T // 32), B)
+                assert p["dkdv"]["grid"] == (-(-T // 32), B)
+                for k in ("dq", "dkdv"):
+                    assert 0 < p[k]["smem"] <= SMEM_PER_BLOCK
+
+
+def test_backward_plans_at_the_classifier_heads():
+    """The dynamic shared memory of the two attention backward kernels, as
+    csrc/attention.cu bwd_dq_smem_floats / bwd_dkdv_smem_floats compute it
+    (rows padded to C + 1 floats), at the head dimensions they are built
+    for; the biggest, C = 128, still fits a block."""
+    want = {32: (33792, 42496), 64: (58368, 67072), 128: (107520, 116224)}
+    for C, (dq, dkdv) in want.items():
+        p = _bwd_plan(8, 1024, C, torch.bfloat16)
+        assert (p["dq"]["smem"], p["dkdv"]["smem"]) == (dq, dkdv)
+    assert max(want[128]) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("B,T,C,dtype,err", [
+    (2, 16, 96, torch.float32, "C in"),
+    (2, 16, 512, torch.bfloat16, "C in"),
+    (0, 16, 64, torch.float32, "B\\*"),
+    (65536, 16, 64, torch.float32, "B\\*"),
+    (2, 0, 64, torch.float32, "T >= 1"),
+    (2, 16, 64, torch.float16, "float32/bfloat16"),
+])
+def test_backward_plan_refuses_what_the_kernels_do_not_take(B, T, C, dtype, err):
+    with pytest.raises((ValueError, TypeError), match=err):
+        _bwd_plan(B, T, C, dtype)
+
+
+def test_backward_wrappers_check_before_they_build():
+    """On a CPU tensor the backward wrappers raise before touching the
+    library (no nvcc here): the kernels take CUDA tensors only."""
+    from ddnm_tpu_torch.ops.attention import _attn_bwd_dq
+    from ddnm_tpu_torch.ops.groupnorm import _bwd_reduce
+
+    q = torch.zeros(2, 8, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        _attn_bwd_dq(q, q, q, q, q, 1.0)
+    x = torch.zeros(1, 4, 4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        _bwd_reduce(x, x, torch.ones(64), 32, 1e-5, False)
+
+
+def test_backward_entry_points_have_ctypes_signatures():
+    """The four backward kernels' C entry points are bound with a pointer
+    for every pointer and the stream (the whole table is checked against
+    the sources by test_ctypes_signatures_match_the_c_entry_points)."""
+    import ctypes
+
+    from ddnm_tpu_torch.ops._build import _SIGNATURES
+
+    P = ctypes.c_void_p
+    assert _SIGNATURES["ddnm_gn_bwd_reduce"][:9] == [P] * 9
+    assert _SIGNATURES["ddnm_gn_bwd_dx"][:6] == [P] * 6
+    for name in ("ddnm_attention_bwd_dq", "ddnm_attention_bwd_dkdv"):
+        assert _SIGNATURES[name][:8] == [P] * 8 and _SIGNATURES[name][-1] is P
+        assert _SIGNATURES[name][11] is ctypes.c_float  # the scale

@@ -128,4 +128,6 @@ def test_kernel_force_on_cpu_raises_and_counts_nothing():
     group_norm(x, torch.ones(32), torch.zeros(32))
     fused_attention(q, q, q, 1.0)
     assert ops.launch_counts() == {"groupnorm_stats": 0, "groupnorm_apply": 0,
-                                   "attention": 0, "fwht": 0, "fused_gn_conv": 0}
+                                   "gn_bwd_reduce": 0, "gn_bwd_dx": 0, "attention": 0,
+                                   "attn_bwd_dq": 0, "attn_bwd_dkdv": 0, "fwht": 0,
+                                   "fused_gn_conv": 0}

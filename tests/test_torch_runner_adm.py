@@ -2,7 +2,7 @@
 ImageNet rows of evaluation.py on the trained toy32 ADM against the JAX
 package's golden (tests/fixtures/toy_adm32_main_golden.json, written by
 tools/emit_toy_adm32_main_golden.py), main_torch and evaluation_torch end
-to end on the CPU, and the refusal of classifier guidance.
+to end on the CPU, and classifier guidance wherever the JAX runner guides.
 
 Gates: every image's PSNR within 0.01 dB of the golden's (fp32 on both
 sides, zero noise, shared x_T, 20 steps); the golden's rows recomputed with
@@ -108,13 +108,29 @@ def test_class_conditional_model_gets_the_guided_class(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [dict(random_init=True), dict(classifier_ckpt="clf.pt"), {}])
-def test_runner_refuses_wherever_jax_would_guide(kw):
+def test_runner_refuses_wherever_jax_would_guide(kw, tmp_path):
+    """Guidance is ported: where the JAX runner guides (a class-conditional
+    ADM with a classifier block) the port guides too. Without a classifier
+    checkpoint and without --random_init, configs/imagenet_256_cc.yml
+    raises FileNotFoundError as JAX does; with --random_init a guided run
+    completes (on tests/_torch_port.py's 64 px cut of that config)."""
     from ddnm_tpu_torch.config import load_config
     from ddnm_tpu_torch.runner import RunArgs, Runner
+    from tests._torch_port import write_toy_cc_config
 
-    cfg = load_config(REPO / "configs" / "imagenet_256_cc.yml")
-    with pytest.raises(NotImplementedError, match="guidance is not ported"):
-        Runner(RunArgs(config="imagenet_256_cc.yml", device="cpu", **kw), cfg)
+    if not kw.get("random_init"):
+        cfg = load_config(REPO / "configs" / "imagenet_256_cc.yml")
+        runner = Runner(RunArgs(config="imagenet_256_cc.yml", device="cpu", **kw), cfg)
+        with pytest.raises(FileNotFoundError, match="classifier"):
+            runner.build_guidance()
+        return
+    cfg = load_config(write_toy_cc_config(tmp_path / "cc.yml"))
+    args = RunArgs(exp=str(REPO / "exp"), path_y="imagenet", deg="sr_averagepooling",
+                   max_images=1, image_folder=str(tmp_path / "out"), device="cpu", **kw)
+    stats = Runner(args, cfg).run()
+    assert stats["num_samples"] == 1 and np.isfinite(stats["avg_psnr"])
+    assert stats["range_space_max_abs"] <= 1e-4
+    assert (tmp_path / "out" / "0_0.png").exists()
 
 
 def test_manifest_labels_follow_max_images_and_subset(tmp_path):

@@ -105,17 +105,20 @@ def test_multistep_solver_not_ported():
     (dict(encoder_cache=2), "toy32.yml", NotImplementedError, "not ported"),
     # the JAX runner's refusal, ahead of the port's own
     (dict(solver="multistep", add_noise=True), "toy32.yml", ValueError, "noise-free"),
-    # random_init: JAX would guide with a random classifier
-    ({}, "imagenet_256_cc.yml", NotImplementedError, "not ported"),
-    (dict(classifier_ckpt="clf.pt"), "imagenet_256_cc.yml", NotImplementedError, "not ported"),
+    # guidance (ported): without --random_init and without a classifier
+    # checkpoint the guided config raises as the JAX runner does; with
+    # --random_init it runs (tests/test_torch_runner_adm.py, on a cut of it)
+    (dict(random_init=False), "imagenet_256_cc.yml", FileNotFoundError, "classifier"),
+    (dict(random_init=False, classifier_ckpt="clf.pt"), "imagenet_256_cc.yml",
+     FileNotFoundError, "classifier"),
 ])
 def test_runner_raises_on_paths_not_ported(kw, config, exc, match):
     from ddnm_tpu_torch.config import load_config
     from ddnm_tpu_torch.runner import RunArgs, Runner
 
-    args = RunArgs(config=config, random_init=True, device="cpu", **kw)
+    args = RunArgs(config=config, **{"random_init": True, "device": "cpu", **kw})
     with pytest.raises(exc, match=match):
-        Runner(args, load_config(REPO / "configs" / config))
+        Runner(args, load_config(REPO / "configs" / config)).build_guidance()
 
 
 def test_runner_ignores_classifier_ckpt_without_guidance(tmp_path):
