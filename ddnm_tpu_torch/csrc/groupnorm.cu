@@ -386,7 +386,7 @@ constexpr int kBwdUnroll = 4;  // pixel loads of x and dy in flight per thread
 // n_blk > 1 the blocks publish to scratch[b][s][j] (4 span fp32) and the
 // last to arrive (integer counter) adds them in block order, resets the
 // counter and finalises. Dynamic shared memory 4 * (4 span + 4 blockDim.x
-// VEC + 2 span / cpg) + 16 bytes. a, b: the forward's affine (read only
+// VEC + 3 span / cpg) + 16 bytes. a, b: the forward's affine (read only
 // when swish); film_scale may be null. out: (3, B, C) fp32.
 template <typename T, int VEC>
 __global__ void gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -409,8 +409,8 @@ __global__ void gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restric
   const int width = lanes_c * VEC;
   float* part = sm;                         // [4][span]: x, x^2, dy', dy' x
   float* red = part + 4 * span;             // [4][lanes_p][width]
-  float* gstat = red + 4 * nthreads * VEC;  // [2][span / cpg]: Bx, Cx per group
-  unsigned* last = reinterpret_cast<unsigned*>(gstat + 2 * (span / cpg));
+  float* gstat = red + 4 * nthreads * VEC;  // [3][span / cpg]: rstd, Bx, Cx per group
+  unsigned* last = reinterpret_cast<unsigned*>(gstat + 3 * (span / cpg));
 
   const int chunk = (hw + n_blk - 1) / n_blk;
   const int p_begin = blk * chunk, p_end = min(hw, p_begin + chunk);
@@ -698,7 +698,7 @@ int ddnm_gn_bwd_reduce(const void* x, const void* dy, const void* gamma, const v
   const int cpg = c_total / groups;
   const bool ok = c_total % span == 0 && span % cpg == 0 && span % vec == 0 && n_blk >= 1 &&
                   threads % lanes_c == 0 && threads <= 1024 && (!swish || (a && b)) &&
-                  smem_bytes == 4 * (4 * span + 4 * threads * vec + 2 * (span / cpg)) + 16;
+                  smem_bytes == 4 * (4 * span + 4 * threads * vec + 3 * (span / cpg)) + 16;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* fs = static_cast<const float*>(film_scale);

@@ -12,11 +12,9 @@ to its input): with grad enabled and an input that requires grad,
 `GroupNormF32` and `attention` go through `ops.GroupNormFunction` and
 `ops.AttentionFunction`, whose backward runs the backward kernels on a
 card. Under `torch.no_grad`, or when no input requires grad, they call the
-forward alone and save nothing, as every sampler does. The one exception
-is the plain route (a CPU tensor or `force="torch"`) of a GroupNorm whose
-affine or FiLM requires grad (a model that is not frozen): the plain
-forward's own autograd gives every gradient there, and GroupNormFunction
-gives dx only.
+forward alone and save nothing, as every sampler does. GroupNormFunction
+gives dx only, so a GroupNorm whose affine or FiLM requires grad (a model
+that is not frozen) raises on every route.
 """
 
 from __future__ import annotations
@@ -107,13 +105,10 @@ class GroupNormF32(nn.Module):
         if not nhwc.is_contiguous():
             nhwc = nhwc.contiguous()
         if _needs_grad(nhwc, film_scale, film_shift):
-            mode = self.force or ("kernel" if nhwc.is_cuda else "torch")
-            frozen = not _needs_grad(self.weight, self.bias, film_scale, film_shift)
-            if mode == "kernel" or frozen:
-                y = GroupNormFunction.apply(nhwc, self.weight, self.bias, film_scale,
-                                            film_shift, self.num_groups, self.eps,
-                                            self.swish, mode)
-                return y.permute(0, 3, 1, 2)
+            y = GroupNormFunction.apply(nhwc, self.weight, self.bias, film_scale, film_shift,
+                                        self.num_groups, self.eps, self.swish,
+                                        self.force or ("kernel" if nhwc.is_cuda else "torch"))
+            return y.permute(0, 3, 1, 2)
         y = group_norm(nhwc, self.weight, self.bias, num_groups=self.num_groups,
                        eps=self.eps, swish=self.swish, film_scale=film_scale,
                        film_shift=film_shift, force=self.force)

@@ -368,12 +368,12 @@ def _bwd_reduce_plan(B: int, HW: int, C: int, G: int, elem_size: int,
     """The backward reduce kernel's launch: the stats kernel's blocks
     (`_stats_plan`: vec, span, blocks per image, threads, grid, counters)
     with four sums a channel (x, x^2, dy', dy' x): dynamic shared memory
-    4 * (4 span + 4 threads vec + 2 span / cpg) + 16 bytes and 4 span
+    4 * (4 span + 4 threads vec + 3 span / cpg) + 16 bytes and 4 span
     floats of scratch a block. Raises ValueError for a shape the kernel
     does not take."""
     plan = dict(_stats_plan(B, HW, C, G, elem_size, aligned))
     span, threads, vec, cpg = plan["span"], plan["threads"], plan["vec"], C // G
-    plan["smem"] = 4 * (4 * span + 4 * threads * vec + 2 * (span // cpg)) + 16
+    plan["smem"] = 4 * (4 * span + 4 * threads * vec + 3 * (span // cpg)) + 16
     plan["scratch"] = 2 * plan["scratch"]
     return plan
 

@@ -157,7 +157,9 @@ class Runner:
     def build_model(self) -> DDPMUNet | ADMUNet:
         """The config's UNet on the run's device: a checkpoint loaded
         strictly, or under --random_init weights drawn from the seed (the
-        ADM's as the JAX package's init draws them, init_like_flax)."""
+        ADM's as the JAX package's init draws them, init_like_flax); frozen,
+        so that a call outside torch.no_grad runs the forward alone (the
+        GroupNorm gradient gives dx only and refuses trainable parameters)."""
         args, cfg = self.args, self.config
         ckpt = args.ckpt if args.ckpt and Path(args.ckpt).exists() else None
         if ckpt is None and not args.random_init:
@@ -177,7 +179,7 @@ class Runner:
         else:
             logger.info("loading checkpoint %s", ckpt)
             load_checkpoint(model, ckpt)
-        model = model.to(self.device).eval()
+        model = model.to(self.device).eval().requires_grad_(False)
         if self.dtype == torch.bfloat16:
             cast_torso(model, torch.bfloat16)
         return model

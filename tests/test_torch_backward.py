@@ -144,7 +144,8 @@ def test_nn_routes_through_the_functions_only_where_a_gradient_is_wanted(monkeyp
     AttentionFunction when grad is on and an input requires grad (a frozen
     module, as the classifier under guidance), and the forward alone under
     no_grad or when no input requires grad. The spy also checks the mode
-    the Functions are handed (the plain route on a CPU tensor)."""
+    the Functions are handed (the plain route on a CPU tensor), and a module
+    whose affine requires grad raises on the plain route as on the card."""
     from ddnm_tpu_torch.models import nn as t_nn
 
     seen = []
@@ -167,7 +168,6 @@ def test_nn_routes_through_the_functions_only_where_a_gradient_is_wanted(monkeyp
     assert seen == [("gn", "torch"), ("attn", "torch")]
     (y.sum() + o.sum()).backward()
     assert x.grad is not None and q.grad is not None
-    # a module that is not frozen keeps the plain forward's own autograd
-    seen.clear()
-    t_nn.GroupNormF32(64)(x).sum().backward()
-    assert seen == []
+    # a module that is not frozen raises on the CPU as on the card
+    with pytest.raises(ValueError, match="must not require grad"):
+        t_nn.GroupNormF32(64)(x)

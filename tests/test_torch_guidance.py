@@ -102,6 +102,32 @@ def test_toy32_classifier_logits_and_guidance_match_jax():
     assert _rel(got.numpy(), want) <= 1e-4
 
 
+def test_dense_random_classifier_reaches_every_backward():
+    """chip_smoke's full-width gradient check draws the zero-initialised
+    layers too: with them zero (init_like_flax, as --random_init builds
+    the classifier) only some GroupNorm and attention backwards get a
+    non-zero incoming gradient; drawn, every one does. The census
+    (chip_smoke.backward_dy_census) puts the Functions' backward back."""
+    from ddnm_tpu_torch.models.unet_adm import init_like_flax
+    from ddnm_tpu_torch.ops.attention import AttentionFunction
+    from ddnm_tpu_torch.ops.groupnorm import GroupNormFunction
+
+    real = (GroupNormFunction.backward, AttentionFunction.backward)
+    kw = json.loads(chip_smoke.TOY_CLF_JSON.read_text())["clf_kw"]
+    x, t = (torch.from_numpy(a) for a in _inputs(2, 32))
+    census = {}
+    for dense in (False, True):
+        clf = ADMClassifier(**kw)
+        if dense:
+            clf.zero_init = ()
+        guide = classifier_guidance_fn(init_like_flax(clf, 1234).eval(), 2, 1.0)
+        census[dense] = chip_smoke.backward_dy_census(lambda: guide(x, t))
+    n_gn, n_attn = chip_smoke.module_counts(clf)
+    assert census[True] == {"groupnorm": [n_gn, n_gn], "attention": [n_attn, n_attn]}
+    assert census[False]["groupnorm"][0] < n_gn and census[False]["attention"][0] < n_attn
+    assert (GroupNormFunction.backward, AttentionFunction.backward) == real
+
+
 @pytest.mark.parametrize("pool", ["adaptive", "spatial", "spatial_v2"])
 def test_classifier_pools_match_jax(pool):
     x, t = _inputs(2, 32, seed=1)

@@ -504,8 +504,9 @@ def test_backward_plans_admit_every_classifier_shape(dtype):
                         k: s[k] for k in ("vec", "span", "n_blk", "threads", "lanes_c", "grid",
                                           "counters")}
                     assert span % (C // 32) == 0 and C % span == 0
+                    # three per-group arrays (rstd, Bx, Cx), then the block counter
                     assert p["smem"] == 4 * (4 * span + 4 * p["threads"] * vec
-                                             + 2 * span // (C // 32)) + 16
+                                             + 3 * span // (C // 32)) + 16
                     assert p["smem"] <= SMEM_PER_BLOCK
                     assert p["scratch"] == (4 * B * C * p["n_blk"] if p["n_blk"] > 1 else 0)
                     a = _apply_plan(B, H * W, C, dtype, aligned, H100_SMS)
