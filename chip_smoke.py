@@ -107,16 +107,18 @@ Phase 3 also holds the four backward kernels (gn_bwd_reduce, gn_bwd_dx,
 attn_bwd_dq, attn_bwd_dkdv; no TPU counterpart) against their plain
 versions, and each pair against autograd through the plain forward, in
 fp32 and bf16 at every shape of three classifier forwards (the toy32
-classifier at batch 2; the 256 px classifier at batch 1 and 8), timed
-beside the library's autograd backward (F.group_norm, SDPA), and sums
-their times per guidance call.
+classifier at batch 2; the 256 px classifier at batch 1 and 8), the
+reduce and attention kernels with the same bits on a second call, timed
+beside the library's autograd backward (F.group_norm, SDPA), prints the
+attention pair's device time against SDPA's at each head shape of the 256
+px classifier, and sums their times per guidance call.
 Phase 3 also holds the GroupNorm (with FiLM) and attention kernels against
 their plain versions at every shape of phase 10's ADM forward (one tile,
 bf16) and of phase 12's (batch 8, 256 px, bf16) and sums their times per
 such forward.
-Phase 2 prints the -Xptxas -v registers and spills of the conv, apply and
-Walsh-Hadamard kernels. Phase 3 also holds the Walsh-Hadamard kernel
-against its plain version at the SVD paths' shapes and at edge shapes (one
+Phase 2 prints the -Xptxas -v registers and spills of the conv, apply,
+Walsh-Hadamard and bf16 attention backward kernels. Phase 3 also holds the
+Walsh-Hadamard kernel against its plain version at the SVD paths' shapes and at edge shapes (one
 slab, a ragged slab count, every tier's P, P = 1 and 2, 100 MB), each with
 the same bits on a second call and on a strided view, one wrapper call and
 one CUDA launch a call (torch.profiler), and its share of the bound on the
@@ -234,7 +236,10 @@ TOL = {
     #  - gn_bwd_dx: one FMA chain against the plain version's; bf16 output
     #    may land one ulp (<= 2^-7 relative) apart;
     #  - attn_bwd_dq / attn_bwd_dkdv: T-term fp32 sums in another order,
-    #    exp against torch.exp; bf16 outputs one ulp apart;
+    #    exp against torch.exp; bf16 outputs one ulp apart; in bf16 the
+    #    tensor-core kernels also round P and dS to bf16 as mma operands
+    #    (tests/test_torch_attn_bwd_rounding.py holds that rounding model
+    #    within these gates on the CPU);
     #  - gn_bwd / attn_bwd (each pair, whole backward) against autograd
     #    through the plain forward: fp32 the same function by another
     #    formula; bf16 autograd rounds the forward's scores (attention) and
@@ -364,7 +369,7 @@ def ptxas_summary(lines: list[str]) -> list[str]:
     """One line per kernel of a `-Xptxas -v` report: registers, stack and
     spills, and any note that ptxas serialised its wgmma instructions."""
     def short(text):
-        found = re.search(r"\d((?:fgc|gn|fwht)_[a-z_]*kernel)(I\w*?E)?E", text)
+        found = re.search(r"\d((?:fgc|gn|fwht|attn)_[a-z_]*kernel)(I\w*?E)?E", text)
         return found.group(1) + (found.group(2) or "") if found else text
 
     out, name = [], None
@@ -1273,8 +1278,9 @@ def check_backward(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Gener
     saved tensors made by the forward kernels; a pair also against
     autograd through the plain forward and timed beside the library's
     autograd backward (F.group_norm, without FiLM or SiLU; SDPA), with the
-    graph built once and only the backward timed. gn_bwd_reduce must give
-    the same bits on a second call. Returns a result dict as check_kernel's."""
+    graph built once and only the backward timed. gn_bwd_reduce,
+    attn_bwd_dq and attn_bwd_dkdv must give the same bits on a second
+    call. Returns a result dict as check_kernel's."""
     dev = "cuda"
     library = autograd_ref = None
     elem = torch.empty((), dtype=dtype).element_size()
@@ -1341,6 +1347,8 @@ def check_backward(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Gener
             lout = F.scaled_dot_product_attention(*lin, scale=scale)
             library = lambda: torch.autograd.grad(lout, lin, do[:, None], retain_graph=True)
             nbytes, flops = 8 * q.numel() * elem, 10 * B * T * T * C
+        if kind != "attn_bwd" and not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
+            raise AssertionError(f"{kind} {shape} {dtype}: two calls differ")
     as_list = lambda out: list(out) if isinstance(out, (tuple, list)) else [out]
     refs = [t.float() for t in as_list(plain())]
     got = as_list(kern())
@@ -1774,8 +1782,9 @@ def main() -> int:
         path, secs = _build.build()
         _build.load_library()
         print(f"built {path.name} with nvcc in {secs:.2f} s", flush=True)
-        for line in ptxas_summary(_build.ptxas_report("fgc_conv_kernel", "gn_apply_kernel",
-                                                      "fwht_kernel")):
+        for line in ptxas_summary(_build.ptxas_report(
+                "fgc_conv_kernel", "gn_apply_kernel", "fwht_kernel", "attn_bwd_dq_mma_kernel",
+                "attn_bwd_dkdv_mma_kernel")):
             print(line, flush=True)
 
     with phase(3, "kernels against plain versions"):
@@ -1958,6 +1967,15 @@ def main() -> int:
                           f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
                           f"plain {r['plain_ms']:.4f} ms  library {lib}  "
                           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+        # the attention pair against SDPA's autograd backward at each head
+        # shape of the 256 px classifier at batch 8 (bf16), on the device
+        for key in sorted(k for k in clf_tables["cc256_b8"] if k[0] == "attn"):
+            r = bwd_results[(key, "attn_bwd", torch.bfloat16)]
+            print(f"attn_bwd pair {str(key[1]):16s} bfloat16: device {r['device_ms']:.4f} ms "
+                  f"against SDPA autograd {r['library_device_ms']:.4f} ms "
+                  f"({r['device_ms'] / r['library_device_ms']:.2f}x), bound "
+                  f"{r['bound_ms']:.4f} ms", flush=True)
 
         # per guidance call (one classifier forward's backward) of each table,
         # bf16 for the 256 px classifier (as the guided runs), fp32 for toy32

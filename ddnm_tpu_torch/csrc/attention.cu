@@ -77,19 +77,54 @@
 // guidance gradient; no TPU counterpart: the JAX package differentiates
 // its XLA attention). With P the probabilities, D = rowsum(dO o O),
 // dS = P o (dO V^T - D), dQ = dS K scale, dK = dS^T Q scale, dV = P^T dO.
-// Two kernels on the CUDA cores in fp32 whatever the input type (a first,
-// simple design: no tensor cores), each writing its outputs once, with no
-// atomics:
-//   attn_bwd_dq_kernel<T, C>: one block per kBwdQ query rows of one slab.
-//     A first sweep over the key tiles recomputes each row's log-sum-exp
-//     (an online max and sum per thread, combined over the row's 8 lanes),
-//     a second recomputes P from it, forms dS with D and accumulates dQ in
-//     registers; it stores the rows' LSE and D for the other kernel.
-//   attn_bwd_dkdv_kernel<T, C>: one block per kBwdKV keys of one slab,
-//     sweeping the query tiles: P from the stored LSE, dS from the stored
-//     D, dK and dV accumulated in registers.
-// Rows and keys past T are zeros in shared memory and are masked out of
-// every sum. C (the head dimension) is a template parameter: 32, 64, 128.
+// Two passes, each writing its outputs once (no atomics, so two calls give
+// the same bits): a dQ pass, which also stores each row's LSE and D, and a
+// dK / dV pass that reads them. C (the head dimension) is a template
+// parameter: 32, 64, 128. Two designs, chosen by the input type.
+//
+// bf16 (attn_bwd_dq_mma_kernel<C>, attn_bwd_dkdv_mma_kernel<C>; the
+// guidance gradient of the bf16 classifier). Every product runs on the
+// tensor cores: mma.sync m16n8k16, bf16 operands, fp32 accumulators. A
+// block holds kBwdRows = 64 "resident" rows of one slab (4 warps, 16 rows
+// and all C columns each), loaded once by cp.async into rows padded by 16
+// bytes, and streams the other operand pair through a two-stage ring of
+// tiles, by TMA tensor copies with the 128-byte swizzle where C % 64 == 0
+// (the forward's (C, T, B) maps, rows past T arrive as zeros), by cp.async
+// otherwise.
+//   - dq: resident Q and dO, streamed K and V (64 keys a tile). A first
+//     sweep over the K tiles takes each row's LSE from S = Q K^T alone (an
+//     online max and sum per thread, combined over the row's 4 lanes); the
+//     second sweep forms S and dP = dO V^T, P = exp(S scale - LSE) and dS =
+//     P o (dP - D), rounds dS to bf16 straight from the accumulator
+//     fragments into A fragments (no trip through shared memory) and adds
+//     dS K to dQ, K read by ldmatrix.trans.
+//   - dkdv: resident K and V, streamed Q and dO (64 rows a tile, 32 at C =
+//     128, which keeps dK, dV and the tile's products within 255 registers
+//     a thread), with each tile's LSE and D staged in shared memory one tile
+//     ahead. Keys as rows: S^T = K Q^T, dP^T = V dO^T, then P^T and dS^T,
+//     both rounded to bf16 into A fragments, dV += P^T dO and dK += dS^T Q,
+//     dO and Q read by ldmatrix.trans; dK and dV stay in registers over all
+//     query tiles.
+//   Exponentials are ex2.approx in the base-2 domain (S scale log2 e); P
+//   and dS are rounded to bf16 as mma operands, dS from the fp32 P.
+//   Masks: keys past T give S = 0 from the zero rows, so they are set to
+//   -inf (LSE) and P = 0 explicitly; query rows past T have P = dS = 0 in
+//   the dkdv pass; rows past T are never stored.
+//   - What holds them back: at (32, 1024, 64) the pair takes 2.3x SDPA's
+//     autograd backward on an H100 (about 130 TFLOP/s of useful work).
+//     Registers bound the blocks an SM (the dkdv kernel: 168 a thread at C
+//     = 64, three blocks, 12 warps); every warp reads the whole streamed
+//     tile through ldmatrix for its 16 rows; the dq pass sweeps K twice
+//     (the LSE sweep is a quarter of its products). Warpgroup wgmma with a
+//     producer warp, or the forward storing its LSE, is the next design.
+//
+// fp32 (attn_bwd_dq_kernel<float, C>, attn_bwd_dkdv_kernel<float, C>; the
+// fp32 parity runs): fp32 FMA on the CUDA cores, as the fp32 forward and
+// for the same reason (TF32 would break the 1e-4 gates), bound by shared-
+// memory reads. The dq kernel takes kBwdQ query rows a block and sweeps the
+// key tiles twice (LSE, then dS and dQ); the dkdv kernel kBwdKV keys a
+// block over all query tiles. Rows and keys past T are zeros in shared
+// memory and are masked out of every sum.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -530,8 +565,6 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-// One launch of attn_mma_kernel<C>. The shared-memory attribute is per
-// device and per kernel; it is raised, never lowered.
 // cuTensorMapEncodeTiled, looked up at first use (the library links only the
 // CUDA runtime)
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -564,23 +597,32 @@ cudaError_t make_tensor_map(CUtensorMap* map, const void* x, int batch, int t_le
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One launch of attn_mma_kernel<C>. The shared-memory attribute is per
-// device and per kernel; it is raised, never lowered.
-template <int C>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int batch,
-                       int t_len, float scale, int whole, int smem_bytes, cudaStream_t s) {
-  constexpr int kMaxDevices = 64;
-  static int granted[kMaxDevices] = {};
+constexpr int kMaxDevices = 64;
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device the first time a launch needs more than 48 KB: `granted` is that
+// kernel's per-device record, raised, never lowered.
+cudaError_t grant_smem(const void* kernel, int* granted, int bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  auto kernel = attn_mma_kernel<C>;
-  if (smem_bytes > 48 * 1024 && smem_bytes > granted[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (bytes > 48 * 1024 && bytes > granted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    granted[dev] = smem_bytes;
+    granted[dev] = bytes;
   }
+  return cudaSuccess;
+}
+
+// One launch of attn_mma_kernel<C>.
+template <int C>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int batch,
+                       int t_len, float scale, int whole, int smem_bytes, cudaStream_t s) {
+  static int granted[kMaxDevices] = {};
+  auto kernel = attn_mma_kernel<C>;
+  cudaError_t err = grant_smem(reinterpret_cast<const void*>(kernel), granted, smem_bytes);
+  if (err != cudaSuccess) return err;
   CUtensorMap tm_k = {}, tm_v = {};
   if constexpr (uses_tma(C)) {
     if ((err = make_tensor_map(&tm_k, k, batch, t_len, C, key_tile(C))) != cudaSuccess ||
@@ -754,14 +796,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
-// ------------------------------------------------- backward (fp32 FMA)
-
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+// ------------------------------------------------- backward, fp32: CUDA-core FMA
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdQ = 32;    // dq kernel: query rows per block (8 threads a row)
@@ -982,70 +1017,558 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-template <typename T, int C>
+// ------------------------------------------------- backward, bf16: tensor cores
+
+constexpr int kBwdRows = 64;         // resident rows a block: 16 per warp
+constexpr int kBwdMmaThreads = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Blocks an SM the dq kernel is compiled for. At C = 64 (the classifier's
+// heads) four: that caps it at 128 registers a thread (a 28-byte spill) and
+// ran faster on an H100 than the three blocks its 155 registers allowed; at
+// C = 32 the cap gained nothing, at C = 128 it spilled and ran slower.
+__host__ __device__ constexpr int bwd_dq_min_blocks(int c_dim) { return c_dim == 64 ? 4 : 1; }
+
+// Rows of a streamed tile: the dq kernel's key tiles, the dkdv kernel's
+// query tiles (32 at C = 128, where dK and dV take 128 registers a thread).
+__host__ __device__ constexpr int bwd_stream_rows(int c_dim, int dkdv) {
+  return dkdv && c_dim > 64 ? 32 : 64;
+}
+
+// Shared-memory layout of the two bf16 backward kernels, in bytes
+// (ops/attention.py `_bwd_plan` computes the same total, and the entry point
+// checks it): the ring of streamed tiles (each stage an X tile, then a Y
+// tile; TMA: at the first 1024-byte boundary, within 1024 bytes of slack),
+// its mbarriers, the two resident arrays (kBwdRows padded rows each), then
+// fp32 row statistics: dq: D of each resident row; dkdv: LSE log2 e and D
+// of each streamed row, one pair of arrays per stage.
+struct BwdLayout {
+  int row;    // bf16 elements per resident row (and streamed row without TMA)
+  int tile;   // bytes per streamed tile
+  int stage;  // bytes per ring stage
+  int bars;   // offsets
+  int res;
+  int stats;
+  int total;
+};
+
+__host__ __device__ constexpr BwdLayout bwd_layout(int c_dim, int dkdv) {
+  const int r = bwd_stream_rows(c_dim, dkdv);
+  const bool tma = uses_tma(c_dim);
+  const int row = c_dim + kRowPad;
+  const int tile = r * (tma ? c_dim : row) * 2;
+  const int bars = (tma ? 1024 : 0) + kStages * 2 * tile;
+  const int res = bars + 8 * kStages;
+  const int stats = res + 2 * kBwdRows * row * 2;
+  const int n_stats = dkdv ? 2 * kStages * r : kBwdRows;
+  return BwdLayout{row, tile, 2 * tile, bars, res, stats, stats + 4 * n_stats};
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// byte offset of the 8 columns col .. col + 7 of row r in a streamed tile of
+// R rows (col % 8 == 0): 128-byte swizzle within 64-column boxes, or padded
+// rows
+template <int C, int R>
+__device__ __forceinline__ int st_off(int r, int col) {
+  if constexpr (uses_tma(C))
+    return (col >> 6) * (R * 128) + r * 128 + ((((col >> 3) & 7) ^ (r & 7)) << 4);
+  else
+    return (r * (C + kRowPad) + col) * 2;
+}
+
+// Rows r0 .. r0 + kBwdRows - 1 of a (t_len, C) slab into padded shared rows
+// by cp.async, rows past t_len as zeros (the caller commits).
+template <int C>
+__device__ __forceinline__ void load_resident(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              int r0, int t_len) {
+  for (int e = threadIdx.x; e < kBwdRows * (C / 8); e += kBwdMmaThreads) {
+    const int r = e / (C / 8), ch = e - r * (C / 8);
+    const bool ok = r0 + r < t_len;
+    cp_async16(dst + r * (C + kRowPad) + ch * 8, src + (size_t)(ok ? r0 + r : 0) * C + ch * 8,
+               ok);
+  }
+}
+
+// Streamed rows r0 .. r0 + R - 1 of X (and of Y when with_y) into the ring
+// stage at dst: X's tile, then Y's. TMA: lane 0 of warp 0 posts the bytes
+// on bar, lanes 0 .. C / 64 - 1 copy X's 64-column boxes and the next C / 64
+// lanes Y's; rows past t_len arrive as zeros. cp.async (x, y: the slab's
+// first rows): every thread, rows past t_len zeroed.
+template <int C, int R>
+__device__ __forceinline__ void load_stream(unsigned char* dst, const CUtensorMap* mx,
+                                            const CUtensorMap* my, const __nv_bfloat16* x,
+                                            const __nv_bfloat16* y, bool with_y, int r0,
+                                            int t_len, unsigned long long* bar) {
+  constexpr int kTile = R * (uses_tma(C) ? C : C + kRowPad) * 2;
+  if constexpr (uses_tma(C)) {
+    constexpr int kBoxes = C / 64;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0) {
+      if (lane == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect(bar, (with_y ? 2 : 1) * R * C * 2);
+      }
+      __syncwarp();
+      if (lane < kBoxes)
+        tensor_copy(dst + lane * R * 128, mx, lane * 64, r0, blockIdx.y, bar);
+      else if (with_y && lane < 2 * kBoxes)
+        tensor_copy(dst + kTile + (lane - kBoxes) * R * 128, my, (lane - kBoxes) * 64, r0,
+                    blockIdx.y, bar);
+    }
+  } else {
+    constexpr int kChunks = R * (C / 8);
+    const int valid = min(R, t_len - r0);
+    for (int e = threadIdx.x; e < (with_y ? 2 : 1) * kChunks; e += kBwdMmaThreads) {
+      const int w = e / kChunks, rem = e - w * kChunks;
+      const int r = rem / (C / 8), ch = rem - r * (C / 8);
+      const __nv_bfloat16* src = (w ? y : x) + (size_t)(r0 + (r < valid ? r : 0)) * C + ch * 8;
+      cp_async16(dst + w * kTile + (r * (C + kRowPad) + ch * 8) * 2, src, r < valid);
+    }
+  }
+}
+
+// acc[j] = A B_j^T in fp32: A the warp's 16 resident rows (a_rows, padded,
+// all C columns), B_j rows 8 j .. 8 j + 7 of a streamed tile
+template <int C, int R, int NJ>
+__device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const __nv_bfloat16* a_rows,
+                                        const unsigned char* tile) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* pa = a_rows + (lane & 15) * (C + kRowPad) + (lane >> 4) * 8;
+  // B fragments of 16 rows: matrices (rows 0-7, cols c..c+7), (0-7, c+8..),
+  // (8-15, c..), (8-15, c+8..)
+  const int br = (lane & 7) + ((lane >> 4) << 3), bc = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; c += 16) {
+    unsigned a[4];
+    ldsm_x4(a, pa + c);
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      unsigned b[4];
+      ldsm_x4(b, tile + st_off<C, R>(br + j * 8, c + bc));
+      mma_bf16(acc[j], a, b[0], b[1]);
+      mma_bf16(acc[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The (16, 8 NJ) accumulator tiles x rounded to bf16 as the A fragments of
+// NJ / 2 k16 steps (the accumulator's row / column pairs are the A
+// fragment's: no shuffle, no shared memory)
+template <int NJ>
+__device__ __forceinline__ void pack_a(unsigned (&a)[NJ / 2][4], const float (&x)[NJ][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    a[kk][0] = pack_bf16(make_float2(x[2 * kk][0], x[2 * kk][1]));
+    a[kk][1] = pack_bf16(make_float2(x[2 * kk][2], x[2 * kk][3]));
+    a[kk][2] = pack_bf16(make_float2(x[2 * kk + 1][0], x[2 * kk + 1][1]));
+    a[kk][3] = pack_bf16(make_float2(x[2 * kk + 1][2], x[2 * kk + 1][3]));
+  }
+}
+
+// acc (16, C) += A (16, R; fragments a) . tile (R, C), the streamed tile
+// read by ldmatrix.trans
+template <int C, int R>
+__device__ __forceinline__ void mma_a_tile(float (&acc)[C / 8][4], const unsigned (&a)[R / 16][4],
+                                           const unsigned char* tile) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk) {
+    const int r = kk * 16 + (lane & 15);
+#pragma unroll
+    for (int n = 0; n < C / 8; n += 2) {
+      unsigned b[4];
+      ldsm_x4_trans(b, tile + st_off<C, R>(r, (lane >> 4) * 8 + n * 8));
+      mma_bf16(acc[n], a[kk], b[0], b[1]);
+      mma_bf16(acc[n + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// The warp's 16 rows of a (16, C) accumulator times mul, rounded to bf16,
+// into out (the slab); r0 is this thread's first row (the other is r0 + 8).
+template <int C>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[C / 8][4],
+                                           int r0, int t_len, float mul) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n) {
+    const int col = n * 8 + 2 * t4;
+    if (r0 < t_len)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r0 * C + col) =
+          __floats2bfloat162_rn(acc[n][0] * mul, acc[n][1] * mul);
+    if (r0 + 8 < t_len)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r0 + 8) * C + col) =
+          __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
+  }
+}
+
+// grid (ceil(T / kBwdRows), B*), block kBwdMmaThreads, dynamic shared
+// memory bwd_layout(C, 0).total. tm_k, tm_v: the (C, T, B) tensor maps of K
+// and V with boxes of 64 rows (TMA only). Streams 2 ceil(T / 64) tiles:
+// K_0 .. K_n-1 (the LSE sweep), then (K, V)_0 .. (K, V)_n-1.
+template <int C>
+__global__ void __launch_bounds__(kBwdMmaThreads, bwd_dq_min_blocks(C))
+attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                       const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
+                       float* __restrict__ lse, float* __restrict__ dsum, int t_len, float scale,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v) {
+  constexpr int R = bwd_stream_rows(C, 0);
+  constexpr int NJ = R / 8;  // n8 key tiles of S and dP
+  constexpr bool kTma = uses_tma(C);
+  constexpr BwdLayout lay = bwd_layout(C, 0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned ring = kTma ? (1024u - (smem_addr(smem) & 1023u)) & 1023u : 0u;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + lay.bars);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + lay.res);
+  __nv_bfloat16* dos = qs + kBwdRows * lay.row;
+  float* row_d = reinterpret_cast<float*>(smem + lay.stats);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * kBwdRows;
+  const size_t base = (size_t)blockIdx.y * t_len * C;
+  const int n_t = (t_len + R - 1) / R;
+  const int n_tiles = 2 * n_t;
+  const float sl2 = scale * kLog2e;
+  auto stage = [&](int i) { return smem + ring + (i % kStages) * lay.stage; };
+  auto load = [&](int i) {
+    load_stream<C, R>(stage(i), &tm_k, &tm_v, k + base, v + base, i >= n_t, (i % n_t) * R, t_len,
+                      bars + i % kStages);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_resident<C>(qs, q + base, q0, t_len);
+  load_resident<C>(dos, dout + base, q0, t_len);
+  cp_async_commit();
+  {  // D = rowsum(dO o O) in fp32: two threads a row, 16-byte loads
+    const int r = tid >> 1;
+    float acc = 0.f;
+    if (q0 + r < t_len) {
+      const size_t at = base + (size_t)(q0 + r) * C + (tid & 1) * (C / 2);
+#pragma unroll
+      for (int c = 0; c < C / 2; c += 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dout + at + c);
+        const uint4 b = *reinterpret_cast<const uint4*>(o + at + c);
+        const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 fa = __bfloat1622float2(ha[u]), fb = __bfloat1622float2(hb[u]);
+          acc = fmaf(fa.x, fb.x, fmaf(fa.y, fb.y, acc));
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((tid & 1) == 0) row_d[r] = acc;
+  }
+  __syncthreads();  // the barriers are initialised, D is in shared memory
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load(i);
+    if constexpr (!kTma) cp_async_commit();
+  }
+
+  const __nv_bfloat16* qw = qs + warp * 16 * lay.row;  // this warp's 16 rows
+  const __nv_bfloat16* dow = dos + warp * 16 * lay.row;
+  const int row0 = q0 + warp * 16 + g;                   // this thread's rows: row0, row0 + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // base-2 online max and sum
+  float lse2[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  float acc[C / 8][4];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + kStages - 1 < n_tiles) load(i + kStages - 1);
+    if constexpr (kTma) {
+      if (i == 0) {
+        cp_async_wait<0>();  // the resident rows
+        __syncthreads();
+      }
+      mbar_wait(bars + i % kStages, (i / kStages) & 1);  // tile i has landed
+    } else {
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();  // tile i (and the resident rows) landed for this thread
+      __syncthreads();               // ... and for every thread
+    }
+    const unsigned char* tile = stage(i);
+    const int k0 = (i % n_t) * R;
+    float s[NJ][4];
+    mma_abt<C, R, NJ>(s, qw, tile);  // S = Q K^T of this key tile
+    if (i < n_t) {
+      // sweep 1: online max and sum of this thread's keys, rows row0 (h = 0)
+      // and row0 + 8 (h = 1); keys past T are -inf
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x[NJ][2], mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[j][e] = k0 + j * 8 + 2 * t4 + e < t_len ? s[j][2 * h + e] * sl2 : -INFINITY;
+            mt = fmaxf(mt, x[j][e]);
+          }
+        const float mn = fmaxf(m[h], mt);
+        if (mn != -INFINITY) {
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) sum += ex2(x[j][0] - mn) + ex2(x[j][1] - mn);
+          l[h] = l[h] * ex2(m[h] - mn) + sum;
+          m[h] = mn;
+        }
+      }
+      if (i == n_t - 1) {
+        // combine the row's 4 lanes; every row has a real key, so m is finite
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            const float m2 = __shfl_xor_sync(0xffffffffu, m[h], off);
+            const float l2 = __shfl_xor_sync(0xffffffffu, l[h], off);
+            const float mn = fmaxf(m[h], m2);
+            l[h] = (m[h] == -INFINITY ? 0.f : l[h] * ex2(m[h] - mn)) +
+                   (m2 == -INFINITY ? 0.f : l2 * ex2(m2 - mn));
+            m[h] = mn;
+          }
+          lse2[h] = m[h] + log2f(l[h]);
+          dd[h] = row_d[warp * 16 + g + 8 * h];
+          const int r = row0 + 8 * h;
+          if (t4 == 0 && r < t_len) {
+            lse[(size_t)blockIdx.y * t_len + r] = lse2[h] * kLn2;
+            dsum[(size_t)blockIdx.y * t_len + r] = dd[h];
+          }
+        }
+      }
+    } else {
+      // sweep 2: dP = dO V^T, P, dS = P o (dP - D) rounded to bf16, dQ += dS K
+      float dp[NJ][4];
+      mma_abt<C, R, NJ>(dp, dow, tile + lay.tile);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float p =
+              k0 + j * 8 + 2 * t4 + (e & 1) < t_len ? ex2(s[j][e] * sl2 - lse2[h]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dd[h]);
+        }
+      unsigned a[R / 16][4];
+      pack_a<NJ>(a, s);
+      mma_a_tile<C, R>(acc, a, tile);
+    }
+    __syncthreads();  // the stage is free for the next copy
+  }
+  store_rows<C>(dq + base, acc, row0, t_len, scale);
+}
+
+// grid (ceil(T / kBwdRows), B*), block kBwdMmaThreads, dynamic shared
+// memory bwd_layout(C, 1).total. tm_q, tm_do: the (C, T, B) tensor maps of Q
+// and dO with boxes of bwd_stream_rows(C, 1) rows (TMA only). Streams the
+// (Q, dO) tiles; each tile's LSE log2 e and D are read from global memory
+// one tile ahead and staged in shared memory.
+template <int C>
+__global__ void __launch_bounds__(kBwdMmaThreads)
+attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int t_len, float scale,
+                         const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do) {
+  constexpr int R = bwd_stream_rows(C, 1);
+  constexpr int NJ = R / 8;  // n8 query tiles of S^T and dP^T
+  constexpr bool kTma = uses_tma(C);
+  constexpr BwdLayout lay = bwd_layout(C, 1);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned ring = kTma ? (1024u - (smem_addr(smem) & 1023u)) & 1023u : 0u;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + lay.bars);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + lay.res);
+  __nv_bfloat16* vs = ks + kBwdRows * lay.row;
+  float* stats = reinterpret_cast<float*>(smem + lay.stats);  // [kStages][LSE log2 e | D][R]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * kBwdRows;
+  const size_t base = (size_t)blockIdx.y * t_len * C;
+  const size_t rows = (size_t)blockIdx.y * t_len;
+  const int n_t = (t_len + R - 1) / R;
+  const float sl2 = scale * kLog2e;
+  auto stage = [&](int i) { return smem + ring + (i % kStages) * lay.stage; };
+  auto load = [&](int i) {
+    load_stream<C, R>(stage(i), &tm_q, &tm_do, q + base, dout + base, true, i * R, t_len,
+                      bars + i % kStages);
+  };
+  // thread tid < 2 R: LSE log2 e (tid < R) or D of query row i R + tid % R
+  // of tile i; 0 past T
+  auto fetch = [&](int i) {
+    const int qi = i * R + tid % R;
+    if (tid >= 2 * R || i >= n_t || qi >= t_len) return 0.f;
+    return tid < R ? lse[rows + qi] * kLog2e : dsum[rows + qi];
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_resident<C>(ks, k + base, k0, t_len);
+  load_resident<C>(vs, v + base, k0, t_len);
+  cp_async_commit();
+  if (tid < 2 * R) stats[tid] = fetch(0);
+  __syncthreads();  // the barriers are initialised, tile 0's statistics staged
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_t) load(i);
+    if constexpr (!kTma) cp_async_commit();
+  }
+
+  const __nv_bfloat16* kw = ks + warp * 16 * lay.row;  // this warp's 16 keys
+  const __nv_bfloat16* vw = vs + warp * 16 * lay.row;
+  float adk[C / 8][4], adv[C / 8][4];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int i = 0; i < n_t; ++i) {
+    if (i + kStages - 1 < n_t) load(i + kStages - 1);
+    const float next = fetch(i + 1);  // staged after this tile's products
+    if constexpr (kTma) {
+      if (i == 0) {
+        cp_async_wait<0>();  // the resident rows
+        __syncthreads();
+      }
+      mbar_wait(bars + i % kStages, (i / kStages) & 1);
+    } else {
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      __syncthreads();
+    }
+    const unsigned char* tile = stage(i);
+    const float* lse_t = stats + (i % kStages) * 2 * R;
+    const float* d_t = lse_t + R;
+    const int q0 = i * R;
+    float s[NJ][4], dp[NJ][4];
+    mma_abt<C, R, NJ>(s, kw, tile);                // S^T = K Q^T
+    mma_abt<C, R, NJ>(dp, vw, tile + lay.tile);    // dP^T = V dO^T
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t4 + (e & 1);  // query row of the tile
+        const float p = q0 + col < t_len ? ex2(s[j][e] * sl2 - lse_t[col]) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - d_t[col]);
+      }
+    unsigned ap[R / 16][4], as[R / 16][4];
+    pack_a<NJ>(ap, s);
+    pack_a<NJ>(as, dp);
+    mma_a_tile<C, R>(adv, ap, tile + lay.tile);  // dV += P^T dO
+    mma_a_tile<C, R>(adk, as, tile);             // dK += dS^T Q
+    if (tid < 2 * R) stats[((i + 1) % kStages) * 2 * R + tid] = next;
+    __syncthreads();  // the stage is free for the next copy, tile i + 1's statistics staged
+  }
+  const int key0 = k0 + warp * 16 + g;
+  store_rows<C>(dk + base, adk, key0, t_len, scale);
+  store_rows<C>(dv + base, adv, key0, t_len, 1.f);
+}
+
+// One launch of the backward pass `which` (0: dq, 1: dkdv) in `dtype` (0:
+// fp32 FMA kernels, 1: bf16 tensor-core kernels).
+template <int C>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
-                       int batch, int t_len, float scale, int which, cudaStream_t s) {
-  if (which == 0) {
-    auto kernel = attn_bwd_dq_kernel<T, C>;
-    const int smem = bwd_dq_smem_floats(C) * 4;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((t_len + kBwdQ - 1) / kBwdQ, batch);
-    kernel<<<grid, kBwdThreads, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<T*>(dq), lse, dsum,
-        t_len, scale);
-  } else {
-    auto kernel = attn_bwd_dkdv_kernel<T, C>;
-    const int smem = bwd_dkdv_smem_floats(C) * 4;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((t_len + kBwdKV - 1) / kBwdKV, batch);
-    kernel<<<grid, kBwdThreads, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), t_len,
-        scale);
+                       int batch, int t_len, float scale, int dtype, int which, int smem_bytes,
+                       cudaStream_t s) {
+  static int granted[2][2][kMaxDevices] = {};  // [dtype][which][device]
+  using bf = __nv_bfloat16;
+  const void* kernel =
+      dtype == 0 ? (which == 0 ? reinterpret_cast<const void*>(attn_bwd_dq_kernel<float, C>)
+                               : reinterpret_cast<const void*>(attn_bwd_dkdv_kernel<float, C>))
+                 : (which == 0 ? reinterpret_cast<const void*>(attn_bwd_dq_mma_kernel<C>)
+                               : reinterpret_cast<const void*>(attn_bwd_dkdv_mma_kernel<C>));
+  cudaError_t err = grant_smem(kernel, granted[dtype][which], smem_bytes);
+  if (err != cudaSuccess) return err;
+  if (dtype == 0) {
+    const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+                *fv = static_cast<const float*>(v), *fdo = static_cast<const float*>(dout);
+    if (which == 0) {
+      dim3 grid((t_len + kBwdQ - 1) / kBwdQ, batch);
+      attn_bwd_dq_kernel<float, C><<<grid, kBwdThreads, smem_bytes, s>>>(
+          fq, fk, fv, static_cast<const float*>(o), fdo, static_cast<float*>(dq), lse, dsum,
+          t_len, scale);
+    } else {
+      dim3 grid((t_len + kBwdKV - 1) / kBwdKV, batch);
+      attn_bwd_dkdv_kernel<float, C><<<grid, kBwdThreads, smem_bytes, s>>>(
+          fq, fk, fv, fdo, lse, dsum, static_cast<float*>(dk), static_cast<float*>(dv), t_len,
+          scale);
+    }
+    return cudaGetLastError();
   }
+  const bf *bq = static_cast<const bf*>(q), *bk = static_cast<const bf*>(k),
+           *bv = static_cast<const bf*>(v), *bdo = static_cast<const bf*>(dout);
+  CUtensorMap tx = {}, ty = {};  // the streamed pair: (K, V) for dq, (Q, dO) for dkdv
+  if constexpr (uses_tma(C)) {
+    const int rows = bwd_stream_rows(C, which);
+    if ((err = make_tensor_map(&tx, which ? q : k, batch, t_len, C, rows)) != cudaSuccess ||
+        (err = make_tensor_map(&ty, which ? dout : v, batch, t_len, C, rows)) != cudaSuccess)
+      return err;
+  }
+  dim3 grid((t_len + kBwdRows - 1) / kBwdRows, batch);
+  if (which == 0)
+    attn_bwd_dq_mma_kernel<C><<<grid, kBwdMmaThreads, smem_bytes, s>>>(
+        bq, bk, bv, static_cast<const bf*>(o), bdo, static_cast<bf*>(dq), lse, dsum, t_len,
+        scale, tx, ty);
+  else
+    attn_bwd_dkdv_mma_kernel<C><<<grid, kBwdMmaThreads, smem_bytes, s>>>(
+        bq, bk, bv, bdo, lse, dsum, static_cast<bf*>(dk), static_cast<bf*>(dv), t_len, scale, tx,
+        ty);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_bwd(int c_dim, const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
-                         int batch, int t_len, float scale, int which, cudaStream_t s) {
-  switch (c_dim) {
-    case 32:
-      return launch_bwd<T, 32>(q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, t_len, scale,
-                               which, s);
-    case 64:
-      return launch_bwd<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, t_len, scale,
-                               which, s);
-    case 128:
-      return launch_bwd<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, t_len, scale,
-                                which, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
+bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
 cudaError_t attention_bwd(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, void* dq, void* dk, void* dv, void* lse, void* dsum,
                           int batch, int t_len, int c_dim, float scale, int dtype, int which,
                           int smem_bytes, void* stream) {
-  const int want = (which == 0 ? bwd_dq_smem_floats(c_dim) : bwd_dkdv_smem_floats(c_dim)) * 4;
-  if (batch <= 0 || batch > 65535 || t_len <= 0 || smem_bytes != want ||
-      (dtype != 0 && dtype != 1))
+  if (batch <= 0 || batch > 65535 || t_len <= 0 || (dtype != 0 && dtype != 1) ||
+      (c_dim != 32 && c_dim != 64 && c_dim != 128))
     return cudaErrorInvalidValue;
+  const int want = dtype == 1 ? bwd_layout(c_dim, which).total
+                              : (which == 0 ? bwd_dq_smem_floats(c_dim)
+                                            : bwd_dkdv_smem_floats(c_dim)) * 4;
+  if (smem_bytes != want) return cudaErrorInvalidValue;
+  if (dtype == 1) {  // 16-byte copies (cp.async, TMA, the D pass's loads)
+    const void* ptrs[] = {q, k, v, dout, which == 0 ? o : dk, which == 0 ? dq : dv};
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   float* d = static_cast<float*>(dsum);
-  return dtype == 0 ? dispatch_bwd<float>(c_dim, q, k, v, o, dout, dq, dk, dv, l, d, batch, t_len,
-                                          scale, which, s)
-                    : dispatch_bwd<__nv_bfloat16>(c_dim, q, k, v, o, dout, dq, dk, dv, l, d,
-                                                  batch, t_len, scale, which, s);
+  switch (c_dim) {
+    case 32:
+      return launch_bwd<32>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_len, scale, dtype, which,
+                            smem_bytes, s);
+    case 64:
+      return launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_len, scale, dtype, which,
+                            smem_bytes, s);
+    default:
+      return launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_len, scale, dtype,
+                             which, smem_bytes, s);
+  }
 }
 
 }  // namespace
@@ -1077,11 +1600,13 @@ int ddnm_attention(const void* q, const void* k, const void* v, void* o, int bat
 }
 
 // Attention backward, first pass: q, k, v, o, dout, dq: (batch, t_len,
-// c_dim) contiguous, dtype as above; c_dim 32, 64 or 128; lse, dsum:
-// (batch, t_len) fp32, written (each row's log-sum-exp of the scaled
+// c_dim) contiguous; dtype 0 = float32 (FMA kernel), 1 = bfloat16
+// (tensor-core kernel, 16-byte aligned pointers); c_dim 32, 64 or 128; lse,
+// dsum: (batch, t_len) fp32, written (each row's log-sum-exp of the scaled
 // scores and rowsum(dout o o)). smem_bytes: the kernel's dynamic shared
 // memory (ops/attention.py `_bwd_plan`). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape or plan the kernel does not take.
+// cudaErrorInvalidValue for a shape, plan or pointer the kernel does not
+// take.
 int ddnm_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, void* dq, void* lse, void* dsum, int batch,
                           int t_len, int c_dim, float scale, int dtype, int smem_bytes,

@@ -13,13 +13,18 @@ the kernel (and raises on a CPU tensor). There is no fallback.
 
 `AttentionFunction` is the same forward with the gradients for q, k and v
 (the classifier-guidance gradient). Its backward runs two more kernels of
-csrc/attention.cu on a CUDA tensor, fp32 FMA on the CUDA cores in both
-types: `attn_bwd_dq` (one block per 32 query rows: each row's log-sum-exp
-and D = rowsum(dO o O) recomputed, dQ written, LSE and D stored) and
-`attn_bwd_dkdv` (one block per 32 keys over all query tiles: dK and dV),
-each beside its plain version (`_torch_attn_bwd_dq`, `_torch_attn_bwd_dkdv`;
-`_torch_attention_backward` is both in plain PyTorch). Head dimensions
-32, 64 and 128 (`_bwd_plan`).
+csrc/attention.cu on a CUDA tensor: `attn_bwd_dq` (dQ; each row's
+log-sum-exp and D = rowsum(dO o O) recomputed and stored) and
+`attn_bwd_dkdv` (dK and dV from the stored LSE and D), each beside its
+plain version (`_torch_attn_bwd_dq`, `_torch_attn_bwd_dkdv`;
+`_torch_attention_backward` is both in plain PyTorch). For bf16 both run on
+the tensor cores (mma.sync; 64 resident rows a block, the other operand
+pair streamed by TMA, P and dS rounded to bf16 as mma operands); for fp32
+both are FMA kernels on the CUDA cores (32 rows a block), which keep the
+fp32 gates. Head dimensions 32, 64 and 128 (`_bwd_plan`). What holds the
+bf16 pair back (2.3x SDPA's autograd backward at (32, 1024, 64) on an
+H100): registers bound the blocks an SM, every warp reads the whole
+streamed tile for its 16 rows, and the dq pass sweeps K twice (the LSE).
 """
 
 from __future__ import annotations
@@ -45,10 +50,14 @@ WHOLE_ROW_MAX_T = 1024      # kWholeRowMaxT: longest T with the whole-row softma
 _ROW_PAD, _SCORE_PAD = 8, 8  # kRowPad (bf16), kScorePad (fp32)
 # the fp32 FMA kernel's (csrc/attention.cu kBQ, kThreads; 45.4 KB static)
 _FMA_Q_ROWS, _FMA_THREADS = 16, 256
-# the backward kernels' (csrc/attention.cu kBwd*): 256 threads; the dq
+# the fp32 backward kernels' (csrc/attention.cu kBwd*): 256 threads; the dq
 # kernel takes 32 query rows a block and 64 keys a tile, the dkdv kernel 32
-# keys a block and 64 query rows a tile; head dimensions it is built for
+# keys a block and 64 query rows a tile
 _BWD_THREADS, _BWD_Q, _BWD_K, _BWD_KV, _BWD_QT = 256, 32, 64, 32, 64
+# the bf16 backward kernels' (kBwdRows, kBwdMmaThreads): 64 resident rows
+# and 4 warps a block
+_BWD_ROWS, _BWD_MMA_THREADS = 64, 128
+# head dimensions both are built for
 BWD_HEAD_DIMS = (32, 64, 128)
 
 
@@ -177,12 +186,30 @@ def _torch_attention_backward(q, k, v, o, do, scale):
     return (dq, *_torch_attn_bwd_dkdv(q, k, v, do, lse, dsum, scale))
 
 
+def _bwd_stream_rows(C: int, dkdv: bool) -> int:
+    """bwd_stream_rows() in csrc/attention.cu: rows of a streamed tile of a
+    bf16 backward kernel (the dq kernel's keys, the dkdv kernel's queries)."""
+    return 32 if dkdv and C > 64 else 64
+
+
+def _bwd_mma_smem(C: int, dkdv: bool) -> int:
+    """bwd_layout().total in csrc/attention.cu: the ring of streamed tiles
+    (an X and a Y tile a stage; TMA: 1024 bytes of alignment slack), its
+    mbarriers, two arrays of resident padded rows, the fp32 row statistics."""
+    rows, tma, row = _bwd_stream_rows(C, dkdv), C % 64 == 0, C + _ROW_PAD
+    tile = rows * (C if tma else row) * 2
+    stats = 2 * _STAGES * rows if dkdv else _BWD_ROWS
+    return ((1024 if tma else 0) + _STAGES * 2 * tile + 8 * _STAGES + 2 * _BWD_ROWS * row * 2
+            + 4 * stats)
+
+
 @functools.lru_cache(maxsize=256)
 def _bwd_plan(B: int, T: int, C: int, dtype: torch.dtype) -> dict:
-    """The two backward kernels' launches for (B, T, C): grid, threads and
-    dynamic shared-memory bytes of each (rows padded to C + 1 floats; the
-    kernels' bwd_*_smem_floats). Raises ValueError for a shape they do not
-    take."""
+    """The two backward kernels' launches for (B, T, C) in `dtype`: kernel,
+    threads, and each kernel's grid and dynamic shared-memory bytes (fp32:
+    rows padded to C + 1 floats, the kernels' bwd_*_smem_floats; bf16:
+    `_bwd_mma_smem`, with the rows of its streamed tiles and whether they
+    come by TMA). Raises ValueError for a shape they do not take."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"attention backward takes float32/bfloat16, got {dtype}")
     if C not in BWD_HEAD_DIMS:
@@ -191,15 +218,24 @@ def _bwd_plan(B: int, T: int, C: int, dtype: torch.dtype) -> dict:
         raise ValueError(f"attention backward takes 1 <= B* <= 65535, got {B}")
     if T < 1:
         raise ValueError(f"attention backward takes T >= 1, got {T}")
+    if dtype == torch.bfloat16:
+        grid = (-(-T // _BWD_ROWS), B)
+        return {"kernel": "mma", "threads": _BWD_MMA_THREADS, "tma": C % 64 == 0,
+                **{name: {"grid": grid, "smem": _bwd_mma_smem(C, dkdv),
+                          "stream_rows": _bwd_stream_rows(C, dkdv)}
+                   for name, dkdv in (("dq", False), ("dkdv", True))}}
     dq = 4 * ((2 * _BWD_Q + 2 * _BWD_K) * (C + 1) + _BWD_Q * (_BWD_K + 1) + _BWD_Q)
     dkdv = 4 * ((2 * _BWD_KV + 2 * _BWD_QT) * (C + 1) + 2 * _BWD_KV * (_BWD_QT + 1)
                 + 2 * _BWD_QT)
-    return {"threads": _BWD_THREADS,
+    return {"kernel": "fma", "threads": _BWD_THREADS,
             "dq": {"grid": (-(-T // _BWD_Q), B), "smem": dq},
             "dkdv": {"grid": (-(-T // _BWD_KV), B), "smem": dkdv}}
 
 
 def _check_bwd(tensors, names):
+    """The backward plan of the tensors, which must share q's shape, dtype
+    and device and be contiguous; and the tensors themselves, each copied
+    where the bf16 kernels' 16-byte copies need it (`_aligned`)."""
     shape, dtype, dev = tensors[0].shape, tensors[0].dtype, tensors[0].device
     if not tensors[0].is_cuda:
         raise ValueError("the attention backward kernels take CUDA tensors only")
@@ -209,13 +245,16 @@ def _check_bwd(tensors, names):
                              f"q's shape {tuple(shape)}, dtype and device")
     if len(shape) != 3:
         raise ValueError(f"attention backward takes (B, T, C), got {tuple(shape)}")
-    return _bwd_plan(*shape, dtype)
+    plan = _bwd_plan(*shape, dtype)
+    if plan["kernel"] == "mma":
+        tensors = [_aligned(t) for t in tensors]
+    return plan, tensors
 
 
 def _attn_bwd_dq(q, k, v, o, do, scale):
     """(dq, lse, dsum): one launch of the dq kernel; lse and dsum are the
     (B, T) fp32 rows the dkdv kernel reads."""
-    plan = _check_bwd((q, k, v, o, do), ("q", "k", "v", "o", "do"))
+    plan, (q, k, v, o, do) = _check_bwd((q, k, v, o, do), ("q", "k", "v", "o", "do"))
     B, T, C = q.shape
     lib = _build.load_library()
     dq = torch.empty_like(q)
@@ -233,7 +272,7 @@ def _attn_bwd_dq(q, k, v, o, do, scale):
 
 def _attn_bwd_dkdv(q, k, v, do, lse, dsum, scale):
     """(dk, dv): one launch of the dkdv kernel."""
-    plan = _check_bwd((q, k, v, do), ("q", "k", "v", "do"))
+    plan, (q, k, v, do) = _check_bwd((q, k, v, do), ("q", "k", "v", "do"))
     B, T, C = q.shape
     for t in (lse, dsum):
         if t.shape != (B, T) or t.dtype != torch.float32 or not t.is_contiguous():

@@ -337,11 +337,14 @@ def test_group_norm_backward_kernels_match_plain(gen, dtype, tol, shape, groups,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("shape", [(8, 65, 64), (2, 257, 32), (32, 1024, 64), (64, 256, 64),
-                                   (3, 17, 128), (2, 1, 32), (5, 100, 64)])
+                                   (3, 17, 128), (2, 1, 32), (5, 100, 64), (4, 1024, 128),
+                                   (2, 1025, 128)])
 def test_attention_backward_kernels_match_plain(gen, dtype, tol, shape):
     """attn_bwd_dq and attn_bwd_dkdv each against its plain version (the
-    dq kernel's LSE and D too), and the Function's gradients against
-    autograd through the plain forward; ragged T included."""
+    dq kernel's LSE and D too), the same bits on a second call (no
+    atomics), and the Function's gradients against autograd through the
+    plain forward; ragged T included (bf16: the tensor-core kernels, their
+    TMA tiles at C = 64 and 128, cp.async at 32)."""
     from ddnm_tpu_torch.ops.attention import (
         AttentionFunction, _attn_bwd_dkdv, _attn_bwd_dq, _torch_attn_bwd_dkdv,
         _torch_attn_bwd_dq)
@@ -350,15 +353,18 @@ def test_attention_backward_kernels_match_plain(gen, dtype, tol, shape):
     scale = shape[-1] ** -0.5
     o = _torch_attention(q, k, v, scale)
     ops.reset_launch_counts()
-    got = _attn_bwd_dq(q, k, v, o, do, scale)
+    got_q = _attn_bwd_dq(q, k, v, o, do, scale)
     want = _torch_attn_bwd_dq(q, k, v, o, do, scale)
-    assert got[0].dtype == dtype
-    for a, b in zip(got, want):
+    assert got_q[0].dtype == dtype
+    for a, b in zip(got_q, want):
         assert _rel_err(a, b) <= tol
-    got = _attn_bwd_dkdv(q, k, v, do, want[1], want[2], scale)
-    for a, b in zip(got, _torch_attn_bwd_dkdv(q, k, v, do, want[1], want[2], scale)):
+    got_kv = _attn_bwd_dkdv(q, k, v, do, want[1], want[2], scale)
+    for a, b in zip(got_kv, _torch_attn_bwd_dkdv(q, k, v, do, want[1], want[2], scale)):
         assert _rel_err(a, b) <= tol
     assert ops.launch_counts()["attn_bwd_dq"] == ops.launch_counts()["attn_bwd_dkdv"] == 1
+    again = (*_attn_bwd_dq(q, k, v, o, do, scale),
+             *_attn_bwd_dkdv(q, k, v, do, want[1], want[2], scale))
+    assert all(torch.equal(a, b) for a, b in zip((*got_q, *got_kv), again))
     ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
     AttentionFunction.apply(*ins, scale, "kernel").backward(do)
     ref = [t.clone().requires_grad_(True) for t in (q, k, v)]

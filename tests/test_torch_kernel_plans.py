@@ -488,8 +488,10 @@ def test_backward_plans_admit_every_classifier_shape(dtype):
     or off 16 bytes: the backward reduce plan is the stats plan's blocks
     with four sums (whole groups a span, its shared memory and scratch),
     the dx pass takes the apply plan; the attention backward plan admits
-    the head and fits both kernels' shared memory, one block per 32 query
-    rows (dq) and per 32 keys (dkdv)."""
+    the head and fits both kernels' shared memory: fp32 the FMA kernels,
+    one block of 256 threads per 32 query rows (dq) and per 32 keys
+    (dkdv); bf16 the tensor-core kernels, one block of 4 warps per 64 rows
+    in both."""
     elem = torch.empty((), dtype=dtype).element_size()
     for table in _classifier_grad_shapes().values():
         for key in table:
@@ -514,23 +516,75 @@ def test_backward_plans_admit_every_classifier_shape(dtype):
             else:
                 B, T, C = key[1]
                 p = _bwd_plan(B, T, C, dtype)
-                assert p["threads"] == 256
-                assert p["dq"]["grid"] == (-(-T // 32), B)
-                assert p["dkdv"]["grid"] == (-(-T // 32), B)
+                fp32 = dtype == torch.float32
+                assert p["kernel"] == ("fma" if fp32 else "mma")
+                assert p["threads"] == (256 if fp32 else 128)
+                rows = 32 if fp32 else 64
+                assert p["dq"]["grid"] == (-(-T // rows), B)
+                assert p["dkdv"]["grid"] == (-(-T // rows), B)
                 for k in ("dq", "dkdv"):
                     assert 0 < p[k]["smem"] <= SMEM_PER_BLOCK
 
 
 def test_backward_plans_at_the_classifier_heads():
-    """The dynamic shared memory of the two attention backward kernels, as
-    csrc/attention.cu bwd_dq_smem_floats / bwd_dkdv_smem_floats compute it
-    (rows padded to C + 1 floats), at the head dimensions they are built
-    for; the biggest, C = 128, still fits a block."""
+    """The dynamic shared memory of the two fp32 attention backward
+    kernels, as csrc/attention.cu bwd_dq_smem_floats / bwd_dkdv_smem_floats
+    compute it (rows padded to C + 1 floats), at the head dimensions they
+    are built for; the biggest, C = 128, still fits a block."""
     want = {32: (33792, 42496), 64: (58368, 67072), 128: (107520, 116224)}
+    for C, (dq, dkdv) in want.items():
+        p = _bwd_plan(8, 1024, C, torch.float32)
+        assert (p["dq"]["smem"], p["dkdv"]["smem"]) == (dq, dkdv)
+    assert max(want[128]) <= SMEM_PER_BLOCK
+
+
+def _bwd_layout_bytes(C: int, dkdv: bool) -> int:
+    """csrc/attention.cu bwd_layout(C, dkdv).total, written out: a two-stage
+    ring of (X, Y) tiles of R streamed rows (R = 32 for dkdv at C = 128,
+    else 64; TMA's swizzled C-wide rows plus 1024 bytes of alignment slack
+    where C % 64 == 0, rows padded by 8 bf16 otherwise), two 8-byte
+    mbarriers, 2 x 64 resident rows padded by 8 bf16, then fp32 statistics:
+    D of the 64 resident rows (dq) or LSE and D of the R streamed rows of
+    each stage (dkdv)."""
+    R = 32 if dkdv and C == 128 else 64
+    tma = C % 64 == 0
+    ring = 2 * 2 * R * (C if tma else C + 8) * 2 + (1024 if tma else 0)
+    stats = 2 * 2 * R if dkdv else 64
+    return ring + 2 * 8 + 2 * 64 * (C + 8) * 2 + 4 * stats
+
+
+@pytest.mark.parametrize("C", [32, 64, 128])
+def test_bf16_backward_plan_matches_the_kernel_layout(C):
+    """The bf16 backward plan at every classifier (B, T) with head
+    dimensions 32, 64 and 128: 64 rows a block in both kernels, the
+    shared-memory bytes of the C layout (a 1024-byte multiple for every
+    swizzled TMA tile), TMA where C % 64 == 0; the fp32 plan at the same
+    shape is the FMA kernels', unchanged."""
+    seen = {key[1][:2] for table in _classifier_grad_shapes().values()
+            for key in table if key[0] == "attn"}
+    assert (32, 1024) in seen and (4, 257) in seen
+    for B, T in sorted(seen):
+        p = _bwd_plan(B, T, C, torch.bfloat16)
+        assert p["kernel"] == "mma" and p["threads"] == 128 and p["tma"] == (C % 64 == 0)
+        for name, dkdv in (("dq", False), ("dkdv", True)):
+            assert p[name]["grid"] == (-(-T // 64), B)
+            assert p[name]["stream_rows"] == (32 if dkdv and C == 128 else 64)
+            assert p[name]["smem"] == _bwd_layout_bytes(C, dkdv) <= SMEM_PER_BLOCK
+            if p["tma"]:
+                assert p[name]["stream_rows"] * C * 2 % 1024 == 0
+        f = _bwd_plan(B, T, C, torch.float32)
+        assert f["kernel"] == "fma" and f["threads"] == 256
+        assert f["dq"]["grid"] == f["dkdv"]["grid"] == (-(-T // 32), B)
+
+
+def test_bf16_backward_plan_at_the_classifier_heads():
+    """The bf16 kernels' shared memory at (8, 1024, C), by hand: at C = 64
+    (the classifier's heads) 52,496 and 53,264 bytes, four blocks an SM."""
+    want = {32: (30992, 31760), 64: (52496, 53264), 128: (101648, 69136)}
     for C, (dq, dkdv) in want.items():
         p = _bwd_plan(8, 1024, C, torch.bfloat16)
         assert (p["dq"]["smem"], p["dkdv"]["smem"]) == (dq, dkdv)
-    assert max(want[128]) <= SMEM_PER_BLOCK
+    assert 4 * max(want[64]) <= 228 * 1024  # the SM's shared memory
 
 
 @pytest.mark.parametrize("B,T,C,dtype,err", [

@@ -12,7 +12,10 @@ tile (--batch tiles) of the 553.8M ADM UNet of configs/hq/inet256.yml
 (random weights from seed 1234, bf16 torso, class 0), 4x average-pooling
 SR of exp/datasets/imagenet/00000.png, on the config's jump schedule; its
 "step" is a model call (the undo steps between the window's calls run
-too). It reports:
+too). `--mode guidance` is chip_smoke.py phase 14's guidance call: the
+forward and backward of the 256 px classifier of configs/imagenet_256_cc.yml
+(`chip_smoke.cc_classifier`: bf16, random weights, every layer drawn) at
+--batch images (8), t = 500, class 951; its "step" is one call. It reports:
 
   - ms per step (host clock around steps that end in a synchronize);
   - from torch.profiler over a second window: device time by kernel and by
@@ -23,7 +26,7 @@ too). It reports:
     launches per step;
   - the chrome trace, written to --out.
 
-    python3 tools/profile_torch_main_path.py --out <dir> [--steps 10] [--mode svd|hq]
+    python3 tools/profile_torch_main_path.py --out <dir> [--steps 10] [--mode svd|hq|guidance]
 
 Prints one JSON object as its last line. Needs a CUDA card.
 """
@@ -47,7 +50,9 @@ if str(REPO) not in sys.path:
 
 KINDS = (  # first match wins; matched against the lower-cased kernel name
     ("groupnorm (port)", ("gn_stats_affine_kernel", "gn_apply_kernel")),
+    ("groupnorm backward (port)", ("gn_bwd_reduce_kernel", "gn_bwd_dx_kernel")),
     ("attention (port)", ("attn_mma_kernel", "attn_kernel")),
+    ("attention backward (port)", ("attn_bwd_",)),
     ("fwht (port)", ("fwht_kernel",)),
     ("gather", ("index",)),
     ("convolution", ("conv", "cudnn", "implicit", "fprop", "dgrad", "winograd")),
@@ -72,7 +77,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10, help="steps per window")
     ap.add_argument("--batch", type=int, default=None,
                     help="images (8) or, with --mode hq, tiles (1)")
-    ap.add_argument("--mode", choices=["simplified", "svd", "hq"], default="simplified")
+    ap.add_argument("--mode", choices=["simplified", "svd", "hq", "guidance"],
+                    default="simplified")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile runs only on a card")
@@ -82,7 +88,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    window = hq_window(args) if args.mode == "hq" else ddpm_window(args)
+    window = {"hq": hq_window, "guidance": guidance_window}.get(args.mode, ddpm_window)(args)
     window(0)  # warm-up: cuDNN algorithm choice, the kernels' build and load
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -132,6 +138,23 @@ def hq_window(args):
         return sample_posterior(lambda x, t: model(x, t, labels), x_init, apy, op, tables,
                                 image_generators(0, range(n), STREAM_SAMPLE, "cuda"),
                                 paste_mask=zeros, paste_content=torch.zeros_like(apy))
+
+    return window
+
+
+def guidance_window(args):
+    """window(start): args.steps guidance calls (the same call each time)."""
+    import chip_smoke
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+
+    guide = classifier_guidance_fn(chip_smoke.cc_classifier(), 951, 1.0)
+    g = torch.Generator("cuda").manual_seed(args.batch)
+    x = torch.randn(args.batch, 256, 256, 3, device="cuda", generator=g)
+    t = torch.full((args.batch,), 500.0, device="cuda")
+
+    def window(start: int):
+        for _ in range(args.steps):
+            guide(x, t)
 
     return window
 
