@@ -111,13 +111,15 @@ classifier at batch 2; the 256 px classifier at batch 1 and 8), the
 reduce and attention kernels with the same bits on a second call, timed
 beside the library's autograd backward (F.group_norm, SDPA), prints the
 attention pair's device time against SDPA's at each head shape of the 256
-px classifier, and sums their times per guidance call.
+px classifier, and sums their times per guidance call (with gn_bwd_reduce's
+device share of its bound per 256 px guidance call at batch 1 and 8).
 Phase 3 also holds the GroupNorm (with FiLM) and attention kernels against
 their plain versions at every shape of phase 10's ADM forward (one tile,
 bf16) and of phase 12's (batch 8, 256 px, bf16) and sums their times per
 such forward.
 Phase 2 prints the -Xptxas -v registers and spills of the conv, apply,
-Walsh-Hadamard and bf16 attention backward kernels. Phase 3 also holds the
+Walsh-Hadamard, GroupNorm backward reduce and bf16 attention backward
+kernels. Phase 3 also holds the
 Walsh-Hadamard kernel against its plain version at the SVD paths' shapes and at edge shapes (one
 slab, a ragged slab count, every tier's P, P = 1 and 2, 100 MB), each with
 the same bits on a second call and on a strided view, one wrapper call and
@@ -1783,8 +1785,8 @@ def main() -> int:
         _build.load_library()
         print(f"built {path.name} with nvcc in {secs:.2f} s", flush=True)
         for line in ptxas_summary(_build.ptxas_report(
-                "fgc_conv_kernel", "gn_apply_kernel", "fwht_kernel", "attn_bwd_dq_mma_kernel",
-                "attn_bwd_dkdv_mma_kernel")):
+                "fgc_conv_kernel", "gn_apply_kernel", "fwht_kernel", "gn_bwd_reduce_kernel",
+                "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel")):
             print(line, flush=True)
 
     with phase(3, "kernels against plain versions"):
@@ -1989,6 +1991,11 @@ def main() -> int:
                     r["max_abs_err"] for k, r in bwd_results.items() if k[1] == kind))
                 print(f"{kind}: per {name} guidance call ({str(dtype)[6:]}): "
                       + json.dumps(bwd_per_call[(name, kind)]), flush=True)
+        for name in ("cc256_b1", "cc256_b8"):
+            r = bwd_per_call[(name, "gn_bwd_reduce")]
+            print(f"gn_bwd_reduce share of the bound per {name} guidance call (bfloat16): "
+                  f"device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_ms'] / r['device_ms']:.1%})", flush=True)
         print("kernels: " + json.dumps(sorted(SOURCES)), flush=True)
 
     with phase(4, "full-width fp32 parity with the JAX golden"):

@@ -54,14 +54,27 @@
 // (image, group):
 //   dx = rstd (g dy' - mean_g(g dy') - x^ mean_g(g dy' x^)).
 // gn_bwd_reduce_kernel: one pass over x and dy for the per-(B, G) sums of
-// x, x^2, g dy' and g dy' x (the block layout, the fixed-order combine and
-// the integer launch counters of the stats kernel, so the same bits every
-// launch), from which it recomputes mean and rstd (not from a, which
-// cannot give rstd back where gamma (1 + s) = 0) and folds the formula
-// into a per-(B, C) affine of dy' and x: dx = A dy' + Bx x + Cx.
+// x, x^2, g dy' and g dy' x, from which it recomputes mean and rstd (not
+// from a, which cannot give rstd back where gamma (1 + s) = 0) and folds
+// the formula into a per-(B, C) affine of dy' and x: dx = A dy' + Bx x +
+// Cx. It is bound by the bytes of x and dy, but its SiLU' costs about as
+// many issue slots per element as the bytes take, and the classifier's
+// maps are small at batch 1. So: a grid of its own (ops/groupnorm.py
+// `_bwd_reduce_plan`: whole pixel rows, each image's pixels cut into runs
+// so that the grid fills the card where the map has the work, blocks of
+// 256 threads, two an SM), 16 unpredicated 16-byte loads in flight a
+// thread, the bf16 SiLU' on the MUFU's fast exp and reciprocal with the
+// sums as FMAs, and a combine with no serial tail: warp shuffles, then the
+// blocks of a run of pixels as a thread-block cluster that adds its ranks'
+// sums through distributed shared memory, then (where an image has several
+// clusters) the clusters' sums through scratch, added by the last to
+// arrive with its columns split over the cluster's CTAs. Fixed order
+// throughout and no fp32 atomics: the same bits every launch.
 // gn_bwd_dx_kernel: the elementwise pass (the apply kernel's layout:
 // 16-byte loads and stores, a thread's channels and coefficients fixed in
 // registers), the SiLU factor recomputed from x, a and b.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -376,44 +389,345 @@ template <typename T> __device__ __forceinline__ float silu_grad(float u) {
   return s * (1.f + f * (1.f - s));
 }
 
-constexpr int kBwdUnroll = 4;  // pixel loads of x and dy in flight per thread
+// ---- gn_bwd_reduce_kernel: one pass over x and dy, one launch
 
-// One launch: the per-(B, C) coefficients (A, Bx, Cx) of dx = A dy' + Bx x
-// + Cx. The layout of gn_stats_affine_kernel: grid (n_blk, C / span, B),
-// block lanes_c * lanes_p threads, block (j, s, b) sums a contiguous run of
-// pixels of channels [s span, (s + 1) span) of image b, VEC channels a
-// thread, pixel lanes reduced through shared memory in a fixed order; with
-// n_blk > 1 the blocks publish to scratch[b][s][j] (4 span fp32) and the
-// last to arrive (integer counter) adds them in block order, resets the
-// counter and finalises. Dynamic shared memory 4 * (4 span + 4 blockDim.x
-// VEC + 3 span / cpg) + 16 bytes. a, b: the forward's affine (read only
-// when swish); film_scale may be null. out: (3, B, C) fp32.
+constexpr int kBwdThreads = 256;    // threads a block
+constexpr int kBwdUnroll = 4;       // pixels a thread copies a stage: 4 of x and 4 of dy
+constexpr int kBwdStages = 3;       // its ring: two stages in flight while one is summed
+constexpr int kBwdMaxCluster = 8;   // CTAs a cluster (the portable limit)
+// shared-memory ring of the 16-byte path: stages x pixels x (x, dy) x threads
+constexpr int kBwdRingBytes = kBwdStages * kBwdUnroll * 2 * 16 * kBwdThreads;
+
+// SiLU'(f) of the reduce pass at f = u rounded to the output type, in fp32.
+// fp32: silu_grad (the accurate exp and division, which the fp32 gates
+// need). bf16: the forward's fast pair (silu_of<__nv_bfloat16>) as one
+// ex2 and one reciprocal on the MUFU, s + f s (1 - s) as one FMA.
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float silu_grad_fast(float f) {
+  const float s = rcp_approx(1.f + ex2_approx(f * -1.4426950408889634f));
+  return fmaf(f * s, 1.f - s, s);
+}
+
+template <typename T> __device__ __forceinline__ float reduce_silu_grad(float u);
+template <> __device__ __forceinline__ float reduce_silu_grad<float>(float u) {
+  return silu_grad<float>(u);
+}
+template <> __device__ __forceinline__ float reduce_silu_grad<__nv_bfloat16>(float u) {
+  return silu_grad_fast(round_to<__nv_bfloat16>(u));
+}
+
+// The four sums of one pixel's VEC channels: x, x^2, dy', dy' x (the
+// squares and products as FMAs). SWISH: dy' = dy SiLU'(round(a x + b)).
+template <typename T, int VEC, bool SWISH> struct BwdSums {
+  using L = VecLoad<T, VEC>;
+  static __device__ __forceinline__ void add(const typename L::Raw& rx,
+                                             const typename L::Raw& rd, const float (&av)[VEC],
+                                             const float (&bv)[VEC], float (&s)[4][VEC]) {
+    float fx[VEC], fd[VEC];
+    L::to_float(rx, fx);
+    L::to_float(rd, fd);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float d = SWISH ? fd[j] * reduce_silu_grad<T>(fmaf(fx[j], av[j], bv[j])) : fd[j];
+      s[0][j] += fx[j];
+      s[1][j] = fmaf(fx[j], fx[j], s[1][j]);
+      s[2][j] += d;
+      s[3][j] = fmaf(d, fx[j], s[3][j]);
+    }
+  }
+};
+// bf16, 8 channels: bf16 pairs to fp32 and a x + b to bf16 by the packed
+// conversions, the fast SiLU'.
+template <bool SWISH> struct BwdSums<__nv_bfloat16, 8, SWISH> {
+  static __device__ __forceinline__ void add(const uint4& rx, const uint4& rd,
+                                             const float (&av)[8], const float (&bv)[8],
+                                             float (&s)[4][8]) {
+    const __nv_bfloat162* hx = reinterpret_cast<const __nv_bfloat162*>(&rx);
+    const __nv_bfloat162* hd = reinterpret_cast<const __nv_bfloat162*>(&rd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x2 = __bfloat1622float2(hx[i]);
+      float2 d2 = __bfloat1622float2(hd[i]);
+      if (SWISH) {
+        const float2 f2 = __bfloat1622float2(__floats2bfloat162_rn(
+            fmaf(x2.x, av[2 * i], bv[2 * i]), fmaf(x2.y, av[2 * i + 1], bv[2 * i + 1])));
+        d2.x *= silu_grad_fast(f2.x);
+        d2.y *= silu_grad_fast(f2.y);
+      }
+      const float xs[2] = {x2.x, x2.y}, ds[2] = {d2.x, d2.y};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * i + h;
+        s[0][j] += xs[h];
+        s[1][j] = fmaf(xs[h], xs[h], s[1][j]);
+        s[2][j] += ds[h];
+        s[3][j] = fmaf(ds[h], xs[h], s[3][j]);
+      }
+    }
+  }
+};
+
+// 16 bytes from device memory to this thread's shared memory, asynchronously
+// (cp.async: no register holds the data in flight), and its groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(a), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(a), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One thread's sums over pixels p, p + lanes_p, ... < p_end of its VEC
+// channels (xc, dc: the channels' first pixel). A 16-byte vector streams
+// through the thread's own slots of the shared-memory ring (`ring`: its
+// first slot; slots kBwdThreads vectors apart): stages of kBwdUnroll pixels
+// of x and of dy copied unpredicated by cp.async, kBwdStages - 1 stages (16
+// loads) in flight while the oldest is summed; no other thread reads the
+// slots, so no barrier. Then the ragged tail (fewer than kBwdUnroll pixels),
+// and with VEC = 1 every pixel, by guarded loads into registers, all
+// issued before any is used.
+template <typename T, int VEC, bool SWISH>
+__device__ __forceinline__ void bwd_thread_sums(const T* __restrict__ xc,
+                                                const T* __restrict__ dc, int p, int p_end,
+                                                int lanes_p, int c_total, const float (&av)[VEC],
+                                                const float (&bv)[VEC], float (&s)[4][VEC],
+                                                typename VecLoad<T, VEC>::Raw* ring) {
+  using L = VecLoad<T, VEC>;
+  using Raw = typename L::Raw;
+  const size_t step = (size_t)lanes_p * c_total;
+  if constexpr (sizeof(Raw) == 16) {
+    const int n_stage = p < p_end ? (p_end - p + lanes_p - 1) / lanes_p / kBwdUnroll : 0;
+    auto issue = [&](int i) {
+      if (i < n_stage) {
+        const T* px = xc + (size_t)(p + i * kBwdUnroll * lanes_p) * c_total;
+        const T* pd = dc + (size_t)(p + i * kBwdUnroll * lanes_p) * c_total;
+        Raw* slot = ring + (i % kBwdStages) * kBwdUnroll * 2 * kBwdThreads;
+#pragma unroll
+        for (int u = 0; u < kBwdUnroll; ++u) {
+          cp_async16(slot + 2 * u * kBwdThreads, px + u * step);
+          cp_async16(slot + (2 * u + 1) * kBwdThreads, pd + u * step);
+        }
+      }
+      cp_async_commit();  // empty past the end: the group count stays fixed
+    };
+#pragma unroll
+    for (int i = 0; i < kBwdStages - 1; ++i) issue(i);
+    for (int i = 0; i < n_stage; ++i) {
+      issue(i + kBwdStages - 1);
+      cp_async_wait<kBwdStages - 1>();  // stage i has landed
+      const Raw* slot = ring + (i % kBwdStages) * kBwdUnroll * 2 * kBwdThreads;
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u)
+        BwdSums<T, VEC, SWISH>::add(slot[2 * u * kBwdThreads], slot[(2 * u + 1) * kBwdThreads],
+                                    av, bv, s);
+    }
+    if (n_stage > 0) cp_async_wait<0>();  // else nothing of the ring is pending
+    p += n_stage * kBwdUnroll * lanes_p;
+  }
+  Raw rx[kBwdUnroll], rd[kBwdUnroll];
+  for (; p < p_end; p += kBwdUnroll * lanes_p) {
+    const T* px = xc + (size_t)p * c_total;
+    const T* pd = dc + (size_t)p * c_total;
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (p + u * lanes_p < p_end) {
+        rx[u] = L::load(px + u * step);
+        rd[u] = L::load(pd + u * step);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u)
+      if (p + u * lanes_p < p_end) BwdSums<T, VEC, SWISH>::add(rx[u], rd[u], av, bv, s);
+  }
+}
+
+// Thread-block clusters (as csrc/fwht.cu; those helpers are file-local).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// arrival that publishes nothing: this CTA is done reading its peers
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+// orders this thread's device-memory accesses around the integer counter
+__device__ __forceinline__ void fence_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// the float of rank `rank`'s shared memory at the local address `local`
+__device__ __forceinline__ float ld_cluster(const float* local, uint32_t rank) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(local));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(a), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// Shared memory per block: the block's sums [4][span] (read by its cluster
+// peers), gamma and film_scale of the span [2][span] (copied in at the
+// start), then, over the ring of the 16-byte path (kBwdRingBytes; none at
+// VEC = 1) once the pixels are summed, a work area that first holds every
+// thread's sums [4][pixel lanes][lanes_c VEC] and then the sums this CTA
+// finalises [4][span], the per-group rstd, Bx, Cx [3][span / cpg] and 16
+// bytes for the last-CTA flag. ops/groupnorm.py `_bwd_reduce_smem` computes
+// the same.
+__host__ __device__ constexpr int bwd_work_floats(int span, int vec) {
+  return 4 * kBwdThreads * vec > 4 * span ? 4 * kBwdThreads * vec : 4 * span;
+}
+inline int bwd_smem_bytes(int span, int vec, int cpg, int elem) {
+  const int tail = 4 * (bwd_work_floats(span, vec) + 3 * (span / cpg)) + 16;
+  const int ring = vec * elem == 16 ? kBwdRingBytes : 0;
+  return 24 * span + (ring > tail ? ring : tail);
+}
+
+// p[0] + p[stride] + ... + p[(n - 1) stride] in a fixed order: four chains
+// (i mod 4), then (c0 + c1) + (c2 + c3), so four loads are in flight.
+template <typename Load>
+__device__ __forceinline__ float sum4(int n, Load load) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  int i = 0;
+  for (; i + 4 <= n; i += 4) {
+    a0 += load(i);
+    a1 += load(i + 1);
+    a2 += load(i + 2);
+    a3 += load(i + 3);
+  }
+  for (; i < n; ++i) a0 += load(i);
+  return (a0 + a1) + (a2 + a3);
+}
+
+// VEC floats at p: 16-byte loads where p allows them.
+template <int VEC> __device__ __forceinline__ void ld_vec(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4) {
+        const float4 w = __ldg(reinterpret_cast<const float4*>(p + j));
+        v[j] = w.x, v[j + 1] = w.y, v[j + 2] = w.z, v[j + 3] = w.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) v[j] = __ldg(p + j);
+}
+
+// The VEC floats at p (16-byte aligned when VEC > 1) and their store.
+template <int VEC> __device__ __forceinline__ void st_vec(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4)
+      *reinterpret_cast<float4*>(p + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[j] = v[j];
+  }
+}
+
+// One launch: the per-(B, C) coefficients (A, Bx, Cx) of dx = A dy' + Bx x +
+// Cx. grid (runs, C / span, B) in clusters of K = %cluster_nctarank CTAs
+// along x; 256 threads, lanes_c (a power of two <= 256) channel lanes x
+// 256 / lanes_c pixel lanes; a span wider than lanes_c VEC channels is
+// walked in slots. Block (j, s, b) sums pixels [j hw / runs, (j + 1) hw /
+// runs) of channels [s span, (s + 1) span) of image b. Then, in a fixed
+// order every launch:
+//   1. the pixel lanes: every thread's sums go to shared memory, and the
+//      block's threads split the (quantity, channel) columns, each adding
+//      its column's pixel lanes in a fixed order (sum4);
+//   2. the cluster: after a cluster barrier, rank r takes the groups
+//      [r ng / K, (r + 1) ng / K) of the span and adds the K ranks' sums of
+//      their channels in rank order (ld.shared::cluster, the four sums of a
+//      rank in flight together); it then arrives at a second cluster barrier,
+//      which it waits on before exiting, so no CTA leaves while a peer may
+//      still read it;
+//   3. the clusters (runs / K > 1): rank r writes its channels' cluster sum
+//      to scratch[b][s][cluster], and the last rank r to arrive (integer
+//      counter counters[(b spans + s) K + r]) adds the cluster sums in a
+//      fixed order, its threads splitting the columns and the clusters
+//      (sum4, then shuffles combine the pieces), and resets the counter;
+//   4. the rank that holds its channels' whole sums finalises their groups
+//      from shared memory alone (gamma and film_scale came in with the
+//      first stage).
+// No fp32 atomics: every launch gives the same bits. a, b: the forward's
+// affine (read only when swish); film_scale may be null. out: (3, B, C) fp32.
 template <typename T, int VEC>
-__global__ void gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                                     const float* __restrict__ gamma,
-                                     const float* __restrict__ film_scale,
-                                     const float* __restrict__ aff_a,
-                                     const float* __restrict__ aff_b, float* __restrict__ out,
-                                     float* __restrict__ scratch,
-                                     unsigned* __restrict__ counters, int batch, int hw,
-                                     int c_total, int cpg, int span, int lanes_c, float eps,
-                                     int swish) {
-  extern __shared__ float sm[];
-  const int nthreads = blockDim.x;
-  const int lanes_p = nthreads / lanes_c;
-  const int tc = threadIdx.x % lanes_c;
-  const int tp = threadIdx.x / lanes_c;
-  const int n_blk = gridDim.x, blk = blockIdx.x;
-  const int b = blockIdx.z;
-  const int c0 = blockIdx.y * span;
-  const int width = lanes_c * VEC;
-  float* part = sm;                         // [4][span]: x, x^2, dy', dy' x
-  float* red = part + 4 * span;             // [4][lanes_p][width]
-  float* gstat = red + 4 * nthreads * VEC;  // [3][span / cpg]: rstd, Bx, Cx per group
-  unsigned* last = reinterpret_cast<unsigned*>(gstat + 3 * (span / cpg));
+__global__ void __launch_bounds__(kBwdThreads, 2)
+gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                     const float* __restrict__ gamma, const float* __restrict__ film_scale,
+                     const float* __restrict__ aff_a, const float* __restrict__ aff_b,
+                     float* __restrict__ out, float* __restrict__ scratch,
+                     unsigned* __restrict__ counters, int batch, int hw, int c_total, int cpg,
+                     int span, int lanes_c, float eps, int swish) {
+  extern __shared__ __align__(16) float sm[];
+  using Raw = typename VecLoad<T, VEC>::Raw;
+  const int t = threadIdx.x;
+  const int log_c = __ffs(lanes_c) - 1;   // lanes_c is a power of two
+  const int lanes_p = kBwdThreads >> log_c;
+  const int tc = t & (lanes_c - 1), tp = t >> log_c;
+  const int b = blockIdx.z, c0 = blockIdx.y * span;
+  const int width = lanes_c * VEC;        // channels of one slot
+  const int ng = span / cpg;
+  float* part = sm;                                 // [4][span]
+  float* gam = part + 4 * span;                     // [span]
+  float* fil = gam + span;                          // [span]
+  float* work = fil + span;                         // over the ring
+  float* gstat = work + bwd_work_floats(span, VEC);  // [3][ng]
+  unsigned* flag = reinterpret_cast<unsigned*>(gstat + 3 * ng);
+  Raw* ring = reinterpret_cast<Raw*>(work) + t;     // this thread's first slot
 
-  const int chunk = (hw + n_blk - 1) / n_blk;
-  const int p_begin = blk * chunk, p_end = min(hw, p_begin + chunk);
+  const float* fsb = film_scale != nullptr ? film_scale + (size_t)b * c_total + c0 : nullptr;
+  for (int j = t; j < span; j += kBwdThreads) {
+    cp_async4(gam + j, gamma + c0 + j);
+    if (fsb != nullptr) cp_async4(fil + j, fsb + j);
+  }
+  cp_async_commit();
+
+  const int run = blockIdx.x, n_run = gridDim.x;
+  int p_begin = 0, p_end = hw;
+  if (n_run > 1) {
+    if ((long long)hw * n_run < (1ll << 31)) {
+      p_begin = run * hw / n_run;
+      p_end = (run + 1) * hw / n_run;
+    } else {
+      p_begin = static_cast<int>((long long)run * hw / n_run);
+      p_end = static_cast<int>((long long)(run + 1) * hw / n_run);
+    }
+  }
   const size_t img = (size_t)b * hw * c_total + c0;
   for (int slot = 0; slot * width < span; ++slot) {
     const int cv = slot * lanes_c + tc;
@@ -422,129 +736,183 @@ __global__ void gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restric
     for (int j = 0; j < VEC; ++j) s[0][j] = s[1][j] = s[2][j] = s[3][j] = 0.f;
     if (cv * VEC < span) {
       float av[VEC], bv[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        av[j] = swish ? __ldg(aff_a + (size_t)b * c_total + c0 + cv * VEC + j) : 0.f;
-        bv[j] = swish ? __ldg(aff_b + (size_t)b * c_total + c0 + cv * VEC + j) : 0.f;
-      }
       const T* xc = x + img + cv * VEC;
       const T* dc = dy + img + cv * VEC;
-      for (int p = p_begin + tp; p < p_end; p += kBwdUnroll * lanes_p) {
-        typename VecLoad<T, VEC>::Raw rx[kBwdUnroll], rd[kBwdUnroll];
+      if (swish) {
+        ld_vec<VEC>(aff_a + (size_t)b * c_total + c0 + cv * VEC, av);
+        ld_vec<VEC>(aff_b + (size_t)b * c_total + c0 + cv * VEC, bv);
+        bwd_thread_sums<T, VEC, true>(xc, dc, p_begin + tp, p_end, lanes_p, c_total, av, bv, s,
+                                      ring);
+      } else {
 #pragma unroll
-        for (int u = 0; u < kBwdUnroll; ++u) {
-          const int pu = p + u * lanes_p;
-          if (pu < p_end) {
-            rx[u] = VecLoad<T, VEC>::load(xc + (size_t)pu * c_total);
-            rd[u] = VecLoad<T, VEC>::load(dc + (size_t)pu * c_total);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBwdUnroll; ++u) {
-          if (p + u * lanes_p >= p_end) break;
-          float fx[VEC], fd[VEC];
-          VecLoad<T, VEC>::to_float(rx[u], fx);
-          VecLoad<T, VEC>::to_float(rd[u], fd);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            const float d = swish ? fd[j] * silu_grad<T>(fx[j] * av[j] + bv[j]) : fd[j];
-            s[0][j] += fx[j];
-            s[1][j] += fx[j] * fx[j];
-            s[2][j] += d;
-            s[3][j] += d * fx[j];
-          }
-        }
+        for (int j = 0; j < VEC; ++j) av[j] = bv[j] = 0.f;
+        bwd_thread_sums<T, VEC, false>(xc, dc, p_begin + tp, p_end, lanes_p, c_total, av, bv,
+                                       s, ring);
       }
     }
+    cp_async_wait<0>();  // gamma and film_scale too
+    // 1. the pixel lanes: every thread's sums into the work area (over the
+    // ring: every thread done with it), then the (quantity, column) sums
+    // over the lanes in lane order, split over the block's threads
+    __syncthreads();
+    if (cv * VEC < span)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) st_vec<VEC>(work + (q * lanes_p + tp) * width + tc * VEC, s[q]);
+    __syncthreads();
+    const int cols = min(width, span - slot * width);
+    for (int task = t; task < 4 * cols; task += kBwdThreads) {
+      const int q = task / cols, cc = task - q * cols;
+      const float* col = work + q * lanes_p * width + cc;
+      part[q * span + slot * width + cc] = sum4(lanes_p, [&](int i) { return col[i * width]; });
+    }
+    __syncthreads();
+  }
+
+  // 2. the cluster's sums of this rank's channels, in rank order
+  const int K = static_cast<int>(cluster_size());  // a power of two
+  const int log_k = __ffs(K) - 1;
+  const int rank = static_cast<int>(cluster_rank());
+  const int g_lo = (rank * ng) >> log_k, g_hi = ((rank + 1) * ng) >> log_k;
+  const int ch0 = g_lo * cpg, nch = (g_hi - g_lo) * cpg;
+  float* fin = part;  // [4][span]: the sums this rank finalises (its channels)
+  if (K > 1) {
+    cluster_arrive();
+    cluster_wait();
+    fin = work;
+    for (int j = ch0 + t; j < ch0 + nch; j += kBwdThreads) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int r = 0; r < K; ++r) {
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = ld_cluster(part + q * span + j, r);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] += v[q];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fin[q * span + j] = acc[q];
+    }
+    cluster_arrive_relaxed();  // this CTA has read its peers
+    __syncthreads();
+  }
+
+  // 3. the clusters of (b, s): the last rank r to arrive adds them
+  const int n_cl = n_run >> log_k;
+  bool last = true;
+  if (n_cl > 1) {
+    const size_t bs = (size_t)b * gridDim.y + blockIdx.y;
+    float* all = scratch + bs * n_cl * 4 * span;
+    float* mine = all + (size_t)(run >> log_k) * 4 * span;
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) red[(q * lanes_p + tp) * width + tc * VEC + j] = s[q][j];
+      for (int j = ch0 + t; j < ch0 + nch; j += kBwdThreads) mine[q * span + j] = fin[q * span + j];
+    fence_gpu();
     __syncthreads();
-    for (int col = threadIdx.x; col < 4 * width; col += nthreads) {
-      const int which = col / width, cc = col - which * width;
-      if (slot * width + cc < span) {
-        const float* r = red + which * lanes_p * width + cc;
-        float acc = 0.f;
-        for (int i = 0; i < lanes_p; ++i) acc += r[i * width];
-        part[which * span + slot * width + cc] = acc;
+    unsigned* counter = counters + bs * K + rank;
+    if (t == 0) *flag = atomicAdd(counter, 1u) == (unsigned)(n_cl - 1);
+    __syncthreads();
+    last = *flag != 0;
+    if (last) {
+      fence_gpu();
+      // tpc threads a column (q, j), each adding a contiguous run of the
+      // clusters (loads first, then the adds in cluster order)
+      const int cols = 4 * nch;
+      int tpc = 1;
+      while (tpc < 32 && 2 * tpc * cols <= kBwdThreads) tpc *= 2;
+      const int sub = t % tpc;
+      const int k_lo = sub * n_cl / tpc, k_hi = (sub + 1) * n_cl / tpc;
+      for (int base = 0; base < cols; base += kBwdThreads / tpc) {
+        const int col = base + t / tpc;
+        const int q = col / nch;
+        const int c = q * span + ch0 + col - q * nch;
+        const float* src = all + (size_t)k_lo * 4 * span + c;
+        float acc = col < cols ? sum4(k_hi - k_lo, [&](int k) {
+          return __ldcg(src + (size_t)k * 4 * span);
+        }) : 0.f;
+        for (int o = 1; o < tpc; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if (col < cols && sub == 0) fin[c] = acc;
+      }
+      if (t == 0) *counter = 0;  // ready for the next launch
+      __syncthreads();
+    }
+  }
+
+  // 4. the dy' sums of this rank's channels weighed by g = gamma (1 +
+  // film_scale), one thread a channel; fixed-order group sums; A, Bx, Cx
+  if (last) {
+    for (int j = ch0 + t; j < ch0 + nch; j += kBwdThreads) {
+      const float g = fsb != nullptr ? gam[j] * (1.f + fil[j]) : gam[j];
+      fin[2 * span + j] *= g;
+      fin[3 * span + j] *= g;
+    }
+    __syncthreads();
+    // four threads a group, one a sum (sum4 over its channels), gathered by
+    // shuffles into the group's first thread
+    const float inv_n = 1.f / static_cast<float>(static_cast<double>(hw) * cpg);
+    const int n_task = 4 * (g_hi - g_lo);
+    for (int task0 = 0; task0 < n_task; task0 += kBwdThreads) {
+      const int task = task0 + t, gi = g_lo + (task >> 2), q = task & 3;
+      const float* src = fin + q * span + gi * cpg;
+      const float v = task < n_task ? sum4(cpg, [&](int j) { return src[j]; }) : 0.f;
+      const int lead = (t & 31) & ~3;
+      const float g1 = __shfl_sync(0xffffffffu, v, lead);
+      const float g2 = __shfl_sync(0xffffffffu, v, lead + 1);
+      const float g3 = __shfl_sync(0xffffffffu, v, lead + 2);
+      const float g4 = __shfl_sync(0xffffffffu, v, lead + 3);
+      if (task < n_task && q == 0) {
+        const float mean = g1 * inv_n;
+        const float rstd = rsqrtf(fmaxf(g2 * inv_n - mean * mean, 0.f) + eps);
+        const float c1 = g3 * inv_n;                      // mean_g(g dy')
+        const float c2 = rstd * (g4 * inv_n - mean * c1);  // mean_g(g dy' x^)
+        gstat[gi] = rstd;
+        gstat[ng + gi] = -rstd * rstd * c2;                  // Bx
+        gstat[2 * ng + gi] = rstd * (mean * rstd * c2 - c1);  // Cx
       }
     }
     __syncthreads();
-  }
-
-  if (n_blk > 1) {
-    const size_t bs = (size_t)b * gridDim.y + blockIdx.y;
-    float* mine = scratch + (bs * n_blk + blk) * 4 * span;
-    for (int col = threadIdx.x; col < 4 * span; col += nthreads) mine[col] = part[col];
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) *last = atomicAdd(counters + bs, 1u) == (unsigned)(n_blk - 1);
-    __syncthreads();
-    if (!*last) return;
-    __threadfence();
-    const float* all = scratch + bs * n_blk * 4 * span;
-    for (int col = threadIdx.x; col < 4 * span; col += nthreads) {
-      float acc = 0.f;
-      for (int j = 0; j < n_blk; ++j) acc += __ldcg(all + (size_t)j * 4 * span + col);
-      part[col] = acc;
+    float* a_out = out + (size_t)b * c_total + c0;
+    for (int j = ch0 + t; j < ch0 + nch; j += kBwdThreads) {
+      const int gi = j / cpg;
+      const float g = fsb != nullptr ? gam[j] * (1.f + fil[j]) : gam[j];
+      a_out[j] = gstat[gi] * g;
+      a_out[(size_t)batch * c_total + j] = gstat[ng + gi];
+      a_out[(size_t)2 * batch * c_total + j] = gstat[2 * ng + gi];
     }
-    if (threadIdx.x == 0) counters[bs] = 0;
-    __syncthreads();
   }
-
-  // fixed-order group sums; g = gamma (1 + film_scale) weighs the dy' sums
-  const int ng = span / cpg;
-  const float n = static_cast<float>(static_cast<double>(hw) * cpg);
-  float* a_out = out + (size_t)b * c_total;
-  for (int gi = threadIdx.x; gi < ng; gi += nthreads) {
-    float g1 = 0.f, g2 = 0.f, g3 = 0.f, g4 = 0.f;
-    for (int j = 0; j < cpg; ++j) {
-      const int c = c0 + gi * cpg + j;
-      float g = gamma[c];
-      if (film_scale != nullptr) g *= 1.f + film_scale[(size_t)b * c_total + c];
-      g1 += part[gi * cpg + j];
-      g2 += part[span + gi * cpg + j];
-      g3 += g * part[2 * span + gi * cpg + j];
-      g4 += g * part[3 * span + gi * cpg + j];
-    }
-    const float mean = g1 / n;
-    const float rstd = 1.f / sqrtf(fmaxf(g2 / n - mean * mean, 0.f) + eps);
-    const float c1 = g3 / n;                      // mean_g(g dy')
-    const float c2 = rstd * (g4 / n - mean * c1);  // mean_g(g dy' x^)
-    gstat[gi] = rstd;
-    gstat[ng + gi] = -rstd * rstd * c2;                  // Bx
-    gstat[2 * ng + gi] = rstd * (mean * rstd * c2 - c1);  // Cx
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < span; j += nthreads) {
-    const int c = c0 + j;
-    const int gi = j / cpg;
-    float g = gamma[c];
-    if (film_scale != nullptr) g *= 1.f + film_scale[(size_t)b * c_total + c];
-    a_out[c] = gstat[gi] * g;
-    a_out[(size_t)batch * c_total + c] = gstat[ng + gi];
-    a_out[(size_t)2 * batch * c_total + c] = gstat[2 * ng + gi];
-  }
+  if (K > 1) cluster_wait();  // the peers have read this CTA
 }
 
 template <typename T, int VEC>
 cudaError_t launch_bwd_reduce(const void* x, const void* dy, const float* gamma,
                               const float* film_scale, const float* aff_a, const float* aff_b,
                               float* out, float* scratch, unsigned* counters, int batch, int hw,
-                              int c_total, int cpg, float eps, int swish, int span, int n_blk,
-                              int threads, int lanes_c, int smem_bytes, cudaStream_t stream) {
+                              int c_total, int cpg, float eps, int swish, int span, int runs,
+                              int cluster, int lanes_c, int smem_bytes, cudaStream_t stream) {
   auto kernel = gn_bwd_reduce_kernel<T, VEC>;
+  // all of the SM's shared memory, so that two rings fit (once a process)
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return carveout;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(n_blk, c_total / span, batch);
-  kernel<<<grid, threads, smem_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), gamma, film_scale, aff_a, aff_b, out,
-      scratch, counters, batch, hw, c_total, cpg, span, lanes_c, eps, swish);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(runs, c_total / span, batch);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dy), gamma, film_scale,
+      aff_a, aff_b, out, scratch, counters, batch, hw, c_total, cpg, span, lanes_c, eps, swish);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // dx = A dy' + Bx x + Cx, dy' = dy SiLU'(a x + b) when swish: the apply
@@ -683,22 +1051,31 @@ int ddnm_gn_apply(const void* x, const void* a, const void* b, void* y, int batc
 // GroupNorm backward, first pass. x, dy: (batch, hw, c_total) contiguous,
 // dtype as above; gamma: (c_total,) fp32; film_scale: (batch, c_total) fp32
 // or null; a, b: the forward's (batch, c_total) fp32 affine (read only when
-// swish; may be null otherwise); out: (3, batch, c_total) fp32 (A, Bx, Cx);
-// scratch: batch * (c_total / span) * n_blk * 4 * span fp32 (unused when
-// n_blk == 1); counters: batch * (c_total / span) zeros, left zero (shared
-// with the stats kernel: one stream). The launch plan is ops/groupnorm.py
-// `_bwd_reduce_plan` (the stats plan's blocks with four sums).
+// swish; may be null otherwise); out: (3, batch, c_total) fp32 (A, Bx, Cx).
+// The launch plan is ops/groupnorm.py `_bwd_reduce_plan`: channel span,
+// `runs` blocks per (image, span) in clusters of `cluster` (1, 2, 4 or 8),
+// lanes_c channel lanes (a power of two <= 256) and smem_bytes as
+// bwd_smem_bytes computes them. With runs / cluster > 1: scratch holds
+// batch * c_total * 4 * (runs / cluster) fp32 and counters batch *
+// (c_total / span) * cluster zeros, left zero (shared with the stats
+// kernel: one stream); otherwise both may be null. A plan the kernel cannot
+// run returns cudaErrorInvalidValue.
 int ddnm_gn_bwd_reduce(const void* x, const void* dy, const void* gamma, const void* film_scale,
                        const void* a, const void* b, void* out, void* scratch, void* counters,
                        int batch, int hw, int c_total, int groups, float eps, int swish, int vec,
-                       int span, int n_blk, int threads, int lanes_c, int smem_bytes, int dtype,
+                       int span, int runs, int cluster, int lanes_c, int smem_bytes, int dtype,
                        void* stream) {
-  if (groups <= 0 || c_total % groups != 0 || span <= 0 || vec <= 0 || lanes_c <= 0)
+  if (groups <= 0 || c_total % groups != 0 || span <= 0 || vec <= 0 || lanes_c <= 0 ||
+      batch <= 0 || hw <= 0 || cluster <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cpg = c_total / groups;
-  const bool ok = c_total % span == 0 && span % cpg == 0 && span % vec == 0 && n_blk >= 1 &&
-                  threads % lanes_c == 0 && threads <= 1024 && (!swish || (a && b)) &&
-                  smem_bytes == 4 * (4 * span + 4 * threads * vec + 3 * (span / cpg)) + 16;
+  const bool ok = c_total % span == 0 && span % cpg == 0 && span % vec == 0 &&
+                  lanes_c <= kBwdThreads && (lanes_c & (lanes_c - 1)) == 0 &&
+                  cluster <= kBwdMaxCluster && (cluster & (cluster - 1)) == 0 &&
+                  runs >= cluster && runs % cluster == 0 && runs <= hw &&
+                  batch <= 65535 && c_total / span <= 65535 && (!swish || (a && b)) &&
+                  (runs == cluster || (scratch && counters)) &&
+                  smem_bytes == bwd_smem_bytes(span, vec, cpg, dtype == 0 ? 4 : 2);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* fs = static_cast<const float*>(film_scale);
@@ -711,17 +1088,17 @@ int ddnm_gn_bwd_reduce(const void* x, const void* dy, const void* gamma, const v
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && vec == 4)
     err = launch_bwd_reduce<float, 4>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw, c_total, cpg,
-                                      eps, swish, span, n_blk, threads, lanes_c, smem_bytes, s);
+                                      eps, swish, span, runs, cluster, lanes_c, smem_bytes, s);
   else if (dtype == 0 && vec == 1)
     err = launch_bwd_reduce<float, 1>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw, c_total, cpg,
-                                      eps, swish, span, n_blk, threads, lanes_c, smem_bytes, s);
+                                      eps, swish, span, runs, cluster, lanes_c, smem_bytes, s);
   else if (dtype == 1 && vec == 8)
     err = launch_bwd_reduce<__nv_bfloat16, 8>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw,
-                                              c_total, cpg, eps, swish, span, n_blk, threads,
+                                              c_total, cpg, eps, swish, span, runs, cluster,
                                               lanes_c, smem_bytes, s);
   else if (dtype == 1 && vec == 1)
     err = launch_bwd_reduce<__nv_bfloat16, 1>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw,
-                                              c_total, cpg, eps, swish, span, n_blk, threads,
+                                              c_total, cpg, eps, swish, span, runs, cluster,
                                               lanes_c, smem_bytes, s);
   return static_cast<int>(err);
 }

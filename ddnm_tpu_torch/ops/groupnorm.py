@@ -24,7 +24,8 @@ that fails to build or launch raises.
 classifier-guidance gradient; the affine and FiLM must be frozen). Its
 backward runs two more kernels of csrc/groupnorm.cu on a CUDA tensor:
 `gn_bwd_reduce` (one pass over x and dy for the per-(image, group) sums,
-folded into a per-(B, C) affine of dy and x; the stats kernel's layout,
+folded into a per-(B, C) affine of dy and x, in clusters of blocks that
+combine their sums through distributed shared memory; its launch plan is
 `_bwd_reduce_plan`) and `gn_bwd_dx` (the elementwise pass, the apply
 kernel's layout), each beside its plain version (`_torch_bwd_reduce`,
 `_torch_bwd_dx`); `_torch_group_norm_backward` is the whole formula in
@@ -362,20 +363,122 @@ def _torch_group_norm_backward(x, dy, scale, bias, num_groups, eps, swish,
     return _torch_bwd_dx(x, dy, coef, swish, a, b)
 
 
+# the backward reduce kernel's launch plan (`_bwd_reduce_plan`; csrc/groupnorm.cu)
+_BWD_THREADS = 256          # kBwdThreads
+_BWD_UNROLL = 4             # kBwdUnroll: pixels of x and of dy a thread copies a stage
+_BWD_STAGES = 3             # kBwdStages: the ring's stages, all but one in flight
+_BWD_RING_BYTES = _BWD_STAGES * _BWD_UNROLL * 2 * 16 * _BWD_THREADS  # kBwdRingBytes
+_BWD_MAX_CLUSTER = 8        # kBwdMaxCluster
+_BWD_MAX_SPAN = 2048        # channels of one span at most, where whole groups allow
+_BWD_BLOCKS_PER_SM = 2      # __launch_bounds__(256, 2); two rings fit an SM
+_BWD_BLOCK_BYTES = 8 << 10  # bytes of x a block reads, about: 2 vectors a thread
+# bytes of a pixel a span keeps: where only channels are split, where runs of
+# pixels are cut too, and where the map fills a wave (tools/sweep_gn_bwd_reduce.py)
+_BWD_SPLIT_BYTES, _BWD_RUN_BYTES, _BWD_WAVE_BYTES = 32, 64, 128
+
+
+def _bwd_reduce_smem(span: int, vec: int, cpg: int, elem_size: int) -> int:
+    """Dynamic shared-memory bytes of the backward reduce kernel
+    (csrc/groupnorm.cu `bwd_smem_bytes`): the block's sums [4][span] and
+    the span's gamma and film_scale [2][span], then the larger of the
+    16-byte path's ring (none at vec 1) and what overlays it once the
+    pixels are summed: a work area for every thread's sums [4][256 vec]
+    and then the sums the block finalises [4][span], the per-group rstd,
+    Bx, Cx [3][span / cpg], and 16 bytes for the last-CTA flag."""
+    work = max(4 * _BWD_THREADS * vec, 4 * span)
+    tail = 4 * (work + 3 * (span // cpg)) + 16
+    ring = _BWD_RING_BYTES if vec * elem_size == 16 else 0
+    return 24 * span + max(ring, tail)
+
+
+def _bwd_reduce_layout(B: int, HW: int, C: int, cpg: int, elem_size: int, vec: int,
+                       span: int, runs: int, cluster: int) -> dict:
+    """The launch of the backward reduce kernel for a chosen channel span,
+    runs of pixels and cluster size: channel lanes, grid, shared memory,
+    scratch and counters, as the C entry checks them."""
+    lanes_c = min(1 << (span // vec - 1).bit_length(), _BWD_THREADS)
+    clusters = runs // cluster
+    per_run = B * (C // span)
+    return {"vec": vec, "span": span, "threads": _BWD_THREADS, "lanes_c": lanes_c,
+            "runs": runs, "cluster": cluster, "clusters": clusters,
+            "grid": (runs, C // span, B),
+            "smem": _bwd_reduce_smem(span, vec, cpg, elem_size),
+            "scratch": 4 * B * C * clusters if clusters > 1 else 0,
+            "counters": per_run * cluster if clusters > 1 else 0}
+
+
 @functools.lru_cache(maxsize=256)
 def _bwd_reduce_plan(B: int, HW: int, C: int, G: int, elem_size: int,
-                     aligned: bool = True) -> dict:
-    """The backward reduce kernel's launch: the stats kernel's blocks
-    (`_stats_plan`: vec, span, blocks per image, threads, grid, counters)
-    with four sums a channel (x, x^2, dy', dy' x): dynamic shared memory
-    4 * (4 span + 4 threads vec + 3 span / cpg) + 16 bytes and 4 span
-    floats of scratch a block. Raises ValueError for a shape the kernel
-    does not take."""
-    plan = dict(_stats_plan(B, HW, C, G, elem_size, aligned))
-    span, threads, vec, cpg = plan["span"], plan["threads"], plan["vec"], C // G
-    plan["smem"] = 4 * (4 * span + 4 * threads * vec + 3 * (span // cpg)) + 16
-    plan["scratch"] = 2 * plan["scratch"]
-    return plan
+                     aligned: bool = True, sms: int = 132) -> dict:
+    """The backward reduce kernel's launch for (B, H*W, C) with G groups.
+
+    Channels go 16 bytes a load (`vec`; 1 where x or dy is off 16 bytes or
+    C is not a multiple), 256 threads a block: `lanes_c` channel lanes
+    (the power of two at or above span / vec, at most 256; a wider span is
+    walked in slots) times 256 / lanes_c pixel lanes. Each (image, channel
+    span of whole groups) is cut into `runs` contiguous runs of pixels,
+    one block each, in clusters of `cluster` CTAs.
+
+    The grid is sized by bytes (`tools/sweep_gn_bwd_reduce.py` times other
+    layouts at every classifier shape; PERF.md): `blocks` =
+    x's bytes / _BWD_BLOCK_BYTES, at least one and at most one wave of
+    _BWD_BLOCKS_PER_SM x sms blocks (rounded down to 32). A map has
+    **enough work** to fill the card when its bytes make _BWD_BLOCKS_PER_SM
+    x sms such blocks; it then takes spans of _BWD_WAVE_BYTES of a pixel,
+    runs of pixels in clusters of 2 (8-CTA clusters measured slower there),
+    and the grid holds at least `sms` blocks. A smaller map gets its blocks by channels
+    alone where it can (spans of _BWD_SPLIT_BYTES or more, runs = 1: no
+    combine across blocks), else takes spans of _BWD_RUN_BYTES and up to
+    8 runs in one cluster. Where an (image, span) has several clusters,
+    their sums meet in `scratch` (4 x B x C x clusters floats) and
+    `counters` (B x spans x cluster integer counters, left zero); each CTA
+    of the last cluster adds its half of the columns of every cluster sum
+    (up to 64 of them at batch 1: fewer, larger runs measured slower). The
+    whole row where C is too narrow to split.
+
+    Also `threads`, `grid` (runs, spans, B) and `smem` (bytes, as the C
+    entry checks them). Raises ValueError for a shape the kernel does not
+    take."""
+    if C % G:
+        raise ValueError(f"channels {C} not divisible by {G} groups")
+    cpg = C // G
+    if cpg > STATS_MAX_SPAN:
+        raise ValueError(f"GroupNorm kernel takes C / G <= {STATS_MAX_SPAN}, got {cpg}")
+    if not 1 <= B <= 65535:  # CUDA grid z limit
+        raise ValueError(f"GroupNorm backward takes 1 <= B <= 65535, got {B}")
+    if HW < 1:
+        raise ValueError(f"GroupNorm backward takes H*W >= 1, got {HW}")
+    vec = 16 // elem_size if aligned else 1
+    base = math.lcm(cpg, vec)
+    if C % base or base > STATS_MAX_SPAN:
+        vec, base = 1, cpg
+    spans = [s for s in range(base, min(C, _BWD_MAX_SPAN) + 1, base) if C % s == 0] or [base]
+    if C // spans[0] > 65535:  # CUDA grid y limit
+        raise ValueError(f"GroupNorm kernel takes C / span <= 65535, got {C} / {spans[0]}")
+    enough = B * HW * C * elem_size // _BWD_BLOCK_BYTES >= _BWD_BLOCKS_PER_SM * sms
+    wave = _BWD_BLOCKS_PER_SM * sms // 32 * 32  # 256 on the H100: 264 measured slower
+    blocks = max(1, min(wave, B * HW * C * elem_size // _BWD_BLOCK_BYTES))
+    per_image = -(-blocks // B)
+    at_least = lambda nbytes: next((s for s in spans if s * elem_size >= nbytes), spans[-1])
+    split = at_least(_BWD_SPLIT_BYTES)
+    if not enough and per_image <= C // split:  # channels alone
+        span = max(s for s in spans if s >= split and C // s >= per_image)
+        runs = cluster = 1
+    else:
+        span = at_least(_BWD_WAVE_BYTES if enough else _BWD_RUN_BYTES)
+        runs = max(1, min(-(-per_image // (C // span)), HW))
+        per_run = B * (C // span)
+        if not enough or (runs <= _BWD_MAX_CLUSTER and per_run * runs <= sms):
+            runs = cluster = 1 << (min(runs, _BWD_MAX_CLUSTER).bit_length() - 1)
+        else:  # pairs
+            cluster = 2
+            fill = -(-min(blocks, sms) // per_run)
+            runs = min(max(runs, fill + fill % 2), HW)
+            runs -= runs % 2
+            if runs < 2:
+                runs = cluster = 1
+    return {**_bwd_reduce_layout(B, HW, C, cpg, elem_size, vec, span, runs, cluster),
+            "enough_work": enough}
 
 
 def _bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None, film_scale=None):
@@ -385,10 +488,11 @@ def _bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None, film_scale
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError("the GroupNorm backward takes a contiguous dy of x's shape and dtype")
     B, H, W, C = x.shape
-    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-    plan = _bwd_reduce_plan(B, H * W, C, num_groups, x.element_size(), aligned)
-    lib = _build.load_library()
     dev = x.device
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    plan = _bwd_reduce_plan(B, H * W, C, num_groups, x.element_size(), aligned,
+                            _build.sm_count(dev))
+    lib = _build.load_library()
     scale = _vec(scale, (C,), dev)
     if film_scale is not None:
         film_scale = _vec(film_scale, (B, C), dev)
@@ -407,8 +511,8 @@ def _bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None, film_scale
             x.data_ptr(), dy.data_ptr(), scale.data_ptr(), ptr(film_scale),
             ptr(a) if swish else None, ptr(b) if swish else None, out.data_ptr(), scratch,
             counters.data_ptr() if counters is not None else None, B, H * W, C, num_groups,
-            float(eps), int(bool(swish)), plan["vec"], plan["span"], plan["n_blk"],
-            plan["threads"], plan["lanes_c"], plan["smem"], _DTYPE_CODE[x.dtype],
+            float(eps), int(bool(swish)), plan["vec"], plan["span"], plan["runs"],
+            plan["cluster"], plan["lanes_c"], plan["smem"], _DTYPE_CODE[x.dtype],
             _build.raw_stream(dev)), "ddnm_gn_bwd_reduce")
     LAUNCHES["gn_bwd_reduce"] += 1
     return out

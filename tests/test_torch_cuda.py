@@ -300,21 +300,33 @@ def _rel_err(got, want):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("shape,groups", [((2, 16, 16, 128), 32), ((8, 1, 1, 2048), 32),
-                                          ((2, 64, 64, 256), 32), ((3, 5, 7, 96), 32),
-                                          ((1, 32, 32, 512), 32)])
+@pytest.mark.parametrize("shape,groups,off", [
+    ((2, 16, 16, 128), 32, 0), ((8, 1, 1, 2048), 32, 0), ((2, 64, 64, 256), 32, 0),
+    ((3, 5, 7, 96), 32, 0), ((1, 32, 32, 512), 32, 0), ((1, 256, 256, 128), 32, 0),
+    ((1, 64, 64, 128), 32, 0), ((1, 33, 35, 96), 32, 0), ((1, 33, 35, 96), 32, 1),
+    ((2, 64, 64, 256), 32, 1)])
 @pytest.mark.parametrize("swish,film", [(False, False), (True, True), (True, False)])
-def test_group_norm_backward_kernels_match_plain(gen, dtype, tol, shape, groups, swish, film):
+def test_group_norm_backward_kernels_match_plain(gen, dtype, tol, shape, groups, off, swish,
+                                                 film):
     """gn_bwd_reduce and gn_bwd_dx each against its plain version (same
     bits on a second call: no float atomics), and the Function's dx
-    against autograd through the plain forward. (2, 64, 64, 256) is read
-    by several blocks an image; (8, 1, 1, 2048) is spatial_v2's 1 x 1 map."""
+    against autograd through the plain forward. (2, 64, 64, 256) and the
+    batch-1 classifier maps (1, 256, 256, 128) and (1, 64, 64, 128) (the
+    hq tile's) are read by several clusters an image; (1, 33, 35, 96) is
+    ragged; (8, 1, 1, 2048) is spatial_v2's 1 x 1 map. `off`: x and dy
+    start `off` elements past 16 bytes (views into a longer buffer)."""
     from ddnm_tpu_torch.ops.groupnorm import (
         GroupNormFunction, _bwd_dx, _bwd_reduce, _torch_bwd_dx, _torch_bwd_reduce)
 
     B, H, W, C = shape
-    x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
-    dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    n = B * H * W * C
+
+    def draw(scale, shift):
+        buf = torch.randn(n + off, device="cuda", generator=gen) * scale + shift
+        return buf.to(dtype)[off:].view(shape)
+
+    x, dy = draw(2, 0.5), draw(1, 0)
+    assert (x.data_ptr() % 16 == 0) == (off == 0) and x.is_contiguous()
     g, b = (torch.randn(C, device="cuda", generator=gen) for _ in range(2))
     fs = ft = None
     if film:
@@ -333,6 +345,42 @@ def test_group_norm_backward_kernels_match_plain(gen, dtype, tol, shape, groups,
     xp = x.clone().requires_grad_(True)
     _torch_group_norm(xp, g, b, groups, 1e-5, swish, fs, ft).backward(dy)
     assert _rel_err(xg.grad, xp.grad) <= (1e-3 if dtype == torch.float32 else 3e-2)
+
+
+def test_group_norm_backward_reduce_refuses_a_plan_it_cannot_run(gen):
+    """The reduce kernel's C entry checks the plan it is given and returns
+    cudaErrorInvalidValue (1), launching nothing, for a cluster size it
+    does not take, runs that are not whole clusters or more than the
+    pixels, channel lanes that are not a power of two, shared memory other
+    than its layout's, or several clusters without scratch."""
+    from ddnm_tpu_torch.ops import _build
+    from ddnm_tpu_torch.ops.groupnorm import _bwd_reduce_plan, _counters
+
+    B, H, W, C = 1, 128, 128, 128  # runs in several clusters: scratch and counters
+    x = torch.randn(B, H, W, C, device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.ones(C, device="cuda")
+    p = _bwd_reduce_plan(B, H * W, C, 32, 2, True, _build.sm_count(x.device))
+    assert p["clusters"] > 1
+    buf = torch.empty(3 * B * C + p["scratch"], device="cuda")
+    scratch, counters = buf.data_ptr() + 12 * B * C, _counters(x.device, p["counters"])
+    lib = _build.load_library()
+
+    def call(**kw):
+        q = {**p, "scratch_ptr": scratch, **kw}
+        return lib.ddnm_gn_bwd_reduce(
+            x.data_ptr(), x.data_ptr(), g.data_ptr(), None, None, None, buf.data_ptr(),
+            q["scratch_ptr"], counters.data_ptr(), B, H * W, C, 32, 1e-5, 0, q["vec"],
+            q["span"], q["runs"], q["cluster"], q["lanes_c"], q["smem"], 1,
+            _build.raw_stream(x.device))
+
+    assert call() == 0
+    bad = [dict(cluster=3), dict(cluster=16, runs=32), dict(runs=p["runs"] + 1),
+           dict(runs=8 * H * W, cluster=8), dict(lanes_c=24), dict(smem=p["smem"] + 4),
+           dict(scratch_ptr=None), dict(span=96)]
+    for kw in bad:
+        assert call(**kw) == 1, kw
+    torch.cuda.synchronize()
+    assert int(counters[:p["counters"]].abs().sum()) == 0  # left zero
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])

@@ -8,6 +8,7 @@ shape the wrappers admit (the hq path's ADM forwards and every classifier
 forward included, their shapes read off a forward on the meta device), and
 their refusals."""
 
+import functools
 import math
 from pathlib import Path
 
@@ -36,6 +37,7 @@ from ddnm_tpu_torch.ops.groupnorm import (
     _stats_affine,
     _stats_plan,
 )
+from ddnm_tpu_torch.ops.groupnorm import _torch_bwd_reduce
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 H100_SMS = 132
@@ -485,9 +487,11 @@ def test_classifier_shapes_are_found():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_plans_admit_every_classifier_shape(dtype):
     """For every GroupNorm and attention of every classifier forward, x on
-    or off 16 bytes: the backward reduce plan is the stats plan's blocks
-    with four sums (whole groups a span, its shared memory and scratch),
-    the dx pass takes the apply plan; the attention backward plan admits
+    or off 16 bytes: the backward reduce plan has its own grid (whole
+    groups a span, the whole pixel row at these widths, 256 threads, its
+    shared memory as the C entry computes it, clusters of at most 8 CTAs,
+    scratch and counters for its clusters), the dx pass takes the apply
+    plan; the attention backward plan admits
     the head and fits both kernels' shared memory: fp32 the FMA kernels,
     one block of 256 threads per 32 query rows (dq) and per 32 keys
     (dkdv); bf16 the tensor-core kernels, one block of 4 warps per 64 rows
@@ -498,19 +502,23 @@ def test_backward_plans_admit_every_classifier_shape(dtype):
             if key[0] == "gn":
                 B, H, W, C = key[1]
                 for aligned in (True, False):
-                    s = _stats_plan(B, H * W, C, 32, elem, aligned)
-                    p = _bwd_reduce_plan(B, H * W, C, 32, elem, aligned)
-                    span, vec = p["span"], p["vec"]
-                    assert {k: p[k] for k in ("vec", "span", "n_blk", "threads", "lanes_c",
-                                              "grid", "counters")} == {
-                        k: s[k] for k in ("vec", "span", "n_blk", "threads", "lanes_c", "grid",
-                                          "counters")}
-                    assert span % (C // 32) == 0 and C % span == 0
-                    # three per-group arrays (rstd, Bx, Cx), then the block counter
-                    assert p["smem"] == 4 * (4 * span + 4 * p["threads"] * vec
-                                             + 3 * span // (C // 32)) + 16
-                    assert p["smem"] <= SMEM_PER_BLOCK
-                    assert p["scratch"] == (4 * B * C * p["n_blk"] if p["n_blk"] > 1 else 0)
+                    p = _bwd_reduce_plan(B, H * W, C, 32, elem, aligned, H100_SMS)
+                    span, vec, lanes_c = p["span"], p["vec"], p["lanes_c"]
+                    assert span % (C // 32) == 0 and C % span == 0 and span % vec == 0
+                    assert span * elem >= 32  # a pixel's span: a 32-byte sector or more
+                    assert vec == (16 // elem if aligned else 1)
+                    assert p["threads"] == 256 and lanes_c & (lanes_c - 1) == 0
+                    # at or above span / vec, else slots of 256 lanes
+                    assert lanes_c == 256 or span // vec <= lanes_c < 2 * span // vec
+                    assert p["smem"] == _bwd_smem_bytes(span, vec, C // 32, elem)
+                    assert p["smem"] <= SMEM_PER_BLOCK // 2  # two blocks an SM
+                    runs, k = p["runs"], p["cluster"]
+                    assert k in (1, 2, 4, 8) and runs % k == 0 and k <= runs <= H * W
+                    assert p["grid"] == (runs, C // span, B) and p["clusters"] == runs // k
+                    assert p["clusters"] * k == runs and _blocks(p) <= 2 * H100_SMS  # one wave
+                    many = p["clusters"] > 1
+                    assert p["scratch"] == (4 * B * C * p["clusters"] if many else 0)
+                    assert p["counters"] == (B * (C // span) * k if many else 0)
                     a = _apply_plan(B, H * W, C, dtype, aligned, H100_SMS)
                     assert (a["blocks"] * a["threads"]) % a["cv"] == 0
             else:
@@ -524,6 +532,183 @@ def test_backward_plans_admit_every_classifier_shape(dtype):
                 assert p["dkdv"]["grid"] == (-(-T // rows), B)
                 for k in ("dq", "dkdv"):
                     assert 0 < p[k]["smem"] <= SMEM_PER_BLOCK
+
+
+def _bwd_smem_bytes(span: int, vec: int, cpg: int, elem: int) -> int:
+    """csrc/groupnorm.cu bwd_smem_bytes, written out: the block's sums
+    [4][span], gamma and film_scale [2][span], then the larger of the
+    16-byte path's ring (3 stages x 4 pixels x (x, dy) x 16 bytes x 256
+    threads = 96 KiB) and what overlays it: a work area of the larger of
+    every thread's sums [4][256 vec] and the finalised sums [4][span];
+    rstd, Bx, Cx per group [3][span / cpg]; a 16-byte flag."""
+    work = max(4 * 256 * vec, 4 * span)
+    tail = 4 * (work + 3 * (span // cpg)) + 16
+    return 24 * span + max(3 * 4 * 2 * 16 * 256 if vec * elem == 16 else 0, tail)
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_grad_shapes(name: str) -> tuple:
+    """The (B, H, W, C) of every GroupNorm backward of one classifier table."""
+    return tuple(sorted({k[1] for k in _classifier_grad_shapes()[name] if k[0] == "gn"}))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_reduce_plan_fills_the_card(batch, dtype):
+    """At every GroupNorm of the 256 px classifier's backward at batch 1
+    and 8: the plan wants a block per 8 KiB of x, one wave of two blocks
+    an SM at most (256 on 132 SMs). Where x makes that whole wave (the
+    plan's "enough work"), the grid holds at least one block per SM and at
+    most the wave, in clusters of 2; elsewhere at most twice the blocks it
+    wants, and one cluster an (image, span) at most, so no combine through
+    scratch. In bf16 the 256, 128, 64 and 32 px maps have the work at
+    batch 8, the 256 and 128 px maps at batch 1."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    filled = set()
+    for B, H, W, C in _gn_grad_shapes(f"cc256_b{batch}"):
+        p = _bwd_reduce_plan(B, H * W, C, 32, elem, True, H100_SMS)
+        blocks = _blocks(p)
+        nbytes, wave = B * H * W * C * elem, 2 * H100_SMS // 32 * 32
+        want = min(wave, max(1, nbytes // (8 << 10)))
+        assert p["enough_work"] == (nbytes // (8 << 10) >= 2 * H100_SMS)
+        if p["enough_work"]:
+            assert H100_SMS <= blocks <= wave and p["cluster"] == 2
+            filled.add((H, W))
+        else:  # channels, then one cluster of up to 8 runs: no scratch
+            assert blocks <= 2 * want and p["clusters"] == 1 and p["scratch"] == 0
+    bf16 = ({(256, 256), (128, 128), (64, 64), (32, 32)} if batch == 8
+            else {(256, 256), (128, 128)})
+    assert filled == bf16 if dtype == torch.bfloat16 else filled >= bf16  # fp32: twice the bytes
+
+
+def _reduce_coverage(B, HW, C, G, elem, aligned):
+    """A model of the reduce kernel's block -> (image, span, run, rank)
+    mapping and of each thread's loops (csrc/groupnorm.cu
+    gn_bwd_reduce_kernel, bwd_thread_sums: the ring's whole stages, then
+    guarded passes): how often each (image, pixel)
+    and each channel of a span is read, the groups each cluster rank
+    finalises, and the scratch and counter slots it touches."""
+    import numpy as np
+
+    p = _bwd_reduce_plan(B, HW, C, G, elem, aligned, H100_SMS)
+    span, vec, lanes_c, k = p["span"], p["vec"], p["lanes_c"], p["cluster"]
+    runs, n_span = p["runs"], C // span
+    lanes_p, U = 256 // lanes_c, 4
+    cpg, ng = C // G, span // (C // G)
+    # channels: slots of lanes_c vectors; thread lane tc reads VEC channels
+    width = lanes_c * vec
+    ch = np.zeros(span, dtype=np.int64)
+    for slot in range(-(-span // width)):
+        for tc in range(lanes_c):
+            cv = slot * lanes_c + tc
+            if cv * vec < span:
+                ch[cv * vec:(cv + 1) * vec] += 1
+    # pixels: runs of one (image, span), each thread's passes and tail
+    px = np.zeros((B, n_span, HW), dtype=np.int64)
+    finalised = np.zeros((B, n_span, ng), dtype=np.int64)
+    slots = set()
+    for b in range(B):
+        for s in range(n_span):
+            for run in range(runs):
+                lo, hi = run * HW // runs, (run + 1) * HW // runs
+                assert lo < hi  # no block without pixels
+                for tp in range(lanes_p):
+                    q = lo + tp
+                    if vec * elem == 16:  # the ring: whole stages of U pixels
+                        n_stage = (hi - q + lanes_p - 1) // lanes_p // U if q < hi else 0
+                        px[b, s, q:q + n_stage * U * lanes_p:lanes_p] += 1
+                        q += n_stage * U * lanes_p
+                    while q < hi:  # guarded passes of U pixels
+                        px[b, s, q:min(hi, q + U * lanes_p):lanes_p] += 1
+                        q += U * lanes_p
+                rank, cl = run % k, run // k
+                g_lo, g_hi = rank * ng // k, (rank + 1) * ng // k
+                if p["clusters"] > 1:
+                    bs = b * n_span + s
+                    slots.add(("counter", bs * k + rank))
+                    assert (bs * p["clusters"] + cl + 1) * 4 * span <= p["scratch"]
+                    if cl == p["clusters"] - 1:  # one of the ranks' last CTAs
+                        finalised[b, s, g_lo:g_hi] += 1
+                elif cl == 0:
+                    finalised[b, s, g_lo:g_hi] += 1
+    return p, ch, px, finalised, slots
+
+
+@pytest.mark.parametrize("shape", [(1, 33, 35, 96), (3, 5, 7, 96), (8, 1, 1, 2048),
+                                   (2, 64, 64, 256), (1, 1, 1, 32), (5, 17, 3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_reduce_plan_covers_every_pixel_once(shape, dtype):
+    """Ragged maps, 1 x 1 maps and one pixel, on and off 16 bytes: every
+    (image, pixel) is read by exactly one thread of one block and every
+    channel of a span by one channel lane of one slot; each group is
+    finalised by exactly one CTA; every counter and scratch slot lies in
+    what the wrapper allocates."""
+    B, H, W, C = shape
+    elem = torch.empty((), dtype=dtype).element_size()
+    for aligned in (True, False):
+        p, ch, px, fin, slots = _reduce_coverage(B, H * W, C, 32, elem, aligned)
+        assert (ch == 1).all() and (px == 1).all() and (fin == 1).all()
+        assert all(i < p["counters"] for _, i in slots)
+        assert len(slots) == (p["counters"] if p["clusters"] > 1 else 0)
+
+
+def test_backward_reduce_plan_covers_every_classifier_pixel_once():
+    """The same model at every GroupNorm of the 256 px classifier's
+    backward, batch 1 and 8, bf16 and fp32 (x on 16 bytes, as the
+    Function gives it)."""
+    for name in ("cc256_b1", "cc256_b8"):
+        for B, H, W, C in _gn_grad_shapes(name):
+            for elem in (2, 4):
+                p, ch, px, fin, slots = _reduce_coverage(B, H * W, C, 32, elem, True)
+                assert (ch == 1).all() and (px == 1).all() and (fin == 1).all()
+                assert all(i < p["counters"] for _, i in slots)
+
+
+@pytest.mark.parametrize("B,HW,C,G,err", [(2, 16, 100, 32, "divisible"),
+                                          (2, 16, 8192 * 2, 2, "C / G <="),
+                                          (0, 16, 64, 32, "B <="),
+                                          (65536, 16, 64, 32, "B <="),
+                                          (2, 0, 64, 32, "H\\*W >= 1")])
+def test_backward_reduce_plan_refuses_what_the_kernel_does_not_take(B, HW, C, G, err):
+    with pytest.raises(ValueError, match=err):
+        _bwd_reduce_plan(B, HW, C, G, 2)
+
+
+def test_backward_reduce_plan_model_sums_match_plain():
+    """The kernel's order of sums, modelled in float64 at a ragged shape
+    with several clusters (per-run sums, cluster ranks, the clusters'
+    scratch), folds to the plain version's coefficients; the layout of
+    such a launch sizes its scratch for the clusters."""
+    import numpy as np
+
+    from ddnm_tpu_torch.ops.groupnorm import _bwd_reduce_layout
+
+    B, H, W, C, G = 1, 33, 35, 96, 32
+    p = _bwd_reduce_layout(B, H * W, C, C // G, 4, 1, C, 12, 4)  # 3 clusters of 4
+    assert p["clusters"] == 3 and p["scratch"] == 4 * B * C * 3
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(B, H * W, C))
+    dy = rng.normal(size=(B, H * W, C))
+    g = rng.normal(size=C)
+    runs, k = p["runs"], p["cluster"]
+    per_run = [np.stack([x[0, lo:hi].sum(0), (x[0, lo:hi] ** 2).sum(0),
+                         dy[0, lo:hi].sum(0), (dy[0, lo:hi] * x[0, lo:hi]).sum(0)])
+               for lo, hi in ((r * H * W // runs, (r + 1) * H * W // runs)
+                              for r in range(runs))]
+    clusters = [sum(per_run[c * k:(c + 1) * k]) for c in range(runs // k)]
+    tot = sum(clusters)
+    cpg, n = C // G, H * W * (C // G)
+    grp = lambda v: v.reshape(G, cpg).sum(-1)
+    mean = grp(tot[0]) / n
+    rstd = 1 / np.sqrt(np.maximum(grp(tot[1]) / n - mean ** 2, 0) + 1e-5)
+    c1 = grp(g * tot[2]) / n
+    c2 = rstd * (grp(g * tot[3]) / n - mean * c1)
+    rep = lambda v: np.repeat(v, cpg)
+    model = np.stack([rep(rstd) * g, rep(-rstd * rstd * c2), rep(rstd * (mean * rstd * c2 - c1))])
+    t = lambda a: torch.from_numpy(a)
+    plain = _torch_bwd_reduce(t(x.reshape(B, H, W, C)), t(dy.reshape(B, H, W, C)), t(g), G,
+                              1e-5, False)
+    assert np.abs(plain[:, 0].numpy() - model).max() <= 1e-9 * max(1.0, np.abs(model).max())
 
 
 def test_backward_plans_at_the_classifier_heads():
