@@ -101,7 +101,33 @@ far it got. A failure in any phase raises.
      the classifier drawn (so that each GroupNorm and attention backward
      gets a non-zero dy, counted) against the same weights in fp32 with
      force="torch": the kernels in fp32, and in bf16 beside the bf16 plain
-     route's own distance.
+     route's own distance;
+ 15. the multistep solver and the encoder cache against the JAX package in
+     fp32 (tests/fixtures/toy_solver_golden.json,
+     tools/emit_torch_solver_golden.py): on toy_ddpm32.pt simplified
+     multistep at 6 and 10 steps, SVD multistep at 10 and the simplified
+     encoder cache at interval 3 (uniform and end_dense keys, 25 steps);
+     on toy_adm32.pt a 64 x 64 Mask-Shift canvas (tile 32, stride 16)
+     with posterior multistep at 6 NFE and the posterior encoder cache at
+     interval 3; each through the kernels and through the plain versions,
+     every image within 0.01 dB of JAX, launch counts exact (a key step the
+     full forward's GroupNorms and attentions, a decoder-only step the
+     decoder half's); the encoder cache at interval 1 equal to the exact
+     sampler bit for bit in both forms; flag_ddpm256.pt at 256 px, batch 2,
+     simplified multistep at 10 steps against
+     tests/fixtures/flag_multistep_golden.json as phase 4;
+ 16. the accelerators at full width, bf16, through the CLIs: main_torch on
+     configs/celeba_hq.yml with flag_ddpm256.pt (batch 8) with --solver
+     multistep --t_sampling 10, --encoder_cache 3 --encoder_cache_policy
+     end_dense and the exact runs at 100 and 10 steps (PSNR, images/s, max
+     |A(x) - y|);
+     hq_main_torch on one unguided inet256 tile with --solver multistep on
+     a respacing-10 config and --encoder_cache 3 on the 280-call schedule
+     (s per tile, model calls/s, decoder-only calls counted through the
+     launches); the guided configs/imagenet_256_cc.yml row with --solver
+     multistep --t_sampling 10 (every GroupNorm and attention backward with
+     a non-zero dy); a tile-granular resume round trip of the inet256 ADM
+     (stopped after the first tile group, resumed, equal bit for bit).
 
 Phase 3 also holds the four backward kernels (gn_bwd_reduce, gn_bwd_dx,
 attn_bwd_dq, attn_bwd_dkdv; no TPU counterpart) against their plain
@@ -128,7 +154,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-14 sets the launch counts to 0 just before each run it
+Each of phases 4-16 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after.
 
 The line before the last is the JSON summary of the kernels; the last line
@@ -1721,6 +1747,603 @@ def guided_full_width(n_gn_hq: int, n_attn_hq: int, n_gn_inet: int, n_attn_inet:
             launches_hq, launches_cc)
 
 
+# ------------------------------------------------------------ phases 15 and 16
+
+TOY_DDPM_PT = REPO / "tests" / "fixtures" / "toy_ddpm32.pt"
+SOLVER_GOLDEN = REPO / "tests" / "fixtures" / "toy_solver_golden.json"
+FLAG_MS_GOLDEN = REPO / "tests" / "fixtures" / "flag_multistep_golden.json"
+FLAG_MS_POOL8 = REPO / "tests" / "fixtures" / "flag_multistep_pool8.npy"
+SOLVER_PSNR_TOL = 0.01  # dB per image, fp32 on the card against the JAX package's fp32
+# the toy runs' 8 x 8-pooled outputs against the JAX golden: 7e-7 on the
+# CPU (tests/test_torch_accel.py); the gate leaves the card's other fp32
+# summation order room to grow at the encoder cache's high-noise steps,
+# where a cached eps does not follow x (the 9-tile chain's pixels differ by
+# up to 2e-4 between the two frameworks on the CPU)
+SOLVER_POOL8_TOL = 1e-3
+
+
+def toy_ddpm(device, proto: dict):
+    """The toy32 DDPM UNet of tests/fixtures/toy_ddpm32.pt, its arguments
+    from the solver golden's protocol."""
+    from ddnm_tpu_torch.models import DDPMUNet
+    from ddnm_tpu_torch.runner import load_checkpoint
+
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in proto["ddpm_kw"].items()}
+    model = DDPMUNet(**kw)
+    load_checkpoint(model, TOY_DDPM_PT)
+    return model.to(device).eval()
+
+
+def decoder_counts(model) -> tuple[int, int]:
+    """(GroupNorms, attentions) of a UNet's decoder half: what a cached step
+    of the encoder cache launches (the DDPM's up path and output norm, the
+    ADM's output blocks and head)."""
+    from ddnm_tpu_torch.models import DDPMUNet
+
+    parts = ((model.up, model.norm_out) if isinstance(model, DDPMUNet)
+             else (model.output_blocks, model.out))
+    counts = [module_counts(p) for p in parts]
+    return sum(c[0] for c in counts), sum(c[1] for c in counts)
+
+
+def key_step_counts(is_travel, interval: int, key_steps) -> tuple[int, int]:
+    """(key steps, cached steps) of one encoder-cache trajectory, as the
+    samplers place them (sampling/accel.py): a key step at every segment
+    start (a jump drops the cache) and where the predicate says so."""
+    from ddnm_tpu_torch.sampling.accel import _make_key_pred
+
+    is_key = _make_key_pred(interval, key_steps)
+    keys = cached = seg = glob = 0
+    for travel in np.asarray(is_travel, bool).tolist():
+        if travel:
+            seg = 0
+            continue
+        if seg == 0 or is_key(seg, glob):
+            keys += 1
+        else:
+            cached += 1
+        seg += 1
+        glob += 1
+    return keys, cached
+
+
+@contextlib.contextmanager
+def tile_pattern_init(pattern: torch.Tensor):
+    """Every fresh tile init of ddnm_tpu_torch.tiling drawn as `pattern`, as
+    the solver golden's JAX run draws it (its tile init patched alike)."""
+    from ddnm_tpu_torch import tiling
+
+    real = tiling.default_noise
+    tiling.default_noise = lambda gens, shape: pattern.expand(shape).clone()
+    try:
+        yield
+    finally:
+        tiling.default_noise = real
+
+
+def solver_golden_run(name: str, models: dict, device) -> dict:
+    """One run of the toy solver golden (tests/fixtures/toy_solver_golden.json,
+    tools/emit_torch_solver_golden.py) through the port on `device`:
+    models["ddpm"] (toy_ddpm32.pt) or models["adm"] (toy_adm32.pt), zero
+    noise. Returns the per-image PSNRs, the 8 x 8-pooled final x, the final
+    x, the seconds and the run's key and cached model calls."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.data.io import load_image
+    from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
+    from ddnm_tpu_torch.sampling import build_posterior_tables, build_schedule
+    from ddnm_tpu_torch.sampling import sample_simplified, sample_svd
+    from ddnm_tpu_torch.sampling.accel import (
+        ddpm_split_fns,
+        adm_split_fns,
+        key_steps_for_policy,
+        n_model_calls,
+        sample_simplified_encoder_prop,
+    )
+    from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
+    from ddnm_tpu_torch.tiling import mask_shift_sample, tile_grid
+
+    proto = json.loads(SOLVER_GOLDEN.read_text())["protocol"]
+    run = proto["runs"][name]
+    zero = lambda gens, shape: torch.zeros(shape, device=device)
+    interval = run.get("encoder_cache", 1)
+    t0 = time.perf_counter()
+    if run["model"] == "ddpm":
+        p, model = proto["ddpm"], models["ddpm"]
+        n, res = p["n_images"], p["res"]
+        paths = sorted((REPO / p["eval_dir"]).glob("*.png"))[:n]
+        gt = torch.from_numpy(np.stack([load_image(q) for q in paths]) * 2.0 - 1.0).to(device)
+        xt = np.random.RandomState(p["x_T_seed"]).randn(n, 3, res, res).astype(np.float32)
+        xt = torch.from_numpy(np.ascontiguousarray(xt.transpose(0, 2, 3, 1))).to(device)
+        betas = sch.get_beta_schedule("linear", beta_start=1e-4, beta_end=0.02,
+                                      num_diffusion_timesteps=1000).astype(np.float32)
+        sched = build_schedule(betas=betas, t_sampling=run["t_sampling"])
+        calls = n_model_calls(sched)
+        key_steps = None
+        if run.get("mode") == "svd":
+            op = build_svd_operator(p["deg"], channels=3, image_size=res,
+                                    deg_scale=p["deg_scale"], device=device)
+            x, _ = sample_svd(model, xt, op.A(_nhwc_to_vec(gt)), op, sched, [None] * n,
+                              noise_fn=zero, solver=run["solver"])
+        else:
+            op = build_functional_operator(p["deg"], image_size=res, deg_scale=p["deg_scale"],
+                                           device=device)
+            if interval > 1:
+                key_steps = key_steps_for_policy(calls, interval, run["policy"])
+                x, _ = sample_simplified_encoder_prop(
+                    *ddpm_split_fns(model), xt, op.A(gt), op, sched, [None] * n, eta=p["eta"],
+                    interval=interval, key_steps=key_steps, noise_fn=zero)
+            else:
+                x, _ = sample_simplified(model, xt, op.A(gt), op, sched, [None] * n,
+                                         noise_fn=zero, solver=run["solver"])
+        keys, cached = key_step_counts(sched.is_travel, interval, key_steps)
+    else:
+        p, model = proto["adm"], models["adm"]
+        img = load_image(sorted((REPO / "exp" / "datasets" / "natural64").glob("*.png"))[0])
+        gt = torch.from_numpy(img * 2.0 - 1.0)[None].to(device)
+        first = np.random.RandomState(p["first_init_seed"]).randn(1, 3, 32, 32).astype(np.float32)
+        first = np.ascontiguousarray(first.transpose(0, 2, 3, 1))
+        pattern = np.random.RandomState(p["tile_pattern_seed"]).randn(1, 32, 32, 3)
+        tables = build_posterior_tables(
+            betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+            timestep_respacing=run["timestep_respacing"],
+            schedule_jump_params=run["schedule_jump_params"])
+        kw = dict(solver=run["solver"]) if interval == 1 else dict(
+            encoder_cache=interval, encoder_cache_policy=run["policy"],
+            **dict(zip(("encode_fn", "decode_fn"), adm_split_fns(model))))
+        with tile_pattern_init(torch.from_numpy(pattern.astype(np.float32)).to(device)):
+            out = mask_shift_sample(lambda z, s: model(z, s), gt, p["deg"], tables, 0,
+                                    scale=p["scale"], noise_fn=zero, tile_init=p["tile_init"],
+                                    init_noise=first, tile=p["tile"], stride=p["stride"],
+                                    device=device, **kw)
+        x = torch.from_numpy(out["final"]).to(device)
+        n_tiles = len(tile_grid(64, 64, p["tile"], p["stride"]))
+        per_tile = key_step_counts(
+            tables.is_travel, interval,
+            key_steps_for_policy(n_model_calls(tables), interval, run.get("policy")))
+        keys, cached = (n_tiles * c for c in per_tile)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    to01 = lambda a: torch.clamp((a + 1) / 2, 0, 1)
+    psnrs = [float(10 * torch.log10(1 / ((to01(x[i]) - to01(gt[i])) ** 2).mean().clamp_min(1e-12)))
+             for i in range(len(x))]
+    pool = F.avg_pool2d(x.permute(0, 3, 1, 2), 8).permute(0, 2, 3, 1).cpu().numpy()
+    return {"psnr": psnrs, "pool8": pool, "x": x, "seconds": secs, "keys": keys,
+            "cached": cached}
+
+
+def solver_parity() -> dict:
+    """Phase 15: every run of the toy solver golden in fp32 through the
+    kernels and through the plain versions (force="torch"), each image
+    within SOLVER_PSNR_TOL of the JAX package's PSNR and its pooled output
+    within SOLVER_POOL8_TOL, launch counts exact (a key step the full
+    forward's GroupNorms and attentions, a cached step the decoder half's);
+    the encoder cache at interval 1 equal to the exact sampler bit for bit
+    in the simplified and the posterior form (stochastic noise, time
+    travel); the flag DDPM at 256 px, batch 2, simplified multistep at 10
+    steps against tests/fixtures/flag_multistep_golden.json (as phase 4)."""
+    from ddnm_tpu_torch.models.unet_ddpm import set_op_force
+    from ddnm_tpu_torch.sampling.accel import (
+        adm_split_fns,
+        ddpm_split_fns,
+        sample_posterior_encoder_prop,
+        sample_simplified_encoder_prop,
+    )
+
+    golden = json.loads(SOLVER_GOLDEN.read_text())
+    models = {"ddpm": toy_ddpm("cuda", golden["protocol"]["ddpm"]), "adm": toy_adm("cuda")}
+    full = {k: module_counts(m) for k, m in models.items()}
+    dec = {k: decoder_counts(m) for k, m in models.items()}
+    print(f"toy32 module counts (GroupNorm, attention): full forward {full}, decoder half "
+          f"{dec}", flush=True)
+    out = {"runs": {}, "module_counts": full, "decoder_counts": dec}
+    for name, run in golden["protocol"]["runs"].items():
+        ref = golden["runs"][name]
+        model = models[run["model"]]
+        res = {}
+        for mode in ("kernel", "torch"):
+            set_op_force(model, None if mode == "kernel" else "torch")
+            ops.reset_launch_counts()
+            r = solver_golden_run(name, models, "cuda")
+            r["launches"] = ops.launch_counts()
+            res[mode] = r
+        set_op_force(model, None)
+        r = res["kernel"]
+        (gf, af), (gd, ad) = full[run["model"]], dec[run["model"]]
+        want = expected_launches(gf * r["keys"] + gd * r["cached"],
+                                 af * r["keys"] + ad * r["cached"])
+        kvp = float((res["kernel"]["x"] - res["torch"]["x"]).abs().max())
+        row = {"keys": r["keys"], "cached": r["cached"], "kernel_vs_plain_max_abs": kvp,
+               "golden_psnr": ref["per_image_psnr"]}
+        for mode, rr in res.items():
+            pool_err = float(np.abs(rr["pool8"] - np.asarray(ref["pool8"], np.float32)).max())
+            row[mode] = {"psnr": rr["psnr"], "pool8_max_abs_vs_golden": pool_err,
+                         "seconds": rr["seconds"]}
+            print(f"{name:17s} fp32 {mode:6s}: PSNR {['%.4f' % v for v in rr['psnr']]} (JAX "
+                  f"{['%.4f' % v for v in ref['per_image_psnr']]}), pool8 vs golden "
+                  f"{pool_err:.2e}, {rr['seconds']:.2f} s", flush=True)
+            for got, exp in zip(rr["psnr"], ref["per_image_psnr"]):
+                if not abs(got - exp) <= SOLVER_PSNR_TOL:
+                    raise AssertionError(f"{name} {mode}: PSNR {got:.4f} vs JAX {exp:.4f}")
+            if not pool_err <= SOLVER_POOL8_TOL:
+                raise AssertionError(f"{name} {mode}: pooled output vs golden {pool_err:.3e}")
+        print(f"{name:17s} key calls {r['keys']}, decoder-only calls {r['cached']}; kernel vs "
+              f"plain max abs {kvp:.2e}; launches {r['launches']}", flush=True)
+        if r["launches"] != want:
+            raise AssertionError(f"{name}: launch counts {r['launches']} != {want}")
+        if any(res["torch"]["launches"].values()):
+            raise AssertionError(f"{name}: plain run launched kernels: "
+                                 f"{res['torch']['launches']}")
+        out["runs"][name] = row
+
+    # interval 1 is the exact sampler, bit for bit, on the card
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.operators import build_functional_operator
+    from ddnm_tpu_torch.sampling import build_posterior_tables, build_schedule
+    from ddnm_tpu_torch.sampling import sample_posterior, sample_simplified
+    from ddnm_tpu_torch.sampling.rng import STREAM_SAMPLE, image_generators
+
+    gens = lambda: image_generators(5, [0, 1], STREAM_SAMPLE, "cuda")
+    g = torch.Generator("cuda").manual_seed(3)
+    xt = torch.randn(2, 32, 32, 3, device="cuda", generator=g)
+    gt = torch.rand(2, 32, 32, 3, device="cuda", generator=g) * 2 - 1
+    op = build_functional_operator("sr_averagepooling", image_size=32, deg_scale=4.0,
+                                   device="cuda")
+    ddpm, adm = models["ddpm"], models["adm"]
+    betas = sch.get_beta_schedule("linear", beta_start=1e-4, beta_end=0.02,
+                                  num_diffusion_timesteps=1000).astype(np.float32)
+    sched = build_schedule(betas=betas, t_sampling=10, travel_length=2, travel_repeat=2)
+    exact = sample_simplified(ddpm, xt, op.A(gt), op, sched, gens())
+    cached = sample_simplified_encoder_prop(*ddpm_split_fns(ddpm), xt, op.A(gt), op, sched,
+                                            gens(), interval=1)
+    tables = build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True), timestep_respacing="12",
+        schedule_jump_params=dict(t_T=12, n_sample=1, jump_length=3, jump_n_sample=2))
+    apy = op.Ap(op.A(gt))
+    exact_p = sample_posterior(lambda z, s: adm(z, s), xt, apy, op, tables, gens())
+    cached_p = sample_posterior_encoder_prop(*adm_split_fns(adm), xt, apy, op, tables, gens(),
+                                             interval=1)
+    same = {"simplified": all(torch.equal(a, b) for a, b in zip(exact, cached)),
+            "posterior": all(torch.equal(a, b) for a, b in zip(exact_p, cached_p))}
+    print(f"encoder cache at interval 1 == the exact sampler, bit for bit: {same}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"interval 1 differs from the exact sampler: {same}")
+    out["interval_1_bit_equal"] = same
+    del models, ddpm, adm
+    out["flag"] = flag_multistep_parity()
+    return out
+
+
+def flag_multistep_parity() -> dict:
+    """The flag DDPM (tests/fixtures/flag_ddpm256.pt), 2 images of
+    exp/datasets/natural256, x_T from RandomState(42), zero noise, 4x
+    average-pooling SR, simplified multistep at 10 steps, fp32, through the
+    kernels and the plain versions, against the JAX package's golden
+    (tests/fixtures/flag_multistep_golden.json): each image within
+    SOLVER_PSNR_TOL, the pooled output within POOL8_TOL, kernel against
+    plain within 1e-3, launches exact."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.data.io import load_image
+    from ddnm_tpu_torch.models import DDPMUNet
+    from ddnm_tpu_torch.models.unet_ddpm import set_op_force
+    from ddnm_tpu_torch.operators import build_functional_operator
+    from ddnm_tpu_torch.runner import load_checkpoint
+    from ddnm_tpu_torch.sampling import build_schedule, sample_simplified
+
+    golden = json.loads(FLAG_MS_GOLDEN.read_text())
+    proto = golden["protocol"]
+    n, res, steps = proto["n_images"], proto["res"], proto["t_sampling"]
+    model = DDPMUNet(resolution=res)
+    load_checkpoint(model, FLAG_PT)
+    model = model.cuda().eval()
+    n_gn, n_attn = module_counts(model)
+    paths = sorted((REPO / proto["eval_dir"]).glob("*.png"))[:n]
+    gt = torch.from_numpy(np.stack([load_image(p) for p in paths]) * 2.0 - 1.0).cuda()
+    xt = np.random.RandomState(proto["x_T_seed"]).randn(n, 3, res, res).astype(np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(xt.transpose(0, 2, 3, 1))).cuda()
+    op = build_functional_operator(proto["deg"], image_size=res, deg_scale=proto["deg_scale"],
+                                   device="cuda")
+    betas = sch.get_beta_schedule("linear", beta_start=1e-4, beta_end=0.02,
+                                  num_diffusion_timesteps=1000).astype(np.float32)
+    sched = build_schedule(betas=betas, t_sampling=steps)
+    zero = lambda gens, shape: torch.zeros(shape, device="cuda")
+    ref_pool = np.load(FLAG_MS_POOL8)
+    to01 = lambda a: torch.clamp((a + 1) / 2, 0, 1)
+    out, xs = {}, {}
+    for mode in ("kernel", "torch"):
+        set_op_force(model, None if mode == "kernel" else "torch")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        x, _ = sample_simplified(model, xt, op.A(gt), op, sched, [None] * n, noise_fn=zero,
+                                 solver="multistep")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        psnrs = [float(10 * torch.log10(1 / ((to01(x[i]) - to01(gt[i])) ** 2).mean()))
+                 for i in range(n)]
+        pool = F.avg_pool2d(x.permute(0, 3, 1, 2), 8).permute(0, 2, 3, 1).cpu().numpy()
+        pool_err = float(np.abs(pool - ref_pool).max())
+        out[mode] = {"psnr": psnrs, "pool8_max_abs_vs_golden": pool_err, "seconds": secs,
+                     "launches": counts}
+        xs[mode] = x
+        print(f"flag multistep 10 fp32 {mode:6s}: PSNR {['%.4f' % p for p in psnrs]} (JAX "
+              f"{golden['per_image_psnr']}), pool8 vs golden {pool_err:.2e}, {secs:.2f} s, "
+              f"launches {counts}", flush=True)
+        for p, g in zip(psnrs, golden["per_image_psnr"]):
+            if not abs(p - g) <= SOLVER_PSNR_TOL:
+                raise AssertionError(f"flag multistep {mode}: PSNR {p:.4f} vs JAX {g:.4f}")
+        if not pool_err <= POOL8_TOL:
+            raise AssertionError(f"flag multistep {mode}: pooled output vs golden {pool_err}")
+    set_op_force(model, None)
+    out["kernel_vs_torch_max_abs"] = float((xs["kernel"] - xs["torch"]).abs().max())
+    if not out["kernel_vs_torch_max_abs"] <= 1e-3:
+        raise AssertionError(f"flag multistep: kernel vs plain {out['kernel_vs_torch_max_abs']}")
+    if out["kernel"]["launches"] != expected_launches(n_gn * steps, n_attn * steps):
+        raise AssertionError(f"flag multistep launch counts {out['kernel']['launches']}")
+    if any(out["torch"]["launches"].values()):
+        raise AssertionError(f"flag multistep: plain run launched {out['torch']['launches']}")
+    return out
+
+
+def _inet256_unguided(respacing10: bool = False) -> str:
+    """configs/hq/inet256.yml with classifier_scale 0 (the unguided
+    configuration), and with respacing10 the multistep budget: respacing 10
+    and no undo jumps (10 model calls a tile)."""
+    conf = INET256.read_text()
+    swaps = [("classifier_scale: 1.0", "classifier_scale: 0.0")]
+    if respacing10:
+        swaps += [('timestep_respacing: "100"', 'timestep_respacing: "10"'),
+                  ("t_T: 100\n  n_sample: 1\n  jump_length: 10\n  jump_n_sample: 3",
+                   "t_T: 10\n  n_sample: 1\n  jump_length: 1\n  jump_n_sample: 1")]
+    for old, new in swaps:
+        if conf.count(old) != 1:
+            raise AssertionError(f"configs/hq/inet256.yml: expected one {old!r}")
+        conf = conf.replace(old, new)
+    return conf
+
+
+def accel_full_width(counts: dict) -> tuple[dict, dict]:
+    """Phase 16: the accelerators at full width, bf16, through the CLIs.
+
+    `counts`: the module counts (GroupNorm, attention) of the forwards:
+    "ddpm", "ddpm_decoder", "hq", "hq_decoder", "inet", "classifier".
+
+    (a) main_torch on configs/celeba_hq.yml with flag_ddpm256.pt, simplified
+    4x SR of the 8 images of exp/datasets/celeba_hq at batch 8: --solver
+    multistep --t_sampling 10, --encoder_cache 3 --encoder_cache_policy
+    end_dense at 100 steps, and the exact runs at 100 and at 10 steps (the
+    regime split); PSNR, images/s in the sampler and end to end, max
+    |A(x) - y|, launches exact.
+    (b) hq_main_torch on configs/hq/inet256.yml, unguided, random weights
+    from seed 1234, one 256 px tile (4x SR of a 64 x 64 PNG with
+    --resize_y): --solver multistep on a respacing-10 config (10 calls) and
+    --encoder_cache 3 on the default 280-call schedule; s per tile, model
+    calls/s, decoder-only calls counted through the launches.
+    (c) main_torch on configs/imagenet_256_cc.yml --solver multistep
+    --t_sampling 10 --random_init (guided SVD multistep, batch 8), the
+    classifier's zero-initialised layers drawn too, so that every
+    GroupNorm and attention backward gets a non-zero dy (counted).
+    (d) a tile-granular --resume round trip of the inet256 ADM (bf16) on a
+    384 x 256 canvas (2 tiles, respacing 10, carry, zero noise): stopped by
+    a progress hook after the first tile group, then resumed; the canvas
+    equals the uninterrupted run's bit for bit.
+    Returns (stats, launches by run)."""
+    import hq_main_torch
+    import main_torch
+    import ddnm_tpu_torch.runner as runner_mod
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.config import load_config, load_hq_config
+    from ddnm_tpu_torch.data.io import load_image, save_image
+    from ddnm_tpu_torch.models import ADMClassifier
+    from ddnm_tpu_torch.sampling import build_posterior_tables, build_schedule
+    from ddnm_tpu_torch.sampling.accel import key_steps_for_policy, n_model_calls
+    from ddnm_tpu_torch.tiling import mask_shift_sample
+
+    stats, launches = {}, {}
+
+    def want(name, steps_or_keys, cached=0):
+        (g, a), (gd, ad) = counts[name], counts[name + "_decoder"]
+        return expected_launches(g * steps_or_keys + gd * cached, a * steps_or_keys + ad * cached)
+
+    # (a) the flag DDPM main path
+    cfg = load_config(REPO / "configs" / "celeba_hq.yml")
+    d, tt = cfg.diffusion, cfg.time_travel
+    betas = sch.get_beta_schedule(d.beta_schedule, beta_start=d.beta_start,
+                                  beta_end=d.beta_end,
+                                  num_diffusion_timesteps=d.num_diffusion_timesteps)
+    sched = build_schedule(betas=betas, t_sampling=tt.T_sampling,
+                           travel_length=tt.travel_length, travel_repeat=tt.travel_repeat)
+    ec_keys, ec_cached = key_step_counts(
+        sched.is_travel, 3, key_steps_for_policy(n_model_calls(sched), 3, "end_dense"))
+    runs = {"multistep_10": (["--solver", "multistep", "--t_sampling", "10"], want("ddpm", 10)),
+            "encoder_cache_3_end_dense": (["--encoder_cache", "3", "--encoder_cache_policy",
+                                           "end_dense"], want("ddpm", ec_keys, ec_cached)),
+            "exact_100": ([], want("ddpm", 100)),
+            # the reference update at the multistep budget: the regime split
+            "exact_10": (["--t_sampling", "10"], want("ddpm", 10))}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (flags, expect) in runs.items():
+            ops.reset_launch_counts()
+            r = main_torch.main([
+                "--config", str(REPO / "configs" / "celeba_hq.yml"), "--ckpt", str(FLAG_PT),
+                "--exp", str(REPO / "exp"), "--path_y", "celeba_hq", "--deg",
+                "sr_averagepooling", "--deg_scale", "4", "--sigma_y", "0", "--simplified",
+                "--dtype", "bfloat16", "--batch_size", "8", "-i", str(Path(tmp) / name), "--ni",
+                "--verbose", "warning", *flags])
+            launches[name] = ops.launch_counts()
+            n_png = len(list((Path(tmp) / name).glob("*_0.png")))
+            r = dict(r, sampler_images_per_second=r["num_samples"] / r["sample_seconds"])
+            stats[name] = r
+            print(f"flag main path {name:26s}: PSNR {r['avg_psnr']:.4f}, "
+                  f"{r['sampler_images_per_second']:.4f} images/s in the sampler "
+                  f"({r['sample_seconds']:.2f} s), {r['images_per_second']:.4f} end to end; "
+                  f"max |A(x) - y| {r['range_space_max_abs']:.3e}; launches "
+                  f"{launches[name]}", flush=True)
+            if r["num_samples"] != 8 or n_png != 8 or not np.isfinite(r["avg_psnr"]):
+                raise AssertionError(f"{name}: {r['num_samples']} images ({n_png} PNGs), "
+                                     f"PSNR {r['avg_psnr']}")
+            if not r["range_space_max_abs"] <= RANGE_SPACE_TOL:
+                raise AssertionError(f"{name}: max |A(x) - y| {r['range_space_max_abs']}")
+            if launches[name] != expect:
+                raise AssertionError(f"{name}: launch counts {launches[name]} != {expect}")
+    stats["encoder_cache_3_end_dense"].update(key_calls=ec_keys, decoder_only_calls=ec_cached)
+    rate = {k: stats[k]["sampler_images_per_second"] for k in runs}
+    print(f"flag main path, sampler images/s against the exact 100-step run: multistep 10 "
+          f"{rate['multistep_10'] / rate['exact_100']:.2f}x, the encoder cache "
+          f"{rate['encoder_cache_3_end_dense'] / rate['exact_100']:.2f}x ({ec_keys} full and "
+          f"{ec_cached} decoder-only calls); PSNR multistep 10 "
+          f"{stats['multistep_10']['avg_psnr'] - stats['exact_10']['avg_psnr']:+.2f} dB "
+          f"against the reference update at 10 steps, "
+          f"{stats['multistep_10']['avg_psnr'] - stats['exact_100']['avg_psnr']:+.2f} dB "
+          f"against it at 100", flush=True)
+
+    # (b) one inet256 hq tile
+    img = load_image(REPO / "exp" / "datasets" / "imagenet" / "00000.png")
+    small = img[:256, :256].reshape(64, 4, 64, 4, 3).mean(axis=(1, 3))
+    hq_cfg = load_hq_config(INET256)
+    tables = build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing=str(hq_cfg.timestep_respacing),
+        schedule_jump_params=dict(hq_cfg.schedule_jump_params))
+    hq_keys, hq_cached = key_step_counts(tables.is_travel, 3, None)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_image(small, tmp / "y64.png")
+        (tmp / "unguided.yml").write_text(_inet256_unguided())
+        (tmp / "unguided_r10.yml").write_text(_inet256_unguided(respacing10=True))
+        hq_runs = {"hq_multistep_10": ("unguided_r10.yml", ["--solver", "multistep"],
+                                       want("hq", 10), 10),
+                   "hq_encoder_cache_3": ("unguided.yml", ["--encoder_cache", "3"],
+                                          want("hq", hq_keys, hq_cached), hq_keys + hq_cached)}
+        for name, (conf, flags, expect, calls) in hq_runs.items():
+            ops.reset_launch_counts()
+            out = hq_main_torch.main([
+                "--config", str(tmp / conf), "--path_y", str(tmp / "y64.png"), "--deg",
+                "sr_averagepooling", "--scale", "4", "--resize_y", "--class", "0",
+                "--random_init", "--seed", "1234", "--dtype", "bfloat16",
+                "-i", str(tmp / name), *flags])
+            launches[name] = ops.launch_counts()
+            s = dict(out["stats"])
+            s["range_space_max_abs"] = float(np.abs(
+                out["final"].reshape(1, 64, 4, 64, 4, 3).mean(axis=(2, 4)) - out["y"]).max())
+            if name == "hq_encoder_cache_3":
+                s.update(key_calls=hq_keys, decoder_only_calls=hq_cached)
+            stats[name] = s
+            print(f"{name:19s} (inet256 ADM, bf16, one 256 px tile): {s['seconds_per_tile']:.2f} "
+                  f"s per tile, {s['model_calls_per_second']:.2f} model calls/s "
+                  f"({s['model_calls']} calls"
+                  + (f": {hq_keys} full, {hq_cached} decoder-only" if "encoder" in name else "")
+                  + f"); max |A(final) - y| {s['range_space_max_abs']:.3e}; launches "
+                  f"{launches[name]}", flush=True)
+            if (out["final"].shape != (1, 256, 256, 3) or not np.isfinite(out["final"]).all()
+                    or s["model_calls"] != calls):
+                raise AssertionError(f"{name}: shape {out['final'].shape}, {s['model_calls']} "
+                                     f"calls (expected {calls})")
+            if not s["range_space_max_abs"] <= 1e-4:
+                raise AssertionError(f"{name}: max |A(final) - y| {s['range_space_max_abs']}")
+            if launches[name] != expect:
+                raise AssertionError(f"{name}: launch counts {launches[name]} != {expect}")
+
+    # (c) the guided ImageNet-cc row with the multistep solver
+    real_init = runner_mod.init_like_flax
+
+    def draw_every_layer(model, seed):
+        if isinstance(model, ADMClassifier):
+            model.zero_init = ()
+        return real_init(model, seed)
+
+    steps = 10
+    (g_c, a_c) = counts["classifier"]
+    (g_i, a_i) = counts["inet"]
+    runner_mod.init_like_flax = draw_every_layer
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ops.reset_launch_counts()
+            box = {}
+            census = backward_dy_census(lambda: box.setdefault("r", main_torch.main([
+                "--config", str(IMAGENET_CC_CONFIG), "--random_init", "--exp",
+                str(REPO / "exp"), "--path_y", "imagenet", "--deg", "sr_averagepooling",
+                "--deg_scale", "4", "--sigma_y", "0", "--dtype", "bfloat16", "--batch_size",
+                "8", "--solver", "multistep", "--t_sampling", str(steps),
+                "-i", str(Path(tmp) / "cc"), "--ni", "--verbose", "warning"])))
+            launches["guided_cc_multistep_10"] = ops.launch_counts()
+            n_png = len(list((Path(tmp) / "cc").glob("*_0.png")))
+    finally:
+        runner_mod.init_like_flax = real_init
+    cc = dict(box["r"], sampler_images_per_second=box["r"]["num_samples"]
+              / box["r"]["sample_seconds"], nonzero_dy=census)
+    stats["guided_cc_multistep_10"] = cc
+    cc_want = expected_launches((g_i + g_c) * steps, (a_i + a_c) * steps, g_c * steps,
+                                a_c * steps)
+    print(f"guided ImageNet-cc multistep 10 (imagenet_256_cc, bf16, batch 8): "
+          f"{cc['num_samples']} images, {cc['sampler_images_per_second']:.4f} images/s in the "
+          f"sampler ({cc['sample_seconds']:.2f} s), {cc['images_per_second']:.4f} end to end; "
+          f"max |A(x) - y| {cc['range_space_max_abs']:.3e}; backward calls with non-zero dy "
+          f"{census}; launches {launches['guided_cc_multistep_10']}", flush=True)
+    if cc["num_samples"] != 8 or n_png != 8 or not np.isfinite(cc["avg_psnr"]):
+        raise AssertionError(f"guided cc multistep: {cc['num_samples']} images ({n_png} PNGs)")
+    if not cc["range_space_max_abs"] <= RANGE_SPACE_TOL:
+        raise AssertionError(f"guided cc multistep: max |A(x) - y| {cc['range_space_max_abs']}")
+    if launches["guided_cc_multistep_10"] != cc_want:
+        raise AssertionError(f"guided cc multistep launches "
+                             f"{launches['guided_cc_multistep_10']} != {cc_want}")
+    if census != {"groupnorm": [g_c * steps] * 2, "attention": [a_c * steps] * 2}:
+        raise AssertionError(f"guided cc multistep: non-zero dy in {census}")
+
+    # (d) the hq resume round trip on the card
+    quads = [load_image(REPO / "exp" / "datasets" / "imagenet" / f"0000{i}.png")[32:224]
+             for i in range(2)]
+    gt = (np.concatenate(quads, axis=0) * 2.0 - 1.0)[None]  # (1, 384, 256, 3)
+    model = hq_adm()
+    tables = build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True), timestep_respacing="10",
+        schedule_jump_params=dict(t_T=10, n_sample=1, jump_length=1, jump_n_sample=1))
+    label = torch.zeros(1, dtype=torch.long, device="cuda")
+    zero = lambda gens, shape: torch.zeros(shape, device="cuda")
+
+    class Stop(Exception):
+        pass
+
+    def run(ckpt=None, resume=False, stop=False):
+        seen = []
+
+        def progress(t, x0):
+            if stop and seen:
+                raise Stop
+            seen.append(t.index)
+
+        out = mask_shift_sample(lambda z, s: model(z, s, label.expand(len(z))), gt,
+                                "sr_averagepooling", tables, 1234, scale=4, noise_fn=zero,
+                                tile_init="carry", device="cuda", checkpoint_dir=ckpt,
+                                resume=resume, progress_fn=progress)
+        return out, seen
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        full, _ = run()
+        try:
+            run(ckpt=tmp, stop=True)
+            raise AssertionError("resume round trip: the progress hook did not stop the run")
+        except Stop:
+            pass
+        state = Path(tmp) / "mask_shift_state.npz"
+        saved = state.exists()
+        resumed, seen = run(ckpt=tmp, resume=True)
+        left = state.exists()
+        secs = time.perf_counter() - t0
+    equal = bool(np.array_equal(resumed["final"], full["final"]))
+    stats["hq_resume"] = {"state_written": saved, "tiles_after_resume": len(seen),
+                          "bit_equal": equal, "state_left": left, "seconds": secs}
+    print(f"hq resume round trip (inet256 ADM, bf16, 384 x 256, 2 tiles, carry): state "
+          f"written {saved}, {len(seen)} tile(s) run after the resume, canvas equal to the "
+          f"uninterrupted run bit for bit: {equal}; {secs:.2f} s", flush=True)
+    if not (saved and seen == [(1, 0)] and equal and not left):
+        raise AssertionError(f"hq resume round trip: {stats['hq_resume']}, tiles {seen}")
+    del model
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
 # ------------------------------------------------------------ phases 5 and 7
 
 
@@ -2054,6 +2677,25 @@ def main() -> int:
         guided, launches_ghq, launches_gcc = guided_full_width(n_gn_hq, n_attn_hq,
                                                                n_gn_inet, n_attn_inet)
 
+    with phase(15, "multistep and encoder-cache parity (toy32 and flag 256 px fp32 goldens)"):
+        solver = solver_parity()
+
+    with phase(16, "the accelerators at full width through the CLIs (bf16)"):
+        from hq_main_torch import build_adm_from_hq
+        from ddnm_tpu_torch.config import load_hq_config
+
+        with torch.device("meta"):
+            ddpm_meta = DDPMUNet(resolution=256)
+        adm_meta = build_adm_from_hq(load_hq_config(INET256), "meta")
+        counts = {"ddpm": (n_gn, n_attn), "ddpm_decoder": decoder_counts(ddpm_meta),
+                  "hq": (n_gn_hq, n_attn_hq), "hq_decoder": decoder_counts(adm_meta),
+                  "inet": (n_gn_inet, n_attn_inet),
+                  "classifier": (guided["classifier_modules"]["groupnorm"],
+                                 guided["classifier_modules"]["attention"])}
+        del ddpm_meta, adm_meta
+        print(f"module counts (GroupNorm, attention): {counts}", flush=True)
+        accel_stats, launches_accel = accel_full_width(counts)
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -2081,7 +2723,8 @@ def main() -> int:
                               "imagenet": launches_inet[kind],
                               "guided_toy32": guided_toy["kernel"]["launches"][kind],
                               "guided_hq": launches_ghq[kind],
-                              "guided_imagenet_cc": launches_gcc[kind]},
+                              "guided_imagenet_cc": launches_gcc[kind],
+                              **{run: counts_[kind] for run, counts_ in launches_accel.items()}},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
          "device_ms": per_forward[kind].get("device_ms"),
          "plain_ms": per_forward[kind]["plain_ms"],
@@ -2098,7 +2741,8 @@ def main() -> int:
                                           else "attn_bwd")] for name in clf_tables}}
             if kind in BACKWARD else {})}
         for kind in SOURCES], "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
-        "guided_toy32": guided_toy, "guided": guided}
+        "guided_toy32": guided_toy, "guided": guided, "solver_parity": solver,
+        "accelerators": accel_stats}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,13 @@ JAX package are hand-written CUDA kernels here (`csrc/`, bound in `ops/`).
 This package imports torch and numpy only (never jax, flax, ddnm_tpu, yaml,
 PIL or tqdm), so it runs on a machine that has nothing else.
 
-Ported so far: the simplified DDNM+ path (`main_torch.py --simplified`) on
-the DDPM UNet. Other paths of the JAX package raise NotImplementedError.
+Ported: the main runner in both modes on the DDPM and ADM UNets
+(`main_torch.py`, `evaluation_torch.py`), the hq Mask-Shift pipeline
+(`hq_main_torch.py`), classifier guidance, the multistep solver
+(`sampling/solvers.py`), the encoder cache (`sampling/accel.py`) and the
+hq CLI's tile-granular `--resume`. Still raising NotImplementedError: the
+LSUN lmdb and CelebA attribute datasets and multi-device runs (`mesh`,
+`--sp` / `--dp`); serving and the bench are absent.
 """
 
 from ddnm_tpu_torch.runtime import resolve_device

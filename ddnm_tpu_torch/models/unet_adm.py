@@ -35,8 +35,11 @@ in fp32 under a bf16 classifier (the positional embedding, the spatial
 pools' Linears and norm, the adaptive pool's 1x1 conv) keep fp32 weights
 under `cast_torso` (`keep_fp32`).
 
-Not ported here: the split forward of the encoder cache (`mode="encode"`
-/ `"decode"`), which raises.
+`forward(..., mode="encode")` returns the encoder cache of the encoder
+propagation (sampling/accel.py): (h, skips) after the middle block;
+`mode="decode", cache=(h, skips)` runs the output blocks and the head on a
+copy of the skips with a fresh time (and label) embedding, x giving only
+its dtype. `mode="full"` runs both halves through the same code.
 """
 
 from __future__ import annotations
@@ -384,18 +387,25 @@ class ADMUNet(_ADMTorso):
     def forward(self, x, timesteps, y=None, *, mode: str = "full", cache=None):
         if mode not in ("full", "encode", "decode"):
             raise ValueError(f"mode must be 'full', 'encode' or 'decode', got {mode!r}")
-        if mode != "full":
-            raise NotImplementedError(
-                f"mode={mode!r} (the encoder cache) is not ported yet (ROADMAP.md "
-                "Queue 1 D: solvers and acceleration)")
+        if mode == "decode" and cache is None:
+            raise ValueError("mode='decode' requires cache=(h, skips)")
         emb = self._embed(timesteps)
         if self.num_classes is not None:
             if y is None:
                 raise ValueError("class-conditional model needs labels")
             emb = emb + self.label_emb(y)
 
-        orig_dtype = x.dtype
+        if mode == "decode":
+            # a copy: the output blocks pop it, and the cache serves many steps
+            return self._decode(cache[0], list(cache[1]), emb, x.dtype)
         h, hs = self._torso(x.to(self.dtype).permute(0, 3, 1, 2), emb)
+        if mode == "encode":
+            return h, tuple(hs)
+        return self._decode(h, hs, emb, x.dtype)
+
+    def _decode(self, h, hs: list, emb, orig_dtype):
+        """The output blocks, consuming the skip list `hs`, and the head:
+        NHWC fp32 out."""
         for block in self.output_blocks:
             h = torch.cat([h, hs.pop().to(h.dtype)], dim=1)
             for layer in block:

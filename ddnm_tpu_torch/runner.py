@@ -16,10 +16,14 @@ from --classifier_ckpt, or from the seed under --random_init (otherwise
 FileNotFoundError); with --simplified the classifier is built and not used,
 as JAX does.
 
-Paths of the JAX runner that are not ported yet raise
-NotImplementedError: the multistep solver and the encoder cache. A run uses
-the one device given by `device`; the JAX runner's sharding over several
-devices is not ported.
+`--solver multistep` runs the second-order deterministic solver in both
+modes (noise-free tasks only: with sigma_y or --add_noise it raises
+ValueError, as JAX does). `--encoder_cache N > 1` runs the simplified mode
+through the encoder propagation (sampling/accel.py) with the model's
+split halves and `--encoder_cache_policy`; in SVD mode it has no effect
+(the exact sampler runs, as in the JAX runner, and a log line says so).
+A run uses the one device given by `device`; the JAX runner's sharding
+over several devices is not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +56,13 @@ from ddnm_tpu_torch.models.unet_adm import init_like_flax
 from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
 from ddnm_tpu_torch.runtime import resolve_device
 from ddnm_tpu_torch.sampling import build_schedule, sample_simplified, sample_svd
+from ddnm_tpu_torch.sampling.accel import (
+    adm_split_fns,
+    ddpm_split_fns,
+    key_steps_for_policy,
+    n_model_calls,
+    sample_simplified_encoder_prop,
+)
 from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
 from ddnm_tpu_torch.sampling.rng import (
     STREAM_INIT,
@@ -97,8 +108,9 @@ class RunArgs:
     manifest: Optional[str] = None  # ImageNet (filename class) manifest
     max_images: Optional[int] = None
     resume: bool = False  # skip images whose output PNG already exists
-    solver: str = "ddim"
-    encoder_cache: int = 1  # > 1 is not ported: raises
+    solver: str = "ddim"  # ddim | multistep
+    encoder_cache: int = 1  # > 1: the encoder propagation's interval
+    encoder_cache_policy: str = "uniform"  # uniform | end_dense
     device: str = "cuda"
 
 
@@ -123,14 +135,6 @@ class Runner:
             raise ValueError(
                 "--solver multistep does not compose with --encoder_cache (the "
                 "encoder-propagation sampler is DDIM-only); drop one of the two")
-        if args.solver == "multistep":
-            raise NotImplementedError(
-                "--solver multistep is not ported yet (ROADMAP.md Queue 1, later "
-                "slice D: solvers and acceleration)")
-        if args.encoder_cache > 1:
-            raise NotImplementedError(
-                "--encoder_cache is not ported yet (ROADMAP.md Queue 1, later "
-                "slice D: solvers and acceleration)")
         if args.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be float32 or bfloat16, got {args.dtype!r}")
         self.args = args
@@ -221,6 +225,19 @@ class Runner:
             return model
         return lambda x, t: model(x, t, torch.full((x.shape[0],), GUIDED_CLASS,
                                                    dtype=torch.long, device=x.device))
+
+    def _encoder_key_steps(self):
+        """key_steps of --encoder_cache_policy (None: the uniform interval)."""
+        return key_steps_for_policy(n_model_calls(self.sched), self.args.encoder_cache,
+                                    self.args.encoder_cache_policy)
+
+    def _split_fns(self, model):
+        """(encode_fn, decode_fn) of --encoder_cache: the DDPM UNet's halves,
+        or the ADM's mode="encode" / "decode" forwards with the label
+        GUIDED_CLASS where the model is class-conditional."""
+        if self.config.model.type == "simple":
+            return ddpm_split_fns(model)
+        return adm_split_fns(model, label=GUIDED_CLASS if self.config.model.class_cond else None)
 
     # -------------------------------------------------------------- operators
     def _mask(self) -> np.ndarray:
@@ -323,6 +340,13 @@ class Runner:
         logger.info("dataset size %d, batch size %d, device %s, dtype %s",
                     len(dataset), self.batch_size, dev, args.dtype)
         sigma_y = 2.0 * args.sigma_y  # [0,1] -> [-1,1] domain, as the reference
+        if args.encoder_cache > 1 and args.simplified:
+            encode_fn, decode_fn = self._split_fns(model)
+            key_steps = self._encoder_key_steps()
+        elif args.encoder_cache > 1:
+            logger.info("--encoder_cache %d has no effect in SVD mode: the exact sampler "
+                        "runs (the encoder propagation is simplified-mode only)",
+                        args.encoder_cache)
 
         out_dir = Path(args.image_folder)
         (out_dir / "Apy").mkdir(parents=True, exist_ok=True)
@@ -351,10 +375,16 @@ class Runner:
                     y = self._measurement_noise(operator.A(x_orig), idxs, sigma_y)
                     apy = operator.Ap(y)
                     t0 = time.perf_counter()
-                    x, _ = sample_simplified(
-                        model_fn, x_init, y, operator, self.sched, gens,
-                        eta=args.eta, sigma_y=sigma_y, solver=args.solver,
-                    )
+                    if args.encoder_cache > 1:
+                        x, _ = sample_simplified_encoder_prop(
+                            encode_fn, decode_fn, x_init, y, operator, self.sched, gens,
+                            eta=args.eta, sigma_y=sigma_y, interval=args.encoder_cache,
+                            key_steps=key_steps)
+                    else:
+                        x, _ = sample_simplified(
+                            model_fn, x_init, y, operator, self.sched, gens,
+                            eta=args.eta, sigma_y=sigma_y, solver=args.solver,
+                        )
                 else:
                     y = self._measurement_noise(operator.A(_nhwc_to_vec(x_orig)), idxs,
                                                 sigma_y)

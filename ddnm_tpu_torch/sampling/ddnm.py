@@ -19,7 +19,9 @@ The JAX package's host loop becomes an eager Python loop over the static
 schedule. Per-step scalars live on the device from the start, so the loop
 never waits for the card and kernels queue ahead.
 
-The multistep solver is a later slice.
+`solver="multistep"` runs the second-order deterministic solver of
+sampling/solvers.py (noise-free only: sigma_y != 0 raises ValueError, as
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -128,8 +130,22 @@ def sample_simplified(
     draws `noise_fn(gens, x.shape)`, travel steps included, as the JAX
     sampler does. `sigma_y` is the *scaled* measurement noise (the runner
     doubles the CLI value for the [-1, 1] domain). `op_ctx`: a runtime
-    operator context (e.g. a per-image mask) for A_ctx / Ap_ctx."""
-    _multistep_not_ported(solver)
+    operator context (e.g. a per-image mask) for A_ctx / Ap_ctx.
+
+    `solver`: "ddim" (the reference's first-order update) or "multistep"
+    (second-order, deterministic, noise-free only; `eta` is ignored;
+    sampling/solvers.py)."""
+    if solver == "multistep":
+        from ddnm_tpu_torch.sampling.solvers import sample_simplified_multistep
+
+        if sigma_y != 0.0:
+            raise ValueError(
+                "solver='multistep' is deterministic and supports noise-free DDNM "
+                "only (sigma_y == 0); the noisy DDNM+ gamma_t noise injection is "
+                "tied to the DDIM kernel")
+        return sample_simplified_multistep(model_fn, x_init, y, operator, sched, gens,
+                                           noise_fn=noise_fn, op_ctx=op_ctx)
+    _check_solver(solver)
     if op_ctx is not None and not operator.has_ctx:
         raise ValueError(
             f"operator {operator.name!r} has no A_ctx/Ap_ctx forms; "
@@ -144,12 +160,7 @@ def sample_simplified(
     return _drive(step, x_init, sched, gens, noise_fn)
 
 
-def _multistep_not_ported(solver: str) -> None:
-    if solver == "multistep":
-        raise NotImplementedError(
-            "solver='multistep' is not ported yet (ROADMAP.md Queue 1, later "
-            "slice D: solvers and acceleration)"
-        )
+def _check_solver(solver: str) -> None:
     if solver != "ddim":
         raise ValueError(f"unknown solver {solver!r} (ddim | multistep)")
 
@@ -161,12 +172,7 @@ def _drive(step, x_init, sched: DDNMSchedule, gens, noise_fn):
     `step(x, t_f[B], at, at_next, noise) -> (x_next, x0_pred)`."""
     dev = x_init.device
     n = x_init.shape[0]
-    abar = torch.as_tensor(sched.alpha_bar, dtype=torch.float32, device=dev)
-    t_cur = torch.as_tensor(sched.t_cur.astype(np.int64), device=dev)
-    t_next = torch.as_tensor(sched.t_next.astype(np.int64), device=dev)
-    at_all = abar[t_cur + 1]
-    at_next_all = abar[t_next + 1]
-    t_f_all = t_cur.float()
+    t_f_all, at_all, at_next_all = _step_scalars(sched, dev)
 
     x, x0_pred = x_init, torch.zeros_like(x_init)
     for i, travel in enumerate(sched.is_travel.tolist()):
@@ -176,6 +182,14 @@ def _drive(step, x_init, sched: DDNMSchedule, gens, noise_fn):
         else:
             x, x0_pred = step(x, t_f_all[i].expand(n), at_all[i], at_next_all[i], noise)
     return x, x0_pred
+
+
+def _step_scalars(sched: DDNMSchedule, device):
+    """Every step's device scalars, fp32: (t_i, alpha_bar_i, alpha_bar_j)."""
+    abar = torch.as_tensor(sched.alpha_bar, dtype=torch.float32, device=device)
+    t_cur = torch.as_tensor(sched.t_cur.astype(np.int64), device=device)
+    t_next = torch.as_tensor(sched.t_next.astype(np.int64), device=device)
+    return t_cur.float(), abar[t_cur + 1], abar[t_next + 1]
 
 
 def _nhwc_to_vec(x: torch.Tensor) -> torch.Tensor:
@@ -242,8 +256,16 @@ def sample_svd(
     before the loop. `guidance_fn(x, t, at) -> grad log p(y|x)` applies
     classifier guidance as et <- et - sqrt(1 - at) * g, conditioned on the
     current state as the JAX package does. `gens`, `noise_fn`: as in
-    sample_simplified."""
-    _multistep_not_ported(solver)
+    sample_simplified. `solver`: as in sample_simplified."""
+    if solver == "multistep":
+        from ddnm_tpu_torch.sampling.solvers import sample_svd_multistep
+
+        if sigma_y != 0.0:
+            raise ValueError("solver='multistep' is deterministic and supports "
+                             "noise-free DDNM only (sigma_y == 0)")
+        return sample_svd_multistep(model_fn, x_init, y, operator, sched, gens,
+                                    noise_fn=noise_fn, guidance_fn=guidance_fn)
+    _check_solver(solver)
     y_spec = operator.prepare_measurement(y)
 
     def step(x, t_f, at, at_next, noise):

@@ -18,10 +18,12 @@ from the host (`_host_step` / `_host_undo`), chosen by
 `_resolve_posterior_loop`. Here one eager Python loop over the static
 schedule does both jobs, as `sample_svd` does: the per-step scalars live on
 the device from the start, so the loop never waits for the card. There is
-no counterpart of `_run_scan` or `_resolve_posterior_loop`. The multistep
-solver is a later slice. `guidance_fn` is the classifier-guidance hook
-(models/unet_adm.py `classifier_guidance_fn`), which takes its gradient
-under `torch.enable_grad()` inside this `torch.no_grad()` loop.
+no counterpart of `_run_scan` or `_resolve_posterior_loop`.
+`solver="multistep"` runs the second-order deterministic solver
+(sampling/solvers.py `sample_posterior_multistep`, noise-free tables only).
+`guidance_fn` is the classifier-guidance hook (models/unet_adm.py
+`classifier_guidance_fn`), which takes its gradient under
+`torch.enable_grad()` inside this `torch.no_grad()` loop.
 """
 
 from __future__ import annotations
@@ -150,20 +152,16 @@ def build_posterior_tables(
     )
 
 
-def n_model_calls(tables: PosteriorTables) -> int:
-    """Model calls per trajectory: its non-travel steps."""
-    return int(np.sum(~np.asarray(tables.is_travel, bool)))
+def n_model_calls(tables) -> int:
+    """Model calls per trajectory: its non-travel steps. Takes the tables
+    (or any schedule with `is_travel`) or the `is_travel` array itself, the
+    key-step domain of the encoder cache (sampling/accel.py)."""
+    return int(np.sum(~np.asarray(getattr(tables, "is_travel", tables), bool)))
 
 
-def _posterior_update(operator, guidance_fn, clip_denoised, x, apy, paste_mask,
-                      paste_content, noise, out, t_b, s):
-    """The posterior DDNM step given the model output `out` (B, H, W, 2C);
-    `s` holds this step's 0-dim fp32 tensors (sqrt_recip, sqrt_recipm1,
-    lam, coef1, coef2, gamma, and `noise_scale` = nonzero * sqrt(gamma))
-    and the operator context `op_ctx`."""
-    c = x.shape[-1]
-    eps = out[..., :c]
-
+def _x0_hat(operator, clip_denoised, x, apy, paste_mask, paste_content, eps, s):
+    """The projected and pasted x0 of a posterior step, given eps; `s` as in
+    _posterior_update."""
     x0_t = s["sqrt_recip"] * x - s["sqrt_recipm1"] * eps
     if clip_denoised:
         x0_t = torch.clamp(x0_t, -1.0, 1.0)
@@ -178,7 +176,17 @@ def _posterior_update(operator, guidance_fn, clip_denoised, x, apy, paste_mask,
     # Mask-Shift paste: overlap strips come from the solved canvas
     if paste_mask is not None:
         x0_hat = paste_mask * paste_content + (1.0 - paste_mask) * x0_hat
+    return x0_hat
 
+
+def _posterior_update(operator, guidance_fn, clip_denoised, x, apy, paste_mask,
+                      paste_content, noise, out, t_b, s):
+    """The posterior DDNM step given the model output `out` (B, H, W, 2C);
+    `s` holds this step's 0-dim fp32 tensors (sqrt_recip, sqrt_recipm1,
+    lam, coef1, coef2, gamma, and `noise_scale` = nonzero * sqrt(gamma))
+    and the operator context `op_ctx`."""
+    x0_hat = _x0_hat(operator, clip_denoised, x, apy, paste_mask, paste_content,
+                     out[..., :x.shape[-1]], s)
     mean = s["coef1"] * x0_hat + s["coef2"] * x
     if guidance_fn is not None:
         mean = mean + s["gamma"] * guidance_fn(x, t_b)
@@ -218,6 +226,15 @@ class _DeviceTables:
         return self.undo_keep[i], self.undo_noise[i]
 
 
+def _check_sampler_args(operator, paste_mask, paste_content, op_ctx) -> None:
+    if (paste_mask is None) != (paste_content is None):
+        raise ValueError("paste_mask and paste_content go together")
+    if op_ctx is not None and not getattr(operator, "has_ctx", False):
+        name = getattr(operator, "name", type(operator).__name__)
+        raise ValueError(f"operator {name!r} has no A_ctx/Ap_ctx forms; op_ctx requires a "
+                         "context-parameterised operator")
+
+
 @torch.no_grad()
 def sample_posterior(
     model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
@@ -246,18 +263,19 @@ def sample_posterior(
     returns grad log p(y|x) * scale, added to the mean times gamma_t.
     `paste_mask` / `paste_content`: the Mask-Shift blend of each tile.
     `op_ctx`: the runtime operator context (a per-image mask) of a
-    context-parameterised operator."""
+    context-parameterised operator. `solver`: "ddim" (the reference's
+    stochastic posterior transition) or "multistep" (second-order,
+    deterministic, noise-free tables only; sampling/solvers.py)."""
     if solver == "multistep":
-        raise NotImplementedError(
-            "solver='multistep' is not ported yet (ROADMAP.md Queue 1 D: solvers "
-            "and acceleration)")
+        from ddnm_tpu_torch.sampling.solvers import sample_posterior_multistep
+
+        return sample_posterior_multistep(
+            model_fn, x_init, apy, operator, tables, gens, paste_mask=paste_mask,
+            paste_content=paste_content, guidance_fn=guidance_fn,
+            clip_denoised=clip_denoised, noise_fn=noise_fn, op_ctx=op_ctx)
     if solver != "ddim":
         raise ValueError(f"unknown solver {solver!r} (ddim | multistep)")
-    if (paste_mask is None) != (paste_content is None):
-        raise ValueError("paste_mask and paste_content go together")
-    if op_ctx is not None and not operator.has_ctx:
-        raise ValueError(f"operator {operator.name!r} has no A_ctx/Ap_ctx forms; "
-                         "op_ctx requires a context-parameterised operator")
+    _check_sampler_args(operator, paste_mask, paste_content, op_ctx)
     dev = x_init.device
     n = x_init.shape[0]
     tb = _DeviceTables(tables, dev)

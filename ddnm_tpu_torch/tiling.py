@@ -25,16 +25,25 @@ draws what it draws sequentially. The JAX package pads a wavefront group of
 4-7 tiles to 8 so that one compiled executable serves every width; an
 eager run has no executable to reuse, so groups run at their own size.
 
-Not ported yet (raise NotImplementedError): `mesh` (ROADMAP.md Queue 1 F),
-`encoder_cache > 1` and `solver="multistep"` (Queue 1 D), and the
-tile-granular `checkpoint_dir` / `resume` (Queue 1 C, the hq CLI's rest).
+`solver="multistep"` runs each tile group through the second-order
+solver (sampling/solvers.py; tiles start fresh unless `tile_init` says
+otherwise), and `encoder_cache > 1` through the encoder propagation
+(sampling/accel.py) with the caller's `encode_fn` / `decode_fn`. With a
+`checkpoint_dir` the canvas, the finished tiles and the carried state are
+written after every group (`mask_shift_state.npz`, atomically), so that a
+run restarted with `resume=True` and the same inputs goes on at the next
+group; a state file of another run is ignored with a warning, and the file
+is deleted when the run completes. `mesh` (sharded tiles, ROADMAP.md
+Queue 1 F) raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 from itertools import groupby
+from pathlib import Path
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -50,6 +59,7 @@ from ddnm_tpu_torch.operators.functional import (
     mean_upsample,
 )
 from ddnm_tpu_torch.runtime import resolve_device
+from ddnm_tpu_torch.sampling.accel import key_steps_for_policy, sample_posterior_encoder_prop
 from ddnm_tpu_torch.sampling.posterior import PosteriorTables, n_model_calls, sample_posterior
 from ddnm_tpu_torch.sampling.rng import (
     STREAM_INIT,
@@ -190,22 +200,33 @@ def _plan_groups(tiles: Sequence[Tile], group_size: int = GROUP_SIZE,
     return groups
 
 
-def _not_ported(mesh=None, encoder_cache: int = 1, solver: str = "ddim",
-                checkpoint_dir=None, resume: bool = False) -> None:
+def _not_ported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh (sharded tiles) is not ported yet (ROADMAP.md "
                                   "Queue 1 F: multi-device and serving)")
+
+
+def _check_accel(encoder_cache: int, encode_fn, decode_fn, solver: str) -> None:
+    """The JAX package's refusals of the encoder cache's misuse."""
+    if encoder_cache > 1 and (encode_fn is None or decode_fn is None):
+        raise ValueError("encoder_cache > 1 requires encode_fn and decode_fn")
+    if solver != "ddim" and encoder_cache > 1:
+        raise ValueError(
+            "solver='multistep' does not compose with encoder_cache > 1 "
+            "(the encoder-prop sampler is bound to the ddim posterior step)")
+
+
+def _sample_group(model_fn, x_init, apy, op, tables, gens, *, encoder_cache: int,
+                  encoder_cache_policy: str, encode_fn, decode_fn, solver: str, **kw):
+    """One sampler call on a batch of tiles: the encoder propagation where
+    encoder_cache > 1, else sample_posterior with `solver`."""
     if encoder_cache > 1:
-        raise NotImplementedError("encoder_cache > 1 is not ported yet (ROADMAP.md "
-                                  "Queue 1 D: solvers and acceleration)")
-    if solver == "multistep":
-        raise NotImplementedError("solver='multistep' is not ported yet (ROADMAP.md "
-                                  "Queue 1 D: solvers and acceleration)")
-    if solver != "ddim":
-        raise ValueError(f"unknown solver {solver!r} (ddim | multistep)")
-    if checkpoint_dir is not None or resume:
-        raise NotImplementedError("checkpoint_dir / resume are not ported yet "
-                                  "(ROADMAP.md Queue 1 C: the rest of the hq CLI)")
+        key_steps = key_steps_for_policy(n_model_calls(tables), encoder_cache,
+                                         encoder_cache_policy)
+        return sample_posterior_encoder_prop(encode_fn, decode_fn, x_init, apy, op, tables,
+                                             gens, interval=encoder_cache,
+                                             key_steps=key_steps, **kw)
+    return sample_posterior(model_fn, x_init, apy, op, tables, gens, solver=solver, **kw)
 
 
 def _device(x, device) -> torch.device:
@@ -247,6 +268,9 @@ def batched_tile_sample(
     device=None,
     mesh=None,
     encoder_cache: int = 1,
+    encoder_cache_policy: str = "uniform",
+    encode_fn=None,
+    decode_fn=None,
     solver: str = "ddim",
 ) -> dict:
     """B single-tile (tile x tile) restorations in one sampler call.
@@ -256,8 +280,10 @@ def batched_tile_sample(
     its sampler noise from the generators of its tile (0, 0), so grouping
     changes throughput only. `masks[i]`: image i's (H, W[, 1]) keep-mask for
     the mask tasks, its op_ctx. Raises ValueError for a canvas that is not
-    one tile (callers then run mask_shift_sample per image)."""
-    _not_ported(mesh, encoder_cache, solver)
+    one tile (callers then run mask_shift_sample per image). `solver`,
+    `encoder_cache`, `encoder_cache_policy`, `encode_fn`, `decode_fn`: as
+    in mask_shift_sample."""
+    _not_ported(mesh)
     dev = _device(gts, device)
     gts = _images(gts, dev)
     n = int(gts.shape[0])
@@ -272,6 +298,7 @@ def batched_tile_sample(
         raise ValueError(
             f"batched_tile_sample needs single-tile {tile}x{tile} canvases, "
             f"got {tuple(gts.shape[1:3])}: use mask_shift_sample per image")
+    _check_accel(encoder_cache, encode_fn, decode_fn, solver)
 
     if deg in ("inpainting", "mask_color_sr"):
         if masks is None or len(masks) != n:
@@ -294,9 +321,12 @@ def batched_tile_sample(
     # single tiles paste nothing; passed explicitly, as mask_shift_sample's
     # step does
     paste_mask = torch.zeros((n, tile, tile, 1), device=dev)
-    _, x0_b = sample_posterior(model_fn, x_init, apy, op, tables, gens,
-                               paste_mask=paste_mask, paste_content=torch.zeros_like(gts),
-                               guidance_fn=guidance_fn, noise_fn=noise_fn, op_ctx=ctx_b)
+    _, x0_b = _sample_group(model_fn, x_init, apy, op, tables, gens,
+                            encoder_cache=encoder_cache,
+                            encoder_cache_policy=encoder_cache_policy, encode_fn=encode_fn,
+                            decode_fn=decode_fn, solver=solver, paste_mask=paste_mask,
+                            paste_content=torch.zeros_like(gts), guidance_fn=guidance_fn,
+                            noise_fn=noise_fn, op_ctx=ctx_b)
     return {"final": _numpy(x0_b), "apy": _numpy(apy), "y": _numpy(y)}
 
 
@@ -322,8 +352,12 @@ def mask_shift_sample(
     device=None,
     mesh=None,
     encoder_cache: int = 1,
+    encoder_cache_policy: str = "uniform",
+    encode_fn=None,
+    decode_fn=None,
     checkpoint_dir=None,
     resume: bool = False,
+    resume_salt=None,
     solver: str = "ddim",
 ) -> dict:
     """Restore an arbitrary-size image with Mask-Shift DDNM.
@@ -337,12 +371,30 @@ def mask_shift_sample(
     (module docstring). `tile_init`: "carry" (the sequential default, the
     reference's: every tile after the first starts from the previous tile's
     final state) or "fresh" (each tile from its own noise; the wavefront
-    default, and its only choice). `init_noise`: an optional (1, tile,
-    tile, 3) init of the first tile. `progress_fn(tile, x0_hat)` is called
-    after each tile."""
-    _not_ported(mesh, encoder_cache, solver, checkpoint_dir, resume)
+    default, and its only choice). Left None it is "carry" for the
+    sequential ddim sampler and "fresh" otherwise: the deterministic
+    multistep solver needs each tile's init at the chain's top noise level,
+    where the carried state is nearly clean (the JAX package measured ~9 dB
+    lost at low NFE). `init_noise`: an optional (1, tile, tile, 3) init of
+    the first tile. `progress_fn(tile, x0_hat)` is called after each tile.
+
+    `solver`: "ddim" or "multistep" (sample_posterior). `encoder_cache >
+    1` reuses the UNet's encoder features across that many model calls of
+    each tile (sampling/accel.py; approximate), with `encode_fn(x, t)` /
+    `decode_fn(cache, x, t)` (`adm_split_fns`) and `encoder_cache_policy`
+    "uniform" or "end_dense" (`key_steps_for_policy`).
+
+    `checkpoint_dir`: write the canvas, the finished tiles and, in carry
+    order, the carried state after every group, so that an interrupted
+    run restarts at tile granularity with `resume=True` (module
+    docstring). The state carries a SHA-256 identity of the run: the
+    geometry, the flags, `seed`, `image_index`, the image, the mask,
+    `init_noise`, every table and `resume_salt` (what the caller knows of
+    the run and this layer does not, e.g. a class label)."""
+    _not_ported(mesh)
+    _check_accel(encoder_cache, encode_fn, decode_fn, solver)
     if tile_init is None:
-        tile_init = "fresh" if parallel else "carry"
+        tile_init = "fresh" if (parallel or solver != "ddim") else "carry"
     if tile_init not in ("carry", "fresh"):
         raise ValueError(f"tile_init must be 'carry' or 'fresh', got {tile_init!r}")
     if tile_init == "carry" and parallel:
@@ -379,7 +431,43 @@ def mask_shift_sample(
     if init_noise is not None:
         first_init = _images(init_noise, dev).reshape(1, tile, tile, 3)
     carry_x = first_init if tile_init == "carry" else None
+
+    done: set = set()
+    ckpt = None
+    if checkpoint_dir is not None:
+        ckpt = Path(checkpoint_dir) / "mask_shift_state.npz"
+        ckpt.parent.mkdir(parents=True, exist_ok=True)
+        flags = (h_target, w_target, tile, stride, parallel, tile_init, deg, scale, resize_y,
+                 encoder_cache, encoder_cache_policy, solver, seed, image_index, resume_salt)
+        arrays = [_numpy(gt), None if mask is None else _numpy(as_mask(mask, "cpu")),
+                  None if first_init is None else _numpy(first_init)]
+        arrays += [getattr(tables, f.name) for f in dataclasses.fields(tables)]
+        meta = _run_identity(flags, arrays)
+        if resume and ckpt.exists():
+            with np.load(ckpt) as f:
+                state = dict(f)
+            if np.array_equal(state["meta"], meta):
+                canvas = torch.from_numpy(state["canvas"]).to(dev)
+                done = set(map(tuple, state["done"].tolist()))
+                if tile_init == "carry" and "carry_x" in state:
+                    carry_x = torch.from_numpy(state["carry_x"]).to(dev)
+                logger.info("resume: %d/%d tiles already done", len(done), len(tiles))
+            else:
+                logger.warning("resume: checkpoint %s is from another run (input, seed, "
+                               "flags or schedule differ): starting afresh", ckpt)
+
+    def save_state():
+        arrays = dict(meta=meta, canvas=_numpy(canvas),
+                      done=np.asarray(sorted(done), dtype=np.int64).reshape(-1, 2))
+        if tile_init == "carry" and carry_x is not None:
+            arrays["carry_x"] = _numpy(carry_x)
+        tmp = ckpt.with_suffix(".tmp.npz")
+        np.savez(tmp, **arrays)
+        tmp.replace(ckpt)  # atomic: never a torn state file
+
     for group in groups:
+        if done and all(t.index in done for t in group):
+            continue
         apy_b = torch.cat([window(apy, t) for t in group])
         mask_b = torch.stack([paste[t.index] for t in group])
         content_b = torch.cat([window(canvas, t) for t in group])
@@ -391,14 +479,30 @@ def mask_shift_sample(
             x_init_b = torch.cat([
                 first_init if (t.index == (0, 0) and first_init is not None)
                 else _tile_init(seed, image_index, t, dev) for t in group])
-        x_b, x0_b = sample_posterior(
+        x_b, x0_b = _sample_group(
             model_fn, x_init_b, apy_b, op, tables, [samp_gens[t.index] for t in group],
-            paste_mask=mask_b, paste_content=content_b, guidance_fn=guidance_fn,
-            noise_fn=noise_fn, op_ctx=ctx_b)
+            encoder_cache=encoder_cache, encoder_cache_policy=encoder_cache_policy,
+            encode_fn=encode_fn, decode_fn=decode_fn, solver=solver, paste_mask=mask_b,
+            paste_content=content_b, guidance_fn=guidance_fn, noise_fn=noise_fn,
+            op_ctx=ctx_b)
         if tile_init == "carry":
             carry_x = x_b
         for i, t in enumerate(group):
             window(canvas, t).copy_(x0_b[i:i + 1])
             if progress_fn is not None:
                 progress_fn(t, _numpy(x0_b[i:i + 1]))
+        if ckpt is not None:
+            done.update(t.index for t in group)
+            save_state()
+    if ckpt is not None and ckpt.exists():
+        ckpt.unlink()  # the run completed: never replay this state
     return {"final": _numpy(canvas), "apy": _numpy(apy), "y": _numpy(y_temp)}
+
+
+def _run_identity(flags: tuple, arrays: list) -> np.ndarray:
+    """SHA-256 of a Mask-Shift run: repr(flags) and the bytes of every array
+    (None for one that is absent), as uint8."""
+    h = hashlib.sha256(repr(flags).encode())
+    for a in arrays:
+        h.update(b"none" if a is None else np.ascontiguousarray(np.asarray(a)).tobytes())
+    return np.frombuffer(h.digest(), dtype=np.uint8)

@@ -16,8 +16,12 @@ the config's image_size and the stride half of it. Example on the card:
       --deg sr_averagepooling --scale 4 --resize_y --class 950 \\
       --random_init --dtype bfloat16 -i exp/hq_out_torch
 
-Not ported yet (each raises NotImplementedError): --solver multistep,
---encoder_cache > 1, --sp / --dp > 1 and --resume.
+--solver multistep (second-order, noise-free; set a short respacing in
+the config), --encoder_cache N [--encoder_cache_policy end_dense] (the
+ADM's encoder features reused across N model calls of a tile) and
+--resume (the canvas checkpointed under the tiles folder after every tile
+group; a restart with the same flags goes on at the next group) run as in
+hq_main.py. --sp / --dp > 1 (the device mesh) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -75,12 +79,20 @@ def parse_args(argv=None):
                    help="start every tile from its own noise instead of the reference's "
                         "carried state")
     p.add_argument("--solver", type=str, default="ddim", choices=["ddim", "multistep"],
-                   help="multistep is not ported yet: raises")
+                   help="posterior transition: ddim (the reference's stochastic update) "
+                        "or multistep (second-order, deterministic, noise-free only; for "
+                        "respacing budgets of ~10 calls)")
     p.add_argument("--encoder_cache", type=int, default=1,
-                   help="> 1 is not ported yet: raises")
+                   help="> 1: reuse the UNet's encoder features across this many model "
+                        "calls of a tile (approximate)")
+    p.add_argument("--encoder_cache_policy", type=str, default="uniform",
+                   choices=["uniform", "end_dense"],
+                   help="key-step placement of --encoder_cache")
     p.add_argument("--sp", type=int, default=1, help="> 1 is not ported yet: raises")
     p.add_argument("--dp", type=int, default=1, help="> 1 is not ported yet: raises")
-    p.add_argument("--resume", action="store_true", help="not ported yet: raises")
+    p.add_argument("--resume", action="store_true",
+                   help="checkpoint the canvas after every tile group under the tiles "
+                        "folder of -i and go on from there (same seed and flags)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a card) or cpu")
     return p.parse_args(argv)
@@ -139,19 +151,10 @@ def build_classifier_from_hq(conf, device="cpu"):
         )
 
 
-def _not_ported(ns, conf):
-    if ns.solver == "multistep":
-        raise NotImplementedError("--solver multistep is not ported yet (ROADMAP.md "
-                                  "Queue 1 D: solvers and acceleration)")
-    if ns.encoder_cache > 1:
-        raise NotImplementedError("--encoder_cache > 1 is not ported yet (ROADMAP.md "
-                                  "Queue 1 D: solvers and acceleration)")
+def _not_ported(ns):
     if ns.sp > 1 or ns.dp > 1:
         raise NotImplementedError("--sp / --dp > 1 (the device mesh) are not ported yet "
                                   "(ROADMAP.md Queue 1 F: multi-device and serving)")
-    if ns.resume:
-        raise NotImplementedError("--resume is not ported yet (ROADMAP.md Queue 1 C: the "
-                                  "rest of the hq CLI)")
 
 
 def main(argv=None):
@@ -170,6 +173,7 @@ def main(argv=None):
     from ddnm_tpu_torch.models.unet_adm import init_like_flax
     from ddnm_tpu_torch.runner import load_checkpoint
     from ddnm_tpu_torch.runtime import resolve_device
+    from ddnm_tpu_torch.sampling.accel import adm_split_fns
     from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, n_model_calls
     from ddnm_tpu_torch.schedules import named_beta_schedule
     from ddnm_tpu_torch.tiling import batched_tile_sample, mask_shift_sample
@@ -179,7 +183,7 @@ def main(argv=None):
     if not cfg_path.exists():
         cfg_path = REPO_ROOT / ns.config
     conf = load_hq_config(cfg_path)
-    _not_ported(ns, conf)
+    _not_ported(ns)
 
     size = int(conf.image_size or 256)
     tile, stride = size, size // 2  # the model's native tile, 2:1 overlap
@@ -209,6 +213,9 @@ def main(argv=None):
 
         def model_fn(x, t):
             return model(x, t)
+
+    # the encoder cache's halves (mode="encode" / "decode"), built once
+    encode_fn, decode_fn = adm_split_fns(model, label=label)
 
     # classifier guidance (hq_main.py:241-262): its weights from the seed of
     # the model's under --random_init, as the JAX CLI draws both from one key
@@ -248,9 +255,15 @@ def main(argv=None):
             torch.cuda.synchronize(dev)
 
     tiles_done = []
+    accel = dict(solver=ns.solver, encoder_cache=ns.encoder_cache,
+                 encoder_cache_policy=ns.encoder_cache_policy, encode_fn=encode_fn,
+                 decode_fn=decode_fn)
+    # what tells a run apart beyond the tiling's own inputs (hq_main.py:347)
+    base_salt = (ns.class_label, float(conf.classifier_scale or 0), ns.sigma_y, ns.dtype)
 
-    def run_one(gt, mask, image_index, tiles_dir):
-        """One Mask-Shift restoration; the tiling output dict."""
+    def run_one(gt, mask, image_index, tiles_dir, salt):
+        """One Mask-Shift restoration; the tiling output dict. With
+        --resume the state lives in `tiles_dir`."""
         tiles_dir.mkdir(parents=True, exist_ok=True)
 
         def progress(t, x0_np):
@@ -262,7 +275,8 @@ def main(argv=None):
             model_fn, gt, ns.deg, tables, ns.seed, image_index=image_index,
             scale=ns.scale, resize_y=ns.resize_y, mask=mask, parallel=ns.parallel_tiles,
             progress_fn=progress, tile_init=tile_init, tile=tile, stride=stride,
-            guidance_fn=guidance_fn, device=dev)
+            guidance_fn=guidance_fn, device=dev, checkpoint_dir=tiles_dir if ns.resume else None,
+            resume=ns.resume, resume_salt=salt, **accel)
 
     # --- sweep mode (conf-declared eval dataset or --gt_path) -------------
     # an explicit --path_y always means single-image mode
@@ -304,9 +318,9 @@ def main(argv=None):
             logger.info("[%d/%d] %s PSNR %.2f SSIM %.3f", idx + 1, len(pairs), name, p, s)
 
         sweep_batch = max(1, int(ns.sweep_batch))
-        if sweep_batch > 1 and (ns.resize_y or pair_size != tile):
-            logger.warning("--sweep_batch needs single-tile %dpx canvases: falling back "
-                           "to the per-image sweep", tile)
+        if sweep_batch > 1 and (ns.resize_y or pair_size != tile or ns.resume):
+            logger.warning("--sweep_batch needs single-tile %dpx canvases and no --resume: "
+                           "falling back to the per-image sweep", tile)
             sweep_batch = 1
         items = list(pairs)
         t0 = time.perf_counter()
@@ -317,10 +331,11 @@ def main(argv=None):
                 out = batched_tile_sample(
                     model_fn, np.stack([it["GT"] for it in chunk]), ns.deg, tables,
                     ns.seed, range(c0, c0 + len(chunk)), scale=ns.scale, masks=masks,
-                    tile=tile, guidance_fn=guidance_fn, device=dev)
+                    tile=tile, guidance_fn=guidance_fn, device=dev, **accel)
             else:
+                name = chunk[0]["GT_name"]
                 out = run_one(chunk[0]["GT"][None], masks[0], c0,
-                              out_dir / "tiles" / Path(chunk[0]["GT_name"]).stem)
+                              out_dir / "tiles" / Path(name).stem, base_salt + (name,))
             for i, it in enumerate(chunk):
                 write_outputs(c0 + i, it["GT_name"], it["GT"], masks[i],
                               out["final"][i], out["apy"][i])
@@ -337,7 +352,7 @@ def main(argv=None):
     gt = (load_image(ns.path_y) * 2.0 - 1.0)[None]
     mask = load_mask(ns.mask_path) if ns.mask_path else None
     t0 = time.perf_counter()
-    out = run_one(gt, mask, 0, out_dir / "tiles")
+    out = run_one(gt, mask, 0, out_dir / "tiles", base_salt)
     sync()
     wall = time.perf_counter() - t0
     save_image(to01(out["final"][0]), out_dir / "final.png")

@@ -19,6 +19,10 @@ of level 2 * sigma_y. Examples at full width on the card:
   python main_torch.py --config configs/imagenet_256.yml --path_y imagenet \
       --deg sr_averagepooling --deg_scale 4 --random_init --dtype bfloat16 \
       -i demo_inet --ni
+
+--solver multistep (with --t_sampling 10, say) and --encoder_cache 3
+[--encoder_cache_policy end_dense] are the JAX package's two opt-in
+accelerators.
 """
 
 from __future__ import annotations
@@ -71,9 +75,19 @@ def parse_args(argv=None):
     p.add_argument("--mask_path", type=str, default=None)
     p.add_argument("--manifest", type=str, default=None, help="imagenet manifest txt")
     p.add_argument("--max_images", type=int, default=None)
-    p.add_argument("--solver", type=str, default="ddim", choices=["ddim", "multistep"])
+    p.add_argument("--solver", type=str, default="ddim", choices=["ddim", "multistep"],
+                   help="ddim: the reference's first-order update (the quality choice "
+                        "at 25+ steps); multistep: second-order and deterministic, "
+                        "noise-free tasks only, for budgets of ~10 steps (set "
+                        "--t_sampling)")
     p.add_argument("--encoder_cache", type=int, default=1,
-                   help="encoder-propagation interval (> 1 is not ported yet: raises)")
+                   help="encoder-propagation interval: > 1 reuses the UNet's encoder "
+                        "features across that many model calls (approximate; "
+                        "--simplified only, no effect in SVD mode)")
+    p.add_argument("--encoder_cache_policy", type=str, default="uniform",
+                   choices=["uniform", "end_dense"],
+                   help="key-step placement of --encoder_cache: every N-th call, or an "
+                        "exact tail and a spread head at the same budget")
     p.add_argument("--resume", action="store_true",
                    help="skip images whose outputs already exist")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -122,7 +136,8 @@ def main(argv=None):
         classifier_ckpt=ns.classifier_ckpt, random_init=ns.random_init,
         batch_size=ns.batch_size, dtype=ns.dtype, mask_path=ns.mask_path,
         max_images=ns.max_images, resume=ns.resume, solver=ns.solver,
-        encoder_cache=ns.encoder_cache, device=ns.device,
+        encoder_cache=ns.encoder_cache, encoder_cache_policy=ns.encoder_cache_policy,
+        device=ns.device,
     )
     return Runner(args, config).run()
 

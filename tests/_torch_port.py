@@ -4,6 +4,8 @@ committed fixture."""
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -98,3 +100,77 @@ def write_toy_cc_config(path):
     """TOY_CC_CONFIG written to `path`; returns the path."""
     path.write_text(TOY_CC_CONFIG)
     return path
+
+
+def linear_gaussian(res: int = 8, v: float = 0.25, n: int = 2):
+    """The analytic probability-flow case of tests/test_solvers.py on both
+    sides: Gaussian data N(0, v), whose exact eps predictor is
+    sqrt(1 - abar) x / (abar v + 1 - abar), through a zero-mask inpainting
+    operator (A = A+ = 0: the projection vanishes). Returns (betas, JAX
+    model_fn, port model_fn, JAX operator, port operator, x_init NHWC numpy)."""
+    import jax.numpy as jnp
+
+    from ddnm_tpu import schedules as jsch
+    from ddnm_tpu.operators import build_functional_operator as j_build_op
+    from ddnm_tpu_torch.operators import build_functional_operator
+
+    betas = jsch.get_beta_schedule("linear", beta_start=1e-4, beta_end=2e-2,
+                                   num_diffusion_timesteps=1000)
+    table = np.asarray(jsch.alpha_bar_table(betas), np.float32)
+    jtable = jnp.asarray(table)
+    ttable = torch.from_numpy(table)
+
+    def j_model(x, t):
+        ab = jtable[t.astype(jnp.int32) + 1].reshape(-1, 1, 1, 1)
+        return jnp.sqrt(1.0 - ab) * x / (ab * v + 1.0 - ab)
+
+    def t_model(x, t):
+        ab = ttable[t.long() + 1].reshape(-1, 1, 1, 1)
+        return torch.sqrt(1.0 - ab) * x / (ab * v + 1.0 - ab)
+
+    zero = np.zeros((res, res), np.int64)
+    x_init = np.random.RandomState(3).randn(n, res, res, 3).astype(np.float32)
+    return (betas, j_model, t_model, j_build_op("inpainting", image_size=res, mask=zero),
+            build_functional_operator("inpainting", image_size=res, mask=zero), x_init)
+
+
+def shared_noise(monkeypatch, res: int = 32, seed: int = 3) -> np.ndarray:
+    """Make every standard-normal draw of both frameworks return one fixed
+    (res, res, 3) pattern per image (jax.random.normal and torch.randn
+    patched): the CLIs' x_T, tile inits and sampler noise then agree
+    between the JAX package and the port, whose generators cannot
+    reproduce each other's bits. Returns the pattern."""
+    import jax
+    import jax.numpy as jnp
+
+    pattern = np.random.RandomState(seed).randn(res, res, 3).astype(np.float32)
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32:
+                        jnp.broadcast_to(jnp.asarray(pattern, dtype), shape))
+
+    def randn(*size, generator=None, device=None, dtype=None, **_):
+        if len(size) == 1 and isinstance(size[0], (tuple, list, torch.Size)):
+            size = size[0]
+        return torch.from_numpy(pattern).expand(tuple(size)).to(
+            device=device or "cpu", dtype=dtype or torch.float32).clone()
+
+    monkeypatch.setattr(torch, "randn", randn)
+    return pattern
+
+
+def main_pair(tmp_path, monkeypatch, flags: list) -> tuple[dict, dict]:
+    """main_torch (--device cpu) and the JAX package's main.py in process on
+    configs/toy32.yml with toy_ddpm32.pt: simplified 4x average-pooling SR
+    of 2 images of exp/datasets/toy32, `flags` appended, under
+    `shared_noise`. Returns (port stats, JAX stats)."""
+    import main as j_main
+    import main_torch
+
+    repo = Path(__file__).resolve().parents[1]
+    shared_noise(monkeypatch)
+    common = ["--config", "configs/toy32.yml", "--exp", str(repo / "exp"), "--path_y", "toy32",
+              "--deg", "sr_averagepooling", "--simplified",
+              "--ckpt", str(repo / "tests" / "fixtures" / "toy_ddpm32.pt"),
+              "--max_images", "2", "--batch_size", "2", "--ni", "--verbose", "warning", *flags]
+    ours = main_torch.main(common + ["-i", str(tmp_path / "port"), "--device", "cpu"])
+    ref = j_main.main(common + ["-i", str(tmp_path / "jax")])
+    return ours, ref

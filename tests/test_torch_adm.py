@@ -210,11 +210,17 @@ def test_attention_gets_contiguous_tokens(monkeypatch, n):
 
 
 def test_split_forward_and_missing_labels_raise():
+    """The split forward (the encoder cache's, tests/test_torch_accel.py)
+    runs; a decoder-only call without a cache, an unknown mode and a
+    class-conditional call without labels raise ValueError, as in JAX."""
     model = _toy()
     x = torch.zeros(1, 32, 32, 3)
     t = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="encoder cache"):
-        model(x, t, mode="encode")
+    with torch.no_grad():
+        h, skips = model(x, t, mode="encode")
+        assert torch.equal(model(x, t, mode="decode", cache=(h, skips)), model(x, t))
+    with pytest.raises(ValueError, match="requires cache"):
+        model(x, t, mode="decode")
     with pytest.raises(ValueError, match="mode must be"):
         model(x, t, mode="half")
     cc = ADMUNet(**dict(TOY_KW, num_classes=4))

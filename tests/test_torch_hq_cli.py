@@ -182,14 +182,44 @@ def test_sweep_from_the_conf_data_eval(tmp_path, toy_conf):
     assert (tmp_path / "o" / "lrs" / "im0.png").exists()
 
 
+def hq_pair(tmp_path, monkeypatch, conf, flags: list) -> tuple[dict, dict]:
+    """hq_main_torch (--device cpu) and the JAX package's hq_main.py in
+    process on `conf`: 4x SR with --resize_y of a 12 x 12 PNG (a 48 x 48
+    canvas of 2 x 2 toy32 tiles), `flags` appended, every normal draw of
+    both one pattern (tests/_torch_port.py shared_noise). Returns (port
+    output, JAX output)."""
+    import hq_main as j_hq_main
+    from tests._torch_port import shared_noise
+
+    img = load_image(sorted((REPO / "exp/datasets/natural64").glob("*.png"))[0])[:48, :48]
+    save_image(img.reshape(12, 4, 12, 4, 3).mean(axis=(1, 3)), tmp_path / "y.png")
+    shared_noise(monkeypatch)
+    common = ["--config", str(conf), "--path_y", str(tmp_path / "y.png"), "--resize_y",
+              "--deg", "sr_averagepooling", "--scale", "4", "--ckpt", str(TOY_PT), *flags]
+    ours = hq_main_torch.main(common + ["--device", "cpu", "-i", str(tmp_path / "port")])
+    ref = j_hq_main.main(common + ["-i", str(tmp_path / "jax")])
+    return ours, ref
+
+
 @pytest.mark.parametrize("flags,conf_kw,err", [
-    (["--solver", "multistep"], {}, "multistep"),
-    (["--encoder_cache", "2"], {}, "encoder_cache"),
+    # ported: each runs and agrees with hq_main.py (ids kept from when they
+    # raised NotImplementedError)
+    pytest.param(["--solver", "multistep"], {}, None, id="flags0-conf_kw0-multistep"),
+    pytest.param(["--encoder_cache", "2"], {}, None, id="flags1-conf_kw1-encoder_cache"),
     (["--sp", "2"], {}, "mesh"),
     (["--dp", "2"], {}, "mesh"),
-    (["--resume"], {}, "resume"),
+    pytest.param(["--resume"], {}, None, id="flags4-conf_kw4-resume"),
 ])
-def test_unported_paths_raise(tmp_path, toy_conf, flags, conf_kw, err):
+def test_unported_paths_raise(tmp_path, toy_conf, flags, conf_kw, err, monkeypatch):
+    """--sp / --dp raise NotImplementedError before writing anything;
+    --solver multistep, --encoder_cache and --resume run, within 1e-4 of
+    the JAX CLI's canvas (a --resume run that completes leaves no state)."""
+    if err is None:
+        ours, ref = hq_pair(tmp_path, monkeypatch, toy_conf(**conf_kw), flags)
+        assert ours["final"].shape == ref["final"].shape == (1, 48, 48, 3)
+        assert float(np.abs(ours["final"] - ref["final"]).max()) <= 1e-4
+        assert not list((tmp_path / "port" / "tiles").glob("*.npz"))
+        return
     with pytest.raises(NotImplementedError, match=err):
         hq_main_torch.main(["--config", str(toy_conf(**conf_kw)), "--deg", "sr_averagepooling",
                             "--random_init", "--device", "cpu", "--path_y", "x.png",

@@ -223,8 +223,18 @@ def test_sample_posterior_refusals():
     op = build_functional_operator("colorization")
     x = torch.zeros(1, 8, 8, 3)
     model = lambda z, t: torch.zeros(z.shape[:-1] + (6,))
-    with pytest.raises(NotImplementedError, match="multistep"):
-        post.sample_posterior(model, x, x, op, tables, [None], solver="multistep")
+    # the multistep solver (ported) runs on these noise-free tables; noisy
+    # ones and an unknown solver raise, as in the JAX package
+    x_ms, x0_ms = post.sample_posterior(model, x, x, op, tables, [None], solver="multistep")
+    assert torch.isfinite(x_ms).all() and x0_ms.shape == x.shape
+    noisy = post.build_posterior_tables(betas=sch.named_beta_schedule("linear", 100),
+                                        timestep_respacing="3", sigma_y=0.5,
+                                        schedule_jump_params=dict(t_T=3, jump_length=1,
+                                                                  jump_n_sample=1))
+    with pytest.raises(ValueError, match="noise-free"):
+        post.sample_posterior(model, x, x, op, noisy, [None], solver="multistep")
+    with pytest.raises(ValueError, match="unknown solver"):
+        post.sample_posterior(model, x, x, op, tables, [None], solver="rk4")
     with pytest.raises(ValueError, match="go together"):
         post.sample_posterior(model, x, x, op, tables, [None], paste_mask=x[..., :1])
     with pytest.raises(ValueError, match="context-parameterised"):

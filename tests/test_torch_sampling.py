@@ -93,16 +93,29 @@ def test_per_image_streams_do_not_depend_on_the_batch():
 
 
 def test_multistep_solver_not_ported():
-    op = build_functional_operator("denoising")
-    sched = build_schedule(betas=BETAS, t_sampling=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample_simplified(lambda x, t: x, torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 3),
-                          op, sched, image_generators(0, [0], 0, "cpu"), solver="multistep")
+    """The multistep solver is ported (tests/test_torch_solvers.py): through
+    sample_simplified it agrees with the JAX solver on the analytic
+    Gaussian flow within 1e-5, at 12 steps."""
+    from tests._torch_port import linear_gaussian
+
+    betas, j_model, t_model, jop, op, x_init = linear_gaussian()
+    ours, _ = sample_simplified(t_model, torch.from_numpy(x_init), torch.zeros(x_init.shape),
+                                op, build_schedule(betas=betas.astype(np.float32),
+                                                   t_sampling=12),
+                                image_generators(0, [0, 1], 0, "cpu"), solver="multistep")
+    ref, _ = j_sample(j_model, jnp.asarray(x_init), jnp.zeros(x_init.shape), jop,
+                      j_build_schedule(betas=betas, t_sampling=12), jax.random.PRNGKey(0),
+                      loop="host", solver="multistep")
+    assert float(np.abs(ours.numpy() - np.asarray(ref)).max()) <= 1e-5
 
 
 @pytest.mark.parametrize("kw,config,exc,match", [
-    (dict(solver="multistep"), "toy32.yml", NotImplementedError, "not ported"),
-    (dict(encoder_cache=2), "toy32.yml", NotImplementedError, "not ported"),
+    # ported: --solver multistep and --encoder_cache run, and main_torch
+    # agrees with main.py within 0.01 dB (ids kept from when they raised)
+    pytest.param(dict(solver="multistep"), "toy32.yml", None, "",
+                 id="kw0-toy32.yml-NotImplementedError-not ported"),
+    pytest.param(dict(encoder_cache=2), "toy32.yml", None, "",
+                 id="kw1-toy32.yml-NotImplementedError-not ported"),
     # the JAX runner's refusal, ahead of the port's own
     (dict(solver="multistep", add_noise=True), "toy32.yml", ValueError, "noise-free"),
     # guidance (ported): without --random_init and without a classifier
@@ -112,10 +125,17 @@ def test_multistep_solver_not_ported():
     (dict(random_init=False, classifier_ckpt="clf.pt"), "imagenet_256_cc.yml",
      FileNotFoundError, "classifier"),
 ])
-def test_runner_raises_on_paths_not_ported(kw, config, exc, match):
+def test_runner_raises_on_paths_not_ported(kw, config, exc, match, tmp_path, monkeypatch):
     from ddnm_tpu_torch.config import load_config
     from ddnm_tpu_torch.runner import RunArgs, Runner
+    from tests._torch_port import main_pair
 
+    if exc is None:
+        flags = {"solver": ["--solver", "multistep", "--t_sampling", "8"],
+                 "encoder_cache": ["--encoder_cache", "2", "--t_sampling", "10"]}[next(iter(kw))]
+        ours, ref = main_pair(tmp_path, monkeypatch, flags)
+        assert ours["num_samples"] == 2 and abs(ours["avg_psnr"] - ref["avg_psnr"]) <= 0.01
+        return
     args = RunArgs(config=config, **{"random_init": True, "device": "cpu", **kw})
     with pytest.raises(exc, match=match):
         Runner(args, load_config(REPO / "configs" / config)).build_guidance()

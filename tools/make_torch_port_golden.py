@@ -13,6 +13,10 @@ exp/datasets/natural256, 25 DDIM steps, eta 0.85, fp32.
     tests/fixtures/flag_simplified_pool8.npy    the final x (model domain,
                                                 [-1, 1] unclipped) average-
                                                 pooled 8x8: (2, 32, 32, 3)
+  multistep   the simplified protocol with `solver="multistep"` at 10 steps
+              (chip_smoke.py phase 15):
+    tests/fixtures/flag_multistep_golden.json  per-image PSNRs + protocol
+    tests/fixtures/flag_multistep_pool8.npy    pooled as above
   svd         `sample_svd` (default `fwht`), cs_walshhadamard at ratio 0.25,
               perm default_rng(7).permutation(65536), sigma_y 0 (cs_wh_025)
               and 0.1 (cs_wh_noisy), as tests/_golden.py TASKS runs them:
@@ -22,10 +26,11 @@ exp/datasets/natural256, 25 DDIM steps, eta 0.85, fp32.
     tests/fixtures/flag_svd_pool8.npy    (2 tasks, 2, 32, 32, 3) pooled as
                                          above, tasks in the JSON's order
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py [--only simplified|svd]
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py [--only simplified|multistep|svd]
 
-About 4 minutes and 11 GB of memory per run of 25 steps. chip_smoke.py
-(phase 4 and the SVD parity phase, on the card) and tests/test_torch_golden.py
+About 4 minutes and 11 GB of memory per run of 25 steps (the multistep
+golden's 10 steps take less than half of that). chip_smoke.py (phases 4
+and 15 and the SVD parity phase, on the card) and tests/test_torch_golden.py
 (the port's CPU plain path) read these files.
 """
 
@@ -58,6 +63,8 @@ PROTOCOL = {
     "pool8": "final x in [-1, 1] (unclipped), 8x8 average pool, NHWC",
 }
 
+MULTISTEP_PROTOCOL = {**PROTOCOL, "t_sampling": 10, "solver": "multistep"}
+
 SVD_PROTOCOL = {
     **{k: PROTOCOL[k] for k in ("fixture", "eval_dir", "n_images", "res", "x_T_seed",
                                 "t_sampling", "eta", "noise", "dtype", "pool8")},
@@ -69,7 +76,9 @@ SVD_PROTOCOL = {
 }
 
 
-def simplified_golden() -> None:
+def simplified_golden(p: dict = PROTOCOL, name: str = "flag_simplified") -> None:
+    """The simplified protocol `p` (its `solver`, default ddim) into
+    tests/fixtures/<name>_golden.json and <name>_pool8.npy."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -79,7 +88,6 @@ def simplified_golden() -> None:
     from ddnm_tpu.sampling import build_schedule, sample_simplified
     from tests._golden import FLAG256, load_eval_images, load_our_model, psnr01
 
-    p = PROTOCOL
     n, res = p["n_images"], p["res"]
     gt = np.transpose(load_eval_images(n, FLAG256), (0, 2, 3, 1))  # NHWC [-1, 1]
     x_T = np.random.RandomState(p["x_T_seed"]).randn(n, 3, res, res).astype(np.float32)
@@ -94,7 +102,7 @@ def simplified_golden() -> None:
         build_schedule(betas=betas, t_sampling=p["t_sampling"]),
         jax.random.PRNGKey(0), eta=p["eta"], sigma_y=p["sigma_y"],
         noise_fn=lambda key, shape: jnp.zeros(shape, jnp.float32),
-        params=params, loop="host")
+        params=params, loop="host", solver=p.get("solver", "ddim"))
     x = np.asarray(x, np.float32)
     seconds = time.perf_counter() - t0
 
@@ -104,9 +112,8 @@ def simplified_golden() -> None:
     out = {"protocol": p, "per_image_psnr": per_image,
            "mean_psnr": round(float(np.mean(per_image)), 4),
            "jax_cpu_seconds": round(seconds, 1)}
-    (REPO / "tests/fixtures/flag_simplified_golden.json").write_text(
-        json.dumps(out, indent=1) + "\n")
-    np.save(REPO / "tests/fixtures/flag_simplified_pool8.npy", pool8)
+    (REPO / f"tests/fixtures/{name}_golden.json").write_text(json.dumps(out, indent=1) + "\n")
+    np.save(REPO / f"tests/fixtures/{name}_pool8.npy", pool8)
     print(json.dumps(out))
 
 
@@ -158,11 +165,13 @@ def svd_golden() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--only", choices=["simplified", "svd"], default=None,
-                    help="write one golden (default: both)")
+    ap.add_argument("--only", choices=["simplified", "multistep", "svd"], default=None,
+                    help="write one golden (default: all three)")
     only = ap.parse_args().only
     if only in (None, "simplified"):
         simplified_golden()
+    if only in (None, "multistep"):
+        simplified_golden(MULTISTEP_PROTOCOL, "flag_multistep")
     if only in (None, "svd"):
         svd_golden()
 

@@ -6,7 +6,10 @@ with tests/fixtures/flag_ddpm256.pt, bf16 torso, batch 8 from
 exp/datasets/celeba_hq, sigma_y 0) for a window of steps of the 100-step
 schedule: `--mode simplified` (default) is simplified DDNM+ 4x
 average-pooling SR, `--mode svd` SVD-mode DDNM on 25% Walsh-Hadamard
-compressed sensing (cs_walshhadamard, perm from the seed). `--mode hq` is
+compressed sensing (cs_walshhadamard, perm from the seed); with
+`--encoder_cache N` the simplified sampler reuses the UNet's encoder
+features (sampling/accel.py, uniform keys: a full forward every N-th step
+of each window, the decoder half between). `--mode hq` is
 the hq path of chip_smoke.py phase 10: the posterior sampler on one 256 px
 tile (--batch tiles) of the 553.8M ADM UNet of configs/hq/inet256.yml
 (random weights from seed 1234, bf16 torso, class 0), 4x average-pooling
@@ -27,6 +30,7 @@ forward and backward of the 256 px classifier of configs/imagenet_256_cc.yml
   - the chrome trace, written to --out.
 
     python3 tools/profile_torch_main_path.py --out <dir> [--steps 10] [--mode svd|hq|guidance]
+        [--encoder_cache N]
 
 Prints one JSON object as its last line. Needs a CUDA card.
 """
@@ -79,7 +83,11 @@ def main(argv=None) -> int:
                     help="images (8) or, with --mode hq, tiles (1)")
     ap.add_argument("--mode", choices=["simplified", "svd", "hq", "guidance"],
                     default="simplified")
+    ap.add_argument("--encoder_cache", type=int, default=1,
+                    help="--mode simplified: the encoder cache's interval (1: exact)")
     args = ap.parse_args(argv)
+    if args.encoder_cache > 1 and args.mode != "simplified":
+        raise SystemExit("--encoder_cache profiles the simplified mode only")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile runs only on a card")
     if args.batch is None:
@@ -191,6 +199,13 @@ def ddpm_window(args):
         op = build_functional_operator("sr_averagepooling", image_size=size, deg_scale=4.0,
                                        device="cuda")
         y, sample = op.A(x_orig), sample_simplified
+        if args.encoder_cache > 1:
+            from ddnm_tpu_torch.sampling.accel import (ddpm_split_fns,
+                                                       sample_simplified_encoder_prop)
+
+            split = ddpm_split_fns(model)
+            sample = lambda model, x, y, op, sched, gens: sample_simplified_encoder_prop(
+                *split, x, y, op, sched, gens, interval=args.encoder_cache)
     idxs = range(args.batch)
     x_init = default_noise(image_generators(0, idxs, STREAM_INIT, "cuda"),
                            (args.batch, size, size, 3))
@@ -244,6 +259,7 @@ def profile_window(args, window, step_ms: float, smi: str) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "mode": args.mode, "batch": args.batch, "steps": args.steps, "step_ms": step_ms,
+        "encoder_cache": args.encoder_cache,
         "profiled_window_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
         "ms_per_step_by_kind": {k: v / args.steps for k, v in
