@@ -128,6 +128,21 @@ far it got. A failure in any phase raises.
      multistep --t_sampling 10 (every GroupNorm and attention backward with
      a non-zero dy); a tile-granular resume round trip of the inet256 ADM
      (stopped after the first tile group, resumed, equal bit for bit).
+ 17. the served main path: serve_torch.build_service on the flag DDPM
+     (bf16, max_batch 8, 100 steps) behind RestorationServer on 127.0.0.1:
+     16 concurrent 4x SR and 4 RGBA inpainting requests, then 2
+     cs_walshhadamard requests on a second service; every reply 200 and
+     256 x 256 x 3, a coalesced reply byte-equal to the same request alone,
+     mean_batch > 1, launches exact per served group; requests/s, latency,
+     PSNR per task;
+ 18. the hq service: a guided, class-conditional service on the toy32 ADM
+     and classifier (fp32) whose replies equal the direct sample_posterior
+     call, the guidance gradient's bits with cudnn.deterministic off and
+     on; serve_torch.build_hq_service on configs/hq/inet256.yml (random
+     weights, bf16, guided, max_batch 2) with 2 ?class=N requests: s per
+     served group, forward and backward launches exact.
+Phases 5, 7 and 16 also print each runner's images/s end to end against in
+the sampler ("runner overlap" lines).
 
 Phase 3 also holds the four backward kernels (gn_bwd_reduce, gn_bwd_dx,
 attn_bwd_dq, attn_bwd_dkdv; no TPU counterpart) against their plain
@@ -154,7 +169,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-16 sets the launch counts to 0 just before each run it
+Each of phases 4-18 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after.
 
 The line before the last is the JSON summary of the kernels; the last line
@@ -388,6 +403,16 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def overlap_gap_line(name: str, stats: dict) -> str:
+    """One line of a runner's images/s end to end against in the sampler
+    (the runner's host overlap: decode ahead, drain behind)."""
+    e2e = stats["images_per_second"]
+    smp = stats["num_samples"] / stats["sample_seconds"]
+    return (f"runner overlap {name}: {e2e:.4f} images/s end to end, {smp:.4f} in the "
+            f"sampler, end to end / sampler {e2e / smp:.3f} "
+            f"({stats['wall_seconds'] - stats['sample_seconds']:.2f} s outside the sampler)")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -2179,6 +2204,7 @@ def accel_full_width(counts: dict) -> tuple[dict, dict]:
                   f"({r['sample_seconds']:.2f} s), {r['images_per_second']:.4f} end to end; "
                   f"max |A(x) - y| {r['range_space_max_abs']:.3e}; launches "
                   f"{launches[name]}", flush=True)
+            print(overlap_gap_line(f"flag {name}", r), flush=True)
             if r["num_samples"] != 8 or n_png != 8 or not np.isfinite(r["avg_psnr"]):
                 raise AssertionError(f"{name}: {r['num_samples']} images ({n_png} PNGs), "
                                      f"PSNR {r['avg_psnr']}")
@@ -2344,6 +2370,344 @@ def accel_full_width(counts: dict) -> tuple[dict, dict]:
     return stats, launches
 
 
+# ------------------------------------------------------------ phases 17 and 18
+
+SERVED_FLAGS = ["--config", str(REPO / "configs" / "celeba_hq.yml"), "--ckpt", str(FLAG_PT),
+                "--dtype", "bfloat16", "--max_batch", "8", "--seed", "1234", "--device", "cuda"]
+
+
+def http_post(url: str, body: bytes, timeout: float = 600.0) -> tuple[int, bytes, dict]:
+    """(status, body, headers) of a POST, an HTTP error's included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "image/png"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def http_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def concurrent_posts(calls: list, stagger: dict | None = None) -> list:
+    """Send every (url, body) of `calls` from its own thread; `stagger`
+    maps a call's index to seconds to wait before sending. Returns the
+    replies in call order."""
+    import threading
+
+    out = [None] * len(calls)
+
+    def send(i, url, body):
+        time.sleep((stagger or {}).get(i, 0.0))
+        out[i] = http_post(url, body)
+
+    threads = [threading.Thread(target=send, args=(i, *c)) for i, c in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def to_u8(img01) -> np.ndarray:
+    """[0, 1] floats -> uint8 as the server's replies quantise."""
+    return np.clip(np.asarray(img01) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) / 255 - b.astype(np.float64) / 255) ** 2))
+    return 10.0 * math.log10(1.0 / max(mse, 1e-12))
+
+
+def serve_load(service, calls: list, stagger: dict | None = None,
+               max_wait_ms: float = 200.0) -> dict:
+    """`calls` (url suffix, body) sent concurrently to a RestorationServer
+    over `service` on 127.0.0.1, port 0; the launch counts set to 0 just
+    before and read just after. Returns replies, wall seconds, /healthz,
+    launches."""
+    from ddnm_tpu_torch.server import RestorationServer
+
+    server = RestorationServer(service, max_wait_ms=max_wait_ms, queue_size=64)
+    server.start()
+    host, port = server.address
+    base = f"http://{host}:{port}"
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        replies = concurrent_posts([(base + u, b) for u, b in calls], stagger)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        health = http_json(base + "/healthz")
+    finally:
+        server.stop()
+    return dict(replies=replies, wall=wall, health=health, launches=launches)
+
+
+def served_main_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
+    """Phase 17: the served main path at full width, through
+    serve_torch.build_service and RestorationServer on 127.0.0.1: the flag
+    DDPM of configs/celeba_hq.yml (flag_ddpm256.pt), bf16 torso, max_batch
+    8, 100 steps. One service serves --degs sr_averagepooling,inpainting at
+    --deg_scale 4 (inpainting with no --mask_path: every request uploads an
+    RGBA keep-mask), a second --svd_degs cs_walshhadamard at --deg_scale
+    0.25 (serve.py's one --deg_scale cannot serve 4x SR and 25% CS in one
+    service: 4 makes CS divide by round(1/4) = 0, 0.25 pools by 0). 16
+    concurrent 4x SR requests of the 8 images of exp/datasets/celeba_hq (each
+    image twice), 4 RGBA inpainting requests half a second later, then 2
+    cs_walshhadamard requests. Holds: every reply 200 and 256 x 256 x 3; one
+    coalesced SR reply byte-equal to the same request restored alone
+    (batch-composition invariance); mean_batch > 1; the GroupNorm,
+    attention and Walsh-Hadamard launches exactly what the served groups
+    give. Returns (stats, launches of both loads)."""
+    import serve_torch
+    from ddnm_tpu_torch.data.datasets import FolderDataset
+    from ddnm_tpu_torch.data.io import decode_png, encode_png
+
+    svc = serve_torch.build_service(serve_torch.parse_args(
+        SERVED_FLAGS + ["--degs", "sr_averagepooling,inpainting", "--deg_scale", "4"]))
+    svc_cs = serve_torch.build_service(serve_torch.parse_args(
+        SERVED_FLAGS + ["--degs", "", "--svd_degs", "cs_walshhadamard", "--deg_scale", "0.25"]))
+    if not (svc.requires_ctx("inpainting") and svc.ctx_tasks == ("inpainting",)):
+        raise AssertionError("inpainting without --mask_path must require a per-request mask")
+    t0 = time.perf_counter()
+    svc.warmup()
+    svc_cs.warmup()
+    warm = time.perf_counter() - t0
+    ds = FolderDataset(REPO / "exp" / "datasets" / "celeba_hq", 256)
+    gts = [to_u8(ds[i][0]) for i in range(len(ds))]
+    rng = np.random.default_rng(17)
+    alphas = []
+    for _ in range(4):  # a 64 x 96 hole at a random place in each keep-mask
+        a = np.full((256, 256, 1), 255, np.uint8)
+        r, c = (int(v) for v in rng.integers(32, 160, 2))
+        a[r:r + 64, c:c + 96] = 0
+        alphas.append(a)
+    calls = [("/restore?deg=sr_averagepooling&input=gt", encode_png(gts[i % 8]))
+             for i in range(16)]
+    calls += [("/restore?deg=inpainting&input=gt",
+               encode_png(np.concatenate([gts[k], alphas[k]], axis=-1))) for k in range(4)]
+    load = serve_load(svc, calls, stagger={i: 0.5 for i in range(16, 20)})
+    load_cs = serve_load(svc_cs, [("/restore?deg=cs_walshhadamard&input=gt",
+                                   encode_png(gts[k])) for k in range(2)])
+    replies = load["replies"] + load_cs["replies"]
+    if [r[0] for r in replies] != [200] * 22:
+        raise AssertionError(f"served replies: {[(r[0], r[1][:200]) for r in replies]}")
+    outs = [decode_png(r[1]) for r in replies]
+    if any(o.shape != (256, 256, 3) for o in outs):
+        raise AssertionError(f"served shapes: {[o.shape for o in outs]}")
+    tasks = {"sr_averagepooling": range(16), "inpainting": range(16, 20),
+             "cs_walshhadamard": range(20, 22)}
+    gt_of = [i % 8 for i in range(16)] + list(range(4)) + list(range(2))
+    psnr = {t: float(np.mean([psnr_u8(outs[i], gts[gt_of[i]]) for i in idx]))
+            for t, idx in tasks.items()}
+    # batch-composition invariance: a reply that rode a full group against
+    # the same request (its image, its sequence number) restored alone
+    i = next(k for k in range(16) if replies[k][2]["X-Batch-Size"] == "8")
+    seq = int(replies[i][2]["X-Seq"])
+    alone = svc.restore(gts[gt_of[i]][None].astype(np.float32) / 255.0,
+                        "sr_averagepooling", [seq], input_kind="gt")
+    alone_equal = encode_png(to_u8(alone[0])) == replies[i][1]
+    h, h_cs = load["health"], load_cs["health"]
+    want = expected_launches(n_gn * 100 * h["batches"], n_attn * 100 * h["batches"])
+    want_cs = expected_launches(n_gn * 100 * h_cs["batches"], n_attn * 100 * h_cs["batches"],
+                                fwht=h_cs["batches"] * fwht_launches("cs_walshhadamard", 0.0,
+                                                                     100))
+    stats = {
+        "requests": 22, "wall_seconds": load["wall"], "wall_seconds_cs": load_cs["wall"],
+        "requests_per_second": 20 / load["wall"],
+        "requests_per_second_cs": 2 / load_cs["wall"],
+        "images_per_second_served": 22 / (load["wall"] + load_cs["wall"]),
+        "warmup_seconds": warm, "batches": h["batches"], "batches_cs": h_cs["batches"],
+        "mean_batch": h["mean_batch"], "mean_batch_cs": h_cs["mean_batch"],
+        "latency_s": h.get("latency_s"), "latency_s_cs": h_cs.get("latency_s"),
+        "psnr": psnr, "alone_vs_coalesced_byte_equal": alone_equal, "seq_checked": seq,
+        "launches_per_group": {"sr_or_inpainting": {k: v / h["batches"]
+                                                    for k, v in load["launches"].items()},
+                               "cs_walshhadamard": {k: v / h_cs["batches"]
+                                                    for k, v in load_cs["launches"].items()}},
+    }
+    print(f"served main path (flag DDPM, bf16, max_batch 8, 100 steps): 20 requests "
+          f"(16 SR, 4 RGBA inpainting) in {load['wall']:.2f} s, "
+          f"{stats['requests_per_second']:.4f} requests/s (images/s), {h['batches']} groups, "
+          f"mean_batch {h['mean_batch']:.3f}, latency_s {h.get('latency_s')}; 2 CS requests "
+          f"in {load_cs['wall']:.2f} s ({h_cs['batches']} group), latency_s "
+          f"{h_cs.get('latency_s')}; {stats['images_per_second_served']:.4f} images/s served "
+          f"in all; warm-up {warm:.2f} s", flush=True)
+    print(f"served PSNR against ground truth: {psnr}; reply seq {seq} (a group of 8) "
+          f"byte-equal alone: {alone_equal}; launches {load['launches']} and (CS) "
+          f"{load_cs['launches']}", flush=True)
+    if not alone_equal:
+        raise AssertionError(f"seq {seq}: the coalesced reply differs from the alone restore")
+    if not h["mean_batch"] > 1:
+        raise AssertionError(f"mean_batch {h['mean_batch']} <= 1: nothing coalesced")
+    if load["launches"] != want or load_cs["launches"] != want_cs:
+        raise AssertionError(f"served launches {load['launches']} / {load_cs['launches']} != "
+                             f"{want} / {want_cs}")
+    if not (psnr["sr_averagepooling"] > 20 and psnr["inpainting"] > 14
+            and np.isfinite(psnr["cs_walshhadamard"])):
+        raise AssertionError(f"served PSNR {psnr} is not a restoration")
+    launches = {k: load["launches"][k] + load_cs["launches"][k] for k in load["launches"]}
+    del svc, svc_cs
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def guidance_bits_probe(clf, deterministic: bool) -> bool:
+    """The toy32 classifier's guidance gradient (fp32, batch 2) gives the
+    same bits on two calls, with cudnn.deterministic as given."""
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((2, 32, 32, 3), generator=gen, device="cuda")
+        t = torch.tensor([400.0, 600.0], device="cuda")
+        g = classifier_guidance_fn(clf, torch.tensor([1, 3], device="cuda"), 2.0)
+        return bool(torch.equal(g(x, t), g(x, t)))
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def served_hq_path(n_gn_hq: int, n_attn_hq: int, n_gn_clf: int, n_attn_clf: int
+                   ) -> tuple[dict, dict]:
+    """Phase 18: the hq service. (a) A class-conditional, guided
+    PosteriorRestorationService on the toy32 ADM (toy_adm32.pt, whose
+    forward takes no label) guided by the toy32 classifier (toy_clf32.pt,
+    4 classes, scale 2.0) toward each request's ?class=N, fp32, the golden
+    schedule (respacing 25 with jumps), max_batch 1: each of 2 HTTP replies
+    equals, as uint8, the port's direct sample_posterior call on the same
+    generators and label, with cudnn.deterministic on as
+    serve_torch.build_hq_service sets it for a guided service: the guidance
+    gradient's bits on two calls are held equal with it on and printed with
+    it off (cuDNN's default backward-data algorithms are not deterministic
+    on the card). (b) serve_torch.build_hq_service
+    on configs/hq/inet256.yml, random weights from seed 1234, bf16, guided
+    (classifier_scale 1.0), max_batch 2: 2 concurrent 4x SR requests of
+    exp/datasets/imagenet with ?class=207 and ?class=951; s per served
+    group, max |A(reply) - y| in [0, 1] (quantised, clamped replies) and
+    every kernel's launches, forward and backward, exactly 280 model calls'
+    of each group. Returns (stats, launches of (b))."""
+    import serve_torch
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.data.io import decode_png, encode_png, load_image
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+    from ddnm_tpu_torch.operators import build_functional_operator
+    from ddnm_tpu_torch.sampling.posterior import (
+        build_posterior_tables,
+        n_model_calls,
+        sample_posterior,
+    )
+    from ddnm_tpu_torch.sampling.rng import (
+        STREAM_INIT,
+        STREAM_SAMPLE,
+        default_noise,
+        image_generators,
+    )
+    from ddnm_tpu_torch.server import PosteriorRestorationService
+
+    stats = {}
+    deterministic = torch.backends.cudnn.deterministic
+    # (a) toy32, fp32
+    model, clf = toy_adm("cuda"), toy_classifier("cuda")
+    bits = {"cudnn.deterministic off": guidance_bits_probe(clf, False),
+            "cudnn.deterministic on": guidance_bits_probe(clf, True)}
+    torch.backends.cudnn.deterministic = True
+    tables = build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing=HQ_RESPACING, schedule_jump_params=HQ_JUMP)
+    op = build_functional_operator("sr_averagepooling", image_size=32, deg_scale=4.0,
+                                   device="cuda")
+
+    def guidance(p, x, t, at=None):
+        return classifier_guidance_fn(p["classifier"], p["classes"], 2.0)(x, t, at)
+
+    svc = PosteriorRestorationService(
+        lambda p, x, t: p["model"](x, t), {"model": model, "classifier": clf}, tables,
+        {"sr_averagepooling": op}, image_size=32, max_batch=1, base_seed=1234,
+        guidance_fn=guidance, class_cond=True, num_classes=4)
+    paths = sorted((REPO / "exp" / "datasets" / "toy32").glob("*.png"))[:2]
+    gts = [to_u8(load_image(p)) for p in paths]
+    labels = (1, 3)
+    load = serve_load(svc, [(f"/restore?deg=sr_averagepooling&input=gt&class={c}",
+                             encode_png(g)) for g, c in zip(gts, labels)])
+    if [r[0] for r in load["replies"]] != [200, 200]:
+        raise AssertionError(f"toy32 hq replies: {[(r[0], r[1][:200]) for r in load['replies']]}")
+    equal = []
+    for (status, body, headers), g, c in zip(load["replies"], gts, labels):
+        seq = int(headers["X-Seq"])
+        x01 = torch.from_numpy(g.astype(np.float32) / 255.0)[None].cuda()
+        y = op.A(2.0 * x01 - 1.0)
+        x_init = default_noise(image_generators(1234, [seq], STREAM_INIT, "cuda"), (1, 32, 32, 3))
+        gens = image_generators(1234, [seq], STREAM_SAMPLE, "cuda")
+        x, _ = sample_posterior(
+            lambda z, s: model(z, s), x_init, op.Ap(y), op, tables, gens,
+            guidance_fn=classifier_guidance_fn(clf, torch.tensor([c], device="cuda"), 2.0))
+        direct = to_u8(torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)[0].cpu().numpy())
+        equal.append(bool(np.array_equal(decode_png(body), direct)))
+    stats["toy32"] = {"reply_equals_direct": equal, "wall_seconds": load["wall"],
+                      "latency_s": load["health"].get("latency_s"),
+                      "guidance_same_bits_twice": bits}
+    print(f"hq service toy32 (fp32, guided, classes {labels}): replies equal the direct "
+          f"sample_posterior call: {equal}; {load['wall']:.2f} s; guidance gradient same "
+          f"bits on two calls: {bits}", flush=True)
+    if not (all(equal) and bits["cudnn.deterministic on"]):
+        raise AssertionError(f"toy32 hq service replies against the direct call {equal}, "
+                             f"guidance bits {bits}")
+    del svc, model, clf
+
+    # (b) inet256, bf16, guided, random weights
+    ns = serve_torch.parse_args([
+        "--hq_conf", str(INET256), "--random_init", "--seed", "1234", "--dtype", "bfloat16",
+        "--max_batch", "2", "--degs", "sr_averagepooling", "--device", "cuda"])
+    t0 = time.perf_counter()
+    svc = serve_torch.build_hq_service(ns)
+    build_s = time.perf_counter() - t0
+    calls = n_model_calls(svc._tables)
+    imgs = [to_u8(load_image(REPO / "exp" / "datasets" / "imagenet" / f"0000{k}.png", 256))
+            for k in range(2)]
+    classes = (207, 951)
+    load = serve_load(svc, [(f"/restore?deg=sr_averagepooling&input=gt&class={c}",
+                             encode_png(g)) for g, c in zip(imgs, classes)])
+    if [r[0] for r in load["replies"]] != [200, 200]:
+        raise AssertionError(f"inet256 hq replies: {[(r[0], r[1][:200]) for r in load['replies']]}")
+    outs = [decode_png(r[1]).astype(np.float64) / 255 for r in load["replies"]]
+    pool = lambda a: a.reshape(64, 4, 64, 4, 3).mean(axis=(1, 3))
+    range_err = max(float(np.abs(pool(o) - pool(g.astype(np.float64) / 255)).max())
+                    for o, g in zip(outs, imgs))
+    groups = load["health"]["batches"]
+    want = expected_launches((n_gn_hq + n_gn_clf) * calls * groups,
+                             (n_attn_hq + n_attn_clf) * calls * groups,
+                             n_gn_clf * calls * groups, n_attn_clf * calls * groups)
+    stats["inet256"] = {"build_seconds": build_s, "wall_seconds": load["wall"],
+                        "groups": groups, "seconds_per_group": load["wall"] / groups,
+                        "model_calls_per_group": calls, "mean_batch": load["health"]["mean_batch"],
+                        "latency_s": load["health"].get("latency_s"),
+                        "range_space_max_abs_01": range_err, "launches": load["launches"]}
+    print(f"hq service inet256 (bf16, guided, random weights, classes {classes}): "
+          f"{groups} group(s) of {calls} model calls, {load['wall'] / groups:.2f} s per served "
+          f"group, mean_batch {load['health']['mean_batch']}, latency_s "
+          f"{load['health'].get('latency_s')}; max |A(reply) - y| (uint8 replies in [0, 1]) "
+          f"{range_err:.3e}; launches {load['launches']}", flush=True)
+    if any(o.shape != (256, 256, 3) or not np.isfinite(o).all() for o in outs):
+        raise AssertionError("inet256 hq service: replies not 256 x 256 x 3")
+    if load["launches"] != want:
+        raise AssertionError(f"inet256 hq service launches {load['launches']} != {want}")
+    if not torch.backends.cudnn.deterministic:
+        raise AssertionError("a guided hq service must run with cudnn.deterministic on")
+    torch.backends.cudnn.deterministic = deterministic
+    del svc
+    torch.cuda.empty_cache()
+    return stats, load["launches"]
+
+
 # ------------------------------------------------------------ phases 5 and 7
 
 
@@ -2375,6 +2739,7 @@ def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int
           f"{stats['num_samples'] / stats['sample_seconds']:.4f} images/s in the "
           f"sampler ({stats['sample_seconds']:.2f} s); launches {launches}",
           flush=True)
+    print(overlap_gap_line(f"{'simplified' if simplified else 'SVD'} {deg}", stats), flush=True)
     if stats["num_samples"] != 8 or n_png != 8:
         raise AssertionError(f"expected 8 restored images, got {stats['num_samples']}"
                              f" ({n_png} PNGs)")
@@ -2696,6 +3061,14 @@ def main() -> int:
         print(f"module counts (GroupNorm, attention): {counts}", flush=True)
         accel_stats, launches_accel = accel_full_width(counts)
 
+    with phase(17, "the served main path (serve_torch + RestorationServer, flag DDPM, bf16, "
+                   "max_batch 8)"):
+        served, launches_served = served_main_path(n_gn, n_attn)
+
+    with phase(18, "the hq service (toy32 guided fp32 against sample_posterior; inet256 "
+                   "guided bf16, max_batch 2)"):
+        served_hq, launches_served_hq = served_hq_path(*counts["hq"], *counts["classifier"])
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -2724,7 +3097,9 @@ def main() -> int:
                               "guided_toy32": guided_toy["kernel"]["launches"][kind],
                               "guided_hq": launches_ghq[kind],
                               "guided_imagenet_cc": launches_gcc[kind],
-                              **{run: counts_[kind] for run, counts_ in launches_accel.items()}},
+                              **{run: counts_[kind] for run, counts_ in launches_accel.items()},
+                              "served": launches_served[kind],
+                              "served_hq": launches_served_hq[kind]},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
          "device_ms": per_forward[kind].get("device_ms"),
          "plain_ms": per_forward[kind]["plain_ms"],
@@ -2742,7 +3117,7 @@ def main() -> int:
             if kind in BACKWARD else {})}
         for kind in SOURCES], "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
         "guided_toy32": guided_toy, "guided": guided, "solver_parity": solver,
-        "accelerators": accel_stats}
+        "accelerators": accel_stats, "served": served, "served_hq": served_hq}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

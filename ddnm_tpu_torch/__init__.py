@@ -12,9 +12,11 @@ Ported: the main runner in both modes on the DDPM and ADM UNets
 (`main_torch.py`, `evaluation_torch.py`), the hq Mask-Shift pipeline
 (`hq_main_torch.py`), classifier guidance, the multistep solver
 (`sampling/solvers.py`), the encoder cache (`sampling/accel.py`) and the
-hq CLI's tile-granular `--resume`. Still raising NotImplementedError: the
-LSUN lmdb and CelebA attribute datasets and multi-device runs (`mesh`,
-`--sp` / `--dp`); serving and the bench are absent.
+hq CLI's tile-granular `--resume`, the runner's host overlap with
+`utils/observability.py` (`MetricsLogger`, `--trace_dir`) and online
+serving (`server.py`, `serve_torch.py`). Still raising NotImplementedError:
+the LSUN lmdb and CelebA attribute datasets and multi-device runs (`mesh`,
+`--sp` / `--dp`); the bench is absent.
 """
 
 from ddnm_tpu_torch.runtime import resolve_device

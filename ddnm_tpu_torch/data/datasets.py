@@ -132,15 +132,40 @@ def get_dataset(
     return ds
 
 
-def iterate_batches(dataset, batch_size: int
+def _load_batch(dataset, idx: list[int]) -> tuple[np.ndarray, np.ndarray]:
+    items = [dataset[i] for i in idx]
+    return np.stack([im for im, _ in items]), np.asarray([lb for _, lb in items])
+
+
+def iterate_batches(dataset, batch_size: int, *, prefetch: int = 2, num_workers: int = 4
                     ) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
     """Yield (images, labels, valid_count) NHWC batches; the tail batch is
-    padded by repeating its last image so every batch has the same shape."""
+    padded by repeating its last image so every batch has the same shape.
+
+    Batches decode on a pool of `num_workers` threads with `prefetch`
+    batches in flight beyond the one being yielded, in order, as the JAX
+    package's iterate_batches. The PNG decode is numpy and zlib with
+    Python loops for two of the five row filters, so it holds the GIL for
+    part of its time. prefetch=0 iterates synchronously."""
     n = len(dataset)
+    batches = []
     for start in range(0, n, batch_size):
         idx = list(range(start, min(start + batch_size, n)))
         valid = len(idx)
-        idx = idx + [idx[-1]] * (batch_size - valid)
-        items = [dataset[i] for i in idx]
-        yield (np.stack([im for im, _ in items]),
-               np.asarray([lb for _, lb in items]), valid)
+        batches.append((idx + [idx[-1]] * (batch_size - valid), valid))
+    if prefetch <= 0 or len(batches) <= 1:
+        for idx, valid in batches:
+            yield (*_load_batch(dataset, idx), valid)
+        return
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        ahead = [(pool.submit(_load_batch, dataset, idx), valid)
+                 for idx, valid in batches[:prefetch + 1]]
+        for idx, valid in batches[prefetch + 1:]:
+            fut, v = ahead.pop(0)
+            ahead.append((pool.submit(_load_batch, dataset, idx), valid))
+            yield (*fut.result(), v)
+        for fut, v in ahead:
+            yield (*fut.result(), v)

@@ -24,14 +24,28 @@ split halves and `--encoder_cache_policy`; in SVD mode it has no effect
 (the exact sampler runs, as in the JAX runner, and a log line says so).
 A run uses the one device given by `device`; the JAX runner's sharding
 over several devices is not ported.
+
+The host overlaps the device as the JAX runner does: batches decode ahead
+on a thread pool (`iterate_batches`, prefetch 2), and after batch k's
+sampler returns, its PSNR, SSIM and [0, 1] images are enqueued on the
+device and copied without blocking into pinned host memory behind a CUDA
+event; a drain job on a 4-thread pool waits on that event, writes the
+three PNGs per image and the batch's metrics line (`MetricsLogger`,
+in batch order) while the main thread launches batch k + 1. The sampler's
+seconds come from CUDA events around each call, and max |A(x) - y| stays
+on the device, both read once at the end. `trace_dir` writes a
+torch.profiler trace of the loop; `loop` is accepted for the JAX CLI's
+flag (auto | host | scan) and changes nothing: the port has one eager
+sampler loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import logging
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -54,7 +68,7 @@ from ddnm_tpu_torch.models import (
 )
 from ddnm_tpu_torch.models.unet_adm import init_like_flax
 from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
-from ddnm_tpu_torch.runtime import resolve_device
+from ddnm_tpu_torch.runtime import resolve_device, to_device, to_host
 from ddnm_tpu_torch.sampling import build_schedule, sample_simplified, sample_svd
 from ddnm_tpu_torch.sampling.accel import (
     adm_split_fns,
@@ -71,6 +85,7 @@ from ddnm_tpu_torch.sampling.rng import (
     default_noise,
     image_generators,
 )
+from ddnm_tpu_torch.utils.observability import MetricsLogger, profile
 
 logger = logging.getLogger("ddnm_tpu_torch")
 
@@ -112,6 +127,8 @@ class RunArgs:
     encoder_cache: int = 1  # > 1: the encoder propagation's interval
     encoder_cache_policy: str = "uniform"  # uniform | end_dense
     device: str = "cuda"
+    trace_dir: Optional[str] = None  # torch.profiler trace of the run
+    loop: str = "auto"  # the JAX CLI's loop driver: accepted, one eager loop runs
 
 
 def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
@@ -119,6 +136,30 @@ def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k: v.float() if v.dtype == torch.float16 else v for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)
+
+
+class _SamplerClock:
+    """Seconds of one sampler call: CUDA events around it on a card (read
+    at the end of the run, no wait per batch), the host clock elsewhere."""
+
+    def __init__(self, dev: torch.device):
+        self._events = None
+        if dev.type == "cuda":
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self._events is not None:
+            self._events[1].record()
+        self._t1 = time.perf_counter()
+
+    def seconds(self) -> float:
+        if self._events is None:
+            return self._t1 - self._t0
+        self._events[1].synchronize()
+        return self._events[0].elapsed_time(self._events[1]) / 1e3
 
 
 class Runner:
@@ -135,6 +176,8 @@ class Runner:
             raise ValueError(
                 "--solver multistep does not compose with --encoder_cache (the "
                 "encoder-propagation sampler is DDIM-only); drop one of the two")
+        if args.loop not in ("auto", "host", "scan"):
+            raise ValueError(f"loop must be auto|host|scan, got {args.loop!r}")
         if args.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be float32 or bfloat16, got {args.dtype!r}")
         self.args = args
@@ -351,10 +394,43 @@ class Runner:
         out_dir = Path(args.image_folder)
         (out_dir / "Apy").mkdir(parents=True, exist_ok=True)
         size = cfg.data.image_size
-        total_psnr, count, sample_seconds, consistency = 0.0, 0, 0.0, 0.0
+        rescaled = cfg.data.rescaled
+        metrics = MetricsLogger(out_dir / "metrics.jsonl")
+        totals = {"psnr": 0.0, "count": 0}
+        clocks, jobs = [], []
+        consistency = None  # max |A(x) - y| so far, on the device
+        prev_done = None  # the previous batch's metrics line is written
         idx_so_far = max(args.subset_start, 0)
         wall_start = time.perf_counter()
-        with open(out_dir / "metrics.jsonl", "a") as metrics:
+
+        def drain(ready, host, valid, idx0, prev, done):
+            """Batch idx0's PNGs, then (after the previous batch's) its
+            metrics line and running PSNR."""
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                batch_psnr, batch_ssim, x01, apy01, orig01 = (t.numpy() for t in host)
+                for i in range(valid):
+                    save_image(apy01[i], out_dir / "Apy" / f"Apy_{idx0 + i}.png")
+                    save_image(orig01[i], out_dir / "Apy" / f"orig_{idx0 + i}.png")
+                    save_image(x01[i], out_dir / f"{idx0 + i}_0.png")
+                if prev is not None:
+                    prev.wait()
+                for i in range(valid):
+                    totals["psnr"] += float(batch_psnr[i])
+                    totals["count"] += 1
+                metrics.logkv_mean("psnr", float(np.mean(batch_psnr[:valid])))
+                metrics.logkv_mean("ssim", float(np.mean(batch_ssim[:valid])))
+                metrics.logkv("images", totals["count"])
+                metrics.logkv("images_per_sec",
+                              totals["count"] / (time.perf_counter() - wall_start))
+                metrics.dumpkvs()
+                logger.info("images %d, PSNR: %.2f", totals["count"],
+                            totals["psnr"] / max(totals["count"], 1))
+            finally:
+                done.set()
+
+        with profile(args.trace_dir), ThreadPoolExecutor(max_workers=4) as io_pool:
             for imgs, _, valid in iterate_batches(dataset, self.batch_size):
                 if args.resume and all(
                     (out_dir / f"{idx_so_far + i}_0.png").exists() for i in range(valid)
@@ -365,8 +441,7 @@ class Runner:
                     continue
                 n = len(imgs)
                 idxs = range(idx_so_far, idx_so_far + n)
-                x_orig = data_transform(torch.from_numpy(imgs).to(dev),
-                                        rescaled=cfg.data.rescaled)
+                x_orig = data_transform(to_device(torch.from_numpy(imgs), dev), rescaled=rescaled)
                 x_init = default_noise(
                     image_generators(args.seed, idxs, STREAM_INIT, dev), (n, size, size, 3))
                 gens = image_generators(args.seed, idxs, STREAM_SAMPLE, dev)
@@ -374,7 +449,7 @@ class Runner:
                 if args.simplified:
                     y = self._measurement_noise(operator.A(x_orig), idxs, sigma_y)
                     apy = operator.Ap(y)
-                    t0 = time.perf_counter()
+                    clock = _SamplerClock(dev)
                     if args.encoder_cache > 1:
                         x, _ = sample_simplified_encoder_prop(
                             encode_fn, decode_fn, x_init, y, operator, self.sched, gens,
@@ -389,44 +464,44 @@ class Runner:
                     y = self._measurement_noise(operator.A(_nhwc_to_vec(x_orig)), idxs,
                                                 sigma_y)
                     apy = self._apy_visualisation(operator, y, n)
-                    t0 = time.perf_counter()
+                    clock = _SamplerClock(dev)
                     x, _ = sample_svd(
                         model_fn, x_init, y, operator, self.sched, gens,
                         eta=args.eta, sigma_y=sigma_y, guidance_fn=guidance_fn,
                         solver=args.solver,
                     )
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                sample_seconds += time.perf_counter() - t0
+                clock.stop()
+                clocks.append(clock)
                 # range-space consistency of the sampler's output, unclipped
                 ax = operator.A(x if args.simplified else _nhwc_to_vec(x))
-                consistency = max(consistency, float((ax - y)[:valid].abs().max()))
+                err = (ax - y)[:valid].abs().max()
+                consistency = err if consistency is None else torch.maximum(consistency, err)
 
-                x01 = inverse_data_transform(x, rescaled=cfg.data.rescaled)
-                orig01 = inverse_data_transform(x_orig, rescaled=cfg.data.rescaled)
-                apy01 = inverse_data_transform(apy, rescaled=cfg.data.rescaled)
-                batch_psnr = psnr(x01, orig01).cpu().numpy()
-                batch_ssim = ssim(x01, orig01).cpu().numpy()
-                x01_np, apy_np, orig_np = (t.cpu().numpy() for t in (x01, apy01, orig01))
-                for i in range(valid):
-                    save_image(apy_np[i], out_dir / "Apy" / f"Apy_{idx_so_far + i}.png")
-                    save_image(orig_np[i], out_dir / "Apy" / f"orig_{idx_so_far + i}.png")
-                    save_image(x01_np[i], out_dir / f"{idx_so_far + i}_0.png")
-                    total_psnr += float(batch_psnr[i])
-                    count += 1
-                metrics.write(json.dumps({
-                    "psnr": float(np.mean(batch_psnr[:valid])),
-                    "ssim": float(np.mean(batch_ssim[:valid])),
-                    "images": count,
-                    "images_per_sec": count / (time.perf_counter() - wall_start),
-                }) + "\n")
-                logger.info("images %d, PSNR: %.2f", count, total_psnr / max(count, 1))
+                x01 = inverse_data_transform(x, rescaled=rescaled)
+                orig01 = inverse_data_transform(x_orig, rescaled=rescaled)
+                apy01 = inverse_data_transform(apy, rescaled=rescaled)
+                host = [to_host(t) for t in (psnr(x01, orig01), ssim(x01, orig01),
+                                              x01[:valid], apy01[:valid], orig01[:valid])]
+                ready = None
+                if dev.type == "cuda":
+                    ready = torch.cuda.Event()
+                    ready.record()
+                done = threading.Event()
+                jobs.append(io_pool.submit(drain, ready, host, valid, idx_so_far, prev_done,
+                                           done))
+                prev_done = done
                 idx_so_far += valid
+            for job in jobs:
+                job.result()
+        metrics.close()
 
         wall = time.perf_counter() - wall_start
-        avg = total_psnr / max(count, 1)
+        count = totals["count"]
+        avg = totals["psnr"] / max(count, 1)
         print(f"Total Average PSNR: {avg:.2f}")
         print(f"Number of samples: {count}")
+        sample_seconds = sum(c.seconds() for c in clocks)
+        consistency = 0.0 if consistency is None else float(consistency)
         return {
             "avg_psnr": avg,
             "num_samples": count,

@@ -1,13 +1,16 @@
-"""Device choice for the port's entry points.
+"""Device choice for the port's entry points, and host <-> card copies
+that do not wait.
 
 Entry points run on the card unless the caller asks for the CPU by name;
-a missing card is an error, never a silent fall back to the CPU."""
+a missing card is an error, never a silent fall back to the CPU. A copy
+between pageable host memory and the card waits for the stream to drain;
+`to_device` and `to_host` go through pinned memory and return at once."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_device", "to_host"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -22,3 +25,22 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (cuda | cpu)")
     return dev
+
+
+def to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host tensor on `dev`; on a card through pinned memory, enqueued
+    without waiting."""
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A card tensor's copy in pinned host memory, enqueued without
+    waiting: valid once the stream has passed an event recorded after this
+    call. A host tensor is returned as it is."""
+    if t.device.type != "cuda":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out

@@ -236,8 +236,14 @@ def _device(x, device) -> torch.device:
 
 
 def _images(x, dev) -> torch.Tensor:
-    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                        dtype=torch.float32).to(dev)
+    """x (numpy or tensor, (H, W, 3) or (B, H, W, 3)) as a float32 tensor on
+    `dev`. A read-only numpy array is copied first, so that no tensor
+    aliases memory torch may not write."""
+    if not torch.is_tensor(x):
+        x = np.asarray(x)
+        if not x.flags.writeable:
+            x = x.copy()
+    x = torch.as_tensor(x, dtype=torch.float32).to(dev)
     return x[None] if x.ndim == 3 else x
 
 

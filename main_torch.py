@@ -22,7 +22,8 @@ of level 2 * sigma_y. Examples at full width on the card:
 
 --solver multistep (with --t_sampling 10, say) and --encoder_cache 3
 [--encoder_cache_policy end_dense] are the JAX package's two opt-in
-accelerators.
+accelerators. --trace_dir DIR writes a torch.profiler Chrome trace of the
+run; --loop is accepted and changes nothing (one eager loop).
 """
 
 from __future__ import annotations
@@ -57,6 +58,8 @@ def parse_args(argv=None):
     p.add_argument("--deg_scale", type=float, default=4.0)
     p.add_argument("--add_noise", action="store_true")
     p.add_argument("-n", "--noise_type", type=str, default="gaussian", choices=NOISE_TYPES)
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the run here")
     p.add_argument("--subset_start", type=int, default=-1)
     p.add_argument("--subset_end", type=int, default=-1)
     p.add_argument("--verbose", type=str, default="info")
@@ -75,6 +78,9 @@ def parse_args(argv=None):
     p.add_argument("--mask_path", type=str, default=None)
     p.add_argument("--manifest", type=str, default=None, help="imagenet manifest txt")
     p.add_argument("--max_images", type=int, default=None)
+    p.add_argument("--loop", type=str, default="auto", choices=["auto", "scan", "host"],
+                   help="main.py's loop driver, accepted for its command lines: the port "
+                        "has one eager sampler loop, which every choice runs")
     p.add_argument("--solver", type=str, default="ddim", choices=["ddim", "multistep"],
                    help="ddim: the reference's first-order update (the quality choice "
                         "at 25+ steps); multistep: second-order and deterministic, "
@@ -137,7 +143,7 @@ def main(argv=None):
         batch_size=ns.batch_size, dtype=ns.dtype, mask_path=ns.mask_path,
         max_images=ns.max_images, resume=ns.resume, solver=ns.solver,
         encoder_cache=ns.encoder_cache, encoder_cache_policy=ns.encoder_cache_policy,
-        device=ns.device,
+        device=ns.device, trace_dir=ns.trace_dir, loop=ns.loop,
     )
     return Runner(args, config).run()
 

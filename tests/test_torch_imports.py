@@ -20,7 +20,9 @@ BLOCKED = ("jax", "jaxlib", "flax", "ddnm_tpu", "yaml", "PIL", "tqdm")
 EXPERIMENT = REPO / "tools" / "experiments" / "fused_gn_conv_torch.py"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "main_torch.py",
                                           REPO / "hq_main_torch.py", REPO / "evaluation_torch.py",
-                                          EXPERIMENT]
+                                          REPO / "serve_torch.py", EXPERIMENT,
+                                          REPO / "tools" / "time_runner_overlap.py",
+                                          REPO / "tools" / "profile_torch_serve.py"]
 
 
 def _blocked(name: str) -> bool:
@@ -28,7 +30,8 @@ def _blocked(name: str) -> bool:
 
 
 def test_port_imports_with_foreign_packages_blocked():
-    """Every module of the port, main_torch, hq_main_torch, evaluation_torch,
+    """Every module of the port (the server and utils.observability among
+    them), main_torch, hq_main_torch, evaluation_torch, serve_torch,
     chip_smoke and the ported experiment import in a process where the blocked packages
     cannot be found; importing runs nothing (no output, no build
     directory)."""
@@ -49,7 +52,7 @@ def test_port_imports_with_foreign_packages_blocked():
                                                        "ddnm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke, evaluation_torch, hq_main_torch, main_torch
+        import chip_smoke, evaluation_torch, hq_main_torch, main_torch, serve_torch
         spec = importlib.util.spec_from_file_location("fused_gn_conv_torch",
                                                       {str(EXPERIMENT)!r})
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
