@@ -132,7 +132,8 @@ far it got. A failure in any phase raises.
      (bf16, max_batch 8, 100 steps) behind RestorationServer on 127.0.0.1:
      16 concurrent 4x SR and 4 RGBA inpainting requests, then 2
      cs_walshhadamard requests on a second service; every reply 200 and
-     256 x 256 x 3, a coalesced reply byte-equal to the same request alone,
+     256 x 256 x 3, a coalesced reply and the last lane of a direct group
+     of 8 byte-equal to the same request alone,
      mean_batch > 1, launches exact per served group; requests/s, latency,
      PSNR per task;
  18. the hq service: a guided, class-conditional service on the toy32 ADM
@@ -140,8 +141,18 @@ far it got. A failure in any phase raises.
      call, the guidance gradient's bits with cudnn.deterministic off and
      on; serve_torch.build_hq_service on configs/hq/inet256.yml (random
      weights, bf16, guided, max_batch 2) with 2 ?class=N requests: s per
-     served group, forward and backward launches exact.
-Phases 5, 7 and 16 also print each runner's images/s end to end against in
+     served group, forward and backward launches exact;
+ 19. the data long tail: every committed JPEG fixture through the port's
+     numpy decoder against PIL's committed decode (max |diff| <= 1 level,
+     pixels that differ counted), the decode's ms per image at 256 x 256
+     and 500 x 375 against the PNG reader's; phase 5's main path on the
+     JPEG copies of its 8 images (exp/datasets/celeba_hq_jpeg), launches
+     exact (7100 GroupNorm, 600 attention), images/s against phase 5's;
+     hq_evaluation_torch.py --face_sweep on the face256 ADM at full width
+     (random weights, bf16, a depth cut to 95 model calls a tile), 2 JPEG
+     gts of 320 x 288 cropped to 256 by the pair loader, --sweep_batch 2:
+     s per tile, max |A(x) - y| on the written images, launches exact.
+Phases 5, 7, 16 and 19 also print each runner's images/s end to end against in
 the sampler ("runner overlap" lines).
 
 Phase 3 also holds the four backward kernels (gn_bwd_reduce, gn_bwd_dx,
@@ -169,7 +180,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-18 sets the launch counts to 0 just before each run it
+Each of phases 4-19 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after.
 
 The line before the last is the JSON summary of the kernels; the last line
@@ -2462,8 +2473,10 @@ def served_main_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
     concurrent 4x SR requests of the 8 images of exp/datasets/celeba_hq (each
     image twice), 4 RGBA inpainting requests half a second later, then 2
     cs_walshhadamard requests. Holds: every reply 200 and 256 x 256 x 3; one
-    coalesced SR reply byte-equal to the same request restored alone
-    (batch-composition invariance); mean_batch > 1; the GroupNorm,
+    coalesced SR reply byte-equal to the same request restored alone, and
+    the last lane of a direct group of 8 too (batch-composition invariance;
+    cuDNN reduces that lane in other splits at some shapes, which the
+    service's lane-pinned convolutions undo); mean_batch > 1; the GroupNorm,
     attention and Walsh-Hadamard launches exactly what the served groups
     give. Returns (stats, launches of both loads)."""
     import serve_torch
@@ -2507,13 +2520,22 @@ def served_main_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
     gt_of = [i % 8 for i in range(16)] + list(range(4)) + list(range(2))
     psnr = {t: float(np.mean([psnr_u8(outs[i], gts[gt_of[i]]) for i in idx]))
             for t, idx in tasks.items()}
-    # batch-composition invariance: a reply that rode a full group against
-    # the same request (its image, its sequence number) restored alone
-    i = next(k for k in range(16) if replies[k][2]["X-Batch-Size"] == "8")
+    # batch-composition invariance: a reply of the largest served group
+    # (8 when the requests arrive within max_wait_ms) against the same
+    # request (its image, its sequence number) restored alone
+    i = max(range(16), key=lambda k: int(replies[k][2]["X-Batch-Size"]))
+    if int(replies[i][2]["X-Batch-Size"]) < 2:
+        raise AssertionError("no SR request was coalesced with another")
     seq = int(replies[i][2]["X-Seq"])
     alone = svc.restore(gts[gt_of[i]][None].astype(np.float32) / 255.0,
                         "sr_averagepooling", [seq], input_kind="gt")
     alone_equal = encode_png(to_u8(alone[0])) == replies[i][1]
+    # the last lane of a full group, where cuDNN's split reductions land
+    group = svc.restore(np.stack(gts).astype(np.float32) / 255.0, "sr_averagepooling",
+                        list(range(100, 108)), input_kind="gt")
+    last = svc.restore(gts[7][None].astype(np.float32) / 255.0, "sr_averagepooling", [107],
+                       input_kind="gt")
+    last_lane_equal = encode_png(to_u8(group[7])) == encode_png(to_u8(last[0]))
     h, h_cs = load["health"], load_cs["health"]
     want = expected_launches(n_gn * 100 * h["batches"], n_attn * 100 * h["batches"])
     want_cs = expected_launches(n_gn * 100 * h_cs["batches"], n_attn * 100 * h_cs["batches"],
@@ -2528,6 +2550,7 @@ def served_main_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
         "mean_batch": h["mean_batch"], "mean_batch_cs": h_cs["mean_batch"],
         "latency_s": h.get("latency_s"), "latency_s_cs": h_cs.get("latency_s"),
         "psnr": psnr, "alone_vs_coalesced_byte_equal": alone_equal, "seq_checked": seq,
+        "last_lane_vs_alone_byte_equal": last_lane_equal,
         "launches_per_group": {"sr_or_inpainting": {k: v / h["batches"]
                                                     for k, v in load["launches"].items()},
                                "cs_walshhadamard": {k: v / h_cs["batches"]
@@ -2540,11 +2563,15 @@ def served_main_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
           f"in {load_cs['wall']:.2f} s ({h_cs['batches']} group), latency_s "
           f"{h_cs.get('latency_s')}; {stats['images_per_second_served']:.4f} images/s served "
           f"in all; warm-up {warm:.2f} s", flush=True)
-    print(f"served PSNR against ground truth: {psnr}; reply seq {seq} (a group of 8) "
-          f"byte-equal alone: {alone_equal}; launches {load['launches']} and (CS) "
+    print(f"served PSNR against ground truth: {psnr}; reply seq {seq} (a group of "
+          f"{replies[i][2]['X-Batch-Size']}) "
+          f"byte-equal alone: {alone_equal}; lane 7 of a direct group of 8 byte-equal "
+          f"alone: {last_lane_equal}; launches {load['launches']} and (CS) "
           f"{load_cs['launches']}", flush=True)
     if not alone_equal:
         raise AssertionError(f"seq {seq}: the coalesced reply differs from the alone restore")
+    if not last_lane_equal:
+        raise AssertionError("lane 7 of a group of 8 differs from the same request alone")
     if not h["mean_batch"] > 1:
         raise AssertionError(f"mean_batch {h['mean_batch']} <= 1: nothing coalesced")
     if load["launches"] != want or load_cs["launches"] != want_cs:
@@ -2708,15 +2735,135 @@ def served_hq_path(n_gn_hq: int, n_attn_hq: int, n_gn_clf: int, n_attn_clf: int
     return stats, load["launches"]
 
 
+# ------------------------------------------------------------------ phase 19
+
+JPEG_ORACLE = REPO / "tests" / "fixtures" / "jpeg_pil_decode.npz"
+FACE256 = REPO / "configs" / "hq" / "face256.yml"
+# the face sweep's depth cut: 50 respaced steps with jumps of 5 resampled
+# twice, 95 model calls a tile (the config's 250 / 10 / 10 make 2410)
+FACE_CUT = ('timestep_respacing: "50"', "t_T: 50", "jump_length: 5", "jump_n_sample: 2")
+
+
+def jpeg_decode_check() -> dict:
+    """Phase 19 (a): every committed JPEG fixture through the port's reader
+    against PIL's decode committed beside it (tools/make_torch_jpeg_fixtures.py):
+    max |diff| <= 1 uint8 level, the count of pixels that differ; the
+    decode's ms per image on this host at 256 x 256 (celeba_hq_jpeg, 4:2:0)
+    and 500 x 375 (imagenet_jpeg), against the PNG reader's ms on the PNGs
+    of celeba_hq (best of 3 rounds each)."""
+    from ddnm_tpu_torch.data.io import decode_png, read_rgb8
+
+    oracle = np.load(JPEG_ORACLE)
+    rows = {}
+    for key in oracle.files:
+        ours = read_rgb8(REPO / key)
+        ref = decode_png(bytes(oracle[key]))
+        if ours.shape != ref.shape:
+            raise AssertionError(f"{key}: decoded {ours.shape}, PIL {ref.shape}")
+        diff = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
+        rows[key] = dict(shape=list(ours.shape), max_abs=int(diff.max()),
+                         pixels_differ=int((diff.max(axis=-1) > 0).sum()))
+        print(f"jpeg {key}: {ours.shape[1]} x {ours.shape[0]}, max |diff| against PIL "
+              f"{rows[key]['max_abs']}, pixels that differ {rows[key]['pixels_differ']}",
+              flush=True)
+        if diff.max() > 1:
+            raise AssertionError(f"{key}: the JPEG decode is {diff.max()} levels from PIL's")
+
+    def ms_per_image(paths) -> float:
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for p in paths:
+                read_rgb8(p)
+            best = min(best, (time.perf_counter() - t0) / len(paths))
+        return 1e3 * best
+
+    ds = REPO / "exp" / "datasets"
+    timing = {"jpeg_256x256_ms": ms_per_image(sorted((ds / "celeba_hq_jpeg").glob("*.jpg"))),
+              "jpeg_500x375_ms": ms_per_image(sorted((ds / "imagenet_jpeg").glob("*.jpg"))),
+              "png_256x256_ms": ms_per_image(sorted((ds / "celeba_hq").glob("*.png")))}
+    print("decode ms per image on the host (best of 3): " + json.dumps(timing), flush=True)
+    return dict(files=rows, **timing)
+
+
+def face_sweep_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
+    """Phase 19 (c): hq_evaluation_torch.py --face_sweep at full width: the
+    face256 ADM of configs/hq/face256.yml (128 channels, its channel_mult,
+    random weights from seed 1234, bf16 torso) with the depth cut FACE_CUT
+    (a temporary copy of the config), inpainting the 2 JPEG gts of
+    exp/datasets/face_jpeg/gts (320 x 288: the pair loader crops them to
+    256) under exp/datasets/face/gt_keep_masks (paired by position: the
+    names differ by suffix), --sweep_batch 2. Checks the outputs, max
+    |A(x) - y| on the written images (at most one level) and every kernel's
+    launch count exactly. Returns (stats, launches)."""
+    import hq_evaluation_torch
+    from ddnm_tpu_torch.config import load_hq_config
+    from ddnm_tpu_torch.data.io import read_rgb8
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, n_model_calls
+    from ddnm_tpu_torch.schedules import named_beta_schedule
+
+    conf = FACE256.read_text()
+    for old, new in zip(('timestep_respacing: "250"', "t_T: 250", "jump_length: 10",
+                         "jump_n_sample: 10"), FACE_CUT):
+        if conf.count(old) != 1:
+            raise AssertionError(f"configs/hq/face256.yml: expected one {old!r}")
+        conf = conf.replace(old, new)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "face256_cut.yml").write_text(conf)
+        hq = load_hq_config(tmp / "face256_cut.yml")
+        calls = n_model_calls(build_posterior_tables(
+            betas=named_beta_schedule("linear", int(hq.diffusion_steps), use_scale=True),
+            timestep_respacing=str(hq.timestep_respacing),
+            schedule_jump_params=dict(hq.schedule_jump_params)))
+        print(f"face sweep depth cut: {', '.join(FACE_CUT)}: {calls} model calls a tile "
+              f"(configs/hq/face256.yml: 2410)", flush=True)
+        ops.reset_launch_counts()
+        out = hq_evaluation_torch.main([
+            "--face_sweep", "--random-init", "--dtype", "bfloat16", "--max_len", "2",
+            "--sweep_batch", "2", "--face_config", str(tmp / "face256_cut.yml"),
+            "--face_gt", str(REPO / "exp" / "datasets" / "face_jpeg" / "gts"),
+            "--face_masks", str(REPO / "exp" / "datasets" / "face" / "gt_keep_masks"),
+            "-i", str(tmp / "out")])["face256"]
+        launches = ops.launch_counts()
+        tree = out["tree"]
+        names = sorted(p.name for p in tree["srs"].iterdir())
+        worst = 0.0
+        for name in names:
+            final = read_rgb8(tree["srs"] / name).astype(np.float64) / 255.0
+            gt = read_rgb8(tree["gts"] / name).astype(np.float64) / 255.0
+            keep = read_rgb8(tree["gt_keep_masks"] / name)[..., :1] > 127
+            if final.shape != (hq.image_size, hq.image_size, 3) or gt.shape != final.shape:
+                raise AssertionError(f"face sweep {name}: {final.shape}, gt {gt.shape}")
+            worst = max(worst, float(np.abs(keep * (final - gt)).max()))
+    stats = dict(wall_seconds=out["wall_seconds"], tiles=len(names), model_calls=calls,
+                 seconds_per_tile=out["wall_seconds"] / max(len(names), 1),
+                 psnr=out["psnr"], range_space_max_abs=worst)
+    print(f"face sweep (face256 ADM, bf16, 2 JPEG gts cropped from 320 x 288, batch 2): "
+          f"{stats['wall_seconds']:.2f} s wall, {stats['seconds_per_tile']:.2f} s per tile, "
+          f"PSNR {['%.2f' % p for p in stats['psnr']]}, max |A(x) - y| on the written "
+          f"images {worst:.4f} (one level {1 / 255:.4f}); launches {launches}, per model "
+          f"call {({k: v / calls for k, v in launches.items()})}", flush=True)
+    if names != ["face_00000.jpg", "face_00001.jpg"]:
+        raise AssertionError(f"face sweep outputs: {names}")
+    if not all(np.isfinite(stats["psnr"])) or worst > 1 / 255 + 1e-6:
+        raise AssertionError(f"face sweep: PSNR {stats['psnr']}, max |A(x) - y| {worst}")
+    want = expected_launches(n_gn * calls, n_attn * calls)
+    if launches != want:
+        raise AssertionError(f"face sweep launch counts {launches} != {want} ({calls} calls)")
+    return stats, launches
+
+
 # ------------------------------------------------------------ phases 5 and 7
 
 
 def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int,
-              want_fwht: int) -> tuple[dict, dict]:
+              want_fwht: int, path_y: str = "celeba_hq") -> tuple[dict, dict]:
     """main_torch on configs/celeba_hq.yml, flag_ddpm256.pt, the 8 images of
-    exp/datasets/celeba_hq, bf16 torso, batch 8, 100 steps, sigma_y 0;
-    checks 8 PNGs, PSNR > 14 dB and every kernel's launch count exactly.
-    Returns (the run's stats, its launch counts)."""
+    exp/datasets/<path_y> (the PNGs of celeba_hq, or their JPEG copies in
+    celeba_hq_jpeg), bf16 torso, batch 8, 100 steps, sigma_y 0; checks 8
+    PNGs, PSNR > 14 dB and every kernel's launch count exactly. Returns (the
+    run's stats, its launch counts)."""
     import main_torch
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2724,7 +2871,7 @@ def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int
         stats = main_torch.main([
             "--config", str(REPO / "configs" / "celeba_hq.yml"),
             "--ckpt", str(FLAG_PT), "--exp", str(REPO / "exp"),
-            "--path_y", "celeba_hq", "--deg", deg,
+            "--path_y", path_y, "--deg", deg,
             "--deg_scale", deg_scale, "--sigma_y", "0",
             *(["--simplified"] if simplified else []),
             "--dtype", "bfloat16", "--batch_size", "8",
@@ -2732,14 +2879,15 @@ def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int
         launches = ops.launch_counts()
         n_png = len(list((Path(tmp) / "out").glob("*_0.png")))
     steps = 100
-    print(f"main path ({'simplified' if simplified else 'SVD'} {deg}): "
+    print(f"main path ({'simplified' if simplified else 'SVD'} {deg}, {path_y}): "
           f"{stats['num_samples']} images, PSNR {stats['avg_psnr']:.4f}, "
           f"{stats['images_per_second']:.4f} images/s end to end "
           f"({stats['wall_seconds']:.2f} s), "
           f"{stats['num_samples'] / stats['sample_seconds']:.4f} images/s in the "
           f"sampler ({stats['sample_seconds']:.2f} s); launches {launches}",
           flush=True)
-    print(overlap_gap_line(f"{'simplified' if simplified else 'SVD'} {deg}", stats), flush=True)
+    print(overlap_gap_line(f"{'simplified' if simplified else 'SVD'} {deg} {path_y}", stats),
+          flush=True)
     if stats["num_samples"] != 8 or n_png != 8:
         raise AssertionError(f"expected 8 restored images, got {stats['num_samples']}"
                              f" ({n_png} PNGs)")
@@ -2997,7 +3145,8 @@ def main() -> int:
               flush=True)
 
     with phase(5, "main path through main_torch (bf16, batch 8, 100 steps)"):
-        _, launches_simplified = main_path("sr_averagepooling", "4", True, n_gn, n_attn, 0)
+        main_stats, launches_simplified = main_path("sr_averagepooling", "4", True, n_gn,
+                                                    n_attn, 0)
 
     with phase(6, "full-width fp32 SVD-mode parity with the JAX golden"):
         parity_svd(model, n_gn, n_attn)
@@ -3069,6 +3218,26 @@ def main() -> int:
                    "guided bf16, max_batch 2)"):
         served_hq, launches_served_hq = served_hq_path(*counts["hq"], *counts["classifier"])
 
+    with phase(19, "the data long tail on the card (JPEG decode, the main path on JPEG, "
+                   "the face sweep through hq_evaluation_torch)"):
+        decode = jpeg_decode_check()
+        jpeg_stats, launches_jpeg = main_path("sr_averagepooling", "4", True, n_gn, n_attn, 0,
+                                              path_y="celeba_hq_jpeg")
+        print("main path on JPEG against phase 5 (PNG), images/s end to end "
+              f"{jpeg_stats['images_per_second']:.4f} against "
+              f"{main_stats['images_per_second']:.4f}, in the sampler "
+              f"{jpeg_stats['num_samples'] / jpeg_stats['sample_seconds']:.4f} against "
+              f"{main_stats['num_samples'] / main_stats['sample_seconds']:.4f}; launches per "
+              f"batch {launches_jpeg['groupnorm_stats']} GroupNorm, "
+              f"{launches_jpeg['attention']} attention", flush=True)
+        with torch.device("meta"):
+            face_meta = build_adm_from_hq(load_hq_config(FACE256), "meta")
+        face_stats, launches_face = face_sweep_path(*module_counts(face_meta))
+        del face_meta
+        long_tail = dict(decode=decode, jpeg_main={
+            k: jpeg_stats[k] for k in ("images_per_second", "sample_seconds", "wall_seconds",
+                                       "num_samples", "avg_psnr")}, face_sweep=face_stats)
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -3099,7 +3268,9 @@ def main() -> int:
                               "guided_imagenet_cc": launches_gcc[kind],
                               **{run: counts_[kind] for run, counts_ in launches_accel.items()},
                               "served": launches_served[kind],
-                              "served_hq": launches_served_hq[kind]},
+                              "served_hq": launches_served_hq[kind],
+                              "jpeg_main": launches_jpeg[kind],
+                              "face_sweep": launches_face[kind]},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
          "device_ms": per_forward[kind].get("device_ms"),
          "plain_ms": per_forward[kind]["plain_ms"],
@@ -3117,7 +3288,8 @@ def main() -> int:
             if kind in BACKWARD else {})}
         for kind in SOURCES], "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
         "guided_toy32": guided_toy, "guided": guided, "solver_parity": solver,
-        "accelerators": accel_stats, "served": served, "served_hq": served_hq}
+        "accelerators": accel_stats, "served": served, "served_hq": served_hq,
+        "data_long_tail": long_tail}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

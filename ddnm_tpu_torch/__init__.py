@@ -14,9 +14,13 @@ Ported: the main runner in both modes on the DDPM and ADM UNets
 (`sampling/solvers.py`), the encoder cache (`sampling/accel.py`) and the
 hq CLI's tile-granular `--resume`, the runner's host overlap with
 `utils/observability.py` (`MetricsLogger`, `--trace_dir`) and online
-serving (`server.py`, `serve_torch.py`). Still raising NotImplementedError:
-the LSUN lmdb and CelebA attribute datasets and multi-device runs (`mesh`,
-`--sp` / `--dp`); the bench is absent.
+serving (`server.py`, `serve_torch.py`), and the data long tail: a numpy
+baseline JPEG decoder (`data/jpeg.py`), the CelebA and LSUN lmdb datasets
+(`data/extra_datasets.py`), the checkpoint registry (`data/checkpoints.py`)
+and `hq_evaluation_torch.py`. Still raising NotImplementedError:
+multi-device runs (`mesh`, `--sp` / `--dp`); refused with ValueError:
+WebP (a real LSUN lmdb's values), progressive and CMYK JPEG; the bench is
+absent.
 """
 
 from ddnm_tpu_torch.runtime import resolve_device

@@ -9,10 +9,12 @@
     short-edge centre crop then BILINEAR, with labels) or a folder
     (`center_crop_arr`: BOX halving, BICUBIC, centre crop).
   - The ood LSUN folders: `center_crop_arr` as ImageNet's.
+  - CelebA (the aligned crop, its test split) and the non-ood LSUN lmdb
+    (`<exp>/datasets/<category>`'s val split): data/extra_datasets.py.
 
-Images decode with the port's PNG reader and resize with data/resize.py,
-which reproduces PIL's uint8 resampler. LSUN's lmdb splits and CelebA's
-attribute split (the JAX package's extra_datasets.py) are not ported.
+Images decode with the port's PNG and JPEG readers (told apart by their
+bytes) and resize with data/resize.py, which reproduces PIL's uint8
+resampler.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Iterator
 
 import numpy as np
 
+from ddnm_tpu_torch.data.extra_datasets import CelebADataset, LSUNDataset
 from ddnm_tpu_torch.data.io import read_rgb8
 from ddnm_tpu_torch.data.resize import CROP_MODES, crop_and_resize
 
@@ -103,25 +106,27 @@ def get_dataset(
     manifest: str | Path | None = None,
     subset: tuple[int, int] | None = None,
     out_of_dist: bool = False,
-) -> FolderDataset:
+):
     """Build a dataset by the reference config's dataset name.
 
     `out_of_dist` folders are not shuffled (the seed-2019 shuffle applies
     only to the reference's non-ood branch). `subset` (start, end) slices
-    the paths and, where the dataset has them, the labels."""
+    the paths and, where the dataset has them, the labels. A non-ood LSUN
+    `root` is `<exp>/datasets/<category>`: the lmdb is
+    `<exp>/datasets/<category>_val_lmdb`."""
     low = name.lower()
     if low in ("celeba_hq", "ffhq", "solvay", "oldphoto", "folder"):
         ds = FolderDataset(root, image_size, shuffle_seed=None if out_of_dist else 2019)
+    elif low == "celeba":
+        ds = CelebADataset(root, image_size, split="test")
     elif low == "lsun" and out_of_dist:
         ds = FolderDataset(root, image_size, shuffle_seed=None, crop="center_arr")
+    elif low == "lsun":
+        ds = LSUNDataset(Path(root).parent, Path(root).name, "val", image_size)
     elif low == "imagenet" and manifest is not None:
         ds = ImageNetManifestDataset(root, manifest, image_size)
     elif low == "imagenet":
         ds = FolderDataset(root, image_size, shuffle_seed=None, crop="center_arr")
-    elif low in ("lsun", "celeba"):
-        raise NotImplementedError(
-            f"dataset {name!r} (its lmdb / attribute split) is not ported yet "
-            "(ROADMAP.md Queue 1 E2: the data long tail)")
     else:
         raise ValueError(f"unknown dataset {name}")
     if subset is not None:
@@ -145,8 +150,9 @@ def iterate_batches(dataset, batch_size: int, *, prefetch: int = 2, num_workers:
     Batches decode on a pool of `num_workers` threads with `prefetch`
     batches in flight beyond the one being yielded, in order, as the JAX
     package's iterate_batches. The PNG decode is numpy and zlib with
-    Python loops for two of the five row filters, so it holds the GIL for
-    part of its time. prefetch=0 iterates synchronously."""
+    Python loops for two of the five row filters, and the JPEG decode reads
+    its Huffman symbols in a Python loop, so both hold the GIL for part of
+    their time. prefetch=0 iterates synchronously."""
     n = len(dataset)
     batches = []
     for start in range(0, n, batch_size):

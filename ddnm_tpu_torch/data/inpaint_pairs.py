@@ -6,11 +6,13 @@ when the names overlap only in part, by position, as the reference does)
 and yields {"GT": [-1, 1] (H, W, 3), "GT_name": str, "gt_keep_mask":
 {0, 1} (H, W, 3)}.
 
-The JAX package centre-crops each image with PIL (BOX halving, BICUBIC,
-crop) after a round trip through uint8. This port has no imaging package:
-an image already at `image_size` x `image_size` takes the same round trip
-(so its values equal the JAX package's), and any other size raises, as the
-port's `load_image` does. The PNG-only rule of `load_image` holds too.
+Each image, gt and mask alike, takes the JAX package's centre crop: a
+round trip through uint8 ((x * 255) truncated), then `center_crop_arr`
+(BOX halving while the short edge is at least twice `image_size`, BICUBIC
+to scale it to `image_size`, a centre crop), which data/resize.py holds
+to PIL's bytes; the crop leaves an image already at `image_size` x
+`image_size` as the round trip gives it. Any image the port's readers decode
+(PNG, baseline JPEG) is accepted.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Iterator
 import numpy as np
 
 from ddnm_tpu_torch.data.io import load_image
+from ddnm_tpu_torch.data.resize import center_crop_arr
 
 __all__ = ["InpaintPairs"]
 
@@ -32,13 +35,10 @@ def _tree(root: str | Path) -> list[Path]:
     return sorted(p for p in Path(root).rglob("*") if p.suffix.lower() in _EXTS)
 
 
-def _center_crop(img: np.ndarray, size: int, name: str) -> np.ndarray:
-    """The JAX package's centre crop for an image already at size x size:
-    its uint8 round trip, then the identity."""
-    if img.shape[:2] != (size, size):
-        raise ValueError(f"{name} is {img.shape[1]}x{img.shape[0]}, expected "
-                         f"{size}x{size}; resizing and cropping are not ported")
-    return np.asarray((img * 255).astype(np.uint8), dtype=np.float32) / 255.0
+def _center_crop(img: np.ndarray, size: int) -> np.ndarray:
+    """The reference's repeated-downsample centre crop of a [0, 1] image,
+    through uint8 as the JAX package's."""
+    return center_crop_arr((img * 255).astype(np.uint8), size).astype(np.float32) / 255.0
 
 
 class InpaintPairs:
@@ -70,8 +70,8 @@ class InpaintPairs:
 
     def __getitem__(self, i: int) -> dict:
         gt_p, mask_p = self.pairs[i]
-        gt = _center_crop(load_image(gt_p), self.image_size, gt_p.name)
-        mask = _center_crop(load_image(mask_p), self.image_size, mask_p.name)
+        gt = _center_crop(load_image(gt_p), self.image_size)
+        mask = _center_crop(load_image(mask_p), self.image_size)
         return {
             "GT": gt * 2.0 - 1.0,
             "GT_name": gt_p.name,

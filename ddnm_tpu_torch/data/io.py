@@ -1,9 +1,12 @@
 """Image IO: PNG read and write in the standard library (zlib + struct),
-float32 (H, W, 3) images in [0, 1] (port of ddnm_tpu/data/io.py).
+baseline JPEG read in numpy (data/jpeg.py), float32 (H, W, 3) images in
+[0, 1] (port of ddnm_tpu/data/io.py).
 
 The machine that runs the port has no imaging package, so this module
 holds a small PNG codec: 8-bit gray, gray+alpha, RGB and RGBA,
-non-interlaced, filter types 0-4. Anything else raises. Writes quantise as
+non-interlaced, filter types 0-4. Reads tell PNG from JPEG by their magic
+bytes, not by the file's suffix. Other formats (WebP, BMP, TIFF, GIF) and
+PNG / JPEG variants the codecs lack raise ValueError. Writes quantise as
 the JAX package's `save_image` does (x * 255 + 0.5, clamp, truncate) and
 use filter type 0.
 """
@@ -16,13 +19,17 @@ from pathlib import Path
 
 import numpy as np
 
+from ddnm_tpu_torch.data.jpeg import decode_jpeg, is_jpeg
 from ddnm_tpu_torch.data.resize import resize
 
-__all__ = ["decode_png", "encode_png", "read_rgb8", "load_image", "save_image",
-           "load_mask"]
+__all__ = ["decode_png", "encode_png", "decode_rgb8", "read_rgb8", "load_image",
+           "save_image", "load_mask"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # PNG color type -> samples per pixel
+# formats the port cannot read, by their leading bytes
+_REFUSED = ((b"RIFF", "WebP"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+            (b"GIF8", "GIF"))
 
 
 def _unfilter_average(cur: bytearray, prev: bytes, bpp: int) -> None:
@@ -121,13 +128,21 @@ def encode_png(arr: np.ndarray) -> bytes:
             + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
 
 
-def read_rgb8(path: str | Path) -> np.ndarray:
-    """Read a PNG -> uint8 (H, W, 3) (gray replicated, alpha dropped), as
-    PIL's `Image.open(path).convert("RGB")`. Other formats raise."""
-    path = Path(path)
-    if path.suffix.lower() != ".png":
-        raise ValueError(f"only PNG images are supported, got {path.name}")
-    img = decode_png(path.read_bytes())
+def decode_rgb8(raw: bytes, name: str = "<bytes>") -> np.ndarray:
+    """PNG or JPEG bytes (told apart by their magic bytes) -> uint8
+    (H, W, 3), gray replicated and alpha dropped, as PIL's
+    `Image.open(...).convert("RGB")`. `name` labels errors; other formats
+    raise ValueError naming the format."""
+    if raw[:8] == _SIGNATURE:
+        img = decode_png(raw)
+    elif is_jpeg(raw):
+        img = decode_jpeg(raw, name)
+    else:
+        fmt = next((f for magic, f in _REFUSED if raw[:len(magic)] == magic
+                    and (f != "WebP" or raw[8:12] == b"WEBP")), None)
+        if fmt is not None:
+            raise ValueError(f"{name}: {fmt} images are not supported (PNG and JPEG only)")
+        raise ValueError(f"{name}: not a PNG or JPEG image")
     if img.ndim == 2:
         return np.repeat(img[:, :, None], 3, axis=2)
     if img.shape[-1] == 2:  # gray + alpha
@@ -135,8 +150,14 @@ def read_rgb8(path: str | Path) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, :3])
 
 
+def read_rgb8(path: str | Path) -> np.ndarray:
+    """Read a PNG or JPEG file -> uint8 (H, W, 3); see `decode_rgb8`."""
+    path = Path(path)
+    return decode_rgb8(path.read_bytes(), path.name)
+
+
 def load_image(path: str | Path, size: int | None = None) -> np.ndarray:
-    """Read a PNG -> float32 (H, W, 3) in [0, 1]; with `size`, an image of
+    """Read a PNG or JPEG -> float32 (H, W, 3) in [0, 1]; with `size`, an image of
     another size is resized to size x size with BICUBIC, as the JAX
     package's load_image (data/resize.py reproduces PIL's resampler)."""
     img = read_rgb8(path)
@@ -158,7 +179,7 @@ def save_image(img, path: str | Path) -> None:
 
 
 def load_mask(path: str | Path) -> np.ndarray:
-    """Load an inpainting mask: .npy (0/1) or a PNG thresholded at 0.5."""
+    """Load an inpainting mask: .npy (0/1) or a PNG / JPEG thresholded at 0.5."""
     path = Path(path)
     if path.suffix == ".npy":
         return np.load(path).astype(np.float32)

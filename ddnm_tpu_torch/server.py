@@ -10,14 +10,17 @@ JSON keys:
     request's sequence number) (sampling/rng.py `image_generators`:
     STREAM_INIT for x_T, STREAM_SAMPLE for the sampler's noise), so a
     request's output is bit-identical whether it runs alone, padded or
-    coalesced with strangers. Pad lanes get generators of their own.
+    coalesced with strangers. Pad lanes get generators of their own. On a
+    card, a convolution whose cuDNN engine computes some lane in another
+    order than lane 0 runs one image at a time (`_LanePinnedConv`).
 
   - `RestorationServer`, a stdlib ThreadingHTTPServer front. Handler
-    threads decode PNGs into numpy (the port's codec, data/io.py) and
-    enqueue; ONE worker thread drains the queue (micro-batching with a
-    max-wait deadline) and is the only thread that touches the device.
-    `POST /restore?deg=<task>[&input=degraded|gt][&class=N]` with a PNG body
-    returns the restored PNG; `GET /healthz` returns JSON stats (counters,
+    threads decode PNG or JPEG uploads into numpy (the port's codecs,
+    data/io.py and data/jpeg.py) and enqueue; ONE worker thread drains
+    the queue (micro-batching with a max-wait deadline) and is the only
+    thread that touches the device. `POST
+    /restore?deg=<task>[&input=degraded|gt][&class=N]` with a PNG or JPEG
+    body returns the restored PNG; `GET /healthz` returns JSON stats (counters,
     realized batch, queue depth, request-latency percentiles).
 
 The worker runs a one-deep dispatch/fetch pipeline. `restore_async`
@@ -60,6 +63,7 @@ import numpy as np
 import torch
 
 from ddnm_tpu_torch.data.io import decode_png, encode_png
+from ddnm_tpu_torch.data.jpeg import decode_jpeg, is_jpeg
 from ddnm_tpu_torch.data.transforms import data_transform, inverse_data_transform
 from ddnm_tpu_torch.operators.functional import FunctionalOperator
 from ddnm_tpu_torch.runtime import to_device, to_host
@@ -88,6 +92,56 @@ def _modules(params) -> dict:
     if isinstance(params, torch.nn.Module):
         return {"": params}
     return {k: v for k, v in params.items() if isinstance(v, torch.nn.Module)}
+
+
+class _LanePinnedConv:
+    """The forward of a served Conv2d that gives each lane the same bits
+    whatever its position in the group. At the first call with an input
+    layout (shape, strides, dtype) it checks, on random data of that
+    layout, that every lane of one batched call equals the same image
+    computed at lane 0 of a batch of its copies; where it does not (on the
+    H100, cuDNN's engines for 3x3 convolutions with deep inputs on small
+    maps at batch 8 reduce the last lane's output tiles in other splits),
+    calls with that layout run one image at a time."""
+
+    def __init__(self, conv: torch.nn.Conv2d):
+        self.conv = conv
+        self.per_lane: dict = {}
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv._conv_forward(x, self.conv.weight, self.conv.bias)
+
+    def _lanes_agree(self, x: torch.Tensor) -> bool:
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        with torch.no_grad():
+            probe = torch.empty_like(x).normal_(generator=gen)
+            full = self._conv(probe)
+            copies = torch.empty_like(probe)
+            for k in range(x.shape[0]):
+                copies.copy_(probe[k:k + 1].expand_as(probe))
+                if not torch.equal(self._conv(copies)[0], full[k]):
+                    return False
+        return True
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] == 1:
+            return self._conv(x)
+        key = (tuple(x.shape), x.stride(), x.dtype)
+        if key not in self.per_lane:
+            self.per_lane[key] = not self._lanes_agree(x)
+        if self.per_lane[key]:
+            return torch.cat([self._conv(x[i:i + 1]) for i in range(x.shape[0])])
+        return self._conv(x)
+
+
+def _pin_conv_lanes(params) -> None:
+    """Route every Conv2d of the served modules through _LanePinnedConv, so
+    that a request's reply does not depend on its lane (the service's
+    contract: bit-identical alone, padded or coalesced)."""
+    for module in _modules(params).values():
+        for conv in module.modules():
+            if type(conv) is torch.nn.Conv2d and not isinstance(conv.forward, _LanePinnedConv):
+                conv.forward = _LanePinnedConv(conv)
 
 
 def _state(params) -> dict:
@@ -217,6 +271,8 @@ class RestorationService:
         self._swap_lock = threading.Lock()
         first = next((p for m in _modules(params).values() for p in m.parameters()), None)
         self.device = first.device if first is not None else torch.device("cpu")
+        if self.device.type == "cuda":
+            _pin_conv_lanes(params)
         self._noise_fn = noise_fn
         self._sched = sched
         if self._encoder_cache > 1 and sched is not None:
@@ -912,9 +968,11 @@ def _gray(rgb: np.ndarray) -> np.ndarray:
 
 
 def _decode_upload(raw: bytes) -> tuple[np.ndarray, bool]:
-    """PNG bytes -> (uint8 (H, W, c), has_alpha): gray, gray+alpha, RGB or
-    RGBA, as the port's codec reads them (a palette or 16-bit PNG raises)."""
-    img = decode_png(raw)
+    """PNG or JPEG bytes -> (uint8 (H, W, c), has_alpha): gray, gray+alpha,
+    RGB or RGBA PNGs as the port's codec reads them (a palette or 16-bit PNG
+    raises); a JPEG decodes to gray or RGB with no alpha, as serve.py's PIL
+    opens it (a progressive or CMYK JPEG raises)."""
+    img = decode_jpeg(raw, "upload") if is_jpeg(raw) else decode_png(raw)
     if img.ndim == 2:
         img = img[..., None]
     return img, img.shape[-1] in (2, 4)

@@ -2,6 +2,7 @@
 machine has neither PIL nor yaml; this host has both), and the port's data
 layer against the JAX package's."""
 
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -160,7 +161,15 @@ def test_get_dataset_matches_jax(tmp_path, name, manifest, ood, image_size):
 
 
 @pytest.mark.parametrize("name,ood", [("LSUN", False), ("CELEBA", False), ("cifar", False)])
-def test_get_dataset_refuses_what_is_not_ported(name, ood):
-    exc = ValueError if name == "cifar" else NotImplementedError
-    with pytest.raises(exc):
-        get_dataset(name, root=REPO / "exp" / "datasets" / "imagenet", out_of_dist=ood)
+def test_get_dataset_refuses_what_is_not_ported(name, ood, tmp_path, monkeypatch):
+    """What get_dataset cannot build it refuses as the JAX package's does: an
+    unknown name (ValueError), the LSUN lmdb without the lmdb package
+    (ImportError; neither machine has it) and a CelebA root without images
+    (FileNotFoundError)."""
+    from ddnm_tpu.data.datasets import get_dataset as j_get_dataset
+
+    monkeypatch.setitem(sys.modules, "lmdb", None)  # import lmdb raises ImportError
+    exc = {"cifar": ValueError, "LSUN": ImportError, "CELEBA": FileNotFoundError}[name]
+    for fn in (get_dataset, j_get_dataset):
+        with pytest.raises(exc):
+            fn(name, root=tmp_path / "empty", out_of_dist=ood)

@@ -99,8 +99,10 @@ def test_inpaint_pairs_match_jax(tmp_path):
     assert ([(a.name, b.name) for a, b in InpaintPairs(gts, masks, **kw).pairs]
             == [(a.name, b.name) for a, b in JInpaintPairs(gts, masks, **kw).pairs]
             == [("im0.png", "im0.png"), ("im1.png", "zz.png")])
-    with pytest.raises(ValueError, match="resizing"):
-        InpaintPairs(gts, masks, image_size=64)[0]
+    # an image of another size is centre-cropped (here scaled up) as JAX does
+    a, b = InpaintPairs(gts, masks, image_size=64)[1], JInpaintPairs(gts, masks, image_size=64)[1]
+    assert a["GT"].shape == (64, 64, 3)
+    assert np.array_equal(a["GT"], b["GT"]) and np.array_equal(a["gt_keep_mask"], b["gt_keep_mask"])
     with pytest.raises(FileNotFoundError):
         InpaintPairs(tmp_path / "none", masks)
 

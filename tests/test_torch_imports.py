@@ -20,7 +20,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "ddnm_tpu", "yaml", "PIL", "tqdm")
 EXPERIMENT = REPO / "tools" / "experiments" / "fused_gn_conv_torch.py"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "main_torch.py",
                                           REPO / "hq_main_torch.py", REPO / "evaluation_torch.py",
-                                          REPO / "serve_torch.py", EXPERIMENT,
+                                          REPO / "serve_torch.py",
+                                          REPO / "hq_evaluation_torch.py", EXPERIMENT,
                                           REPO / "tools" / "time_runner_overlap.py",
                                           REPO / "tools" / "profile_torch_serve.py"]
 
@@ -32,9 +33,10 @@ def _blocked(name: str) -> bool:
 def test_port_imports_with_foreign_packages_blocked():
     """Every module of the port (the server and utils.observability among
     them), main_torch, hq_main_torch, evaluation_torch, serve_torch,
-    chip_smoke and the ported experiment import in a process where the blocked packages
-    cannot be found; importing runs nothing (no output, no build
-    directory)."""
+    hq_evaluation_torch, chip_smoke and the ported experiment import in a
+    process where the blocked packages cannot be found, and leave lmdb
+    unimported (the LSUN datasets import it when opened); importing runs
+    nothing (no output, no build directory)."""
     script = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
         BLOCKED = {BLOCKED!r}
@@ -52,11 +54,12 @@ def test_port_imports_with_foreign_packages_blocked():
                                                        "ddnm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke, evaluation_torch, hq_main_torch, main_torch, serve_torch
+        import chip_smoke, evaluation_torch, hq_evaluation_torch, hq_main_torch
+        import main_torch, serve_torch
         spec = importlib.util.spec_from_file_location("fused_gn_conv_torch",
                                                       {str(EXPERIMENT)!r})
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
-        leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("lmdb",))
         assert not leaked, leaked
         print("IMPORTED", len(names))
     """)
@@ -122,6 +125,17 @@ def test_main_torch_without_device_cpu_raises_without_a_card(tmp_path):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not out.exists()
+
+
+def test_hq_evaluation_torch_without_device_cpu_raises_without_a_card(tmp_path):
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "hq_evaluation_torch.py"), "--face_sweep", "--dry-run",
+         "--random-init", "-i", str(out)], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env=_no_cuda_env())
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "hq_main_torch.py" not in proc.stdout and not out.exists()
 
 
 def test_runner_and_resolve_device_raise_without_a_card(monkeypatch):

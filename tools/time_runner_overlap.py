@@ -5,8 +5,8 @@ parent commit unpacked with `git archive` into `_archive_check/`).
 
 Runs main_torch.py in-process on the flag DDPM of configs/celeba_hq.yml
 (tests/fixtures/flag_ddpm256.pt of this tree), bf16 torso, the 8 images of
-exp/datasets/celeba_hq, sigma_y 0, the runs of chip_smoke.py phases 5, 7
-and 16:
+exp/datasets/celeba_hq (or, with `--path_y celeba_hq_jpeg`, their JPEG
+copies), sigma_y 0, the runs of chip_smoke.py phases 5, 7 and 16:
 
   simplified    simplified 4x average-pooling SR, 100 steps (phase 5)
   svd           SVD-mode 25% Walsh-Hadamard CS, 100 steps (phase 7)
@@ -20,7 +20,7 @@ iterate_batches has no such argument refuses it); with `--batch_size 2`
 the 8 images make 4 batches, so that decoding ahead overlaps sampling.
 
     python3 tools/time_runner_overlap.py [--root DIR] [--runs simplified,svd,...]
-        [--batch_size 8] [--prefetch N] [--repeat 1]
+        [--batch_size 8] [--prefetch N] [--repeat 1] [--path_y celeba_hq]
 
 Prints one line per run and, last, one JSON object. Needs a CUDA card.
 """
@@ -58,6 +58,8 @@ def main(argv=None) -> int:
     ap.add_argument("--prefetch", type=int, default=None,
                     help="iterate_batches(prefetch=N) (default: the runner's own)")
     ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--path_y", type=str, default="celeba_hq",
+                    help="the folder of exp/datasets to restore (celeba_hq_jpeg: JPEG)")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -81,7 +83,7 @@ def main(argv=None) -> int:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     base = ["--config", str(HERE / "configs" / "celeba_hq.yml"),
             "--ckpt", str(HERE / "tests" / "fixtures" / "flag_ddpm256.pt"),
-            "--exp", str(HERE / "exp"), "--path_y", "celeba_hq", "--sigma_y", "0",
+            "--exp", str(HERE / "exp"), "--path_y", args.path_y, "--sigma_y", "0",
             "--dtype", "bfloat16", "--batch_size", str(args.batch_size), "--ni",
             "--verbose", "warning"]
     results = {}
@@ -96,14 +98,15 @@ def main(argv=None) -> int:
                 r["end_to_end_over_sampler"] = (r["images_per_second"]
                                                 / r["sampler_images_per_second"])
                 results.setdefault(name, []).append(r)
-                print(f"{root.name} {name:13s} batch {args.batch_size} prefetch "
+                print(f"{root.name} {args.path_y} {name:13s} batch {args.batch_size} prefetch "
                       f"{args.prefetch}: {r['images_per_second']:.4f} images/s end to end, "
                       f"{r['sampler_images_per_second']:.4f} in the sampler, ratio "
                       f"{r['end_to_end_over_sampler']:.3f}; wall {r['wall_seconds']:.3f} s, "
                       f"sampler {r['sample_seconds']:.3f} s, PSNR {r['avg_psnr']:.4f}",
                       flush=True)
     print(smi, flush=True)
-    print(json.dumps({"root": str(root), "nvidia_smi": smi, "batch_size": args.batch_size,
+    print(json.dumps({"root": str(root), "nvidia_smi": smi, "path_y": args.path_y,
+                      "batch_size": args.batch_size,
                       "prefetch": args.prefetch, "runs": results}), flush=True)
     return 0
 
