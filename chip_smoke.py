@@ -151,7 +151,23 @@ far it got. A failure in any phase raises.
      hq_evaluation_torch.py --face_sweep on the face256 ADM at full width
      (random weights, bf16, a depth cut to 95 model calls a tile), 2 JPEG
      gts of 320 x 288 cropped to 256 by the pair loader, --sweep_batch 2:
-     s per tile, max |A(x) - y| on the written images, launches exact.
+     s per tile, max |A(x) - y| on the written images, launches exact;
+ 20. data parallelism (ddnm_tpu_torch/parallel), on a mesh of 2: two cards
+     where the machine has them, else cuda:0 twice on two streams (the
+     phase says which): (a) phase 5's main path through main_torch on the
+     mesh, every output within 1 level of phase 5's, images/s beside its,
+     each shard's launches exact; (b) the same command as two processes
+     (gloo rendezvous on 127.0.0.1), together images 0-7 once under their
+     global names, each within 1 level of phase 5's, both ranks' wall
+     times; (c) phase 17's service with --dp 2: 8 requests through
+     RestorationServer (requests/s, p50, launches exact per shard), a
+     coalesced reply and lane 7 of a direct group of 8 byte-equal to the
+     same request alone, the group within 1 level of the --dp 1 service's;
+     (d) the toy32 ADM Mask-Shift canvas of phase 9 in the wavefront order,
+     fp32, and an 80 x 128 canvas whose 4-tile wavefront shards 2 + 2,
+     each within 0.01 dB of its unsharded run; (e) the 256 px classifier's
+     guidance gradient at batch 8 sharded 4 + 4 (the backward kernels on
+     two streams at once), bit-equal to its halves run alone.
 Phases 5, 7, 16 and 19 also print each runner's images/s end to end against in
 the sampler ("runner overlap" lines).
 
@@ -180,7 +196,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-19 sets the launch counts to 0 just before each run it
+Each of phases 4-20 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after.
 
 The line before the last is the JSON summary of the kernels; the last line
@@ -2857,27 +2873,41 @@ def face_sweep_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
 # ------------------------------------------------------------ phases 5 and 7
 
 
-def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int,
-              want_fwht: int, path_y: str = "celeba_hq") -> tuple[dict, dict]:
-    """main_torch on configs/celeba_hq.yml, flag_ddpm256.pt, the 8 images of
-    exp/datasets/<path_y> (the PNGs of celeba_hq, or their JPEG copies in
-    celeba_hq_jpeg), bf16 torso, batch 8, 100 steps, sigma_y 0; checks 8
-    PNGs, PSNR > 14 dB and every kernel's launch count exactly. Returns (the
-    run's stats, its launch counts)."""
-    import main_torch
-
-    with tempfile.TemporaryDirectory() as tmp:
-        ops.reset_launch_counts()
-        stats = main_torch.main([
-            "--config", str(REPO / "configs" / "celeba_hq.yml"),
+def main_argv(deg: str, deg_scale: str, simplified: bool, path_y: str = "celeba_hq") -> list:
+    """main_torch's flags of phases 5, 7, 19 and 20 (without -i)."""
+    return ["--config", str(REPO / "configs" / "celeba_hq.yml"),
             "--ckpt", str(FLAG_PT), "--exp", str(REPO / "exp"),
             "--path_y", path_y, "--deg", deg,
             "--deg_scale", deg_scale, "--sigma_y", "0",
             *(["--simplified"] if simplified else []),
-            "--dtype", "bfloat16", "--batch_size", "8",
-            "-i", str(Path(tmp) / "out"), "--ni", "--verbose", "warning"])
+            "--dtype", "bfloat16", "--batch_size", "8", "--ni", "--verbose", "warning"]
+
+
+def read_outputs(folder: Path) -> dict:
+    """{image index: uint8 (H, W, 3)} of a run's <i>_0.png outputs."""
+    from ddnm_tpu_torch.data.io import load_image
+
+    return {int(f.name.split("_")[0]): to_u8(load_image(f)) for f in folder.glob("*_0.png")}
+
+
+def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int,
+              want_fwht: int, path_y: str = "celeba_hq", keep: dict | None = None
+              ) -> tuple[dict, dict]:
+    """main_torch on configs/celeba_hq.yml, flag_ddpm256.pt, the 8 images of
+    exp/datasets/<path_y> (the PNGs of celeba_hq, or their JPEG copies in
+    celeba_hq_jpeg), bf16 torso, batch 8, 100 steps, sigma_y 0; checks 8
+    PNGs, PSNR > 14 dB and every kernel's launch count exactly. Returns (the
+    run's stats, its launch counts); `keep` gets the outputs (read_outputs)."""
+    import main_torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        stats = main_torch.main(main_argv(deg, deg_scale, simplified, path_y)
+                                + ["-i", str(Path(tmp) / "out")])
         launches = ops.launch_counts()
         n_png = len(list((Path(tmp) / "out").glob("*_0.png")))
+        if keep is not None:
+            keep.update(read_outputs(Path(tmp) / "out"))
     steps = 100
     print(f"main path ({'simplified' if simplified else 'SVD'} {deg}, {path_y}): "
           f"{stats['num_samples']} images, PSNR {stats['avg_psnr']:.4f}, "
@@ -2897,6 +2927,289 @@ def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int
     if launches != want:
         raise AssertionError(f"main-path launch counts {launches} != {want}")
     return stats, launches
+
+
+# ------------------------------------------------------------------ phase 20
+
+
+def dp_mesh():
+    """The mesh of 2 of phase 20: two cards where they exist, else cuda:0
+    twice (its shards on two streams of the one card); and a line saying
+    which."""
+    from ddnm_tpu_torch.parallel import make_mesh
+
+    count = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if count >= 2 else ["cuda:0", "cuda:0"]
+    where = ("two cards" if count >= 2 else
+             "one card: every mesh below repeats cuda:0, its two shards on separate streams")
+    return make_mesh(devices=devices), f"{count} visible card(s); {where}"
+
+
+def max_level_diff(a: dict, b: dict) -> int:
+    """Largest |a - b| in uint8 levels over the images of both (same keys)."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"image sets differ: {sorted(a)} against {sorted(b)}")
+    return max(int(np.abs(a[k].astype(np.int16) - b[k].astype(np.int16)).max()) for k in a)
+
+
+def dp_runner(mesh, where: str, n_gn: int, n_attn: int, phase5: dict, phase5_out: dict
+              ) -> tuple[dict, dict]:
+    """Phase 20(a): phase 5's main path through main_torch on `mesh`."""
+    import main_torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        stats = main_torch.main(main_argv("sr_averagepooling", "4", True)
+                                + ["-i", str(Path(tmp) / "out")], mesh=mesh)
+        launches, per_shard = ops.launch_counts(), ops.tagged_launch_counts()
+        outs = read_outputs(Path(tmp) / "out")
+    diff = max_level_diff(outs, phase5_out)
+    want = expected_launches(n_gn * 100, n_attn * 100)
+    r = {"mesh": [str(d) for d in mesh.devices], "where": where,
+         "images_per_second": stats["images_per_second"],
+         "sampler_images_per_second": stats["num_samples"] / stats["sample_seconds"],
+         "phase5_images_per_second": phase5["images_per_second"],
+         "phase5_sampler_images_per_second": phase5["num_samples"] / phase5["sample_seconds"],
+         "wall_seconds": stats["wall_seconds"], "max_level_diff_vs_phase5": diff,
+         "avg_psnr": stats["avg_psnr"], "launches_per_shard": per_shard}
+    print(f"(a) runner on {r['mesh']} ({where}): {stats['num_samples']} images, PSNR "
+          f"{stats['avg_psnr']:.4f}, {r['images_per_second']:.4f} images/s end to end against "
+          f"phase 5's {r['phase5_images_per_second']:.4f}, {r['sampler_images_per_second']:.4f} "
+          f"in the sampler against {r['phase5_sampler_images_per_second']:.4f}; outputs within "
+          f"{diff} level(s) of phase 5's; launches per shard {per_shard}", flush=True)
+    if stats["num_samples"] != 8 or diff > 1:
+        raise AssertionError(f"mesh runner: {stats['num_samples']} images, {diff} levels off")
+    if sorted(per_shard) != [0, 1] or any(c != want for c in per_shard.values()):
+        raise AssertionError(f"mesh runner launches per shard {per_shard} != {want} each")
+    if launches != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"mesh runner launches {launches}")
+    return r, launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_processes(phase5_out: dict) -> dict:
+    """Phase 20(b): main_torch.py as two ranks (env RANK / WORLD_SIZE /
+    MASTER_ADDR / MASTER_PORT, gloo), both on cuda:0 on a one-card machine,
+    one card each otherwise, writing into one folder."""
+    import os
+
+    one_card = torch.cuda.device_count() < 2
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out"
+        procs, logs, walls = [], [], [None, None]
+        try:
+            for rank in range(2):
+                env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                log = open(Path(tmp) / f"rank{rank}.log", "w+")
+                logs.append(log)
+                argv = main_argv("sr_averagepooling", "4", True) + ["-i", str(out)]
+                argv += ["--device", "cuda:0"] if one_card else []
+                procs.append((time.perf_counter(), subprocess.Popen(
+                    [sys.executable, str(REPO / "main_torch.py"), *argv], cwd=REPO, env=env,
+                    stdout=log, stderr=subprocess.STDOUT)))
+            deadline = time.perf_counter() + 400
+            while None in walls and time.perf_counter() < deadline:
+                for rank, (t0, proc) in enumerate(procs):
+                    if walls[rank] is None and proc.poll() is not None:
+                        walls[rank] = time.perf_counter() - t0
+                time.sleep(0.05)
+            for rank, (_, proc) in enumerate(procs):
+                if proc.poll() != 0:
+                    logs[rank].seek(0)
+                    raise AssertionError(f"rank {rank} exited {proc.poll()}: "
+                                         f"{logs[rank].read()[-3000:]}")
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for log in logs:
+                log.close()
+        outs = read_outputs(out)
+        texts = [(Path(tmp) / f"rank{r}.log").read_text() for r in range(2)]
+    counts = [int(re.search(r"Number of samples: (\d+)", t).group(1)) for t in texts]
+    diff = max_level_diff(outs, phase5_out)
+    r = {"ranks": 2, "devices": "cuda:0 for both" if one_card else "cuda:0 and cuda:1",
+         "wall_seconds": walls, "images_per_rank": counts, "images": sorted(outs),
+         "max_level_diff_vs_phase5": diff}
+    print(f"(b) two processes ({r['devices']}): images per rank {counts}, images "
+          f"{sorted(outs)}, wall {walls[0]:.2f} s and {walls[1]:.2f} s (process start "
+          f"included), within {diff} level(s) of phase 5's", flush=True)
+    if counts != [4, 4] or sorted(outs) != list(range(8)) or diff > 1:
+        raise AssertionError(f"two processes: {r}")
+    return r
+
+
+def dp_served(mesh, n_gn: int, n_attn: int) -> tuple[dict, dict]:
+    """Phase 20(c): phase 17's service (flag DDPM, bf16, max_batch 8) with
+    --dp 2 on `mesh`."""
+    import serve_torch
+    from ddnm_tpu_torch.data.datasets import FolderDataset
+    from ddnm_tpu_torch.data.io import encode_png
+    from ddnm_tpu_torch.server import RestorationService
+
+    svc = serve_torch.build_service(serve_torch.parse_args(
+        SERVED_FLAGS + ["--degs", "sr_averagepooling", "--deg_scale", "4", "--dp", "2"]),
+        mesh=mesh)
+    svc.warmup()
+    ds = FolderDataset(REPO / "exp" / "datasets" / "celeba_hq", 256)
+    gts = [to_u8(ds[i][0]) for i in range(len(ds))]
+    load = serve_load(svc, [("/restore?deg=sr_averagepooling&input=gt", encode_png(g))
+                            for g in gts])
+    replies, h = load["replies"], load["health"]
+    if [r[0] for r in replies] != [200] * 8:
+        raise AssertionError(f"--dp 2 replies: {[(r[0], r[1][:200]) for r in replies]}")
+    i = max(range(8), key=lambda k: int(replies[k][2]["X-Batch-Size"]))
+    seq = int(replies[i][2]["X-Seq"])
+    alone = svc.restore(gts[i][None].astype(np.float32) / 255.0, "sr_averagepooling",
+                        [seq], input_kind="gt")
+    alone_equal = encode_png(to_u8(alone[0])) == replies[i][1]
+    imgs = np.stack(gts).astype(np.float32) / 255.0
+    ops.reset_launch_counts()
+    group = svc.restore(imgs, "sr_averagepooling", list(range(100, 108)), input_kind="gt")
+    per_shard = ops.tagged_launch_counts()
+    last = svc.restore(imgs[7:8], "sr_averagepooling", [107], input_kind="gt")
+    last_equal = encode_png(to_u8(group[7])) == encode_png(to_u8(last[0]))
+    single = RestorationService(svc._model_fn, svc._params, svc._sched, svc._operators,
+                                image_size=256, max_batch=8, base_seed=1234)
+    ref = single.restore(imgs, "sr_averagepooling", list(range(100, 108)), input_kind="gt")
+    diff = int(np.abs(to_u8(group).astype(np.int16) - to_u8(ref).astype(np.int16)).max())
+    want = expected_launches(n_gn * 100, n_attn * 100)
+    want_load = expected_launches(2 * n_gn * 100 * h["batches"], 2 * n_attn * 100 * h["batches"])
+    r = {"requests": 8, "wall_seconds": load["wall"], "requests_per_second": 8 / load["wall"],
+         "batches": h["batches"], "mean_batch": h["mean_batch"], "latency_s": h.get("latency_s"),
+         "alone_vs_coalesced_byte_equal": alone_equal, "seq_checked": seq,
+         "last_lane_vs_alone_byte_equal": last_equal, "max_level_diff_vs_dp1": diff,
+         "launches_per_shard_per_group": per_shard}
+    print(f"(c) served --dp 2 on {[str(d) for d in mesh.devices]}: 8 requests in "
+          f"{load['wall']:.2f} s, {r['requests_per_second']:.4f} requests/s, {h['batches']} "
+          f"groups, mean_batch {h['mean_batch']:.3f}, latency_s {h.get('latency_s')}; reply seq "
+          f"{seq} byte-equal alone: {alone_equal}; lane 7 of a group of 8 byte-equal alone: "
+          f"{last_equal}; the group within {diff} level(s) of the --dp 1 service's; launches "
+          f"{load['launches']}, per shard of one group {per_shard}", flush=True)
+    if not (alone_equal and last_equal) or diff > 1:
+        raise AssertionError(f"--dp 2 service: {r}")
+    if load["launches"] != want_load or sorted(per_shard) != [0, 1] or any(
+            c != want for c in per_shard.values()):
+        raise AssertionError(f"--dp 2 launches {load['launches']} / {per_shard}")
+    del svc, single
+    torch.cuda.empty_cache()
+    return r, load["launches"]
+
+
+def dp_hq(mesh) -> tuple[dict, dict]:
+    """Phase 20(d): the toy32 ADM's Mask-Shift canvases in fp32, wavefront
+    order, on `mesh` against unsharded: phase 9's 48 x 48 canvas on its
+    tables (2 x 2 tiles: every group one tile, on the first entry) and an
+    80 x 128 crop of a natural128 image on a 10-step schedule without
+    jumps (4 x 7 tiles: the wavefront 2i + j = 6 is a group of 4, sharded
+    2 + 2)."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.data.io import load_image
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables
+    from ddnm_tpu_torch.tiling import mask_shift_sample
+
+    model = toy_adm("cuda")
+    betas = sch.named_beta_schedule("linear", 1000, use_scale=True)
+    zero = lambda gens, shape: torch.zeros(shape, device="cuda")
+    canvases = {
+        "48x48": (load_image(sorted((REPO / "exp/datasets/natural64").glob("*.png"))[0])[:48, :48],
+                  build_posterior_tables(betas=betas, timestep_respacing=HQ_RESPACING,
+                                         schedule_jump_params=HQ_JUMP)),
+        "80x128": (load_image(sorted((REPO / "exp/datasets/natural128").glob("*.png"))[0])[:80],
+                   build_posterior_tables(betas=betas, timestep_respacing="10",
+                                          schedule_jump_params=dict(t_T=10, n_sample=1,
+                                                                    jump_length=1,
+                                                                    jump_n_sample=1))),
+    }
+    out, launches = {}, None
+    for name, (img, tables) in canvases.items():
+        gt = (img * 2.0 - 1.0)[None]
+        res = {}
+        for label, m in (("unsharded", None), ("mesh", mesh)):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            run = mask_shift_sample(lambda z, t: model(z, t), gt, "sr_averagepooling", tables, 0,
+                                    scale=4, noise_fn=zero, tile=32, stride=16, device="cuda",
+                                    parallel=True, mesh=m)
+            res[label] = (run["final"], time.perf_counter() - t0, ops.launch_counts(),
+                          ops.tagged_launch_counts())
+        to01 = lambda a: np.clip((a + 1) / 2, 0, 1)
+        psnr = {k: 10 * math.log10(1 / max(float(np.mean((to01(v[0]) - to01(gt)) ** 2)), 1e-12))
+                for k, v in res.items()}
+        shard1 = res["mesh"][3].get(1, {}).get("attention", 0)
+        out[name] = {"psnr_unsharded": psnr["unsharded"], "psnr_mesh": psnr["mesh"],
+                     "max_abs_diff": float(np.abs(res["mesh"][0] - res["unsharded"][0]).max()),
+                     "seconds": {k: v[1] for k, v in res.items()},
+                     "shard1_attention_launches": shard1}
+        print(f"(d) hq {name} wavefront fp32: PSNR {psnr['mesh']:.4f} on the mesh against "
+              f"{psnr['unsharded']:.4f} unsharded, max |diff| {out[name]['max_abs_diff']:.2e}, "
+              f"{res['mesh'][1]:.2f} s against {res['unsharded'][1]:.2f}; shard 1's attention "
+              f"launches {shard1}", flush=True)
+        if not abs(psnr["mesh"] - psnr["unsharded"]) <= 0.01:
+            raise AssertionError(f"hq {name} on the mesh: {out[name]}")
+        # a sharded group runs one forward a shard: shard 1's launches on top
+        extra = res["mesh"][3].get(1, dict.fromkeys(res["mesh"][2], 0))
+        if res["mesh"][2] != {k: v + extra[k] for k, v in res["unsharded"][2].items()}:
+            raise AssertionError(f"hq {name}: launches {res['mesh'][2]} != "
+                                 f"{res['unsharded'][2]} + shard 1's {extra}")
+        if (name == "80x128") != (shard1 > 0):
+            raise AssertionError(f"hq {name}: shard 1 launched {shard1} attentions")
+        launches = res["mesh"][2]
+    del model
+    return out, launches
+
+
+def dp_guidance(mesh) -> tuple[dict, dict]:
+    """Phase 20(e): the guidance gradient of the 256 px classifier
+    (cc_classifier, bf16) at batch 8 sharded 4 + 4 over `mesh`, against the
+    two halves run one after the other on one stream, bit for bit with
+    cudnn.deterministic: the four backward kernels (gn_bwd_reduce with its
+    launch counters) on the two shards' streams. The backward runs on
+    autograd's device thread (each op on its forward's stream) while the
+    shard's caller waits, and counts under the shard's tag too."""
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+    from ddnm_tpu_torch.parallel import replicate, sharded_sampler
+
+    clf = cc_classifier()
+    n_gn, n_attn = module_counts(clf)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    x = torch.randn((8, 256, 256, 3), generator=gen, device="cuda")
+    t = torch.linspace(50.0, 950.0, 8, device="cuda")
+    labels = torch.arange(8, device="cuda") * 111
+    grad = lambda c, z, s, y: classifier_guidance_fn(c, y, 1.0)(z, s)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        halves = torch.cat([grad(clf, x[i:i + 4], t[i:i + 4], labels[i:i + 4]) for i in (0, 4)])
+        ops.reset_launch_counts()
+        sharded = sharded_sampler(grad, mesh)(replicate(mesh, clf), x, t, labels)
+        torch.cuda.synchronize()
+        launches, per_shard = ops.launch_counts(), ops.tagged_launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    equal = bool(torch.equal(sharded, halves))
+    want = expected_launches(n_gn, n_attn, n_gn, n_attn)
+    r = {"bit_equal_to_halves": equal, "grad_norm": float(sharded.norm()),
+         "launches": launches, "launches_per_shard": per_shard}
+    print(f"(e) guidance gradient (256 px classifier, bf16, batch 8) sharded 4 + 4: bit-equal "
+          f"to the halves run alone: {equal}, norm {r['grad_norm']:.4f}; launches {launches}, "
+          f"launches per shard {per_shard}", flush=True)
+    if (not equal or launches != {k: 2 * v for k, v in want.items()}
+            or sorted(per_shard) != [0, 1] or any(c != want for c in per_shard.values())):
+        raise AssertionError(f"sharded guidance: {r}")
+    del clf
+    torch.cuda.empty_cache()
+    return r, launches
 
 
 def main() -> int:
@@ -3145,8 +3458,9 @@ def main() -> int:
               flush=True)
 
     with phase(5, "main path through main_torch (bf16, batch 8, 100 steps)"):
+        main_outputs = {}
         main_stats, launches_simplified = main_path("sr_averagepooling", "4", True, n_gn,
-                                                    n_attn, 0)
+                                                    n_attn, 0, keep=main_outputs)
 
     with phase(6, "full-width fp32 SVD-mode parity with the JAX golden"):
         parity_svd(model, n_gn, n_attn)
@@ -3238,6 +3552,20 @@ def main() -> int:
             k: jpeg_stats[k] for k in ("images_per_second", "sample_seconds", "wall_seconds",
                                        "num_samples", "avg_psnr")}, face_sweep=face_stats)
 
+    with phase(20, "data parallelism on a mesh of 2 (the runner, two processes, "
+                   "--dp 2 serving, hq tiles, the guidance gradient)"):
+        mesh, where = dp_mesh()
+        print(f"torch.cuda.device_count() = {torch.cuda.device_count()}: {where}", flush=True)
+        dp_run, launches_dp_runner = dp_runner(mesh, where, n_gn, n_attn, main_stats,
+                                               main_outputs)
+        dp_procs = dp_processes(main_outputs)
+        dp_serve, launches_dp_served = dp_served(mesh, n_gn, n_attn)
+        dp_tiles, launches_dp_hq = dp_hq(mesh)
+        dp_guide, launches_dp_guidance = dp_guidance(mesh)
+        multi_device = {"device_count": torch.cuda.device_count(), "mesh": where,
+                        "runner": dp_run, "processes": dp_procs, "served": dp_serve,
+                        "hq": dp_tiles, "guidance": dp_guide}
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -3270,7 +3598,11 @@ def main() -> int:
                               "served": launches_served[kind],
                               "served_hq": launches_served_hq[kind],
                               "jpeg_main": launches_jpeg[kind],
-                              "face_sweep": launches_face[kind]},
+                              "face_sweep": launches_face[kind],
+                              "dp_runner": launches_dp_runner[kind],
+                              "dp_served": launches_dp_served[kind],
+                              "dp_hq": launches_dp_hq[kind],
+                              "dp_guidance": launches_dp_guidance[kind]},
          "max_abs_err": per_forward[kind]["max_abs_err"], "ms": per_forward[kind]["ms"],
          "device_ms": per_forward[kind].get("device_ms"),
          "plain_ms": per_forward[kind]["plain_ms"],
@@ -3289,7 +3621,7 @@ def main() -> int:
         for kind in SOURCES], "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
         "guided_toy32": guided_toy, "guided": guided, "solver_parity": solver,
         "accelerators": accel_stats, "served": served, "served_hq": served_hq,
-        "data_long_tail": long_tail}
+        "data_long_tail": long_tail, "multi_device": multi_device}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,10 +17,12 @@ hq CLI's tile-granular `--resume`, the runner's host overlap with
 serving (`server.py`, `serve_torch.py`), and the data long tail: a numpy
 baseline JPEG decoder (`data/jpeg.py`), the CelebA and LSUN lmdb datasets
 (`data/extra_datasets.py`), the checkpoint registry (`data/checkpoints.py`)
-and `hq_evaluation_torch.py`. Still raising NotImplementedError:
-multi-device runs (`mesh`, `--sp` / `--dp`); refused with ValueError:
-WebP (a real LSUN lmdb's values), progressive and CMYK JPEG; the bench is
-absent.
+and `hq_evaluation_torch.py`, and data parallelism (`parallel/`: the runner,
+tiles and served groups sharded over a mesh of cards, `--dp`, one slice
+of the dataset per process under torchrun). Still raising
+NotImplementedError: spatial partitioning (`--sp`, `make_mesh_2d` with
+sp > 1); refused with ValueError: WebP (a real LSUN lmdb's values),
+progressive and CMYK JPEG; the bench is absent.
 """
 
 from ddnm_tpu_torch.runtime import resolve_device

@@ -888,13 +888,22 @@ cudaError_t launch_bwd_reduce(const void* x, const void* dy, const float* gamma,
                               int c_total, int cpg, float eps, int swish, int span, int runs,
                               int cluster, int lanes_c, int smem_bytes, cudaStream_t stream) {
   auto kernel = gn_bwd_reduce_kernel<T, VEC>;
-  // all of the SM's shared memory, so that two rings fit (once a process)
-  static const cudaError_t carveout = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  if (carveout != cudaSuccess) return carveout;
+  // all of the SM's shared memory, so that two rings fit: a function
+  // attribute of the current device, so set once on each device
+  constexpr int kMaxDevices = 64;
+  static bool carved[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!carved[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    carved[dev] = true;
+  }
   if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
@@ -909,7 +918,7 @@ cudaError_t launch_bwd_reduce(const void* x, const void* dy, const float* gamma,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
+  err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dy), gamma, film_scale,
       aff_a, aff_b, out, scratch, counters, batch, hw, c_total, cpg, span, lanes_c, eps, swish);
   return err != cudaSuccess ? err : cudaGetLastError();

@@ -30,6 +30,7 @@ JAX package takes the classifier-guidance gradient with jax.grad through
 its XLA GroupNorm and attention.
 """
 
+from ddnm_tpu_torch.ops import _build
 from ddnm_tpu_torch.ops import attention as _attention
 from ddnm_tpu_torch.ops import fused_gn_conv as _fused_gn_conv
 from ddnm_tpu_torch.ops import fwht as _fwht
@@ -40,7 +41,8 @@ from ddnm_tpu_torch.ops.fwht import fwht, hadamard_matrix
 from ddnm_tpu_torch.ops.groupnorm import GroupNormFunction, group_norm
 
 __all__ = ["AttentionFunction", "GroupNormFunction", "fused_attention", "fused_gn_conv", "fwht",
-           "group_norm", "hadamard_matrix", "launch_counts", "reset_launch_counts"]
+           "group_norm", "hadamard_matrix", "launch_counts", "reset_launch_counts",
+           "tagged_launch_counts"]
 
 _TABLES = (_groupnorm.LAUNCHES, _attention.LAUNCHES, _fwht.LAUNCHES,
            _fused_gn_conv.LAUNCHES)
@@ -51,7 +53,16 @@ def launch_counts() -> dict[str, int]:
     return {name: n for table in _TABLES for name, n in table.items()}
 
 
+def tagged_launch_counts() -> dict:
+    """Launches of each kernel wrapper since the last reset per tag (the
+    shards of a mesh: {shard index: {kernel: launches}})."""
+    names = launch_counts()
+    return {tag: {name: per.get(name, 0) for name in names}
+            for tag, per in sorted(_build.TAGGED_LAUNCHES.items())}
+
+
 def reset_launch_counts() -> None:
     for table in _TABLES:
         for name in table:
             table[name] = 0
+    _build.TAGGED_LAUNCHES.clear()

@@ -24,8 +24,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SMEM_PER_BLOCK", "build", "load_library",
-           "check", "device_guard", "ptxas_report", "raw_stream", "sm_count"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SMEM_PER_BLOCK", "TAGGED_LAUNCHES", "build",
+           "load_library", "check", "count_launch", "device_guard", "launch_tag",
+           "ptxas_report", "raw_stream", "sm_count"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -53,6 +54,10 @@ _SIGNATURES = {
 
 _lib = None
 _SMS: dict = {}
+# launches made under launch_tag(tag), per tag and kernel (the shards of a
+# mesh: parallel/mesh.py), beside each wrapper's own table
+TAGGED_LAUNCHES: dict = {}
+_tag = None
 
 
 def _nvcc() -> str:
@@ -161,6 +166,29 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = _lib.ddnm_cuda_error_string(rc).decode() if _lib else "?"
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def count_launch(table: dict, name: str) -> None:
+    """Count one launch of kernel `name` in its wrapper's `table`, and under
+    the current tag where launch_tag set one."""
+    table[name] += 1
+    if _tag is not None:
+        per = TAGGED_LAUNCHES.setdefault(_tag, {})
+        per[name] = per.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_tag(tag):
+    """Count launches under `tag` too (a mesh shard's index) until the block
+    ends: those of every thread, so that a backward that autograd runs on
+    its device thread while the caller waits counts under the caller's
+    (one tagged block at a time: the tag is the process's)."""
+    global _tag
+    prev, _tag = _tag, tag
+    try:
+        yield
+    finally:
+        _tag = prev
 
 
 def device_guard(device):

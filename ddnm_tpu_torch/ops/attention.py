@@ -134,7 +134,7 @@ def _kernel_attention(q, k, v, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, C,
             float(scale), _DTYPE_CODE[dtype], int(plan["whole"]), plan["smem"],
             _build.raw_stream(dev)), "ddnm_attention")
-    LAUNCHES["attention"] += 1
+    _build.count_launch(LAUNCHES, "attention")
     return out
 
 
@@ -266,7 +266,7 @@ def _attn_bwd_dq(q, k, v, o, do, scale):
             dq.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(), B, T, C, float(scale),
             _DTYPE_CODE[q.dtype], plan["dq"]["smem"], _build.raw_stream(dev)),
             "ddnm_attention_bwd_dq")
-    LAUNCHES["attn_bwd_dq"] += 1
+    _build.count_launch(LAUNCHES, "attn_bwd_dq")
     return dq, rows[0], rows[1]
 
 
@@ -286,7 +286,7 @@ def _attn_bwd_dkdv(q, k, v, do, lse, dsum, scale):
             dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, C, float(scale),
             _DTYPE_CODE[q.dtype], plan["dkdv"]["smem"], _build.raw_stream(dev)),
             "ddnm_attention_bwd_dkdv")
-    LAUNCHES["attn_bwd_dkdv"] += 1
+    _build.count_launch(LAUNCHES, "attn_bwd_dkdv")
     return dk, dv
 
 

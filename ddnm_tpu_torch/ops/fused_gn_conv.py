@@ -152,7 +152,7 @@ def _kernel_fused_gn_conv(x, w, gamma, beta, num_groups, eps, mode):
             x.data_ptr(), ptr(w2), ptr(a), ptr(b), y.data_ptr(), B, H, W, C,
             _MODE_CODE[mode], plan["kc"], plan["bn"], plan["w_stages"], plan["grid"],
             plan["smem"], _build.raw_stream(dev)), "ddnm_fused_gn_conv")
-    LAUNCHES["fused_gn_conv"] += 1
+    _build.count_launch(LAUNCHES, "fused_gn_conv")
     return y
 
 

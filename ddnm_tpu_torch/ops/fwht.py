@@ -135,7 +135,7 @@ def _kernel_fwht(x: torch.Tensor, norm: float) -> torch.Tensor:
         _build.check(lib.ddnm_fwht(src.data_ptr(), out.data_ptr(), n, p, plan["log_tile"],
                                    plan["cluster"], float(norm),
                                    _build.raw_stream(x.device)), "ddnm_fwht")
-    LAUNCHES["fwht"] += 1
+    _build.count_launch(LAUNCHES, "fwht")
     return out
 
 

@@ -57,8 +57,8 @@ _STATS_WIDE_BYTES = 2 << 20
 _STATS_BLOCK_BYTES = 256 << 10
 _STATS_MAX_BLOCKS = 32
 STATS_MAX_SPAN = 4096       # channels of one span: bounds the shared memory
-# the stats kernel's launch counters, per device: zeros that each launch
-# leaves zero (csrc/groupnorm.cu)
+# the stats and backward-reduce kernels' launch counters, per (device,
+# stream): zeros that each launch leaves zero (csrc/groupnorm.cu; `_counters`)
 _COUNTERS: dict = {}
 # the apply kernel's launch plan (`_apply_plan`): threads a block (rounded
 # down to a multiple of C / vec), resident threads an SM
@@ -184,12 +184,18 @@ def _stats_plan(B: int, HW: int, C: int, G: int, elem_size: int,
             "scratch": B * C * n_blk * 2 if n_blk > 1 else 0, "counters": B * (C // span)}
 
 
-def _counters(device, n):
-    """At least n launch counters (zeros) of `device`."""
-    c = _COUNTERS.get(device.index)
+def _counters(device, n, stream=None):
+    """At least n launch counters (zeros) of `device` for the launches of
+    one stream: `stream`, or the thread's current stream of `device` (a
+    stand-in key on the CPU). Launches on one stream run in order, so each
+    finds the zeros its predecessor left; two streams (the shards of a
+    mesh on one card) must not share a buffer. A buffer that grows is
+    allocated on that stream, so the allocator hands the old one out again
+    only to later work of the same stream, after the launches that read it."""
+    key = (device.index, _build.raw_stream(device) if stream is None else stream)
+    c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
-        c = _COUNTERS[device.index] = torch.zeros(max(n, 4096), dtype=torch.int32,
-                                                  device=device)
+        c = _COUNTERS[key] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
     return c
 
 
@@ -233,7 +239,7 @@ def _stats_affine(x, scale, bias, num_groups, eps, film_scale, film_shift):
             B, H * W, C, num_groups, float(eps), plan["vec"], plan["span"], plan["n_blk"],
             plan["threads"], plan["lanes_c"], plan["smem"], _DTYPE_CODE[x.dtype],
             _build.raw_stream(dev)), "ddnm_gn_stats_affine")
-    LAUNCHES["groupnorm_stats"] += 1
+    _build.count_launch(LAUNCHES, "groupnorm_stats")
     return out.select(0, 0), out.select(0, 1)  # cheaper on the host than unbind
 
 
@@ -275,7 +281,7 @@ def _apply(x, a, b, swish):
             x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, H * W * C, C,
             int(bool(swish)), _DTYPE_CODE[x.dtype], plan["vec"], plan["threads"],
             plan["blocks"], _build.raw_stream(dev)), "ddnm_gn_apply")
-    LAUNCHES["groupnorm_apply"] += 1
+    _build.count_launch(LAUNCHES, "groupnorm_apply")
     return y
 
 
@@ -514,7 +520,7 @@ def _bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None, film_scale
             float(eps), int(bool(swish)), plan["vec"], plan["span"], plan["runs"],
             plan["cluster"], plan["lanes_c"], plan["smem"], _DTYPE_CODE[x.dtype],
             _build.raw_stream(dev)), "ddnm_gn_bwd_reduce")
-    LAUNCHES["gn_bwd_reduce"] += 1
+    _build.count_launch(LAUNCHES, "gn_bwd_reduce")
     return out
 
 
@@ -533,7 +539,7 @@ def _bwd_dx(x, dy, coef, swish, a=None, b=None):
             b.data_ptr() if swish else None, coef.data_ptr(), dx.data_ptr(), B, H * W * C, C,
             int(bool(swish)), _DTYPE_CODE[x.dtype], plan["vec"], plan["threads"],
             plan["blocks"], _build.raw_stream(dev)), "ddnm_gn_bwd_dx")
-    LAUNCHES["gn_bwd_dx"] += 1
+    _build.count_launch(LAUNCHES, "gn_bwd_dx")
     return dx
 
 

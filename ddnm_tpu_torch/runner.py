@@ -22,8 +22,19 @@ ValueError, as JAX does). `--encoder_cache N > 1` runs the simplified mode
 through the encoder propagation (sampling/accel.py) with the model's
 split halves and `--encoder_cache_policy`; in SVD mode it has no effect
 (the exact sampler runs, as in the JAX runner, and a log line says so).
-A run uses the one device given by `device`; the JAX runner's sharding
-over several devices is not ported.
+Several cards: a run uses one card unless its caller passes a data mesh
+(`Runner(..., mesh=)`, `main_torch.main(mesh=)`; parallel/mesh.py: the
+model, the guidance classifier, the operator and the encoder cache's
+halves replicated on each entry, each entry's images on a stream of its
+own), which then shards every batch whose size it divides, on every route
+(simplified, SVD, guided SVD, the multistep solver, the encoder cache).
+The JAX runner shards over every device by default; this one does not,
+because the eager sampler's host sets the pace: on 4 H100s no mesh beat
+one card, and one process a card scaled 3.7-4.0x (PERF.md §6).
+Under a multi-process launch (parallel/multihost.py, torchrun) each
+process restores its own contiguous slice of the dataset on its own card,
+under the images' global indices, and writes its metrics to
+metrics_rank<r>.jsonl.
 
 The host overlaps the device as the JAX runner does: batches decode ahead
 on a thread pool (`iterate_batches`, prefetch 2), and after batch k's
@@ -68,6 +79,8 @@ from ddnm_tpu_torch.models import (
 )
 from ddnm_tpu_torch.models.unet_adm import init_like_flax
 from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
+from ddnm_tpu_torch.parallel import multihost
+from ddnm_tpu_torch.parallel.mesh import Mesh, replicate_all, sharded_sampler
 from ddnm_tpu_torch.runtime import resolve_device, to_device, to_host
 from ddnm_tpu_torch.sampling import build_schedule, sample_simplified, sample_svd
 from ddnm_tpu_torch.sampling.accel import (
@@ -145,14 +158,17 @@ class _SamplerClock:
     def __init__(self, dev: torch.device):
         self._events = None
         if dev.type == "cuda":
+            # on the run's card's stream (a sharded call makes that stream
+            # wait for every shard before it returns)
+            self._stream = torch.cuda.current_stream(dev)
             self._events = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
-            self._events[0].record()
+            self._events[0].record(self._stream)
         self._t0 = time.perf_counter()
 
     def stop(self) -> None:
         if self._events is not None:
-            self._events[1].record()
+            self._events[1].record(self._stream)
         self._t1 = time.perf_counter()
 
     def seconds(self) -> float:
@@ -163,8 +179,10 @@ class _SamplerClock:
 
 
 class Runner:
-    def __init__(self, args: RunArgs, config: Config):
+    def __init__(self, args: RunArgs, config: Config, mesh: Optional[Mesh] = None):
         self.device = resolve_device(args.device)
+        if multihost.process_count() > 1:
+            self.device = multihost.local_device(self.device)
         if config.model.type not in ("simple", "openai"):
             raise ValueError(f"unknown model type {config.model.type}")
         # the JAX runner's refusals of the multistep solver (ddnm_tpu/runner.py:112-123)
@@ -195,10 +213,21 @@ class Runner:
             travel_repeat=config.time_travel.travel_repeat,
         )
         self.dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+        self.mesh = self._data_mesh(mesh)
 
     @property
     def batch_size(self) -> int:
         return self.args.batch_size or self.config.sampling.batch_size
+
+    def _data_mesh(self, mesh: Optional[Mesh]) -> Optional[Mesh]:
+        """The mesh each batch shards over, or None (one device): `mesh` as
+        given, the run then building on its first entry."""
+        if mesh is None:
+            return None
+        if mesh.devices[0].type != self.device.type:
+            raise ValueError(f"a {mesh.devices[0].type} mesh for a {self.device} run")
+        self.device = mesh.devices[0]
+        return mesh if mesh.size > 1 else None
 
     # ------------------------------------------------------------------ model
     def build_model(self) -> DDPMUNet | ADMUNet:
@@ -358,9 +387,21 @@ class Runner:
             out_of_dist=bool(getattr(cfg.data, "out_of_dist", False)),
         )
         if args.max_images:
+            # the global cap, before the process's slice: a multi-process
+            # run covers the images of a single-process one
             ds.paths = ds.paths[: args.max_images]
             if hasattr(ds, "labels"):
                 ds.labels = ds.labels[: args.max_images]
+        if subset is None and multihost.process_count() > 1:
+            # every process takes a disjoint contiguous slice; output
+            # indices and --resume stay global (ddnm_tpu/runner.py)
+            p, c = multihost.process_index(), multihost.process_count()
+            s, e = multihost.process_subset(len(ds.paths), p, c)
+            ds.paths = ds.paths[s:e]
+            if hasattr(ds, "labels"):
+                ds.labels = ds.labels[s:e]
+            args.subset_start = s
+            logger.info("process %d of %d takes images [%d, %d)", p, c, s, e)
         return ds
 
     def _measurement_noise(self, y, idxs, sigma_y):
@@ -380,9 +421,11 @@ class Runner:
         model_fn = self.model_fn(model)
         operator = self.build_operator()
         dataset = self.build_dataset()
-        logger.info("dataset size %d, batch size %d, device %s, dtype %s",
-                    len(dataset), self.batch_size, dev, args.dtype)
+        logger.info("dataset size %d, batch size %d, device %s, dtype %s%s",
+                    len(dataset), self.batch_size, dev, args.dtype,
+                    "" if self.mesh is None else f", mesh {self.mesh}")
         sigma_y = 2.0 * args.sigma_y  # [0,1] -> [-1,1] domain, as the reference
+        encode_fn = decode_fn = key_steps = None
         if args.encoder_cache > 1 and args.simplified:
             encode_fn, decode_fn = self._split_fns(model)
             key_steps = self._encoder_key_steps()
@@ -390,12 +433,23 @@ class Runner:
             logger.info("--encoder_cache %d has no effect in SVD mode: the exact sampler "
                         "runs (the encoder propagation is simplified-mode only)",
                         args.encoder_cache)
+        # what the samplers read on the device: as they are on one device,
+        # else one copy a card (the model copied once) and the samplers
+        # sharded over the mesh
+        shard = lambda fn: fn
+        samp_model, samp_guide, samp_op, samp_enc, samp_dec = (
+            model_fn, guidance_fn, operator, encode_fn, decode_fn)
+        if self.mesh is not None:
+            samp_model, samp_guide, samp_op, samp_enc, samp_dec = replicate_all(
+                self.mesh, model_fn, guidance_fn, operator, encode_fn, decode_fn)
+            shard = lambda fn: sharded_sampler(fn, self.mesh)
 
         out_dir = Path(args.image_folder)
         (out_dir / "Apy").mkdir(parents=True, exist_ok=True)
         size = cfg.data.image_size
         rescaled = cfg.data.rescaled
-        metrics = MetricsLogger(out_dir / "metrics.jsonl")
+        metrics = MetricsLogger(out_dir / ("metrics.jsonl" if multihost.process_count() == 1
+                                           else f"metrics_rank{multihost.process_index()}.jsonl"))
         totals = {"psnr": 0.0, "count": 0}
         clocks, jobs = [], []
         consistency = None  # max |A(x) - y| so far, on the device
@@ -451,13 +505,13 @@ class Runner:
                     apy = operator.Ap(y)
                     clock = _SamplerClock(dev)
                     if args.encoder_cache > 1:
-                        x, _ = sample_simplified_encoder_prop(
-                            encode_fn, decode_fn, x_init, y, operator, self.sched, gens,
+                        x, _ = shard(sample_simplified_encoder_prop)(
+                            samp_enc, samp_dec, x_init, y, samp_op, self.sched, gens,
                             eta=args.eta, sigma_y=sigma_y, interval=args.encoder_cache,
                             key_steps=key_steps)
                     else:
-                        x, _ = sample_simplified(
-                            model_fn, x_init, y, operator, self.sched, gens,
+                        x, _ = shard(sample_simplified)(
+                            samp_model, x_init, y, samp_op, self.sched, gens,
                             eta=args.eta, sigma_y=sigma_y, solver=args.solver,
                         )
                 else:
@@ -465,9 +519,9 @@ class Runner:
                                                 sigma_y)
                     apy = self._apy_visualisation(operator, y, n)
                     clock = _SamplerClock(dev)
-                    x, _ = sample_svd(
-                        model_fn, x_init, y, operator, self.sched, gens,
-                        eta=args.eta, sigma_y=sigma_y, guidance_fn=guidance_fn,
+                    x, _ = shard(sample_svd)(
+                        samp_model, x_init, y, samp_op, self.sched, gens,
+                        eta=args.eta, sigma_y=sigma_y, guidance_fn=samp_guide,
                         solver=args.solver,
                     )
                 clock.stop()
@@ -485,7 +539,7 @@ class Runner:
                 ready = None
                 if dev.type == "cuda":
                     ready = torch.cuda.Event()
-                    ready.record()
+                    ready.record(torch.cuda.current_stream(dev))
                 done = threading.Event()
                 jobs.append(io_pool.submit(drain, ready, host, valid, idx_so_far, prev_done,
                                            done))

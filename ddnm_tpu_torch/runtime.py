@@ -10,7 +10,17 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "to_device", "to_host"]
+__all__ = ["device_arg", "resolve_device", "to_device", "to_host"]
+
+
+def device_arg(value: str) -> str:
+    """The CLIs' --device: cuda, cuda:N or cpu (argparse `type=`)."""
+    import argparse
+
+    head, colon, index = value.partition(":")
+    if value == "cpu" or (head == "cuda" and (not colon or index.isdigit())):
+        return value
+    raise argparse.ArgumentTypeError(f"--device must be cuda, cuda:N or cpu, got {value!r}")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

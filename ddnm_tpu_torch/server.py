@@ -18,7 +18,8 @@ JSON keys:
     threads decode PNG or JPEG uploads into numpy (the port's codecs,
     data/io.py and data/jpeg.py) and enqueue; ONE worker thread drains
     the queue (micro-batching with a max-wait deadline) and is the only
-    thread that touches the device. `POST
+    thread that touches the device (over a mesh, it launches each group's
+    shards in turn). `POST
     /restore?deg=<task>[&input=degraded|gt][&class=N]` with a PNG or JPEG
     body returns the restored PNG; `GET /healthz` returns JSON stats (counters,
     realized batch, queue depth, request-latency percentiles).
@@ -43,12 +44,21 @@ take one label per request (`?class=N`), carried as params["classes"].
 `swap_params` replaces the served weights without landing mid-trajectory:
 it stores the new state, and the worker copies it into the models before
 the next group it launches, so stream order keeps the group in flight on
-the old weights. Multi-device serving (`mesh`, serve_torch.py `--dp`) is
-not ported.
+the old weights.
+
+Several devices (`mesh`, parallel/mesh.py; serve_torch.py `--dp`): the
+served params and operators are replicated on each entry (every replica's
+convolutions lane-pinned on its own card, at its own batch), and each
+padded group shards over the mesh, each entry's requests on a stream of
+their own; `max_batch` must divide by the mesh size, and
+`swap_params` reaches every replica. A request's reply stays bit-identical
+alone, padded or coalesced: its lane lands on the same entry at the same
+position of that entry's batch whatever else rides in the group.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import queue
 import threading
@@ -66,6 +76,7 @@ from ddnm_tpu_torch.data.io import decode_png, encode_png
 from ddnm_tpu_torch.data.jpeg import decode_jpeg, is_jpeg
 from ddnm_tpu_torch.data.transforms import data_transform, inverse_data_transform
 from ddnm_tpu_torch.operators.functional import FunctionalOperator
+from ddnm_tpu_torch.parallel.mesh import replicate, sharded_sampler
 from ddnm_tpu_torch.runtime import to_device, to_host
 from ddnm_tpu_torch.sampling import DDNMSchedule, sample_simplified, sample_svd
 from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
@@ -107,6 +118,12 @@ class _LanePinnedConv:
     def __init__(self, conv: torch.nn.Conv2d):
         self.conv = conv
         self.per_lane: dict = {}
+
+    def __deepcopy__(self, memo):
+        # a copy of the served module (a replica on another card,
+        # parallel/mesh.py) checks its layouts afresh: one card's verdicts
+        # do not hold on another
+        return _LanePinnedConv(copy.deepcopy(self.conv, memo))
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv._conv_forward(x, self.conv.weight, self.conv.bias)
@@ -209,7 +226,8 @@ class RestorationService:
     hook for parity runs under the zero-noise protocol); x_T always comes
     from each request's STREAM_INIT generator. `loop` is accepted for the
     JAX service's argument and changes nothing: the port has one eager
-    sampler loop. `mesh` raises NotImplementedError.
+    sampler loop. `mesh` (a parallel.Mesh whose first entry holds the
+    params) shards each group over its entries (module docstring).
     """
 
     def __init__(
@@ -232,10 +250,6 @@ class RestorationService:
         loop: str = "auto",
         noise_fn: NoiseFn = default_noise,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a device mesh (mesh=, --dp > 1) is not ported yet "
-                "(ROADMAP.md Queue 1 F: multi-device and serving)")
         self._model_fn = model_fn
         self._require_ctx = frozenset(require_ctx)
         self._encoder_cache = int(encoder_cache)
@@ -266,13 +280,20 @@ class RestorationService:
         unknown = self._require_ctx - set(operators)
         if unknown:
             raise ValueError(f"require_ctx names unknown tasks: {sorted(unknown)}")
+        if mesh is not None and max_batch % mesh.size != 0:
+            raise ValueError(f"max_batch {max_batch} must divide over the {mesh.size}-device "
+                             "mesh")
+        self._mesh = mesh
         self._params = params
+        # one copy of the served modules a mesh device (params itself on its own)
+        self._replicas = (params,) if mesh is None else replicate(mesh, params)
         self._pending_state = None  # swap_params -> applied before the next group
         self._swap_lock = threading.Lock()
         first = next((p for m in _modules(params).values() for p in m.parameters()), None)
         self.device = first.device if first is not None else torch.device("cpu")
         if self.device.type == "cuda":
-            _pin_conv_lanes(params)
+            for replica in self._distinct_replicas():
+                _pin_conv_lanes(replica)
         self._noise_fn = noise_fn
         self._sched = sched
         if self._encoder_cache > 1 and sched is not None:
@@ -281,6 +302,8 @@ class RestorationService:
             self._key_steps = key_steps_for_policy(
                 n_model_calls(sched), self._encoder_cache, self._encoder_policy)
         self._operators = dict(operators)
+        self._op_replicas = ({} if mesh is None else
+                             {name: replicate(mesh, op) for name, op in self._operators.items()})
         self.image_size = int(image_size)
         self.max_batch = int(max_batch)
         self._eta = float(eta)
@@ -364,14 +387,28 @@ class RestorationService:
         with self._swap_lock:
             self._pending_state = state
 
+    def _distinct_replicas(self) -> list:
+        """The served params objects, one a device."""
+        return list({id(r): r for r in self._replicas}.values())
+
     def _apply_pending_params(self) -> None:
         with self._swap_lock:
             state, self._pending_state = self._pending_state, None
         if state is None:
             return
+        # over a mesh on cards the copies run on each card's current stream:
+        # after the shards' streams (the group in flight), and before the
+        # next group's shards
+        streams = (self._mesh.streams() if self._mesh is not None and self._mesh.is_cuda
+                   else ())
+        for st in streams:
+            torch.cuda.current_stream(st.device).wait_stream(st)
         with torch.no_grad():
-            for name, m in _modules(self._params).items():
-                m.load_state_dict(state[name], strict=True)
+            for replica in self._distinct_replicas():
+                for name, m in _modules(replica).items():
+                    m.load_state_dict(state[name], strict=True)
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream(st.device))
 
     @property
     def tasks(self) -> tuple:
@@ -571,17 +608,21 @@ class RestorationService:
         gens = image_generators(self._base_seed, seq_all, STREAM_SAMPLE, self.device)
         if cls is not None:
             cls = torch.as_tensor(cls + [0] * pad, dtype=torch.long).to(self.device)
-        x = self._sample(op, deg, is_svd, x_init, y, ctx, gens, cls)
+        if self._mesh is None:
+            x = self._sample(self._params, op, is_svd, x_init, y, ctx, gens, cls)
+        else:
+            x = sharded_sampler(self._sample, self._mesh)(
+                self._replicas, self._op_replicas[deg], is_svd, x_init, y, ctx, gens, cls)
         out = to_host(inverse_data_transform(x[:b]).float())
         if self.device.type != "cuda":
             return _Dispatched(out)
         ready = torch.cuda.Event()
-        ready.record()
+        ready.record(torch.cuda.current_stream(self.device))
         return _Dispatched(out, ready)
 
-    def _sample(self, op, deg, is_svd, x_init, y, ctx, gens, cls):
-        """Run the padded group's trajectory; returns x_final (padded)."""
-        params = self._params
+    def _sample(self, params, op, is_svd, x_init, y, ctx, gens, cls):
+        """Run the padded group's trajectory (or one mesh entry's share of
+        it) on `params`; returns x_final (padded)."""
         model_fn = lambda x, t: self._model_fn(params, x, t)
         kw = dict(eta=self._eta, sigma_y=self._sigma_y, noise_fn=self._noise_fn)
         if is_svd:
@@ -693,13 +734,12 @@ class PosteriorRestorationService(RestorationService):
     def num_classes(self):
         return self._num_classes
 
-    def _sample(self, op, deg, is_svd, x_init, y, ctx, gens, cls):
+    def _sample(self, params, op, is_svd, x_init, y, ctx, gens, cls):
         from ddnm_tpu_torch.sampling.posterior import sample_posterior
 
         # the posterior loop consumes A+y (the reference passes Apy into
         # p_sample_loop, hq_demo gaussian_diffusion.py:495-530)
         apy = op.Ap_ctx(y, ctx) if ctx is not None else op.Ap(y)
-        params = self._params
         if self._class_cond:
             params = dict(params)
             params["classes"] = cls

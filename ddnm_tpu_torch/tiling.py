@@ -33,8 +33,15 @@ otherwise), and `encoder_cache > 1` through the encoder propagation
 written after every group (`mask_shift_state.npz`, atomically), so that a
 run restarted with `resume=True` and the same inputs goes on at the next
 group; a state file of another run is ignored with a warning, and the file
-is deleted when the run completes. `mesh` (sharded tiles, ROADMAP.md
-Queue 1 F) raises NotImplementedError.
+is deleted when the run completes.
+
+`mesh` (parallel/mesh.py, a 1-D data mesh) shards each sampler call's
+tiles over its entries, as the JAX package's tile batches shard over the
+data axis: `model_fn`, `guidance_fn`, `encode_fn` and `decode_fn` are
+replicated once a call (or passed as `Replicas`), and a group whose size
+the mesh does not divide (a wavefront of 1-3 tiles, a sequential tile)
+runs on the first entry, with a warning once: the port does not pad
+groups to 8 as the JAX package does.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ddnm_tpu_torch.operators.functional import (
     gray2color,
     mean_upsample,
 )
+from ddnm_tpu_torch.parallel.mesh import replicate, replicate_all, sharded_sampler
 from ddnm_tpu_torch.runtime import resolve_device
 from ddnm_tpu_torch.sampling.accel import key_steps_for_policy, sample_posterior_encoder_prop
 from ddnm_tpu_torch.sampling.posterior import PosteriorTables, n_model_calls, sample_posterior
@@ -200,12 +208,6 @@ def _plan_groups(tiles: Sequence[Tile], group_size: int = GROUP_SIZE,
     return groups
 
 
-def _not_ported(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh (sharded tiles) is not ported yet (ROADMAP.md "
-                                  "Queue 1 F: multi-device and serving)")
-
-
 def _check_accel(encoder_cache: int, encode_fn, decode_fn, solver: str) -> None:
     """The JAX package's refusals of the encoder cache's misuse."""
     if encoder_cache > 1 and (encode_fn is None or decode_fn is None):
@@ -217,9 +219,16 @@ def _check_accel(encoder_cache: int, encode_fn, decode_fn, solver: str) -> None:
 
 
 def _sample_group(model_fn, x_init, apy, op, tables, gens, *, encoder_cache: int,
-                  encoder_cache_policy: str, encode_fn, decode_fn, solver: str, **kw):
+                  encoder_cache_policy: str, encode_fn, decode_fn, solver: str, mesh=None,
+                  **kw):
     """One sampler call on a batch of tiles: the encoder propagation where
-    encoder_cache > 1, else sample_posterior with `solver`."""
+    encoder_cache > 1, else sample_posterior with `solver`; over `mesh`
+    the tiles shard (the callables are `Replicas` then)."""
+    if mesh is not None:
+        return sharded_sampler(_sample_group, mesh)(
+            model_fn, x_init, apy, replicate(mesh, op), tables, gens,
+            encoder_cache=encoder_cache, encoder_cache_policy=encoder_cache_policy,
+            encode_fn=encode_fn, decode_fn=decode_fn, solver=solver, **kw)
     if encoder_cache > 1:
         key_steps = key_steps_for_policy(n_model_calls(tables), encoder_cache,
                                          encoder_cache_policy)
@@ -288,8 +297,8 @@ def batched_tile_sample(
     the mask tasks, its op_ctx. Raises ValueError for a canvas that is not
     one tile (callers then run mask_shift_sample per image). `solver`,
     `encoder_cache`, `encoder_cache_policy`, `encode_fn`, `decode_fn`: as
-    in mask_shift_sample."""
-    _not_ported(mesh)
+    in mask_shift_sample; `mesh`: the images shard over it (module
+    docstring)."""
     dev = _device(gts, device)
     gts = _images(gts, dev)
     n = int(gts.shape[0])
@@ -327,12 +336,15 @@ def batched_tile_sample(
     # single tiles paste nothing; passed explicitly, as mask_shift_sample's
     # step does
     paste_mask = torch.zeros((n, tile, tile, 1), device=dev)
+    if mesh is not None:
+        model_fn, guidance_fn, encode_fn, decode_fn = replicate_all(
+            mesh, model_fn, guidance_fn, encode_fn, decode_fn)
     _, x0_b = _sample_group(model_fn, x_init, apy, op, tables, gens,
                             encoder_cache=encoder_cache,
                             encoder_cache_policy=encoder_cache_policy, encode_fn=encode_fn,
-                            decode_fn=decode_fn, solver=solver, paste_mask=paste_mask,
-                            paste_content=torch.zeros_like(gts), guidance_fn=guidance_fn,
-                            noise_fn=noise_fn, op_ctx=ctx_b)
+                            decode_fn=decode_fn, solver=solver, mesh=mesh,
+                            paste_mask=paste_mask, paste_content=torch.zeros_like(gts),
+                            guidance_fn=guidance_fn, noise_fn=noise_fn, op_ctx=ctx_b)
     return {"final": _numpy(x0_b), "apy": _numpy(apy), "y": _numpy(y)}
 
 
@@ -396,8 +408,9 @@ def mask_shift_sample(
     docstring). The state carries a SHA-256 identity of the run: the
     geometry, the flags, `seed`, `image_index`, the image, the mask,
     `init_noise`, every table and `resume_salt` (what the caller knows of
-    the run and this layer does not, e.g. a class label)."""
-    _not_ported(mesh)
+    the run and this layer does not, e.g. a class label).
+
+    `mesh`: each group's tiles shard over it (module docstring)."""
     _check_accel(encoder_cache, encode_fn, decode_fn, solver)
     if tile_init is None:
         tile_init = "fresh" if (parallel or solver != "ddim") else "carry"
@@ -438,6 +451,9 @@ def mask_shift_sample(
         first_init = _images(init_noise, dev).reshape(1, tile, tile, 3)
     carry_x = first_init if tile_init == "carry" else None
 
+    if mesh is not None:
+        model_fn, guidance_fn, encode_fn, decode_fn = replicate_all(
+            mesh, model_fn, guidance_fn, encode_fn, decode_fn)
     done: set = set()
     ckpt = None
     if checkpoint_dir is not None:
@@ -488,9 +504,9 @@ def mask_shift_sample(
         x_b, x0_b = _sample_group(
             model_fn, x_init_b, apy_b, op, tables, [samp_gens[t.index] for t in group],
             encoder_cache=encoder_cache, encoder_cache_policy=encoder_cache_policy,
-            encode_fn=encode_fn, decode_fn=decode_fn, solver=solver, paste_mask=mask_b,
-            paste_content=content_b, guidance_fn=guidance_fn, noise_fn=noise_fn,
-            op_ctx=ctx_b)
+            encode_fn=encode_fn, decode_fn=decode_fn, solver=solver, mesh=mesh,
+            paste_mask=mask_b, paste_content=content_b, guidance_fn=guidance_fn,
+            noise_fn=noise_fn, op_ctx=ctx_b)
         if tile_init == "carry":
             carry_x = x_b
         for i, t in enumerate(group):

@@ -27,6 +27,8 @@ REPO_ROOT = Path(__file__).resolve().parent
 if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
 
+from ddnm_tpu_torch.runtime import device_arg  # noqa: E402
+
 # (name, config, deg, deg_scale, sigma_y, simplified, add_noise): a copy of
 # evaluation.py's table (the reference's evaluation.sh)
 CELEBA_RUNS = [
@@ -73,7 +75,7 @@ def parse_args(argv=None):
                    help="override time_travel.T_sampling for every run")
     p.add_argument("--max-images", type=int, default=None)
     p.add_argument("--dry-run", action="store_true")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+    p.add_argument("--device", type=device_arg, default="cuda",
                    help="cuda (default; rows fail without a card) or cpu")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                    help="model torso dtype of every row")

@@ -28,6 +28,8 @@ REPO_ROOT = Path(__file__).resolve().parent
 if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
 
+from ddnm_tpu_torch.runtime import device_arg  # noqa: E402
+
 # (name, class label, SR scale) — hq_demo/evaluation.sh
 DEMOS = [
     ("orange", 950, 4),
@@ -66,7 +68,7 @@ def parse_args(argv=None):
     p.add_argument("--sweep_batch", type=int, default=1,
                    help="batch this many face-sweep images per sampler call "
                         "(hq_main_torch --sweep_batch; single-tile canvases only)")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+    p.add_argument("--device", type=device_arg, default="cuda",
                    help="cuda (the default) needs a card and raises without one")
     return p.parse_args(argv)
 

@@ -21,7 +21,13 @@ the config), --encoder_cache N [--encoder_cache_policy end_dense] (the
 ADM's encoder features reused across N model calls of a tile) and
 --resume (the canvas checkpointed under the tiles folder after every tile
 group; a restart with the same flags goes on at the next group) run as in
-hq_main.py. --sp / --dp > 1 (the device mesh) raise NotImplementedError.
+hq_main.py. --dp N shards each tile group (a batched sweep's images, a
+wavefront's tiles) over N devices, the model and classifier replicated
+(the first N cards; on the CPU, N shards of it); a group N does not
+divide runs on the first. The shards launch in turn from one thread, and
+the sampler's host sets the pace, so --dp spreads the work without
+speeding it up (PERF.md §6: no mesh beat one card on 4 H100s). --sp > 1
+(spatial partitioning) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from pathlib import Path
 REPO_ROOT = Path(__file__).resolve().parent
 if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
+
+from ddnm_tpu_torch.runtime import device_arg  # noqa: E402
 
 
 def parse_args(argv=None):
@@ -88,12 +96,14 @@ def parse_args(argv=None):
     p.add_argument("--encoder_cache_policy", type=str, default="uniform",
                    choices=["uniform", "end_dense"],
                    help="key-step placement of --encoder_cache")
-    p.add_argument("--sp", type=int, default=1, help="> 1 is not ported yet: raises")
-    p.add_argument("--dp", type=int, default=1, help="> 1 is not ported yet: raises")
+    p.add_argument("--sp", type=int, default=1,
+                   help="spatial partitioning: > 1 is not ported yet and raises")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data parallelism: shard each tile group over this many devices")
     p.add_argument("--resume", action="store_true",
                    help="checkpoint the canvas after every tile group under the tiles "
                         "folder of -i and go on from there (same seed and flags)")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+    p.add_argument("--device", type=device_arg, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p.parse_args(argv)
 
@@ -151,12 +161,6 @@ def build_classifier_from_hq(conf, device="cpu"):
         )
 
 
-def _not_ported(ns):
-    if ns.sp > 1 or ns.dp > 1:
-        raise NotImplementedError("--sp / --dp > 1 (the device mesh) are not ported yet "
-                                  "(ROADMAP.md Queue 1 F: multi-device and serving)")
-
-
 def main(argv=None):
     ns = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
@@ -171,6 +175,7 @@ def main(argv=None):
     from ddnm_tpu_torch.data.metrics import ssim
     from ddnm_tpu_torch.models import cast_torso, classifier_guidance_fn
     from ddnm_tpu_torch.models.unet_adm import init_like_flax
+    from ddnm_tpu_torch.parallel import make_mesh_2d, multihost, replicate_all
     from ddnm_tpu_torch.runner import load_checkpoint
     from ddnm_tpu_torch.runtime import resolve_device
     from ddnm_tpu_torch.sampling.accel import adm_split_fns
@@ -179,11 +184,15 @@ def main(argv=None):
     from ddnm_tpu_torch.tiling import batched_tile_sample, mask_shift_sample
 
     dev = resolve_device(ns.device)  # fail before touching anything
+    if multihost.maybe_init_distributed():  # as hq_main.py; one card a rank
+        dev = multihost.local_device(dev)
     cfg_path = Path(ns.config)
     if not cfg_path.exists():
         cfg_path = REPO_ROOT / ns.config
     conf = load_hq_config(cfg_path)
-    _not_ported(ns)
+    mesh = None
+    if ns.dp > 1 or ns.sp > 1:
+        mesh = make_mesh_2d(ns.dp, ns.sp, device=dev)  # --sp > 1 raises
 
     size = int(conf.image_size or 256)
     tile, stride = size, size // 2  # the model's native tile, 2:1 overlap
@@ -246,6 +255,11 @@ def main(argv=None):
         time_shift=(1 if conf.inpa_inj_time_shift is None else int(conf.inpa_inj_time_shift)),
     )
     calls = n_model_calls(tables)
+    if mesh is not None:
+        # one copy of the model (and classifier) a device, as hq_main.py
+        # replicates run_params
+        model_fn, guidance_fn, encode_fn, decode_fn = replicate_all(
+            mesh, model_fn, guidance_fn, encode_fn, decode_fn)
     out_dir = Path(ns.image_folder)
     to01 = lambda a: np.clip((a + 1.0) / 2.0, 0.0, 1.0)
     tile_init = "fresh" if (ns.parallel_tiles or ns.fresh_tile_init) else "carry"
@@ -257,7 +271,7 @@ def main(argv=None):
     tiles_done = []
     accel = dict(solver=ns.solver, encoder_cache=ns.encoder_cache,
                  encoder_cache_policy=ns.encoder_cache_policy, encode_fn=encode_fn,
-                 decode_fn=decode_fn)
+                 decode_fn=decode_fn, mesh=mesh)
     # what tells a run apart beyond the tiling's own inputs (hq_main.py:347)
     base_salt = (ns.class_label, float(conf.classifier_scale or 0), ns.sigma_y, ns.dtype)
 

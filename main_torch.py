@@ -20,6 +20,19 @@ of level 2 * sigma_y. Examples at full width on the card:
       --deg sr_averagepooling --deg_scale 4 --random_init --dtype bfloat16 \
       -i demo_inet --ni
 
+Several cards: run one process a card, each restoring its own slice of
+the images under their global names:
+
+  torchrun --nproc_per_node 4 main_torch.py --config configs/celeba_hq.yml ...
+
+(or a Slurm / OpenMPI launch with MASTER_ADDR and MASTER_PORT exported);
+each rank takes cuda:<local rank> unless --device cuda:N is given (several
+ranks may share one card). A run without a launcher uses one card: the JAX
+CLI shards each batch over every device, but the eager sampler's host sets
+the pace, and on 4 H100s no in-process mesh beat one card while one
+process a card scaled 3.7-4.0x (PERF.md §6). `main(argv, mesh=)` still
+shards each batch over a mesh of the caller's (parallel/mesh.py).
+
 --solver multistep (with --t_sampling 10, say) and --encoder_cache 3
 [--encoder_cache_policy end_dense] are the JAX package's two opt-in
 accelerators. --trace_dir DIR writes a torch.profiler Chrome trace of the
@@ -40,6 +53,7 @@ if str(REPO_ROOT) not in sys.path:
 
 
 from ddnm_tpu_torch.data.noise import NOISE_TYPES  # noqa: E402
+from ddnm_tpu_torch.runtime import device_arg  # noqa: E402
 
 
 def parse_args(argv=None):
@@ -96,27 +110,35 @@ def parse_args(argv=None):
                         "exact tail and a spread head at the same budget")
     p.add_argument("--resume", action="store_true",
                    help="skip images whose outputs already exist")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--device", type=device_arg, default="cuda",
+                   help="cuda (default: the current card, or the rank's under a "
+                        "launcher; raises without one), cuda:N or cpu")
     return p.parse_args(argv)
 
 
-def main(argv=None):
+
+def main(argv=None, mesh=None):
+    """Run the CLI on `argv`; returns the runner's stats. `mesh` (a
+    parallel.Mesh) shards each batch over those devices (one that repeats
+    a card, say)."""
     ns = parse_args(argv)
     logging.basicConfig(
         level=getattr(logging, ns.verbose.upper(), logging.INFO),
         format="%(asctime)s - %(levelname)s - %(message)s",
     )
     from ddnm_tpu_torch.config import load_config
+    from ddnm_tpu_torch.parallel import multihost
     from ddnm_tpu_torch.runner import RunArgs, Runner
     from ddnm_tpu_torch.runtime import resolve_device
 
     resolve_device(ns.device)  # fail before touching the output folder
+    multihost.maybe_init_distributed()
 
     out = Path(ns.image_folder)
     if not out.is_absolute():
         out = Path(ns.exp) / "image_samples" / ns.image_folder
-    if out.exists() and not ns.resume:
+    rank0 = multihost.process_index() == 0
+    if rank0 and out.exists() and not ns.resume:
         if ns.ni:
             shutil.rmtree(out)
         else:
@@ -125,6 +147,10 @@ def main(argv=None):
                 print("Output image folder exists. Program halted.")
                 return None
             shutil.rmtree(out)
+    if multihost.process_count() > 1:
+        import torch.distributed as dist
+
+        dist.barrier()  # no rank writes before rank 0 has cleared the folder
 
     cfg_path = Path(ns.config)
     if not cfg_path.exists():
@@ -145,7 +171,7 @@ def main(argv=None):
         encoder_cache=ns.encoder_cache, encoder_cache_policy=ns.encoder_cache_policy,
         device=ns.device, trace_dir=ns.trace_dir, loop=ns.loop,
     )
-    return Runner(args, config).run()
+    return Runner(args, config, mesh=mesh).run()
 
 
 if __name__ == "__main__":

@@ -27,8 +27,11 @@ On the CPU, at a toy size:
 
 SIGTERM drains (pending requests get 503s) and exits 0; SIGHUP rebuilds
 the service from --ckpt and swaps its weights in between two groups.
---dp > 1 (serving over several cards) raises NotImplementedError; --loop
-is accepted and changes nothing (the port has one eager sampler loop).
+--dp N shards each group over N devices (the first N cards, or N shards
+of the CPU with --device cpu; --max_batch must divide by N; the shards
+launch in turn from the worker thread, and on the host-bound eager
+sampler no mesh beat one card, PERF.md §6); --loop is
+accepted and changes nothing (the port has one eager sampler loop).
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from pathlib import Path
 REPO_ROOT = Path(__file__).resolve().parent
 if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
+
+from ddnm_tpu_torch.runtime import device_arg  # noqa: E402
 
 SIMPLIFIED_DEGS = ("colorization", "denoising", "sr_averagepooling",
                    "inpainting", "sr_color", "mask_color_sr", "diy")
@@ -111,26 +116,30 @@ def parse_args(argv=None):
                         "choice runs ('scan' still refuses --encoder_cache > 1, as "
                         "serve.py does)")
     p.add_argument("--no_warmup", action="store_true")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+    p.add_argument("--device", type=device_arg, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p.parse_args(argv)
 
 
-def _not_ported(ns):
-    if getattr(ns, "dp", 1) > 1:
-        raise NotImplementedError("--dp > 1 (serving over a device mesh) is not ported yet "
-                                  "(ROADMAP.md Queue 1 F: multi-device and serving)")
+def _data_mesh(ns, dev, mesh=None):
+    """The service's mesh: `mesh` as given, else --dp devices of the
+    service's kind (serve.py), else None."""
+    if mesh is not None or getattr(ns, "dp", 1) <= 1:
+        return mesh
+    from ddnm_tpu_torch.parallel import make_mesh
+
+    return make_mesh(ns.dp, device=dev)
 
 
 def _tasks(spec: str) -> list[str]:
     return [d.strip() for d in spec.split(",") if d.strip()]
 
 
-def build_hq_service(ns):
+def build_hq_service(ns, mesh=None):
     """A PosteriorRestorationService from an hq config: hq_main_torch.py's
     single-tile flow online (ADM UNet with the learned-range head, respaced
     posterior DDNM with time-travel, optional classifier guidance,
-    per-request masks and class labels)."""
+    per-request masks and class labels). `mesh` overrides --dp's."""
     import numpy as np
     import torch
 
@@ -146,7 +155,6 @@ def build_hq_service(ns):
     from ddnm_tpu_torch.schedules import named_beta_schedule
     from ddnm_tpu_torch.server import PosteriorRestorationService
 
-    _not_ported(ns)
     dev = resolve_device(ns.device)
     cfg_path = Path(ns.hq_conf)
     if not cfg_path.exists():
@@ -245,7 +253,7 @@ def build_hq_service(ns):
         split_fns = (encode_fn, decode_fn)
     return PosteriorRestorationService(
         model_fn, run_params, tables, operators, image_size=size,
-        max_batch=ns.max_batch, base_seed=ns.seed,
+        max_batch=ns.max_batch, base_seed=ns.seed, mesh=_data_mesh(ns, dev, mesh),
         guidance_fn=guidance_fn, class_cond=class_cond,
         num_classes=1000 if class_cond else None, require_ctx=require_ctx,
         encoder_cache=getattr(ns, "encoder_cache", 1),
@@ -254,8 +262,9 @@ def build_hq_service(ns):
     )
 
 
-def build_service(ns):
-    """A RestorationService from main_torch.py-style config / ckpt flags."""
+def build_service(ns, mesh=None):
+    """A RestorationService from main_torch.py-style config / ckpt flags.
+    `mesh` overrides --dp's (a mesh that repeats a card, say)."""
     import numpy as np
 
     from ddnm_tpu_torch.config import load_config
@@ -264,7 +273,6 @@ def build_service(ns):
     from ddnm_tpu_torch.runner import RunArgs, Runner
     from ddnm_tpu_torch.server import RestorationService
 
-    _not_ported(ns)
     cfg_path = Path(ns.config)
     if not cfg_path.exists():
         cfg_path = REPO_ROOT / "configs" / ns.config
@@ -333,7 +341,8 @@ def build_service(ns):
     return RestorationService(
         model_fn, run_params, runner.sched, operators,
         image_size=size, max_batch=ns.max_batch, eta=ns.eta,
-        sigma_y=ns.sigma_y, base_seed=ns.seed, require_ctx=require_ctx,
+        sigma_y=ns.sigma_y, base_seed=ns.seed, mesh=_data_mesh(ns, dev, mesh),
+        require_ctx=require_ctx,
         encoder_cache=getattr(ns, "encoder_cache", 1),
         encoder_cache_policy=getattr(ns, "encoder_cache_policy", "uniform"),
         split_fns=split_fns, loop=getattr(ns, "loop", "auto"),
@@ -355,6 +364,10 @@ def main(argv=None):
     if ns.hq_conf and ns.svd_degs:
         raise SystemExit("--svd_degs is a main-pipeline option")
     resolve_device(ns.device)  # fail before building anything
+    from ddnm_tpu_torch.parallel import multihost
+
+    if multihost.maybe_init_distributed():  # a multi-process launch: one card a rank
+        ns.device = str(multihost.local_device(ns.device))
     service = build_hq_service(ns) if ns.hq_conf else build_service(ns)
     if not ns.no_warmup:
         logging.info("warming up %s ...", service.tasks)

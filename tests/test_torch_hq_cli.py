@@ -209,13 +209,17 @@ def hq_pair(tmp_path, monkeypatch, conf, flags: list) -> tuple[dict, dict]:
     pytest.param(["--solver", "multistep"], {}, None, id="flags0-conf_kw0-multistep"),
     pytest.param(["--encoder_cache", "2"], {}, None, id="flags1-conf_kw1-encoder_cache"),
     (["--sp", "2"], {}, "mesh"),
-    (["--dp", "2"], {}, "mesh"),
+    pytest.param(["--dp", "2"], {}, None, id="flags3-conf_kw3-mesh"),
     pytest.param(["--resume"], {}, None, id="flags4-conf_kw4-resume"),
 ])
 def test_unported_paths_raise(tmp_path, toy_conf, flags, conf_kw, err, monkeypatch):
-    """--sp / --dp raise NotImplementedError before writing anything;
-    --solver multistep, --encoder_cache and --resume run, within 1e-4 of
-    the JAX CLI's canvas (a --resume run that completes leaves no state)."""
+    """--sp raises NotImplementedError before writing anything; --solver
+    multistep, --encoder_cache, --resume and --dp 2 (a CPU mesh of 2 against
+    hq_main.py's on 2 of its virtual devices: the CLI's mesh and replicas;
+    the canvas's wavefronts are single tiles, which run on the first entry,
+    and test_torch_tiling.py holds a sharded group against JAX's) run,
+    within 1e-4 of the JAX CLI's canvas (a --resume run that completes
+    leaves no state)."""
     if err is None:
         ours, ref = hq_pair(tmp_path, monkeypatch, toy_conf(**conf_kw), flags)
         assert ours["final"].shape == ref["final"].shape == (1, 48, 48, 3)

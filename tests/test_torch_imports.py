@@ -31,8 +31,8 @@ def _blocked(name: str) -> bool:
 
 
 def test_port_imports_with_foreign_packages_blocked():
-    """Every module of the port (the server and utils.observability among
-    them), main_torch, hq_main_torch, evaluation_torch, serve_torch,
+    """Every module of the port (the server, utils.observability and the
+    parallel package among them), main_torch, hq_main_torch, evaluation_torch, serve_torch,
     hq_evaluation_torch, chip_smoke and the ported experiment import in a
     process where the blocked packages cannot be found, and leave lmdb
     unimported (the LSUN datasets import it when opened); importing runs
@@ -54,6 +54,8 @@ def test_port_imports_with_foreign_packages_blocked():
                                                        "ddnm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        assert set(("ddnm_tpu_torch.parallel.mesh", "ddnm_tpu_torch.parallel.multihost",
+                    "ddnm_tpu_torch.parallel.spatial")).issubset(names), names
         import chip_smoke, evaluation_torch, hq_evaluation_torch, hq_main_torch
         import main_torch, serve_torch
         spec = importlib.util.spec_from_file_location("fused_gn_conv_torch",

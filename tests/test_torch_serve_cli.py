@@ -1,7 +1,8 @@
 """serve_torch.py, the port's serving CLI, on the CPU: its flags against
 serve.py's, build_service / build_hq_service at toy size (toy32 configs,
-the trained toy fixtures or --random_init), the refusals (--dp, the
-encoder cache with SVD tasks, --loop scan with the cache), and one server
+the trained toy fixtures or --random_init), --dp 2 on the CPU and the
+refusals (a --dp that does not divide --max_batch, the encoder cache with
+SVD tasks, --loop scan with the cache), and one server
 process taking a request, SIGHUP (reload from --ckpt) and SIGTERM (drain,
 exit 0). Exact comparisons throughout."""
 
@@ -87,11 +88,17 @@ def test_build_service_refusals():
     with pytest.raises(ValueError, match="host-driven"):
         serve_torch.build_service(_ns("--random_init", "--encoder_cache", "2", "--loop",
                                       "scan"))
-    with pytest.raises(NotImplementedError, match="Queue 1 F"):
-        serve_torch.build_service(_ns("--random_init", "--dp", "2"))
-    with pytest.raises(NotImplementedError, match="Queue 1 F"):
-        serve_torch.main(["--config", "configs/toy32.yml", "--random_init", "--dp", "2",
-                          "--device", "cpu"])
+    # --dp: a max_batch the mesh does not divide raises before serving; --dp 2
+    # builds a CPU mesh of 2 and serves
+    with pytest.raises(ValueError, match="must divide over the 3-device mesh"):
+        serve_torch.build_service(_ns("--random_init", "--dp", "3", "--max_batch", "8"))
+    with pytest.raises(ValueError, match="must divide over the 3-device mesh"):
+        serve_torch.main(["--config", "configs/toy32.yml", "--random_init", "--dp", "3",
+                          "--max_batch", "8", "--device", "cpu"])
+    svc = serve_torch.build_service(_ns("--random_init", "--dp", "2"))
+    assert svc._mesh.size == 2 and svc._mesh.devices[0].type == "cpu"
+    imgs = np.random.default_rng(0).uniform(0.2, 0.8, (2, 32, 32, 3)).astype(np.float32)
+    assert np.isfinite(svc.restore(imgs, "sr_averagepooling", [0, 1], input_kind="gt")).all()
 
 
 def _toy_hq_conf(tmp_path, class_cond, scale):

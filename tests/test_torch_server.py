@@ -34,6 +34,7 @@ from ddnm_tpu.sampling import sample_simplified as j_sample
 from ddnm_tpu.sampling import sample_svd as j_sample_svd
 from ddnm_tpu.server import RestorationService as JRestorationService
 from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
+from ddnm_tpu_torch.parallel import make_mesh
 from ddnm_tpu_torch.sampling import build_schedule
 from ddnm_tpu_torch.sampling.rng import STREAM_INIT, default_noise, image_generators
 from ddnm_tpu_torch.server import RestorationService
@@ -231,8 +232,9 @@ def test_restore_validates(service, model):
         RestorationService(_model_fn, {}, sched, ops, image_size=RES, require_ctx=("x",))
     with pytest.raises(ValueError, match="auto|host|scan"):
         RestorationService(_model_fn, {}, sched, ops, image_size=RES, loop="vectorized")
-    with pytest.raises(NotImplementedError, match="Queue 1 F"):
-        RestorationService(_model_fn, {}, sched, ops, image_size=RES, mesh=object())
+    with pytest.raises(ValueError, match="must divide over the 3-device mesh"):
+        RestorationService(_model_fn, {}, sched, ops, image_size=RES,
+                           mesh=make_mesh(3, device="cpu"))
     svd = RestorationService(_model_fn, {"model": model}, sched, {
         "cs_walshhadamard": build_svd_operator("cs_walshhadamard",
                                                **_svd_kw("cs_walshhadamard", 0.25))},
@@ -251,6 +253,25 @@ def test_batch_composition_invariance(service):
     other = service.restore(gts[1:2], "sr_averagepooling", [99], input_kind="gt")
     assert not np.array_equal(other[0], alone[0])
     assert together.dtype == np.float32 and together.shape == (3, RES, RES, 3)
+
+
+def test_served_over_a_mesh(service):
+    """The service over a CPU mesh of 2 (serve_torch.py --dp 2): a reply
+    alone and coalesced in a group are bit-identical, and every reply
+    equals the unsharded service's to 1e-5 (each entry runs a batch of 2,
+    the unsharded service one of 4: CPU convolutions may round them apart
+    by ~1e-7)."""
+    sharded = RestorationService(
+        service._model_fn, service._params, service._sched, service._operators,
+        image_size=RES, max_batch=4, base_seed=SEED, mesh=make_mesh(2, device="cpu"))
+    gts = _gt_images(3)
+    together = sharded.restore(gts, "sr_averagepooling", [10, 11, 12], input_kind="gt")
+    for i in range(3):
+        alone = sharded.restore(gts[i:i + 1], "sr_averagepooling", [10 + i], input_kind="gt")
+        np.testing.assert_array_equal(together[i], alone[0])
+    single = service.restore(gts, "sr_averagepooling", [10, 11, 12], input_kind="gt")
+    np.testing.assert_allclose(together, single, atol=1e-5)
+    assert np.abs(together - 0.5).max() > 0.1
 
 
 def test_degraded_equals_gt_path(service):

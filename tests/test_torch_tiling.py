@@ -289,30 +289,32 @@ def test_batched_tile_sample_refusals(tiny):
 
 
 @pytest.mark.parametrize("kw,err", [
-    pytest.param(dict(mesh=object()), "Queue 1 F", id="kw0-Queue 1 F"),
     # ported: each runs and agrees with JAX (ids kept from when they raised)
+    pytest.param(dict(mesh=2), None, id="kw0-Queue 1 F"),
     pytest.param(dict(encoder_cache=2), None, id="kw1-Queue 1 D"),
     pytest.param(dict(solver="multistep"), None, id="kw2-Queue 1 D"),
     pytest.param(dict(checkpoint_dir="ckpt"), None, id="kw3-Queue 1 C"),
     pytest.param(dict(resume=True), None, id="kw4-Queue 1 C"),
 ])
 def test_not_ported_options_raise(kw, err, toy, monkeypatch, tmp_path):
-    """`mesh` raises NotImplementedError; the encoder cache (with the ADM's
-    split halves), the multistep solver, `checkpoint_dir` (whose state is
-    gone once the run completes) and `resume` run a 48 x 48 canvas of the
-    toy32 ADM within 1e-3 of the JAX package's, in the fresh order, every
-    tile after the first from one shared random pattern (shared_noise).
+    """The encoder cache (with the ADM's split halves), the multistep
+    solver, `checkpoint_dir` (whose state is gone once the run completes)
+    and `resume` run a 48 x 48 canvas of the toy32 ADM within 1e-3 of the
+    JAX package's, in the fresh order, every tile after the first from one
+    shared random pattern (shared_noise). `mesh` runs batched_tile_sample
+    on 2 images over a CPU mesh of 2, one image a shard (the canvas's
+    wavefronts are single tiles, which run unsharded on the first entry;
+    hq_main_torch --dp 2 runs those, tests/test_torch_hq_cli.py), against
+    the JAX package's on its mesh of 2 virtual devices.
     Not the constant 0.25 of test_mask_shift_48_matches_jax: a cached step's
     eps does not follow x, so at high noise x0 = x / sqrt(abar) - ...
     multiplies x's fp32 differences by up to 157, and from a constant init
     the two frameworks' ~1e-6 differences then grow to 0.04 (measured on the
     port alone with the weights perturbed by 3e-7: 5e-3 at interval 2)."""
-    if err is not None:
-        with pytest.raises(NotImplementedError, match=err):
-            tiling.mask_shift_sample(None, np.zeros((1, 32, 32, 3), np.float32),
-                                     "sr_averagepooling", None, 0, tile=32, device="cpu", **kw)
-        return
+    from ddnm_tpu.parallel import make_mesh as j_make_mesh
+    from ddnm_tpu.parallel import replicate as j_replicate
     from ddnm_tpu.sampling import accel as j_accel
+    from ddnm_tpu_torch.parallel import make_mesh
     from ddnm_tpu_torch.sampling import accel
     from tests._golden_adm import _mod
 
@@ -331,6 +333,23 @@ def test_not_ported_options_raise(kw, err, toy, monkeypatch, tmp_path):
     if "checkpoint_dir" in kw:
         ours_kw["checkpoint_dir"] = tmp_path / "ours"
         ref_kw["checkpoint_dir"] = tmp_path / "jax"
+    if "mesh" in kw:
+        gts = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+        batches = []
+        ours = tiling.batched_tile_sample(
+            lambda x, t: batches.append(x.shape[0]) or toy(x, t), gts, "sr_averagepooling",
+            build_posterior_tables(**GOLDEN), 0, scale=4, noise_fn=lambda g, s: torch.zeros(s), tile=32, device="cpu",
+            mesh=make_mesh(kw["mesh"], device="cpu"))
+        j_mesh = j_make_mesh(kw["mesh"])
+        ref = jt.batched_tile_sample(
+            fn, gts, "sr_averagepooling", j_tables(**GOLDEN),
+            list(jax.random.split(jax.random.PRNGKey(0), 2)), scale=4,
+            noise_fn=lambda k, s: jnp.zeros(s, jnp.float32),
+            params=j_replicate(j_mesh, params), mesh=j_mesh)
+        assert ours["final"].shape == (2, 32, 32, 3) and set(batches) == {1}  # sharded
+        np.testing.assert_allclose(ours["final"], ref["final"], atol=1e-3)
+        assert np.abs(ours["final"]).max() > 0.1
+        return
     ours = tiling.mask_shift_sample(
         lambda x, t: toy(x, t), gt, "sr_averagepooling", build_posterior_tables(**GOLDEN), 0,
         scale=4, noise_fn=lambda g, s: torch.zeros(s), tile_init="fresh", init_noise=init,
