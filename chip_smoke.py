@@ -167,7 +167,24 @@ far it got. A failure in any phase raises.
      fp32, and an 80 x 128 canvas whose 4-tile wavefront shards 2 + 2,
      each within 0.01 dB of its unsharded run; (e) the 256 px classifier's
      guidance gradient at batch 8 sharded 4 + 4 (the backward kernels on
-     two streams at once), bit-equal to its halves run alone.
+     two streams at once), bit-equal to its halves run alone;
+ 21. spatial partitioning at sp = 2 (ddnm_tpu_torch/parallel/spatial.py):
+     (a) the stats kernel's partial mode, the finalize kernel and attention
+     with Tq != Tk against their plain versions, bf16 and fp32, at every
+     GroupNorm and attention shape of the face256 ADM forward with its rows
+     halved: 2 shards' partial sums added and finalised against the
+     one-launch stats kernel on the whole map, a shard's attention rows
+     against the full kernel's; ms, device ms, bounds, SDPA for attention,
+     totals per sharded forward; (b) the toy32 hq golden hq_sr_ap_4x in
+     fp32 as two processes on cuda:0 (gloo), within 0.01 dB of the JAX
+     package's PSNR, both ranks' final images bit-equal, launches and
+     collectives exact; (c) hq_main_torch on configs/hq/face256.yml at full
+     width (bf16, dense random weights, 10 model calls a tile): --sp 1 in
+     process, --sp 2 as two processes on cuda:0; s per tile at each, the
+     sp 2 final against sp 1's, the ranks bit-equal, each shard's launches
+     (GroupNorm partial, finalize, apply, gathered attention) and
+     collectives per model call exact. The ranks are this script run as
+     `chip_smoke.py --spatial-worker KIND OUT_JSON [ARGS]`.
 Phases 5, 7, 16 and 19 also print each runner's images/s end to end against in
 the sampler ("runner overlap" lines).
 
@@ -196,11 +213,14 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-20 sets the launch counts to 0 just before each run it
-drives and checks them exactly just after.
+Each of phases 4-21 sets the launch counts to 0 just before each run it
+drives and checks them exactly just after (phase 21's ranks each their
+own).
 
-The line before the last is the JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}. Outputs go to a temporary directory.
+The line before the last is the JSON summary of the kernels (the stats
+kernel's partial and finalize modes under its entry's "modes", attention
+with Tq != Tk as "attention_gathered"); the last line is {"ok": true,
+"device": {...}}. Outputs go to a temporary directory.
 """
 
 from __future__ import annotations
@@ -3212,6 +3232,395 @@ def dp_guidance(mesh) -> tuple[dict, dict]:
     return r, launches
 
 
+# ------------------------------------------------------------------ phase 21
+
+# the full-width path's depth cut: 10 respaced steps, no jumps (10 model
+# calls a tile; the config's 250 / 10 / 10 make 2410)
+SP_CUT = ('timestep_respacing: "10"', "t_T: 10", "jump_length: 1", "jump_n_sample: 1")
+# face256 at sp = 2 against sp = 1, bf16, dense random weights, on the
+# written final.png: the shards' GroupNorm sums and the gathered attention
+# add in other orders and cuDNN picks other plans for half a map, and the
+# bf16 torso carries the differences through 10 calls; the gate is the PSNR
+# of one output against the other, in dB (49.02, at most 17 levels apart,
+# in this PR's chip calls, NVIDIA H100 80GB HBM3, 700.00 W)
+SP_PSNR_MIN = 40.0
+
+
+def face_adm(dtype=torch.bfloat16):
+    """The face256 ADM UNet of configs/hq/face256.yml on the card, random
+    weights from seed 1234 (as hq_main_torch --random_init)."""
+    from ddnm_tpu_torch.config import load_hq_config
+    from ddnm_tpu_torch.models import cast_torso
+    from ddnm_tpu_torch.models.unet_adm import init_like_flax
+    from hq_main_torch import build_adm_from_hq
+
+    model = init_like_flax(build_adm_from_hq(load_hq_config(FACE256), "cuda"), 1234).eval()
+    return cast_torso(model, dtype) if dtype != torch.float32 else model
+
+
+def dense_face_weights(path: Path) -> None:
+    """face256's random weights (seed 1234) with the layers that the init
+    zeroes (each ResBlock's out conv, each attention's proj_out, the head
+    conv) drawn as the others, saved to `path`: a model whose eps depends
+    on its input, so that two runs of it can disagree."""
+    from ddnm_tpu_torch.models.unet_adm import _ZERO_INIT
+
+    model = face_adm(torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1235)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if name.endswith(_ZERO_INIT) and hasattr(mod, "weight"):
+                w = mod.weight
+                w.normal_(0.0, 1.0 / math.sqrt(w[0].numel()), generator=gen)
+    torch.save(model.state_dict(), path)
+
+
+def conv3x3_count(model) -> int:
+    """The 3x3 convolutions of a UNet (each a halo exchange when sharded),
+    the ADM's head among them."""
+    return sum(isinstance(m, torch.nn.Conv2d) and tuple(m.kernel_size) == (3, 3)
+               for m in model.modules())
+
+
+def _rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def spatial_kernels(shapes: dict, sp: int = 2) -> dict:
+    """Phase 21(a): the stats kernel's partial mode and the finalize kernel,
+    and attention with Tq != Tk, against their plain versions on the card at
+    the face256 forward's shapes (`shapes`, op_shapes at batch 1) with the
+    rows cut over `sp` shards, in bf16 and fp32: the sp shards' partial
+    sums added in rank order and finalised against the one-launch stats
+    kernel on the whole map, a shard's queries against every key against
+    the plain version and against those rows of the full kernel's output.
+    Times (back to back), bounds and the library call where there is one
+    (SDPA for attention); totals per sharded face256 forward (bf16)."""
+    from ddnm_tpu_torch.ops.groupnorm import (_finalize, _stats_partial,
+                                              _torch_affine_from_sums, _torch_stats_partial)
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rnd = lambda *s, dtype=torch.float32: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    per_forward = {k: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                           max_abs_err=0.0)
+                   for k in ("partial", "finalize", "attention_gathered")}
+    rows = []
+    gn = sorted({(k[1], k[2]) for k in shapes if k[0] == "groupnorm"}, key=str)
+    for (b, h, w, c), dt in gn:
+        calls = shapes[("groupnorm", (b, h, w, c), dt)]
+        film = ("groupnorm_film", (b, h, w, c), dt) in shapes
+        for dtype in (torch.bfloat16, torch.float32):
+            x = rnd(b, h, w, c, dtype=dtype) * 2 + 0.3
+            gamma, beta = rnd(c), rnd(c)
+            fs, ft = (rnd(b, c) * 0.1, rnd(b, c) * 0.1) if film else (None, None)
+            shards = [s.contiguous() for s in x.chunk(sp, dim=1)]
+            part = _stats_partial(shards[0], 32)
+            err_p = _rel_err(part, _torch_stats_partial(shards[0]))
+            sums = None
+            for s in shards:
+                p = _stats_partial(s, 32)
+                sums = p if sums is None else sums + p
+            a, bb = _finalize(sums, h * w, gamma, beta, 32, 1e-5, fs, ft)
+            a_p, b_p = _torch_affine_from_sums(sums, h * w, gamma, beta, 32, 1e-5, fs, ft)
+            err_f = max(_rel_err(a, a_p), _rel_err(bb, b_p))
+            a_w, b_w = _stats_affine(x, gamma, beta, 32, 1e-5, fs, ft)
+            err_w = max(_rel_err(a, a_w), _rel_err(bb, b_w))
+            tol = TOL[("groupnorm_stats", dtype)]
+            if max(err_p, err_f, err_w) > tol:
+                raise AssertionError(f"spatial GroupNorm {tuple(shards[0].shape)} {dtype}: "
+                                     f"partial {err_p:.2e}, finalize {err_f:.2e}, against the "
+                                     f"whole map {err_w:.2e} > {tol}")
+            ms_p = cuda_ms(lambda: _stats_partial(shards[0], 32))
+            dev_p = device_ms(lambda: _stats_partial(shards[0], 32))
+            plain_p = cuda_ms(lambda: _torch_stats_partial(shards[0]))
+            ms_f = cuda_ms(lambda: _finalize(sums, h * w, gamma, beta, 32, 1e-5, fs, ft))
+            dev_f = device_ms(lambda: _finalize(sums, h * w, gamma, beta, 32, 1e-5, fs, ft))
+            plain_f = cuda_ms(lambda: _torch_affine_from_sums(sums, h * w, gamma, beta, 32,
+                                                              1e-5, fs, ft))
+            bound_p = (shards[0].numel() * shards[0].element_size() + 8 * b * c) / HBM_BYTES_PER_S * 1e3
+            bound_f = (8 * b * c * (3 if film else 2) + 8 * c) / HBM_BYTES_PER_S * 1e3
+            row = dict(shape=list(shards[0].shape), dtype=str(dtype).split(".")[-1], film=film,
+                       calls_per_forward=calls, partial=dict(max_abs_err=err_p, ms=ms_p,
+                       device_ms=dev_p, plain_ms=plain_p, bound_ms=bound_p), finalize=dict(
+                       max_abs_err=err_f, ms=ms_f, device_ms=dev_f, plain_ms=plain_f,
+                       bound_ms=bound_f), against_whole_map=err_w)
+            rows.append(row)
+            print(f"spatial GroupNorm shard {tuple(shards[0].shape)} {row['dtype']} film "
+                  f"{film}: partial {ms_p:.4f} ms (device {dev_p:.4f}, plain {plain_p:.4f}, "
+                  f"bound {bound_p:.4f}), finalize {ms_f:.4f} ms (device {dev_f:.4f}, plain "
+                  f"{plain_f:.4f}, bound {bound_f:.5f}); errors {err_p:.1e} / {err_f:.1e}, "
+                  f"{sp} shards against the whole map {err_w:.1e}", flush=True)
+            if dtype == torch.bfloat16:
+                for k, ms, dev, plain, bound, err in (
+                        ("partial", ms_p, dev_p, plain_p, bound_p, err_p),
+                        ("finalize", ms_f, dev_f, plain_f, bound_f, err_f)):
+                    f = per_forward[k]
+                    f["ms"] += calls * ms
+                    f["device_ms"] += calls * dev
+                    f["plain_ms"] += calls * plain
+                    f["bound_ms"] += calls * bound
+                    f["max_abs_err"] = max(f["max_abs_err"], err)
+    for key, calls in sorted(((k, v) for k, v in shapes.items() if k[0] == "attention"), key=str):
+        _, (bh, t, c), _ = key
+        tq = t // sp
+        for dtype in (torch.bfloat16, torch.float32):
+            q_full, k, v = (rnd(bh, t, c, dtype=dtype) for _ in range(3))
+            scale = c ** -0.5
+            full = _kernel_attention(q_full, k, v, scale)
+            worst = worst_rows = 0.0
+            for r in range(sp):
+                q = q_full[:, r * tq:(r + 1) * tq].contiguous()
+                out = _kernel_attention(q, k, v, scale)
+                worst = max(worst, _rel_err(out, _torch_attention(q, k, v, scale)))
+                worst_rows = max(worst_rows, _rel_err(out, full[:, r * tq:(r + 1) * tq]))
+            bits = all(torch.equal(_kernel_attention(q_full[:, r * tq:(r + 1) * tq].contiguous(),
+                                                     k, v, scale), full[:, r * tq:(r + 1) * tq])
+                       for r in range(sp))
+            tol = TOL[("attention", dtype)]
+            if max(worst, worst_rows) > tol:
+                raise AssertionError(f"attention Tq {tq} Tk {t} C {c} {dtype}: against plain "
+                                     f"{worst:.2e}, against the full kernel's rows "
+                                     f"{worst_rows:.2e} > {tol}")
+            q = q_full[:, :tq].contiguous()
+            ms = cuda_ms(lambda: _kernel_attention(q, k, v, scale))
+            dev = device_ms(lambda: _kernel_attention(q, k, v, scale))
+            plain = cuda_ms(lambda: _torch_attention(q, k, v, scale))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            flops = 4.0 * bh * tq * t * c
+            nbytes = (2 * bh * tq * c + 2 * bh * t * c) * q.element_size()
+            t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            row = dict(shape=[bh, tq, t, c], dtype=str(dtype).split(".")[-1],
+                       calls_per_forward=calls, max_abs_err=worst, against_full_rows=worst_rows,
+                       rows_bit_equal=bits, ms=ms, device_ms=dev, plain_ms=plain,
+                       library_ms=lib,
+                       bound_ms=bound, bound_by=by, bound_ops_ms=t_ops, bound_bytes_ms=t_bytes)
+            rows.append(row)
+            print(f"spatial attention Tq {tq} Tk {t} (B*heads {bh}, C {c}) {row['dtype']}: "
+                  f"{ms:.4f} ms (device {dev:.4f}, plain {plain:.4f}, SDPA {lib:.4f}, bound "
+                  f"{bound:.5f} by {by}); "
+                  f"against plain {worst:.1e}, against the full kernel's rows {worst_rows:.1e} "
+                  f"(bit-equal: {bits})", flush=True)
+            if dtype == torch.bfloat16:
+                f = per_forward["attention_gathered"]
+                f["ms"] += calls * ms
+                f["device_ms"] += calls * dev
+                f["plain_ms"] += calls * plain
+                f["bound_ms"] += calls * bound
+                f["library_ms"] += calls * lib
+                f["max_abs_err"] = max(f["max_abs_err"], worst)
+                f["bound_by"] = by
+    for k in ("partial", "finalize"):
+        per_forward[k].update(bound_by="bytes", library_ms=None)
+    print(f"per sharded face256 forward (bf16, sp {sp}, one shard): "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f}, plain "
+                      f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.4f})"
+                      for k, v in per_forward.items()), flush=True)
+    return {"per_forward": per_forward, "shapes": rows}
+
+
+def spatial_worker(argv: list) -> int:
+    """One rank of a phase 21 process group (`chip_smoke.py --spatial-worker
+    KIND OUT_JSON [ARGS]`; the parent sets RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT). KIND "golden": the toy32 hq golden hq_sr_ap_4x on the
+    spatial grid of every rank, fp32, each rank on cuda:0; "hq":
+    hq_main_torch.main(ARGS). Writes the rank's launches, collectives and
+    a hash of its final images to OUT_JSON."""
+    import hashlib
+
+    from ddnm_tpu_torch.models import shard_spatially
+    from ddnm_tpu_torch.parallel import (COLLECTIVES, make_mesh_2d, multihost,
+                                         reset_collective_counts)
+
+    kind, out_json, rest = argv[0], Path(argv[1]), argv[2:]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    digest = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    if kind == "golden":
+        multihost.maybe_init_distributed()
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        grid = make_mesh_2d(1, world, device="cuda:0")
+        model = shard_spatially(toy_adm("cuda:0"), grid.spatial)
+        fn, _, _ = grid.wrap(lambda z, t: model(z, t), model=model)
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        psnr, x, secs = hq_golden_run(fn, "cuda:0", TASKS_HQ[0])
+        result = dict(psnr=psnr, seconds=secs, sha256=digest(x.cpu().numpy()))
+    elif kind == "hq":
+        import hq_main_torch
+
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        out = hq_main_torch.main(rest)
+        result = dict(stats=out["stats"], sha256=digest(out["final"]))
+    else:
+        raise ValueError(f"unknown spatial worker kind {kind!r}")
+    result.update(launches=ops.launch_counts(), spatial_launches=ops.spatial_launch_counts(),
+                  collectives=dict(COLLECTIVES), rank=multihost.process_index())
+    out_json.write_text(json.dumps(result))
+    return 0
+
+
+def spatial_processes(kind: str, world: int, args: list, tmp: Path,
+                      timeout: float = 300) -> list:
+    """`world` ranks of spatial_worker(kind) (gloo rendezvous on
+    127.0.0.1, every rank on cuda:0); their results in rank order and the
+    seconds each process took."""
+    import os
+
+    port = free_port()
+    procs, logs, walls = [], [], [None] * world
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            log = open(tmp / f"{kind}_rank{rank}.log", "w+")
+            logs.append(log)
+            procs.append((time.perf_counter(), subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--spatial-worker", kind,
+                 str(tmp / f"{kind}_rank{rank}.json"), *args], cwd=REPO, env=env, stdout=log,
+                stderr=subprocess.STDOUT)))
+        deadline = time.perf_counter() + timeout
+        while None in walls and time.perf_counter() < deadline:
+            for rank, (t0, proc) in enumerate(procs):
+                if walls[rank] is None and proc.poll() is not None:
+                    walls[rank] = time.perf_counter() - t0
+            time.sleep(0.05)
+        for rank, (_, proc) in enumerate(procs):
+            if proc.poll() != 0:
+                logs[rank].seek(0)
+                raise AssertionError(f"{kind} rank {rank} exited {proc.poll()}: "
+                                     f"{logs[rank].read()[-3000:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    results = [json.loads((tmp / f"{kind}_rank{r}.json").read_text()) for r in range(world)]
+    for r, wall in zip(results, walls):
+        r["process_seconds"] = wall
+    return results
+
+
+def spatial_golden(n_gn: int, n_attn: int, n_conv: int) -> dict:
+    """Phase 21(b): the toy32 hq golden hq_sr_ap_4x (fp32, TF32 off) at sp
+    = 2, two processes on cuda:0 (gloo): within HQ_PSNR_TOL of the JAX
+    package's PSNR, both ranks' final images bit-equal, each rank's
+    launches and collectives exact."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, n_model_calls
+
+    golden = json.loads(TOY_ADM_PSNR.read_text())[TASKS_HQ[0][0]]["ours_psnr"]
+    calls = n_model_calls(build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing=HQ_RESPACING, schedule_jump_params=HQ_JUMP))
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spatial_processes("golden", 2, [], Path(tmp))
+    r = {"psnr": [x["psnr"] for x in ranks], "golden": golden,
+         "seconds": [x["seconds"] for x in ranks],
+         "process_seconds": [x["process_seconds"] for x in ranks],
+         "ranks_bit_equal": len({x["sha256"] for x in ranks}) == 1,
+         "spatial_launches": ranks[0]["spatial_launches"], "collectives": ranks[0]["collectives"]}
+    print(f"(b) toy32 hq golden {TASKS_HQ[0][0]} at sp 2 (two processes on cuda:0, gloo): "
+          f"PSNR {r['psnr']} (JAX {golden:.4f}), {r['seconds']} s in the sampler, ranks' "
+          f"finals bit-equal {r['ranks_bit_equal']}; launches {ranks[0]['spatial_launches']}, "
+          f"collectives {ranks[0]['collectives']} ({calls} model calls)", flush=True)
+    if not r["ranks_bit_equal"] or any(abs(p - golden) > HQ_PSNR_TOL for p in r["psnr"]):
+        raise AssertionError(f"spatial golden: {r}")
+    want = dict(groupnorm_partial=n_gn * calls, groupnorm_finalize=n_gn * calls,
+                attention_gathered=n_attn * calls)
+    want_coll = dict(halo=n_conv * calls, groupnorm=n_gn * calls, attention=n_attn * calls,
+                     rows=calls, batch=0)
+    for x in ranks:
+        if (x["spatial_launches"] != want or x["collectives"] != want_coll
+                or x["launches"] != dict(expected_launches(), groupnorm_apply=n_gn * calls)):
+            raise AssertionError(f"spatial golden rank {x['rank']}: launches "
+                                 f"{x['launches']} / {x['spatial_launches']}, collectives "
+                                 f"{x['collectives']}; want {want}, {want_coll}")
+    return r
+
+
+def spatial_hq(n_gn: int, n_attn: int, n_conv: int) -> tuple[dict, dict]:
+    """Phase 21(c): hq_main_torch.py on configs/hq/face256.yml (full width,
+    bf16) with the depth cut SP_CUT, one 256 px tile (4x SR with --resize_y
+    of a 64 x 64 PNG pooled from exp/datasets/celeba_hq), on the weights of
+    `dense_face_weights` (--ckpt: with the init's zero layers the model's
+    eps would be 0 whatever the sharding): --sp 1 in this process, --sp 2
+    as two processes on cuda:0 (gloo). Seconds per tile at each; every
+    rank's final bit-equal; sp 2 against sp 1 within SP_PSNR_MIN; launches
+    per shard and model call, collectives included, exact. Returns (stats,
+    launches of rank 0)."""
+    import hq_main_torch
+    from ddnm_tpu_torch.config import load_hq_config
+    from ddnm_tpu_torch.data.io import load_image, save_image
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, n_model_calls
+    from ddnm_tpu_torch.schedules import named_beta_schedule
+
+    conf = FACE256.read_text()
+    for old, new in zip(('timestep_respacing: "250"', "t_T: 250", "jump_length: 10",
+                         "jump_n_sample: 10"), SP_CUT):
+        if conf.count(old) != 1:
+            raise AssertionError(f"configs/hq/face256.yml: expected one {old!r}")
+        conf = conf.replace(old, new)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "face256_sp.yml").write_text(conf)
+        hq = load_hq_config(tmp / "face256_sp.yml")
+        calls = n_model_calls(build_posterior_tables(
+            betas=named_beta_schedule("linear", int(hq.diffusion_steps), use_scale=True),
+            timestep_respacing=str(hq.timestep_respacing),
+            schedule_jump_params=dict(hq.schedule_jump_params)))
+        img = load_image(sorted((REPO / "exp" / "datasets" / "celeba_hq").glob("*.png"))[0])
+        save_image(img.reshape(64, 4, 64, 4, 3).mean(axis=(1, 3)), tmp / "lr.png")
+        dense_face_weights(tmp / "face256_dense.pt")
+        torch.cuda.empty_cache()
+        argv = ["--config", str(tmp / "face256_sp.yml"), "--path_y", str(tmp / "lr.png"),
+                "--deg", "sr_averagepooling", "--scale", "4", "--resize_y", "--ckpt",
+                str(tmp / "face256_dense.pt"), "--dtype", "bfloat16", "--device", "cuda:0"]
+        ops.reset_launch_counts()
+        one = hq_main_torch.main(argv + ["-i", str(tmp / "sp1")])
+        launches_one = ops.launch_counts()
+        ranks = spatial_processes("hq", 2, argv + ["--sp", "2", "-i", str(tmp / "sp2")], tmp)
+        a = load_image(tmp / "sp2" / "final.png")
+        b = load_image(tmp / "sp1" / "final.png")
+    diff = int(np.abs(np.round(a * 255) - np.round(b * 255)).max())
+    psnr = 10.0 * math.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-12))
+    per_call = {k: v / calls for k, v in ranks[0]["spatial_launches"].items()}
+    per_call.update(groupnorm_apply=ranks[0]["launches"]["groupnorm_apply"] / calls,
+                    collectives={k: v / calls for k, v in ranks[0]["collectives"].items()})
+    stats = {"model_calls": calls, "sp1_seconds_per_tile": one["stats"]["seconds_per_tile"],
+             "sp2_seconds_per_tile": [x["stats"]["seconds_per_tile"] for x in ranks],
+             "sp2_process_seconds": [x["process_seconds"] for x in ranks],
+             "ranks_bit_equal": len({x["sha256"] for x in ranks}) == 1,
+             "sp2_vs_sp1_psnr": psnr, "sp2_vs_sp1_max_levels": diff,
+             "launches_per_shard_per_call": per_call}
+    print(f"(c) face256 (full width, bf16, {calls} model calls a tile): "
+          f"{stats['sp1_seconds_per_tile']:.3f} s per tile at sp 1, "
+          f"{stats['sp2_seconds_per_tile']} at sp 2 (two processes on cuda:0, gloo); final at sp "
+          f"2 against sp 1: PSNR {psnr:.2f} dB, max {diff} levels; ranks bit-equal "
+          f"{stats['ranks_bit_equal']}; per shard and model call {per_call}", flush=True)
+    if not stats["ranks_bit_equal"] or psnr < SP_PSNR_MIN:
+        raise AssertionError(f"face256 at sp 2: {stats}")
+    if launches_one != expected_launches(n_gn * calls, n_attn * calls):
+        raise AssertionError(f"face256 at sp 1: launches {launches_one}")
+    want = dict(groupnorm_partial=n_gn * calls, groupnorm_finalize=n_gn * calls,
+                attention_gathered=n_attn * calls)
+    want_coll = dict(halo=n_conv * calls, groupnorm=n_gn * calls, attention=n_attn * calls,
+                     rows=calls, batch=0)
+    for x in ranks:
+        if (x["spatial_launches"] != want or x["collectives"] != want_coll
+                or x["launches"] != dict(expected_launches(), groupnorm_apply=n_gn * calls)):
+            raise AssertionError(f"face256 at sp 2, rank {x['rank']}: launches "
+                                 f"{x['launches']} / {x['spatial_launches']}, collectives "
+                                 f"{x['collectives']}; want {want}, {want_coll}")
+    return stats, {**ranks[0]["launches"], **ranks[0]["spatial_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False; "
@@ -3566,6 +3975,22 @@ def main() -> int:
                         "runner": dp_run, "processes": dp_procs, "served": dp_serve,
                         "hq": dp_tiles, "guidance": dp_guide}
 
+    with phase(21, "spatial partitioning at sp = 2 (the kernels' new modes, the toy32 "
+                   "golden and face256 at full width, two processes on cuda:0)"):
+        face = face_adm()
+        n_gn_face, n_attn_face = module_counts(face)
+        n_conv_face = conv3x3_count(face)
+        face_shapes = op_shapes(face, torch.zeros(1, 256, 256, 3, device="cuda"))
+        del face
+        toy = toy_adm("cuda")
+        toy_counts = (*module_counts(toy), conv3x3_count(toy))
+        del toy
+        torch.cuda.empty_cache()
+        sp_kernels = spatial_kernels(face_shapes)
+        sp_golden = spatial_golden(*toy_counts)
+        sp_hq, launches_sp = spatial_hq(n_gn_face, n_attn_face, n_conv_face)
+        spatial = {"kernels": sp_kernels["shapes"], "golden": sp_golden, "face256": sp_hq}
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -3617,11 +4042,20 @@ def main() -> int:
          **({"per_guidance_call": {name: bwd_per_call[(name, kind)] for name in clf_tables},
              "pair": {name: bwd_per_call[(name, "gn_bwd" if kind.startswith("gn")
                                           else "attn_bwd")] for name in clf_tables}}
-            if kind in BACKWARD else {})}
-        for kind in SOURCES], "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
+            if kind in BACKWARD else {}),
+         # the spatial path's modes of the stats kernel (phase 21): launches
+         # per shard of the face256 tile at sp = 2, the rest per sharded forward
+         **({"modes": {mode: {"launches": launches_sp[f"groupnorm_{mode}"],
+                              **sp_kernels["per_forward"][mode]}
+                       for mode in ("partial", "finalize")}}
+            if kind == "groupnorm_stats" else {})}
+        for kind in SOURCES] + [
+        {"name": "attention_gathered", "route": "cuda", "source": SOURCES["attention"][0],
+         "replaces": SOURCES["attention"][1], "launches": launches_sp["attention_gathered"],
+         **sp_kernels["per_forward"]["attention_gathered"]}], "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
         "guided_toy32": guided_toy, "guided": guided, "solver_parity": solver,
         "accelerators": accel_stats, "served": served, "served_hq": served_hq,
-        "data_long_tail": long_tail, "multi_device": multi_device}
+        "data_long_tail": long_tail, "multi_device": multi_device, "spatial": spatial}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3631,4 +4065,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--spatial-worker"]:  # one rank of a phase 21 process group
+        sys.exit(spatial_worker(sys.argv[2:]))
     sys.exit(main())

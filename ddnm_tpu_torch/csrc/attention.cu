@@ -65,6 +65,15 @@
 //     times slower than SDPA there; a block of 64-128 rows, each warp on 16
 //     rows and all C columns, is the design for C <= 128 (later work).
 //
+// Spatial shards (a map's rows split over processes, parallel/spatial.py):
+// a shard's tokens are a contiguous block of the row-major sequence, so
+// its queries attend to the keys and values gathered from every shard in
+// rank order. Both forward kernels take the query count t_q and the key
+// count t_k apart (ddnm_attention_kv): the grid, the Q rows and the output
+// follow t_q; the key tiles, the TMA maps of K and V, the score rows and
+// the masks follow t_k. Each shard computes only its own rows (t_q = T /
+// sp), not the whole attention sliced.
+//
 // fp32 (attn_kernel<float>; the fp32 parity runs, never the bf16 main
 // path): fp32 FMA on the CUDA cores with an online softmax, not TF32 tensor
 // cores: TF32 keeps about three decimal digits and would break the 1e-4
@@ -265,16 +274,18 @@ __device__ __forceinline__ unsigned pack_bf16(float2 v) {
   return *reinterpret_cast<unsigned*>(&h);
 }
 
-// grid (ceil(T / kQ), B), block kMmaThreads, dynamic shared memory
-// mma_layout(T, C, whole).total. C is a template parameter so that every
+// grid (ceil(Tq / kQ), B), block kMmaThreads, dynamic shared memory
+// mma_layout(Tk, C, whole).total. q, o: (B, t_q, C); k, v: (B, t_k, C)
+// (t_q < t_k: one spatial shard's queries against every shard's keys). C is a template parameter so that every
 // loop over the head dimension unrolls. whole: the whole-row softmax (T <=
-// kWholeRowMaxT); otherwise the online softmax. tm_k, tm_v: the (C, T, B)
+// kWholeRowMaxT); otherwise the online softmax. tm_k, tm_v: the (C, t_k, B)
 // tensor maps of K and V (TMA only).
 template <int C>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                int t_len, float scale, int whole, const __grid_constant__ CUtensorMap tm_k,
+                int t_q, int t_k, float scale, int whole,
+                const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v) {
   constexpr int KT = key_tile(C);
   constexpr int kNK = KT / (8 * kWarps);  // n8 key tiles of a warp in Q K^T
@@ -284,7 +295,7 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   constexpr bool kTma = uses_tma(C);
   constexpr int kBox = KT * 128;          // bytes of one 64-column TMA box
   extern __shared__ __align__(16) unsigned char smem[];
-  const MmaLayout lay = mma_layout(t_len, C, whole);
+  const MmaLayout lay = mma_layout(t_k, C, whole);
   const unsigned ring = kTma ? (1024u - (smem_addr(smem) & 1023u)) & 1023u : 0u;
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + lay.bars);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + lay.q);
@@ -297,8 +308,9 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment row and column pair
   const int q0 = blockIdx.x * kQ;
-  const size_t base = (size_t)blockIdx.y * t_len * C;
-  const int n_kt = (t_len + KT - 1) / KT;  // key tiles
+  const size_t q_base = (size_t)blockIdx.y * t_q * C;
+  const size_t kv_base = (size_t)blockIdx.y * t_k * C;
+  const int n_kt = (t_k + KT - 1) / KT;  // key tiles
   const int n_tiles = 2 * n_kt;            // K and V tiles in stream order
   const int wcol = warp * (C / kWarps);    // this warp's first output column
 
@@ -325,8 +337,8 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
           tensor_copy(dst + lane * kBox, is_v(i) ? &tm_v : &tm_k, lane * 64, k0, blockIdx.y, bar);
       }
     } else {
-      const int valid = min(KT, t_len - k0);
-      const __nv_bfloat16* src = (is_v(i) ? v : k) + base + (size_t)k0 * C;
+      const int valid = min(KT, t_k - k0);
+      const __nv_bfloat16* src = (is_v(i) ? v : k) + kv_base + (size_t)k0 * C;
       __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
       for (int e = tid; e < KT * kCvec; e += kMmaThreads) {
         const int r = e / kCvec, ch = e - r * kCvec;
@@ -354,8 +366,9 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
   for (int e = tid; e < kQ * kCvec; e += kMmaThreads) {
     const int r = e / kCvec, ch = e - r * kCvec;
-    const bool ok = q0 + r < t_len;
-    cp_async16(qs + r * lay.row + ch * 8, q + base + (size_t)(ok ? q0 + r : 0) * C + ch * 8, ok);
+    const bool ok = q0 + r < t_q;
+    cp_async16(qs + r * lay.row + ch * 8, q + q_base + (size_t)(ok ? q0 + r : 0) * C + ch * 8,
+               ok);
   }
   cp_async_commit();
   __syncthreads();  // the barriers are initialised
@@ -477,7 +490,7 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
         const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          sv[4 * u + e] = k0 + 32 * u + sm_j + e < t_len ? xs[e] : -INFINITY;
+          sv[4 * u + e] = k0 + 32 * u + sm_j + e < t_k ? xs[e] : -INFINITY;
           mx = fmaxf(mx, sv[4 * u + e]);
         }
       }
@@ -512,9 +525,9 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 #pragma unroll 4
       for (int j = sm_j; j < cols; j += 32) {
         const float4 x = *reinterpret_cast<const float4*>(sm_row + j);
-        mx = fmaxf(mx, fmaxf(fmaxf(j < t_len ? x.x : -INFINITY, j + 1 < t_len ? x.y : -INFINITY),
-                             fmaxf(j + 2 < t_len ? x.z : -INFINITY,
-                                   j + 3 < t_len ? x.w : -INFINITY)));
+        mx = fmaxf(mx, fmaxf(fmaxf(j < t_k ? x.x : -INFINITY, j + 1 < t_k ? x.y : -INFINITY),
+                             fmaxf(j + 2 < t_k ? x.z : -INFINITY,
+                                   j + 3 < t_k ? x.w : -INFINITY)));
       }
 #pragma unroll
       for (int off = 4; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
@@ -523,10 +536,10 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       for (int j = sm_j; j < cols; j += 32) {
         const float4 x = *reinterpret_cast<const float4*>(sm_row + j);
         float4 e;
-        e.x = j < t_len ? __expf(x.x - mx) : 0.f;
-        e.y = j + 1 < t_len ? __expf(x.y - mx) : 0.f;
-        e.z = j + 2 < t_len ? __expf(x.z - mx) : 0.f;
-        e.w = j + 3 < t_len ? __expf(x.w - mx) : 0.f;
+        e.x = j < t_k ? __expf(x.x - mx) : 0.f;
+        e.y = j + 1 < t_k ? __expf(x.y - mx) : 0.f;
+        e.z = j + 2 < t_k ? __expf(x.z - mx) : 0.f;
+        e.w = j + 3 < t_k ? __expf(x.w - mx) : 0.f;
         *reinterpret_cast<float4*>(sm_row + j) = e;
         sum += (e.x + e.y) + (e.z + e.w);
       }
@@ -551,15 +564,15 @@ attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     inv0 = 1.f / row_l[g];
     inv1 = 1.f / row_l[g + 8];
   }
-  __nv_bfloat16* ob = o + base;
+  __nv_bfloat16* ob = o + q_base;
   const int r0 = q0 + g, r1 = r0 + 8;
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
     const int col = wcol + n * 8 + 2 * t4;
-    if (r0 < t_len)
+    if (r0 < t_q)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * C + col) =
           __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r1 < t_len)
+    if (r1 < t_q)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r1 * C + col) =
           __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
   }
@@ -618,34 +631,36 @@ cudaError_t grant_smem(const void* kernel, int* granted, int bytes) {
 // One launch of attn_mma_kernel<C>.
 template <int C>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int batch,
-                       int t_len, float scale, int whole, int smem_bytes, cudaStream_t s) {
+                       int t_q, int t_k, float scale, int whole, int smem_bytes,
+                       cudaStream_t s) {
   static int granted[kMaxDevices] = {};
   auto kernel = attn_mma_kernel<C>;
   cudaError_t err = grant_smem(reinterpret_cast<const void*>(kernel), granted, smem_bytes);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_k = {}, tm_v = {};
   if constexpr (uses_tma(C)) {
-    if ((err = make_tensor_map(&tm_k, k, batch, t_len, C, key_tile(C))) != cudaSuccess ||
-        (err = make_tensor_map(&tm_v, v, batch, t_len, C, key_tile(C))) != cudaSuccess)
+    if ((err = make_tensor_map(&tm_k, k, batch, t_k, C, key_tile(C))) != cudaSuccess ||
+        (err = make_tensor_map(&tm_v, v, batch, t_k, C, key_tile(C))) != cudaSuccess)
       return err;
   }
-  dim3 grid((t_len + kQ - 1) / kQ, batch);
+  dim3 grid((t_q + kQ - 1) / kQ, batch);
   kernel<<<grid, kMmaThreads, smem_bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), t_len, scale, whole,
-      tm_k, tm_v);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), t_q, t_k, scale,
+      whole, tm_k, tm_v);
   return cudaGetLastError();
 }
 
 // launch_mma<32 m> for c_dim = 32 m, m = 1 .. 16
 template <int M = 1>
 cudaError_t dispatch_mma(int c_dim, const void* q, const void* k, const void* v, void* o,
-                         int batch, int t_len, float scale, int whole, int smem_bytes,
+                         int batch, int t_q, int t_k, float scale, int whole, int smem_bytes,
                          cudaStream_t s) {
   if (c_dim == 32 * M)
-    return launch_mma<32 * M>(q, k, v, o, batch, t_len, scale, whole, smem_bytes, s);
+    return launch_mma<32 * M>(q, k, v, o, batch, t_q, t_k, scale, whole, smem_bytes, s);
   if constexpr (32 * M < kMaxC)
-    return dispatch_mma<M + 1>(c_dim, q, k, v, o, batch, t_len, scale, whole, smem_bytes, s);
+    return dispatch_mma<M + 1>(c_dim, q, k, v, o, batch, t_q, t_k, scale, whole, smem_bytes,
+                               s);
   return cudaErrorInvalidValue;
 }
 
@@ -663,11 +678,12 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 
-// grid (ceil(T / kBQ), B), block kThreads. Static shared memory: 45.4 KB.
+// grid (ceil(Tq / kBQ), B), block kThreads. Static shared memory: 45.4 KB.
+// q, o: (B, t_q, C); k, v: (B, t_k, C).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ o, int t_len, int c_dim, float scale) {
+            T* __restrict__ o, int t_q, int t_k, int c_dim, float scale) {
   __shared__ float qs[kBQ][kMaxC + 1];   // +1: rows of one warp hit other banks
   __shared__ float kv[kBK][kDC + 1];     // K chunk, then V chunk
   __shared__ float ps[kBQ][kBK];         // probabilities of the current tile
@@ -676,18 +692,19 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBQ;
-  const size_t base = (size_t)blockIdx.y * t_len * c_dim;
-  const T* qb = q + base;
-  const T* kb = k + base;
-  const T* vb = v + base;
-  T* ob = o + base;
+  const size_t q_base = (size_t)blockIdx.y * t_q * c_dim;
+  const size_t kv_base = (size_t)blockIdx.y * t_k * c_dim;
+  const T* qb = q + q_base;
+  const T* kb = k + kv_base;
+  const T* vb = v + kv_base;
+  T* ob = o + q_base;
   const int nchunks = c_dim / kDC;
 
   for (int e = tid; e < kBQ * c_dim; e += kThreads) {
     const int r = e / c_dim;
     const int d = e - r * c_dim;
     const int qi = q0 + r;
-    qs[r][d] = qi < t_len ? to_f(qb[(size_t)qi * c_dim + d]) : 0.f;
+    qs[r][d] = qi < t_q ? to_f(qb[(size_t)qi * c_dim + d]) : 0.f;
   }
 
   // score mapping: row sq, keys sk + 16 j (the 16 threads of a row are one
@@ -709,14 +726,14 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
   __syncthreads();
 
-  for (int kt = 0; kt < t_len; kt += kBK) {
+  for (int kt = 0; kt < t_k; kt += kBK) {
     float s[4] = {0.f, 0.f, 0.f, 0.f};
     for (int ch = 0; ch < nchunks; ++ch) {
       for (int e = tid; e < kBK * kDC; e += kThreads) {
         const int r = e / kDC;
         const int d = e - r * kDC;
         const int ki = kt + r;
-        kv[r][d] = ki < t_len ? to_f(kb[(size_t)ki * c_dim + ch * kDC + d]) : 0.f;
+        kv[r][d] = ki < t_k ? to_f(kb[(size_t)ki * c_dim + ch * kDC + d]) : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -731,7 +748,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      s[j] = kt + sk + 16 * j < t_len ? s[j] * scale : -INFINITY;
+      s[j] = kt + sk + 16 * j < t_k ? s[j] * scale : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
 #pragma unroll
@@ -762,7 +779,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
           const int r = e / kDC;
           const int d = e - r * kDC;
           const int ki = kt + r;
-          kv[r][d] = ki < t_len ? to_f(vb[(size_t)ki * c_dim + ch * kDC + d]) : 0.f;
+          kv[r][d] = ki < t_k ? to_f(vb[(size_t)ki * c_dim + ch * kDC + d]) : 0.f;
         }
         __syncthreads();
         float a0 = acc0[ch] * al0;
@@ -790,8 +807,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int ch = 0; ch < kMaxChunks; ++ch) {
     if (ch < nchunks) {
       const int d = ch * kDC + pd;
-      if (r0 < t_len) ob[(size_t)r0 * c_dim + d] = from_f<T>(acc0[ch] * inv0);
-      if (r1 < t_len) ob[(size_t)r1 * c_dim + d] = from_f<T>(acc1[ch] * inv1);
+      if (r0 < t_q) ob[(size_t)r0 * c_dim + d] = from_f<T>(acc0[ch] * inv0);
+      if (r1 < t_q) ob[(size_t)r1 * c_dim + d] = from_f<T>(acc1[ch] * inv1);
     }
   }
 }
@@ -1575,6 +1592,25 @@ cudaError_t attention_bwd(const void* q, const void* k, const void* v, const voi
 
 extern "C" {
 
+// The forward launch: q, o (batch, t_q, c_dim), k, v (batch, t_k, c_dim).
+static int attention_entry(const void* q, const void* k, const void* v, void* o, int batch,
+                           int t_q, int t_k, int c_dim, float scale, int dtype, int whole,
+                           int smem_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t_q < 1 || t_k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    dim3 grid((t_q + kBQ - 1) / kBQ, batch);
+    attn_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k, c_dim, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if ((whole && t_k > kWholeRowMaxT) || mma_layout(t_k, c_dim, whole).total != smem_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      dispatch_mma(c_dim, q, k, v, o, batch, t_q, t_k, scale, whole, smem_bytes, s));
+}
+
 // q, k, v, o: (batch, t_len, c_dim) contiguous; dtype 0 = float32 (FMA
 // kernel), 1 = bfloat16 (tensor-core kernel, 16-byte aligned pointers);
 // c_dim % 32 == 0 and c_dim <= 512 (checked by the wrapper). For bf16 the
@@ -1585,18 +1621,18 @@ extern "C" {
 int ddnm_attention(const void* q, const void* k, const void* v, void* o, int batch,
                    int t_len, int c_dim, float scale, int dtype, int whole, int smem_bytes,
                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dim3 grid((t_len + kBQ - 1) / kBQ, batch);
-    attn_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), t_len, c_dim, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if ((whole && t_len > kWholeRowMaxT) || mma_layout(t_len, c_dim, whole).total != smem_bytes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      dispatch_mma(c_dim, q, k, v, o, batch, t_len, scale, whole, smem_bytes, s));
+  return attention_entry(q, k, v, o, batch, t_len, t_len, c_dim, scale, dtype, whole,
+                         smem_bytes, stream);
+}
+
+// The same with queries and keys of other lengths: q, o (batch, t_q, c_dim),
+// k, v (batch, t_k, c_dim) (a spatial shard's queries against the keys and
+// values gathered from every shard); whole and smem_bytes follow t_k.
+int ddnm_attention_kv(const void* q, const void* k, const void* v, void* o, int batch,
+                      int t_q, int t_k, int c_dim, float scale, int dtype, int whole,
+                      int smem_bytes, void* stream) {
+  return attention_entry(q, k, v, o, batch, t_q, t_k, c_dim, scale, dtype, whole, smem_bytes,
+                         stream);
 }
 
 // Attention backward, first pass: q, k, v, o, dout, dq: (batch, t_len,

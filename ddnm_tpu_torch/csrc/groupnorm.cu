@@ -32,6 +32,13 @@
 // counters stay zero between launches of one stream. No fp32 atomics:
 // every launch gives the same bits.
 //
+// Spatial shards (a map's rows split over processes, parallel/spatial.py):
+// the statistics are the whole image's, so the stats kernel has a partial
+// mode that stops after the block combine and writes one shard's
+// per-channel sums, the shards' sums are added in rank order outside the
+// kernel (one all_gather), and gn_finalize_kernel folds them into a, b
+// with the stats kernel's own arithmetic: one tiny launch per norm.
+//
 // Apply (gn_apply_kernel): a bytes-bound elementwise pass, y = x * a + b
 // in fp32, cast, optional SiLU in fp32 on the cast value and one more cast
 // (the Pallas _apply_kernel's arithmetic). Each thread moves VEC channels of
@@ -143,7 +150,10 @@ constexpr int kStatsUnroll = 8;  // pixel loads in flight per thread
 // integer: the fp32 sums never meet an atomic, so every launch gives the
 // same bits. The counters assume the launches that share them run one after
 // another (one stream), as the port's do.
-// out: (2, B, C) fp32, out[0] = a, out[1] = b.
+// out: (2, B, C) fp32, out[0] = a, out[1] = b. With `partial` the kernel
+// stops before the group fold and writes the per-channel sums instead,
+// out[0] = sum x and out[1] = sum x^2 over this launch's pixels (one spatial
+// shard's rows: gn_finalize_kernel folds the shards' added sums).
 template <typename T, int VEC>
 __global__ void gn_stats_affine_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                                        const float* __restrict__ beta,
@@ -151,7 +161,8 @@ __global__ void gn_stats_affine_kernel(const T* __restrict__ x, const float* __r
                                        const float* __restrict__ film_shift,
                                        float* __restrict__ out, float* __restrict__ scratch,
                                        unsigned* __restrict__ counters, int batch, int hw,
-                                       int c_total, int cpg, int span, int lanes_c, float eps) {
+                                       int c_total, int cpg, int span, int lanes_c, float eps,
+                                       int partial) {
   extern __shared__ float sm[];
   const int nthreads = blockDim.x;
   const int lanes_p = nthreads / lanes_c;
@@ -244,6 +255,14 @@ __global__ void gn_stats_affine_kernel(const T* __restrict__ x, const float* __r
     __syncthreads();
   }
 
+  if (partial) {  // the shard's per-channel sums; the finalize folds them
+    for (int j = threadIdx.x; j < span; j += nthreads) {
+      out[(size_t)b * c_total + c0 + j] = part[j];
+      out[((size_t)batch + b) * c_total + c0 + j] = part[span + j];
+    }
+    return;
+  }
+
   // fixed-order group sums -> mean and rstd (the fast variance E[x^2] -
   // mean^2, clamped at 0), then the per-channel affine with FiLM folded in
   const int ng = span / cpg;
@@ -282,7 +301,8 @@ cudaError_t launch_stats_affine(const void* x, const float* gamma, const float* 
                                 const float* film_scale, const float* film_shift, float* out,
                                 float* scratch, unsigned* counters, int batch, int hw,
                                 int c_total, int cpg, float eps, int span, int n_blk,
-                                int threads, int lanes_c, int smem_bytes, cudaStream_t stream) {
+                                int threads, int lanes_c, int smem_bytes, int partial,
+                                cudaStream_t stream) {
   auto kernel = gn_stats_affine_kernel<T, VEC>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -292,8 +312,57 @@ cudaError_t launch_stats_affine(const void* x, const float* gamma, const float* 
   dim3 grid(n_blk, c_total / span, batch);
   kernel<<<grid, threads, smem_bytes, stream>>>(static_cast<const T*>(x), gamma, beta,
                                                 film_scale, film_shift, out, scratch, counters,
-                                                batch, hw, c_total, cpg, span, lanes_c, eps);
+                                                batch, hw, c_total, cpg, span, lanes_c, eps,
+                                                partial);
   return cudaGetLastError();
+}
+
+// The fold of gn_stats_affine_kernel on given sums: the spatial shards'
+// partial sums (2, B, C), added in rank order by the caller, of a map of
+// `hw` pixels in all. grid (B), block kFinalizeThreads, dynamic shared
+// memory 8 * groups bytes. The same arithmetic as the end of the stats
+// kernel: fixed-order group sums, mean, rstd from E[x^2] - mean^2 clamped
+// at 0, the per-channel affine with FiLM folded in. out: (2, B, C) fp32,
+// out[0] = a, out[1] = b. A few hundred floats a launch: it costs its launch.
+constexpr int kFinalizeThreads = 256;
+
+__global__ void __launch_bounds__(kFinalizeThreads)
+gn_finalize_kernel(const float* __restrict__ sums, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, const float* __restrict__ film_scale,
+                   const float* __restrict__ film_shift, float* __restrict__ out, int batch,
+                   int hw, int c_total, int cpg, float eps) {
+  extern __shared__ float gstat[];  // [2][groups]: mean, rstd
+  const int b = blockIdx.x;
+  const int ng = c_total / cpg;
+  const float n = static_cast<float>(static_cast<double>(hw) * cpg);
+  const float* s1 = sums + (size_t)b * c_total;
+  const float* s2 = sums + ((size_t)batch + b) * c_total;
+  for (int gi = threadIdx.x; gi < ng; gi += blockDim.x) {
+    float g1 = 0.f, g2 = 0.f;
+    for (int j = 0; j < cpg; ++j) {
+      g1 += s1[gi * cpg + j];
+      g2 += s2[gi * cpg + j];
+    }
+    const float mean = g1 / n;
+    const float var = fmaxf(g2 / n - mean * mean, 0.f);
+    gstat[gi] = mean;
+    gstat[ng + gi] = 1.f / sqrtf(var + eps);
+  }
+  __syncthreads();
+  float* a_out = out + (size_t)b * c_total;
+  float* b_out = out + ((size_t)batch + b) * c_total;
+  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
+    const int gi = c / cpg;
+    float a = gstat[ng + gi] * gamma[c];
+    float bb = beta[c] - gstat[gi] * a;
+    if (film_scale != nullptr) {
+      const float fs = 1.f + film_scale[(size_t)b * c_total + c];
+      a = a * fs;
+      bb = bb * fs + film_shift[(size_t)b * c_total + c];
+    }
+    a_out[c] = a;
+    b_out[c] = bb;
+  }
 }
 
 // Stores of VEC channels of one pixel as one unit (16 bytes when VEC > 1).
@@ -982,19 +1051,13 @@ cudaError_t launch_bwd_dx(const void* x, const void* dy, const void* a, const vo
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Every entry returns cudaGetLastError().
-// x: (batch, hw, c_total) contiguous; gamma, beta: (c_total,) fp32; film_scale,
-// film_shift: (batch, c_total) fp32 or both null; out: (2, batch, c_total)
-// fp32; scratch: batch * (c_total / span) * n_blk * 2 * span fp32 (unused when
-// n_blk == 1); counters: batch * (c_total / span) zeros, left zero. The
-// launch plan (vec, span, n_blk, threads, lanes_c, smem_bytes) is
-// ops/groupnorm.py `_stats_plan`; a plan the kernel cannot run returns
-// cudaErrorInvalidValue.
-int ddnm_gn_stats_affine(const void* x, const void* gamma, const void* beta,
-                         const void* film_scale, const void* film_shift, void* out,
-                         void* scratch, void* counters, int batch, int hw, int c_total,
-                         int groups, float eps, int vec, int span, int n_blk, int threads,
-                         int lanes_c, int smem_bytes, int dtype, void* stream) {
+// The stats kernel's launch, whole (partial = 0) or partial (1); see the
+// entry points below.
+static int gn_stats_entry(const void* x, const void* gamma, const void* beta,
+                          const void* film_scale, const void* film_shift, void* out,
+                          void* scratch, void* counters, int batch, int hw, int c_total,
+                          int groups, float eps, int vec, int span, int n_blk, int threads,
+                          int lanes_c, int smem_bytes, int dtype, int partial, void* stream) {
   if (groups <= 0 || c_total % groups != 0 || span <= 0 || vec <= 0 || lanes_c <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cpg = c_total / groups;
@@ -1013,19 +1076,68 @@ int ddnm_gn_stats_affine(const void* x, const void* gamma, const void* beta,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && vec == 4)
     err = launch_stats_affine<float, 4>(x, g, bt, fs, ft, o, sc, cn, batch, hw, c_total, cpg,
-                                        eps, span, n_blk, threads, lanes_c, smem_bytes, s);
+                                        eps, span, n_blk, threads, lanes_c, smem_bytes, partial,
+                                        s);
   else if (dtype == 0 && vec == 1)
     err = launch_stats_affine<float, 1>(x, g, bt, fs, ft, o, sc, cn, batch, hw, c_total, cpg,
-                                        eps, span, n_blk, threads, lanes_c, smem_bytes, s);
+                                        eps, span, n_blk, threads, lanes_c, smem_bytes, partial,
+                                        s);
   else if (dtype == 1 && vec == 8)
     err = launch_stats_affine<__nv_bfloat16, 8>(x, g, bt, fs, ft, o, sc, cn, batch, hw, c_total,
                                                 cpg, eps, span, n_blk, threads, lanes_c,
-                                                smem_bytes, s);
+                                                smem_bytes, partial, s);
   else if (dtype == 1 && vec == 1)
     err = launch_stats_affine<__nv_bfloat16, 1>(x, g, bt, fs, ft, o, sc, cn, batch, hw, c_total,
                                                 cpg, eps, span, n_blk, threads, lanes_c,
-                                                smem_bytes, s);
+                                                smem_bytes, partial, s);
   return static_cast<int>(err);
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Every entry returns cudaGetLastError().
+// x: (batch, hw, c_total) contiguous; gamma, beta: (c_total,) fp32; film_scale,
+// film_shift: (batch, c_total) fp32 or both null; out: (2, batch, c_total)
+// fp32; scratch: batch * (c_total / span) * n_blk * 2 * span fp32 (unused when
+// n_blk == 1); counters: batch * (c_total / span) zeros, left zero. The
+// launch plan (vec, span, n_blk, threads, lanes_c, smem_bytes) is
+// ops/groupnorm.py `_stats_plan`; a plan the kernel cannot run returns
+// cudaErrorInvalidValue.
+int ddnm_gn_stats_affine(const void* x, const void* gamma, const void* beta,
+                         const void* film_scale, const void* film_shift, void* out,
+                         void* scratch, void* counters, int batch, int hw, int c_total,
+                         int groups, float eps, int vec, int span, int n_blk, int threads,
+                         int lanes_c, int smem_bytes, int dtype, void* stream) {
+  return gn_stats_entry(x, gamma, beta, film_scale, film_shift, out, scratch, counters, batch,
+                        hw, c_total, groups, eps, vec, span, n_blk, threads, lanes_c,
+                        smem_bytes, dtype, 0, stream);
+}
+
+// The stats kernel's partial mode (a spatial shard's rows): out (2, batch,
+// c_total) fp32 gets the per-channel sum of x and of x^2 over the hw pixels
+// given; the rest as ddnm_gn_stats_affine, the same plan.
+int ddnm_gn_stats_partial(const void* x, void* out, void* scratch, void* counters, int batch,
+                          int hw, int c_total, int groups, int vec, int span, int n_blk,
+                          int threads, int lanes_c, int smem_bytes, int dtype, void* stream) {
+  return gn_stats_entry(x, nullptr, nullptr, nullptr, nullptr, out, scratch, counters, batch,
+                        hw, c_total, groups, 0.f, vec, span, n_blk, threads, lanes_c,
+                        smem_bytes, dtype, 1, stream);
+}
+
+// The finalize of the partial mode: sums (2, batch, c_total) fp32, every
+// shard's added; hw the pixels of the whole map; gamma, beta, film as
+// ddnm_gn_stats_affine; out (2, batch, c_total) fp32 = (a, b).
+int ddnm_gn_finalize(const void* sums, const void* gamma, const void* beta,
+                     const void* film_scale, const void* film_shift, void* out, int batch,
+                     int hw, int c_total, int groups, float eps, void* stream) {
+  if (groups <= 0 || c_total % groups != 0 || batch <= 0 || batch > 65535 || hw <= 0 ||
+      8 * groups > 48 * 1024 || (film_scale == nullptr) != (film_shift == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  gn_finalize_kernel<<<batch, kFinalizeThreads, 8 * groups,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sums), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float*>(film_scale),
+      static_cast<const float*>(film_shift), static_cast<float*>(out), batch, hw, c_total,
+      c_total / groups, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x, y: (batch, hwc / c_total, c_total) contiguous, dtype as above; a, b:

@@ -2,7 +2,7 @@
 their primitives."""
 
 from ddnm_tpu_torch.models.convert import params_from_flax
-from ddnm_tpu_torch.models.nn import cast_torso
+from ddnm_tpu_torch.models.nn import cast_torso, shard_spatially
 from ddnm_tpu_torch.models.unet_adm import (
     ADMClassifier,
     ADMSuperResModel,
@@ -13,4 +13,5 @@ from ddnm_tpu_torch.models.unet_adm import (
 from ddnm_tpu_torch.models.unet_ddpm import DDPMUNet
 
 __all__ = ["ADMClassifier", "ADMSuperResModel", "ADMUNet", "DDPMUNet", "cast_torso",
-           "classifier_guidance_fn", "classifier_guidance_from_params", "params_from_flax"]
+           "classifier_guidance_fn", "classifier_guidance_from_params", "params_from_flax",
+           "shard_spatially"]

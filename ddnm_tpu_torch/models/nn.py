@@ -15,6 +15,15 @@ card. Under `torch.no_grad`, or when no input requires grad, they call the
 forward alone and save nothing, as every sampler does. GroupNormFunction
 gives dx only, so a GroupNorm whose affine or FiLM requires grad (a model
 that is not frozen) raises on every route.
+
+Spatial shards (parallel/spatial.py): `shard_spatially(model, group)`
+gives every 3x3 convolution, GroupNorm and attention of a UNet the
+spatial group of its process, which then holds only its block of the
+map's rows: a convolution takes its halo rows from its neighbours
+(parallel/halo.py), a GroupNorm the whole map's statistics, an attention
+the keys and values of every shard. The weights stay where they are.
+Gradients are not sharded: a sharded GroupNorm or attention with grad
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,9 +33,14 @@ import math
 import torch
 from torch import nn
 
+from torch.nn import functional as F
+
 from ddnm_tpu_torch.ops import AttentionFunction, GroupNormFunction, fused_attention, group_norm
+from ddnm_tpu_torch.parallel import halo
 
 __all__ = [
+    "shard_spatially",
+    "halo_conv3x3",
     "swish",
     "timestep_embedding_ddpm",
     "timestep_embedding_adm",
@@ -88,7 +102,11 @@ class GroupNormF32(nn.Module):
 
     `forward(x, film_scale, film_shift)` takes the ADM ResBlock's FiLM
     (B, C) scale and shift, applied after the normalisation as
-    y * (1 + scale) + shift, before the SiLU, in the same two launches."""
+    y * (1 + scale) + shift, before the SiLU, in the same two launches.
+
+    `spatial` (set by `shard_spatially`): x is this process's rows of a
+    map split over that group, normalised with the whole map's
+    statistics (ops.group_norm's spatial path)."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
                  swish: bool = False):
@@ -97,6 +115,7 @@ class GroupNormF32(nn.Module):
         self.eps = eps
         self.swish = swish
         self.force: str | None = None
+        self.spatial = None
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
@@ -104,6 +123,13 @@ class GroupNormF32(nn.Module):
         nhwc = x.permute(0, 2, 3, 1)
         if not nhwc.is_contiguous():
             nhwc = nhwc.contiguous()
+        if self.spatial is not None:
+            if _needs_grad(nhwc, film_scale, film_shift):
+                raise NotImplementedError(_NO_SHARDED_GRAD)
+            y = group_norm(nhwc, self.weight, self.bias, num_groups=self.num_groups,
+                           eps=self.eps, swish=self.swish, film_scale=film_scale,
+                           film_shift=film_shift, force=self.force, spatial=self.spatial)
+            return y.permute(0, 3, 1, 2)
         if _needs_grad(nhwc, film_scale, film_shift):
             y = GroupNormFunction.apply(nhwc, self.weight, self.bias, film_scale, film_shift,
                                         self.num_groups, self.eps, self.swish,
@@ -127,10 +153,24 @@ def nearest_upsample(x, factor: int = 2):
     return x.reshape(b, h * factor, w * factor, c)
 
 
-def attention(q, k, v, scale: float, force: str | None = None):
+_NO_SHARDED_GRAD = (
+    "gradients through a spatially sharded UNet (classifier guidance under --sp > 1) are not "
+    "ported: ROADMAP.md Queue 1, guidance under --sp")
+
+
+def attention(q, k, v, scale: float, force: str | None = None, spatial=None):
     """Scaled dot-product attention over (B*, T, C) token grids, fp32
     softmax; dispatches through ops.fused_attention, or through
-    ops.AttentionFunction where a gradient is wanted."""
+    ops.AttentionFunction where a gradient is wanted. `spatial`: q, k, v
+    are this process's tokens (a contiguous block of the row-major
+    sequence) of a map split over that group; its queries attend to the
+    keys and values of every shard, gathered in rank order (one
+    all_gather), through the kernel's Tq != Tk launch."""
+    if spatial is not None:
+        if _needs_grad(q, k, v):
+            raise NotImplementedError(_NO_SHARDED_GRAD)
+        k, v = spatial.gather(torch.stack([k, v]), 2, "attention").unbind(0)
+        return fused_attention(q, k.contiguous(), v.contiguous(), scale, force=force)
     if _needs_grad(q, k, v):
         return AttentionFunction.apply(q, k, v, scale,
                                        force or ("kernel" if q.is_cuda else "torch"))
@@ -141,6 +181,47 @@ def _needs_grad(*tensors) -> bool:
     """Grad mode is on and one of `tensors` (None allowed) requires grad."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                            for t in tensors)
+
+
+def halo_conv3x3(x, weight, bias, spatial=None):
+    """A stride-1 3x3 convolution with padding 1 of an NCHW map, or of
+    this process's rows of a map split over `spatial`: F.conv2d(halo(x),
+    w, b, padding=(0, 1))."""
+    if spatial is None:
+        return F.conv2d(x, weight, bias, padding=1)
+    return F.conv2d(halo.pad(x, spatial, 1, 1), weight, bias, padding=(0, 1))
+
+
+def _shard_conv(conv: nn.Conv2d, spatial) -> None:
+    """Give a 3x3 convolution the halo rows of its shard (a forward
+    pre-hook, and row padding 0: the halo holds the zero rows at the
+    image's edges), or take them away (spatial None)."""
+    state = conv.__dict__.pop("_spatial_halo", None)
+    if state is not None:
+        state["hook"].remove()
+        conv.padding = state["padding"]
+    if spatial is None:
+        return
+    above, below = halo.rows_needed(conv.stride[0], conv.padding[0])
+    hook = conv.register_forward_pre_hook(
+        lambda mod, args: (halo.pad(args[0], spatial, above, below),) + tuple(args[1:]))
+    conv.__dict__["_spatial_halo"] = {"hook": hook, "padding": conv.padding}
+    conv.padding = (0, conv.padding[1])
+
+
+def shard_spatially(model: nn.Module, spatial) -> nn.Module:
+    """Attach `spatial` (a parallel.spatial.SpatialGroup; None detaches)
+    to every 3x3 convolution and every module that holds a `spatial`
+    attribute (the GroupNorms, the attention blocks, the DDPM downsample's
+    pad, the ADM head) of `model`, in place, as set_op_force does for
+    `force`: the model then maps this process's rows of a map to its rows
+    of the output. The same parameters, no copy."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d) and tuple(m.kernel_size) == (3, 3):
+            _shard_conv(m, spatial)
+        elif hasattr(m, "spatial"):
+            m.spatial = spatial
+    return model
 
 
 def cast_torso(model: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -55,6 +55,7 @@ from ddnm_tpu_torch.models.nn import (
     GroupNormF32,
     attention,
     avg_pool2,
+    halo_conv3x3,
     nearest_upsample,
     swish,
     timestep_embedding_adm,
@@ -168,6 +169,7 @@ class AttentionBlock(nn.Module):
         self.num_heads = num_heads
         self.legacy_order = legacy_order
         self.force: str | None = None  # handed to ops.fused_attention
+        self.spatial = None  # models/nn.py shard_spatially
         self.norm = _norm(channels)
         self.qkv = Conv1x1(channels, 3 * channels)
         self.proj_out = Conv1x1(channels, channels)
@@ -187,7 +189,8 @@ class AttentionBlock(nn.Module):
         else:
             q, k, v = qkv.reshape(b, t, 3, heads, ch).unbind(2)
 
-        out = _heads_attention(q, k, v, self._qk_scale(ch, qkv.dtype), self.force)
+        out = _heads_attention(q, k, v, self._qk_scale(ch, qkv.dtype), self.force,
+                               self.spatial)
         out = self.proj_out(out)
         return x + out.reshape(b, hgt, wid, c).permute(0, 3, 1, 2)
 
@@ -199,21 +202,25 @@ def _qk_scale(cache: dict, ch: int, dtype: torch.dtype) -> float:
     return cache[dtype]
 
 
-def _heads_attention(q, k, v, s: float, force):
+def _heads_attention(q, k, v, s: float, force, spatial=None):
     """Attention of (B, T, H, ch) q, k, v, each scaled by `s`, head by
     head; returns (B, T, H ch). The head fold copies into the kernel's
     contiguous (B H, T, ch) layout (at batch 1 a reshape alone would leave
-    a strided view)."""
+    a strided view). `spatial`: the tokens are this shard's, a contiguous
+    block of the sequence; k and v are gathered from every shard."""
     b, t, heads, ch = q.shape
 
     def fold(z):
         return z.transpose(1, 2).reshape(b * heads, t, ch).contiguous()
 
-    out = attention(fold(q) * s, fold(k) * s, fold(v), scale=1.0, force=force)
+    sharded = {} if spatial is None else {"spatial": spatial}
+    out = attention(fold(q) * s, fold(k) * s, fold(v), scale=1.0, force=force, **sharded)
     return out.reshape(b, heads, t, ch).transpose(1, 2).reshape(b, t, heads * ch)
 
 
 class Downsample(nn.Module):
+    down = True  # halves the rows (parallel/spatial.py lowest_rows)
+
     def __init__(self, channels: int, use_conv: bool = True,
                  out_channels: Optional[int] = None):
         super().__init__()
@@ -382,6 +389,7 @@ class ADMUNet(_ADMTorso):
         # out.0 GroupNorm (+ the SiLU of out.1), out.2 the head conv
         self.out = nn.ModuleList([_norm(ch, swish=True), nn.Identity(),
                                   nn.Conv2d(ch, out_channels, 3, padding=1)])
+        self.spatial = None  # the head conv's halo (models/nn.py shard_spatially)
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x, timesteps, y=None, *, mode: str = "full", cache=None):
@@ -413,7 +421,7 @@ class ADMUNet(_ADMTorso):
 
         h = self.out[0](h.to(orig_dtype))  # norm + SiLU in the input's dtype
         head = self.out[2]  # the head conv runs in fp32 whatever the torso
-        out = F.conv2d(h.float(), head.weight.float(), head.bias.float(), padding=1)
+        out = halo_conv3x3(h.float(), head.weight.float(), head.bias.float(), self.spatial)
         return out.permute(0, 2, 3, 1).contiguous()
 
     @classmethod

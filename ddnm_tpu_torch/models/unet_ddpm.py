@@ -72,6 +72,7 @@ class AttnBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.force: str | None = None  # handed to ops.fused_attention
+        self.spatial = None  # models/nn.py shard_spatially
         self.norm = _norm(channels)
         self.q = nn.Conv2d(channels, channels, 1)
         self.k = nn.Conv2d(channels, channels, 1)
@@ -85,23 +86,29 @@ class AttnBlock(nn.Module):
         def tokens(t):  # NCHW channels_last -> (B, H*W, C), a view when possible
             return t.permute(0, 2, 3, 1).reshape(b, hgt * wid, c).contiguous()
 
+        sharded = {} if self.spatial is None else {"spatial": self.spatial}
         out = attention(tokens(self.q(h)), tokens(self.k(h)), tokens(self.v(h)),
-                        scale=int(c) ** (-0.5), force=self.force)
+                        scale=int(c) ** (-0.5), force=self.force, **sharded)
         out = out.reshape(b, hgt, wid, c).permute(0, 3, 1, 2)
         return x + self.proj_out(out)
 
 
 class Downsample(nn.Module):
+    down = True  # halves the rows (parallel/spatial.py lowest_rows)
+
     def __init__(self, channels: int, with_conv: bool = True):
         super().__init__()
         self.with_conv = with_conv
+        self.spatial = None  # models/nn.py shard_spatially
         if with_conv:
             self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x):
         if self.with_conv:
-            # one extra row/col at bottom/right, as the reference pads
-            return self.conv(F.pad(x, (0, 1, 0, 1)))
+            # one extra row/col at bottom/right, as the reference pads; a
+            # spatial shard's extra row is its halo row below (zeros on the
+            # last shard)
+            return self.conv(F.pad(x, (0, 1) if self.spatial is not None else (0, 1, 0, 1)))
         return F.avg_pool2d(x, 2)
 
 

@@ -42,15 +42,24 @@ from ddnm_tpu_torch.ops.groupnorm import GroupNormFunction, group_norm
 
 __all__ = ["AttentionFunction", "GroupNormFunction", "fused_attention", "fused_gn_conv", "fwht",
            "group_norm", "hadamard_matrix", "launch_counts", "reset_launch_counts",
-           "tagged_launch_counts"]
+           "spatial_launch_counts", "tagged_launch_counts"]
 
 _TABLES = (_groupnorm.LAUNCHES, _attention.LAUNCHES, _fwht.LAUNCHES,
            _fused_gn_conv.LAUNCHES)
+# the spatial path's kernels (the stats kernel's partial mode, the finalize,
+# attention of a shard's queries against gathered keys), counted apart
+_SPATIAL_TABLES = (_groupnorm.SPATIAL_LAUNCHES, _attention.SPATIAL_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel wrapper since the last reset."""
     return {name: n for table in _TABLES for name, n in table.items()}
+
+
+def spatial_launch_counts() -> dict[str, int]:
+    """Launches of the spatial path's kernel wrappers since the last reset:
+    groupnorm_partial, groupnorm_finalize, attention_gathered."""
+    return {name: n for table in _SPATIAL_TABLES for name, n in table.items()}
 
 
 def tagged_launch_counts() -> dict:
@@ -62,7 +71,7 @@ def tagged_launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for table in _TABLES:
+    for table in _TABLES + _SPATIAL_TABLES:
         for name in table:
             table[name] = 0
     _build.TAGGED_LAUNCHES.clear()

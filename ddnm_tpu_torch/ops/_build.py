@@ -42,10 +42,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ddnm_gn_stats_affine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                              _I, _I, _I, _I, _I, _P],
+    "ddnm_gn_stats_partial": [_P, _P, _P, _P] + [_I] * 11 + [_P],
+    "ddnm_gn_finalize": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
     "ddnm_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ddnm_gn_bwd_reduce": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ddnm_gn_bwd_dx": [_P] * 6 + [_I] * 8 + [_P],
     "ddnm_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
+    "ddnm_attention_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "ddnm_attention_bwd_dq": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
     "ddnm_attention_bwd_dkdv": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
     "ddnm_fwht": [_P, _P, _I, _I, _I, _I, _F, _P],

@@ -11,6 +11,13 @@ probabilities cast back to the input dtype before P V.
 `force="torch"` selects the plain version on any device, `force="kernel"`
 the kernel (and raises on a CPU tensor). There is no fallback.
 
+q may hold fewer tokens than k and v (Tq != Tk): one spatial shard's
+queries against the keys and values gathered from every shard
+(models/nn.py `attention(..., spatial=)`). The kernels then launch through
+`ddnm_attention_kv`, with the launch plan of the keys' length, and count
+in `SPATIAL_LAUNCHES["attention_gathered"]`; Tq == Tk keeps the launch it
+had.
+
 `AttentionFunction` is the same forward with the gradients for q, k and v
 (the classifier-guidance gradient). Its backward runs two more kernels of
 csrc/attention.cu on a CUDA tensor: `attn_bwd_dq` (dQ; each row's
@@ -38,6 +45,8 @@ from ddnm_tpu_torch.ops import _build
 __all__ = ["fused_attention", "AttentionFunction", "LAUNCHES"]
 
 LAUNCHES = {"attention": 0, "attn_bwd_dq": 0, "attn_bwd_dkdv": 0}
+# the forward with Tq != Tk (a spatial shard's queries, every shard's keys)
+SPATIAL_LAUNCHES = {"attention_gathered": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 512  # kMaxC in csrc/attention.cu
@@ -80,25 +89,29 @@ def _torch_attention(q, k, v, scale):
 
 
 @functools.lru_cache(maxsize=256)
-def _attention_plan(B: int, T: int, C: int, dtype: torch.dtype) -> dict:
-    """The kernel launch for (B, T, C) in `dtype`: kernel, grid, threads,
-    dynamic shared-memory bytes and, for bf16, the softmax path. Raises
-    ValueError for a shape the kernels do not take."""
+def _attention_plan(B: int, T: int, C: int, dtype: torch.dtype, Tk: int | None = None
+                    ) -> dict:
+    """The kernel launch for (B, T, C) queries against (B, Tk, C) keys and
+    values (Tk = T by default) in `dtype`: kernel, grid (by the queries),
+    threads, dynamic shared-memory bytes and, for bf16, the softmax path
+    (both by the keys). Raises ValueError for a shape the kernels do not
+    take."""
+    Tk = T if Tk is None else Tk
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"attention kernel takes float32/bfloat16, got {dtype}")
     if B > 65535:  # CUDA grid y limit
         raise ValueError(f"attention kernel takes B* <= 65535, got {B}")
     if C % 32 or C > _MAX_C:
         raise ValueError(f"attention kernel takes C % 32 == 0 and C <= {_MAX_C}, got {C}")
-    if T < 1:
-        raise ValueError(f"attention kernel takes T >= 1, got {T}")
+    if T < 1 or Tk < 1:
+        raise ValueError(f"attention kernel takes T >= 1, got {T} queries and {Tk} keys")
     if dtype == torch.float32:
         return {"kernel": "fma", "grid": (-(-T // _FMA_Q_ROWS), B), "threads": _FMA_THREADS,
                 "smem": 0, "whole": False, "key_tile": 0, "tma": False}
-    whole = T <= WHOLE_ROW_MAX_T
+    whole = Tk <= WHOLE_ROW_MAX_T
     kt, tma = _key_tile(C), C % 64 == 0  # uses_tma() in csrc/attention.cu
     row = C + _ROW_PAD
-    score_cols = (-(-T // kt) * kt if whole else kt) + _SCORE_PAD
+    score_cols = (-(-Tk // kt) * kt if whole else kt) + _SCORE_PAD
     stage = kt * (C if tma else row) * 2
     smem = ((1024 if tma else 0) + _STAGES * stage + 8 * _STAGES + _Q_ROWS * row * 2
             + _Q_ROWS * score_cols * 4 + 3 * _Q_ROWS * 4)  # mma_layout() in csrc/attention.cu
@@ -116,13 +129,17 @@ def _kernel_attention(q, k, v, scale):
     if not q.is_cuda:
         raise ValueError("the attention kernel takes CUDA tensors only")
     shape, dtype, dev = q.shape, q.dtype, q.device
-    for t in (k, v):
-        if t.shape != shape or t.dtype != dtype or t.device != dev:
-            raise ValueError("q, k and v must share shape, dtype and device")
     if len(shape) != 3:
         raise ValueError(f"attention kernel takes (B, T, C), got {tuple(shape)}")
+    if k.shape != v.shape or k.ndim != 3 or (k.shape[0], k.shape[2]) != (shape[0], shape[2]):
+        raise ValueError(f"attention kernel takes q (B, Tq, C) and k, v (B, Tk, C), got "
+                         f"{tuple(shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    for t in (k, v):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError("q, k and v must share dtype and device")
     B, T, C = shape
-    plan = _attention_plan(B, T, C, dtype)
+    Tk = k.shape[1]
+    plan = _attention_plan(B, T, C, dtype, Tk)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention kernel takes contiguous q, k and v")
     if plan["kernel"] == "mma":
@@ -130,16 +147,26 @@ def _kernel_attention(q, k, v, scale):
     lib = _build.load_library()
     out = torch.empty_like(q)
     with _build.device_guard(dev):
-        _build.check(lib.ddnm_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, C,
-            float(scale), _DTYPE_CODE[dtype], int(plan["whole"]), plan["smem"],
-            _build.raw_stream(dev)), "ddnm_attention")
-    _build.count_launch(LAUNCHES, "attention")
+        if Tk == T:
+            _build.check(lib.ddnm_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, C,
+                float(scale), _DTYPE_CODE[dtype], int(plan["whole"]), plan["smem"],
+                _build.raw_stream(dev)), "ddnm_attention")
+        else:
+            _build.check(lib.ddnm_attention_kv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, Tk, C,
+                float(scale), _DTYPE_CODE[dtype], int(plan["whole"]), plan["smem"],
+                _build.raw_stream(dev)), "ddnm_attention_kv")
+    if Tk == T:
+        _build.count_launch(LAUNCHES, "attention")
+    else:
+        _build.count_launch(SPATIAL_LAUNCHES, "attention_gathered")
     return out
 
 
 def fused_attention(q, k, v, scale: float, *, force: str | None = None):
-    """softmax(q k^T * scale) v over (B*, T, C); fp32 softmax.
+    """softmax(q k^T * scale) v over (B*, Tq, C) queries and (B*, Tk, C)
+    keys and values; fp32 softmax.
 
     `force`: None (the kernel for a CUDA tensor, the plain version for a CPU
     tensor), "kernel" or "torch"."""

@@ -20,6 +20,15 @@ version of their own (`_torch_stats_affine`, `_torch_apply`).
 the kernels (and raises on a CPU tensor). There is no fallback: a kernel
 that fails to build or launch raises.
 
+`group_norm(..., spatial=group)` normalises one spatial shard of a map
+whose rows are split over processes (parallel/spatial.py): the stats
+kernel in its partial mode sums this shard's pixels per channel
+(`_stats_partial`, plain `_torch_stats_partial`), the group adds every
+shard's (2, B, C) sums in rank order (`group.sum_shards`, one
+all_gather), the finalize kernel folds them into a, b (`_finalize`, plain
+`_torch_affine_from_sums`), and the apply kernel runs on the shard's rows.
+Those launches count in `SPATIAL_LAUNCHES` (ops.spatial_launch_counts).
+
 `GroupNormFunction` is the same forward with a gradient for x (the
 classifier-guidance gradient; the affine and FiLM must be frozen). Its
 backward runs two more kernels of csrc/groupnorm.cu on a CUDA tensor:
@@ -45,6 +54,8 @@ __all__ = ["group_norm", "GroupNormFunction", "LAUNCHES"]
 
 # launches of each kernel wrapper since the last reset (ops.reset_launch_counts)
 LAUNCHES = {"groupnorm_stats": 0, "groupnorm_apply": 0, "gn_bwd_reduce": 0, "gn_bwd_dx": 0}
+# the spatial path's: the stats kernel's partial mode and the finalize
+SPATIAL_LAUNCHES = {"groupnorm_partial": 0, "groupnorm_finalize": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -94,24 +105,40 @@ def _torch_group_norm(x, scale, bias, num_groups, eps, swish,
     return y
 
 
+def _torch_stats_partial(x):
+    """(2, B, C) fp32 per-channel sums of x and of x^2 over H*W (the stats
+    kernel's partial mode)."""
+    xf = _wide(x)
+    return torch.stack([xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))])
+
+
 def _torch_stats_affine(x, scale, bias, num_groups, eps,
                         film_scale=None, film_shift=None):
     """Per-(B, C) fp32 affine (a, b): fp32 sums over H*W as `_stats_kernel`
     takes them, folded as ddnm_tpu/ops/groupnorm.py `_effective_affine`."""
     B, H, W, C = x.shape
-    xf = _wide(x)
-    g1 = xf.sum(dim=(1, 2)).reshape(B, num_groups, -1).sum(-1)
-    g2 = (xf * xf).sum(dim=(1, 2)).reshape(B, num_groups, -1).sum(-1)
-    n = H * W * (C // num_groups)
+    return _torch_affine_from_sums(_torch_stats_partial(x), H * W, scale, bias, num_groups,
+                                   eps, film_scale, film_shift)
+
+
+def _torch_affine_from_sums(sums, hw, scale, bias, num_groups, eps,
+                            film_scale=None, film_shift=None):
+    """Per-(B, C) fp32 affine (a, b) from (2, B, C) per-channel sums over a
+    map of `hw` pixels (the finalize kernel): group sums, mean, rstd by the
+    fast variance, FiLM folded in."""
+    _, B, C = sums.shape
+    g1 = sums[0].reshape(B, num_groups, -1).sum(-1)
+    g2 = sums[1].reshape(B, num_groups, -1).sum(-1)
+    n = hw * (C // num_groups)
     mean = g1 / n
     rstd = torch.rsqrt(torch.clamp(g2 / n - mean * mean, min=0.0) + eps)
     rep = C // num_groups
-    a = torch.repeat_interleave(rstd, rep, dim=1) * scale.to(xf.dtype)[None]
-    b = bias.to(xf.dtype)[None] - torch.repeat_interleave(mean, rep, dim=1) * a
+    a = torch.repeat_interleave(rstd, rep, dim=1) * scale.to(sums.dtype)[None]
+    b = bias.to(sums.dtype)[None] - torch.repeat_interleave(mean, rep, dim=1) * a
     if film_scale is not None:
-        fs = 1.0 + film_scale.to(xf.dtype)
+        fs = 1.0 + film_scale.to(sums.dtype)
         a = a * fs
-        b = b * fs + film_shift.to(xf.dtype)
+        b = b * fs + film_shift.to(sums.dtype)
     return a, b
 
 
@@ -243,6 +270,58 @@ def _stats_affine(x, scale, bias, num_groups, eps, film_scale, film_shift):
     return out.select(0, 0), out.select(0, 1)  # cheaper on the host than unbind
 
 
+def _stats_partial(x, num_groups):
+    """(2, B, C) fp32 per-channel sums of x and x^2 over this shard's H*W:
+    one launch of the stats kernel in its partial mode (the same plan)."""
+    _check_input(x, num_groups)
+    B, H, W, C = x.shape
+    plan = _stats_plan(B, H * W, C, num_groups, x.element_size(), x.data_ptr() % 16 == 0)
+    lib = _build.load_library()
+    dev = x.device
+    if plan["scratch"]:
+        buf = x.new_empty(2 * B * C + plan["scratch"], dtype=torch.float32)
+        out = buf[:2 * B * C].view(2, B, C)
+        scratch, counters = buf.data_ptr() + 8 * B * C, _counters(dev, plan["counters"])
+    else:
+        out = x.new_empty((2, B, C), dtype=torch.float32)
+        scratch = counters = None
+    with _build.device_guard(dev):
+        _build.check(lib.ddnm_gn_stats_partial(
+            x.data_ptr(), out.data_ptr(), scratch,
+            counters.data_ptr() if counters is not None else None, B, H * W, C, num_groups,
+            plan["vec"], plan["span"], plan["n_blk"], plan["threads"], plan["lanes_c"],
+            plan["smem"], _DTYPE_CODE[x.dtype], _build.raw_stream(dev)), "ddnm_gn_stats_partial")
+    _build.count_launch(SPATIAL_LAUNCHES, "groupnorm_partial")
+    return out
+
+
+def _finalize(sums, hw, scale, bias, num_groups, eps, film_scale=None, film_shift=None):
+    """Per-(B, C) fp32 affine (a, b) from the shards' added (2, B, C) sums
+    over a map of `hw` pixels: one launch of the finalize kernel."""
+    if not sums.is_cuda:
+        raise ValueError("the GroupNorm finalize kernel takes CUDA tensors only")
+    _, B, C = sums.shape
+    if C % num_groups or not 1 <= B <= 65535 or 8 * num_groups > 48 * 1024:
+        raise ValueError(f"GroupNorm finalize takes (2, B <= 65535, C) sums with C % G == 0, "
+                         f"got {tuple(sums.shape)} and {num_groups} groups")
+    dev = sums.device
+    sums = _vec(sums, (2, B, C), dev)
+    scale, bias = _vec(scale, (C,), dev), _vec(bias, (C,), dev)
+    if film_scale is not None:
+        film_scale = _vec(film_scale, (B, C), dev)
+        film_shift = _vec(film_shift, (B, C), dev)
+    lib = _build.load_library()
+    out = sums.new_empty((2, B, C))
+    with _build.device_guard(dev):
+        _build.check(lib.ddnm_gn_finalize(
+            sums.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            film_scale.data_ptr() if film_scale is not None else None,
+            film_shift.data_ptr() if film_shift is not None else None, out.data_ptr(), B,
+            int(hw), C, num_groups, float(eps), _build.raw_stream(dev)), "ddnm_gn_finalize")
+    _build.count_launch(SPATIAL_LAUNCHES, "groupnorm_finalize")
+    return out.select(0, 0), out.select(0, 1)
+
+
 @functools.lru_cache(maxsize=256)
 def _apply_plan(B: int, HW: int, C: int, dtype: torch.dtype, aligned: bool = True,
                 sms: int = 132) -> dict:
@@ -291,17 +370,38 @@ def _kernel_group_norm(x, scale, bias, num_groups, eps, swish,
     return _apply(x, a, b, swish)
 
 
+def _sharded_group_norm(x, scale, bias, num_groups, eps, swish, film_scale, film_shift,
+                        spatial, mode):
+    """GroupNorm of one spatial shard of a map (module docstring): partial
+    sums, every shard's added in rank order, the finalize, the apply."""
+    B, H, W, C = x.shape
+    hw = H * W * spatial.size
+    if mode == "kernel":
+        sums = spatial.sum_shards(_stats_partial(x, num_groups))
+        a, b = _finalize(sums, hw, scale, bias, num_groups, eps, film_scale, film_shift)
+        return _apply(x, a, b, swish)
+    sums = spatial.sum_shards(_torch_stats_partial(x))
+    a, b = _torch_affine_from_sums(sums, hw, scale, bias, num_groups, eps, film_scale,
+                                   film_shift)
+    return _torch_apply(x, a, b, swish)
+
+
 def group_norm(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
                swish: bool = False, film_scale=None, film_shift=None,
-               force: str | None = None):
+               force: str | None = None, spatial=None):
     """NHWC GroupNorm with fp32 statistics, optional FiLM (B, C) scale/shift
     applied after normalization, and optional SiLU; returns x.dtype.
 
     `force`: None (the kernels for a CUDA tensor, the plain version for a
-    CPU tensor), "kernel" or "torch"."""
+    CPU tensor), "kernel" or "torch". `spatial`: x is this process's rows
+    of a map split over a spatial group (parallel/spatial.py
+    `SpatialGroup`); the statistics are the whole map's."""
     if (film_scale is None) != (film_shift is None):
         raise ValueError("film_scale and film_shift go together")
     mode = force or ("kernel" if x.is_cuda else "torch")
+    if spatial is not None and mode in ("kernel", "torch"):
+        return _sharded_group_norm(x, scale, bias, num_groups, eps, swish, film_scale,
+                                   film_shift, spatial, mode)
     if mode == "torch":
         return _torch_group_norm(x, scale, bias, num_groups, eps, swish,
                                  film_scale, film_shift)

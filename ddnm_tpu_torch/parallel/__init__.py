@@ -1,8 +1,9 @@
-"""Parallelism of the port (ddnm_tpu/parallel's data half): a 1-D data
-mesh of devices with the weights replicated and the image batch sharded
-(mesh.py), and several processes each restoring a slice of the dataset
-(multihost.py). Spatial partitioning (spatial.py: `make_mesh_2d` with
-sp > 1) is not ported yet.
+"""Parallelism of the port (ddnm_tpu/parallel): a 1-D data mesh of
+devices with the weights replicated and the image batch sharded
+(mesh.py), several processes each restoring a slice of the dataset
+(multihost.py), and spatial partitioning, a (data, spatial) grid of
+processes whose UNets each hold a block of every tile's rows (spatial.py:
+`make_mesh_2d` with sp > 1; halo.py, the convolutions' halo rows).
 """
 
 from ddnm_tpu_torch.parallel.mesh import (
@@ -22,10 +23,28 @@ from ddnm_tpu_torch.parallel.multihost import (
     process_index,
     process_subset,
 )
-from ddnm_tpu_torch.parallel.spatial import SPATIAL_AXIS, make_mesh_2d, shard_tiles
+from ddnm_tpu_torch.parallel.spatial import (
+    COLLECTIVES,
+    SPATIAL_AXIS,
+    Grid,
+    SpatialGroup,
+    gather_rows,
+    grid_sampler,
+    make_mesh_2d,
+    reset_collective_counts,
+    shard_tiles,
+    split_rows,
+)
 
 __all__ = [
+    "COLLECTIVES",
     "DATA_AXIS",
+    "Grid",
+    "SpatialGroup",
+    "gather_rows",
+    "grid_sampler",
+    "reset_collective_counts",
+    "split_rows",
     "Mesh",
     "Replicas",
     "SPATIAL_AXIS",

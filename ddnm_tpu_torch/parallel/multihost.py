@@ -108,7 +108,10 @@ def process_subset(n_items: int, process_index=None, process_count=None):
     Splits n_items as evenly as possible (the first `n_items % count`
     processes get one extra), covering every item exactly once across the
     processes: the automated form of the reference's manual
-    --subset_start / --subset_end job sharding."""
+    --subset_start / --subset_end job sharding. Under a spatial grid
+    (make_mesh_2d with sp > 1) the images split over the data indices, not
+    the ranks: pass the Grid's data_index and dp (the ranks of one spatial
+    group restore the same images)."""
     rank, world = _group()
     p = rank if process_index is None else process_index
     c = world if process_count is None else process_count

@@ -1,52 +1,332 @@
-"""The 2-D (data, spatial) mesh of the JAX package's
-ddnm_tpu/parallel/spatial.py, data half only.
+"""The 2-D (data, spatial) grid of the JAX package's
+ddnm_tpu/parallel/spatial.py, as a grid of processes.
 
-Spatial partitioning (the image's H axis over a mesh axis, to cut the
-latency of the hq pipeline's batch-1 tile chain) is not ported: in an
-eager PyTorch program it needs halo exchanges in every 3x3 convolution,
-GroupNorm statistics combined across shards before the affine, and
-gathered attention (ROADMAP.md Queue 1 F, spatial). `make_mesh_2d` with
-sp > 1 raises; with sp == 1 it is the data mesh. `shard_tiles` places a
-tree on the data axis: a leaf whose leading axis divides is split, any
-other is copied to every entry, with a warning once.
+The hq pipeline's reference-parity schedule is a sequential chain of
+batch-1 tiles, whose latency data parallelism cannot cut; the JAX package
+shards each tile's rows (the H axis) over a "spatial" mesh axis and lets
+XLA's SPMD partitioner insert the convolution halos, the cross-shard
+GroupNorm sums and the attention gather. PyTorch has no partitioner, and
+in one process no mesh beat one card (PERF.md §6), so here the grid is
+one process per (data index, spatial rank), dp * sp processes in all
+(torchrun, or parallel/multihost.py's launch detection), and the
+exchanges are written out:
+
+  - every 3x3 convolution takes its halo rows from its neighbours
+    (parallel/halo.py; models/nn.py `shard_spatially` attaches them);
+  - every GroupNorm sums its shard's pixels per channel, adds every
+    shard's sums in rank order and folds them (ops/groupnorm.py
+    `spatial=`);
+  - every attention takes its shard's queries against the keys and values
+    gathered from every shard (models/nn.py `attention(spatial=)`).
+
+Only the model call is sharded. Every rank of a spatial group runs the
+same sampler and tiling arithmetic on the whole tile (the same per-tile
+generators, the operators on the whole tile): `Grid.wrap` turns a model
+function of the whole tile into one that keeps this rank's H / sp rows,
+runs the sharded UNet and all_gathers the output back to the whole tile
+on every rank, so the ranks' tiles stay bit-identical. The JAX package
+shards the sampler's arrays too; the results agree within tolerance. The
+data axis splits a tile group's batch over the data indices
+(`grid_sampler`), each data row's output all_gathered over the ranks of
+one spatial rank.
+
+`make_mesh_2d(dp, sp)` with sp > 1 returns this process's `Grid`; with
+sp == 1 it is the in-process data mesh (parallel/mesh.py). A spatial group
+uses NCCL where each of its ranks has a card of its own, gloo otherwise
+(the CPU, and ranks sharing one card, where NCCL refuses); a gloo
+collective of CUDA tensors goes through host memory. Unlike the JAX
+package, which replicates a leaf whose rows the axis does not divide,
+`split_rows` raises ValueError, and `Grid.wrap` checks the model's lowest
+grid before a call.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+import logging
+import socket
+from typing import Callable, Optional, Sequence
 
 import torch
 
+from ddnm_tpu_torch.parallel import multihost
 from ddnm_tpu_torch.parallel.mesh import (
     DATA_AXIS,
-    Mesh,
     _is_generators,
+    _map_tensors,
     make_mesh,
     shard_batch,
     to_device,
     warn_unsharded,
 )
 
-__all__ = ["SPATIAL_AXIS", "make_mesh_2d", "shard_tiles"]
+__all__ = ["SPATIAL_AXIS", "COLLECTIVES", "SpatialGroup", "Grid", "make_mesh_2d",
+           "shard_tiles", "split_rows", "gather_rows", "grid_sampler", "lowest_rows",
+           "reset_collective_counts"]
 
 SPATIAL_AXIS = "spatial"
 
+logger = logging.getLogger("ddnm_tpu_torch")
+
+# collectives since the last reset, by what they carry: a convolution's
+# halo rows, a GroupNorm's partial sums, an attention's keys and values,
+# a model output's rows, a data-sharded batch
+COLLECTIVES = {"halo": 0, "groupnorm": 0, "attention": 0, "rows": 0, "batch": 0}
+
+
+def reset_collective_counts() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpatialGroup:
+    """The processes that hold the shards of one map's rows: their process
+    group, this process's rank in it (its rows are the rank-th of `size`
+    equal blocks) and the group's backend."""
+
+    group: object
+    rank: int
+    size: int
+    backend: str = "gloo"
+
+    def all_gather(self, t: torch.Tensor, kind: str) -> list:
+        """Every member's `t` (same shape and dtype), in rank order, on t's
+        device; counted under `kind`. Through host memory for a CUDA tensor
+        on gloo."""
+        import torch.distributed as dist
+
+        COLLECTIVES[kind] += 1
+        t = t.contiguous()
+        hop = t.is_cuda and self.backend == "gloo"
+        src = t.cpu() if hop else t
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        if hop:
+            parts = [p.to(t.device, non_blocking=True) for p in parts]
+        return parts
+
+    def gather(self, t: torch.Tensor, dim: int, kind: str) -> torch.Tensor:
+        """Every member's `t` concatenated along `dim` in rank order."""
+        return torch.cat(self.all_gather(t, kind), dim=dim)
+
+    def sum_shards(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every member's `t`, added in rank order (the same bits
+        on every member)."""
+        parts = self.all_gather(t, "groupnorm")
+        acc = parts[0].clone()
+        for p in parts[1:]:
+            acc += p
+        return acc
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Grid:
+    """This process's place in a (dp x sp) grid of processes: its data
+    index (which share of a tile group it samples) and spatial rank (which
+    rows of a tile it holds), its device, its spatial group, and the group
+    of the dp processes of its spatial rank (None where dp == 1), which
+    gathers a data-sharded batch."""
+
+    dp: int
+    sp: int
+    data_index: int
+    spatial_rank: int
+    device: torch.device
+    spatial: SpatialGroup
+    data: Optional[SpatialGroup] = None
+
+    @property
+    def writer(self) -> bool:
+        """Spatial rank 0 of its data row: the rank that writes files."""
+        return self.spatial_rank == 0
+
+    def spatial_only(self) -> "Grid":
+        """The same spatial group with no data axis (each data row on its
+        own images)."""
+        return dataclasses.replace(self, dp=1, data_index=0, data=None)
+
+    def wrap(self, model_fn=None, encode_fn=None, decode_fn=None, model=None):
+        """(model_fn, encode_fn, decode_fn) of the whole tile over this
+        grid's spatial group (module docstring); None stays None. `model`
+        (the sharded UNet) gives the lowest grid to check."""
+        sg = self.spatial
+
+        def rows(x):
+            if model is not None:
+                lowest_rows(model, x.shape[1], sg.size)
+            return split_rows(x, sg)
+
+        def wrapped_model(x, t, *args, **kw):
+            return gather_rows(model_fn(rows(x), t, *args, **kw), sg)
+
+        def wrapped_encode(x, t):
+            return encode_fn(rows(x), t)  # each rank caches its own rows
+
+        def wrapped_decode(cache, x, t):
+            return gather_rows(decode_fn(cache, rows(x), t), sg)
+
+        return (None if model_fn is None else wrapped_model,
+                None if encode_fn is None else wrapped_encode,
+                None if decode_fn is None else wrapped_decode)
+
+
+def _host_devices(dev: torch.device) -> list:
+    """(host name, device type, device index) of every rank, in rank order."""
+    import torch.distributed as dist
+
+    mine = (socket.gethostname(), dev.type, dev.index)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
 
 def make_mesh_2d(dp: int, sp: int, devices: Optional[Sequence] = None, *,
-                 device="cuda") -> Mesh:
-    """The (dp x sp) mesh over the first dp * sp devices; only sp == 1 (the
-    1-D data mesh of dp entries) is ported."""
-    if sp > 1:
-        raise NotImplementedError(
-            f"the spatial mesh axis (sp={sp}) is not ported yet (ROADMAP.md Queue 1 F, "
-            "spatial: halo exchanges, cross-shard GroupNorm statistics, gathered attention)")
-    return make_mesh(dp, devices, device=device)
+                 device="cuda", backend: Optional[str] = None):
+    """The (dp x sp) grid. sp == 1: the in-process 1-D data mesh of dp
+    entries over `devices` (parallel/mesh.py). sp > 1: this process's
+    `Grid` in a process group of dp * sp ranks (rank r is data index r //
+    sp, spatial rank r % sp), on multihost.local_device(device)
+    (cuda:LOCAL_RANK, an explicit cuda:N, or the CPU). Every rank must call
+    it, in the same order: it builds every row's spatial group (NCCL where
+    the row's ranks hold distinct cards, gloo otherwise; `backend` "nccl"
+    or "gloo" forces one) and every column's data group (gloo). Raises
+    RuntimeError without a process group of dp * sp ranks."""
+    if sp == 1:
+        return make_mesh(dp, devices, device=device)
+    if dp < 1 or sp < 1:
+        raise ValueError(f"the grid takes dp, sp >= 1, got {dp}, {sp}")
+    if devices is not None:
+        raise ValueError("a grid of processes places each rank by `device`, not `devices`")
+    import torch.distributed as dist
+
+    world = dp * sp
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"a spatial grid of dp={dp} x sp={sp} runs as {world} processes: launch with "
+            f"`torchrun --nproc_per_node {world} ...` (or set RANK, WORLD_SIZE={world}, "
+            "MASTER_ADDR and MASTER_PORT for each rank), so that a process group exists")
+    if dist.get_world_size() != world:
+        raise RuntimeError(f"a spatial grid of dp={dp} x sp={sp} needs {world} processes, the "
+                           f"process group has {dist.get_world_size()}")
+    rank = dist.get_rank()
+    dev = multihost.local_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)  # NCCL's collectives run on the current card
+    every = _host_devices(dev)
+    spatial = data = None
+    for d in range(dp):  # every rank builds every group, in one order
+        ranks = list(range(d * sp, (d + 1) * sp))
+        placed = [every[r] for r in ranks]
+        distinct = (all(p[1] == "cuda" for p in placed) and len(set(placed)) == len(placed))
+        chosen = backend or ("nccl" if distinct and dist.is_nccl_available() else "gloo")
+        group = dist.new_group(ranks, backend=chosen)
+        if rank in ranks:
+            spatial = SpatialGroup(group, rank - d * sp, sp, chosen)
+    if dp > 1:
+        for s in range(sp):
+            ranks = list(range(s, world, sp))
+            group = dist.new_group(ranks, backend="gloo")
+            if rank in ranks:
+                data = SpatialGroup(group, rank // sp, dp, "gloo")
+    grid = Grid(dp, sp, rank // sp, rank % sp, dev, spatial, data)
+    logger.info("grid dp=%d x sp=%d: rank %d is data %d, spatial %d on %s (%s)", dp, sp, rank,
+                grid.data_index, grid.spatial_rank, dev, spatial.backend)
+    return grid
 
 
-def shard_tiles(mesh: Mesh, tree):
-    """Every leaf of `tree` as a tuple of per-entry values: the leading axis
-    split over the data axis where the mesh size divides it, else the whole
-    leaf on every entry's device (logged once per combination)."""
+def split_rows(x: torch.Tensor, spatial: SpatialGroup, axis: int = 1) -> torch.Tensor:
+    """This rank's block of `axis` (the H of an NHWC tensor): a view.
+    ValueError where the group's size does not divide it."""
+    h = x.shape[axis]
+    if h % spatial.size:
+        raise ValueError(f"spatial axis (size {spatial.size}) does not divide {h} rows")
+    k = h // spatial.size
+    return x.narrow(axis, spatial.rank * k, k)
+
+
+def gather_rows(x: torch.Tensor, spatial: SpatialGroup, axis: int = 1) -> torch.Tensor:
+    """Every rank's block of `axis`, concatenated in rank order (the whole
+    map on every rank)."""
+    return spatial.gather(x, axis, "rows")
+
+
+def lowest_rows(model, rows: int, sp: int) -> int:
+    """The rows of `model`'s lowest grid for an input of `rows` rows: rows
+    halved at each of its downsamplings (a module with a true `down`).
+    ValueError where sp does not divide them, nor the input's rows (each
+    level above is then even on every shard)."""
+    downs = sum(1 for m in model.modules() if getattr(m, "down", False) is True)
+    lowest, rem = divmod(rows, 2 ** downs)
+    if rem or lowest % sp:
+        raise ValueError(f"spatial partitioning over {sp} shards needs the model's lowest grid "
+                         f"({rows} / 2^{downs} rows) to be a multiple of {sp}")
+    return lowest
+
+
+def grid_sampler(sample_fn: Callable, grid: Grid) -> Callable:
+    """`sample_fn(*args, **kw)` with its batch over the grid's data axis:
+    the leading axis of the batch tensors (those of the first tensor
+    argument's length) and the lists of per-image generators take this
+    data index's share, and every tensor of the output is all_gathered over
+    the data group in data-index order. A batch that dp does not divide
+    runs whole on every data row (logged once)."""
+
+    def wrapped(*args, **kw):
+        n = next(int(v.shape[0]) for v in list(args) + list(kw.values())
+                 if isinstance(v, torch.Tensor) and v.ndim >= 1)
+        if grid.dp == 1 or grid.data is None or n % grid.dp:
+            if grid.dp > 1:
+                warn_unsharded(DATA_AXIS, grid.dp, n)
+            return sample_fn(*args, **kw)
+        k = n // grid.dp
+        sl = slice(grid.data_index * k, (grid.data_index + 1) * k)
+
+        def take(v):
+            if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == n:
+                return v[sl]
+            if _is_generators(v) and len(v) == n:
+                return list(v[sl])
+            return v
+
+        out = sample_fn(*[take(v) for v in args], **{key: take(v) for key, v in kw.items()})
+        return _map_tensors(out, lambda t: grid.data.gather(t, 0, "batch"))
+
+    return wrapped
+
+
+def _take_grid(grid: Grid, x):
+    """This process's part of one leaf (`shard_tiles` over a Grid)."""
+    if isinstance(x, torch.Tensor) and x.ndim >= 1:
+        if grid.dp > 1:
+            if x.shape[0] % grid.dp == 0:
+                k = x.shape[0] // grid.dp
+                x = x[grid.data_index * k:(grid.data_index + 1) * k]
+            else:
+                warn_unsharded(DATA_AXIS, grid.dp, x.shape[0])
+        if x.ndim >= 4:
+            if x.shape[1] % grid.sp == 0:
+                x = split_rows(x, grid.spatial)
+            else:
+                warn_unsharded(SPATIAL_AXIS, grid.sp, x.shape[1])
+        return to_device(x, grid.device)
+    return x
+
+
+def shard_tiles(mesh, tree):
+    """Place every leaf of `tree` on the mesh. A 1-D data mesh: each leaf
+    becomes a tuple of per-entry values, the leading axis split where the
+    mesh size divides it, else the whole leaf on every entry (logged once).
+    A Grid: each tensor leaf becomes this process's part, the leading axis
+    split over the data axis and the H axis of a 4-D leaf over the spatial
+    axis where they divide (ddnm_tpu/parallel/spatial.py `_specs`), else
+    kept whole on that axis (logged once)."""
+    if isinstance(mesh, Grid):
+        if isinstance(tree, dict):
+            return {k: shard_tiles(mesh, v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)) and not _is_generators(tree):
+            return type(tree)(shard_tiles(mesh, v) for v in tree)
+        return _take_grid(mesh, tree)
     if isinstance(tree, torch.Tensor) or _is_generators(tree):
         n = len(tree) if not isinstance(tree, torch.Tensor) or tree.ndim else 0
         if n and n % mesh.size == 0:
@@ -59,3 +339,4 @@ def shard_tiles(mesh: Mesh, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(shard_tiles(mesh, v) for v in tree)
     return tree
+

@@ -42,6 +42,15 @@ replicated once a call (or passed as `Replicas`), and a group whose size
 the mesh does not divide (a wavefront of 1-3 tiles, a sequential tile)
 runs on the first entry, with a warning once: the port does not pad
 groups to 8 as the JAX package does.
+
+`mesh` may instead be this process's `Grid` of a (data, spatial) grid of
+processes (parallel/spatial.py, make_mesh_2d with sp > 1): every rank
+runs the tiling on the whole canvas; `model_fn`, `encode_fn` and
+`decode_fn` (whose UNet `shard_spatially` has sharded) are wrapped so
+that each rank's UNet runs on its block of the tile's rows and the output
+is gathered back to the whole tile; a group's tiles split over the data
+indices where dp divides them, else every data row runs the whole group.
+Guidance does not compose with a spatial grid (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from ddnm_tpu_torch.operators.functional import (
     mean_upsample,
 )
 from ddnm_tpu_torch.parallel.mesh import replicate, replicate_all, sharded_sampler
+from ddnm_tpu_torch.parallel.spatial import Grid, grid_sampler
 from ddnm_tpu_torch.runtime import resolve_device
 from ddnm_tpu_torch.sampling.accel import key_steps_for_policy, sample_posterior_encoder_prop
 from ddnm_tpu_torch.sampling.posterior import PosteriorTables, n_model_calls, sample_posterior
@@ -223,7 +233,13 @@ def _sample_group(model_fn, x_init, apy, op, tables, gens, *, encoder_cache: int
                   **kw):
     """One sampler call on a batch of tiles: the encoder propagation where
     encoder_cache > 1, else sample_posterior with `solver`; over `mesh`
-    the tiles shard (the callables are `Replicas` then)."""
+    the tiles shard (the callables are `Replicas` then; over a Grid the
+    tiles split over its data indices, the callables already wrapped)."""
+    if isinstance(mesh, Grid):
+        return grid_sampler(_sample_group, mesh)(
+            model_fn, x_init, apy, op, tables, gens, encoder_cache=encoder_cache,
+            encoder_cache_policy=encoder_cache_policy, encode_fn=encode_fn,
+            decode_fn=decode_fn, solver=solver, **kw)
     if mesh is not None:
         return sharded_sampler(_sample_group, mesh)(
             model_fn, x_init, apy, replicate(mesh, op), tables, gens,
@@ -236,6 +252,18 @@ def _sample_group(model_fn, x_init, apy, op, tables, gens, *, encoder_cache: int
                                              gens, interval=encoder_cache,
                                              key_steps=key_steps, **kw)
     return sample_posterior(model_fn, x_init, apy, op, tables, gens, solver=solver, **kw)
+
+
+def _over_mesh(mesh, model_fn, guidance_fn, encode_fn, decode_fn):
+    """The callables of a sampler call over `mesh`: replicated over a data
+    mesh, wrapped over a Grid's spatial group (module docstring)."""
+    if not isinstance(mesh, Grid):
+        return replicate_all(mesh, model_fn, guidance_fn, encode_fn, decode_fn)
+    if guidance_fn is not None and mesh.sp > 1:
+        raise NotImplementedError("classifier guidance under spatial partitioning is not "
+                                  "ported (ROADMAP.md Queue 1, guidance under --sp)")
+    model_fn, encode_fn, decode_fn = mesh.wrap(model_fn, encode_fn, decode_fn)
+    return model_fn, guidance_fn, encode_fn, decode_fn
 
 
 def _device(x, device) -> torch.device:
@@ -337,7 +365,7 @@ def batched_tile_sample(
     # step does
     paste_mask = torch.zeros((n, tile, tile, 1), device=dev)
     if mesh is not None:
-        model_fn, guidance_fn, encode_fn, decode_fn = replicate_all(
+        model_fn, guidance_fn, encode_fn, decode_fn = _over_mesh(
             mesh, model_fn, guidance_fn, encode_fn, decode_fn)
     _, x0_b = _sample_group(model_fn, x_init, apy, op, tables, gens,
                             encoder_cache=encoder_cache,
@@ -377,6 +405,7 @@ def mask_shift_sample(
     resume: bool = False,
     resume_salt=None,
     solver: str = "ddim",
+    checkpoint_writer: bool = True,
 ) -> dict:
     """Restore an arbitrary-size image with Mask-Shift DDNM.
 
@@ -409,6 +438,8 @@ def mask_shift_sample(
     geometry, the flags, `seed`, `image_index`, the image, the mask,
     `init_noise`, every table and `resume_salt` (what the caller knows of
     the run and this layer does not, e.g. a class label).
+    `checkpoint_writer=False`: read the state at a resume but never write
+    or delete it (the ranks of a grid that share one writer's folder).
 
     `mesh`: each group's tiles shard over it (module docstring)."""
     _check_accel(encoder_cache, encode_fn, decode_fn, solver)
@@ -452,7 +483,7 @@ def mask_shift_sample(
     carry_x = first_init if tile_init == "carry" else None
 
     if mesh is not None:
-        model_fn, guidance_fn, encode_fn, decode_fn = replicate_all(
+        model_fn, guidance_fn, encode_fn, decode_fn = _over_mesh(
             mesh, model_fn, guidance_fn, encode_fn, decode_fn)
     done: set = set()
     ckpt = None
@@ -515,8 +546,9 @@ def mask_shift_sample(
                 progress_fn(t, _numpy(x0_b[i:i + 1]))
         if ckpt is not None:
             done.update(t.index for t in group)
-            save_state()
-    if ckpt is not None and ckpt.exists():
+            if checkpoint_writer:
+                save_state()
+    if ckpt is not None and checkpoint_writer and ckpt.exists():
         ckpt.unlink()  # the run completed: never replay this state
     return {"final": _numpy(canvas), "apy": _numpy(apy), "y": _numpy(y_temp)}
 

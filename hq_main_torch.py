@@ -26,8 +26,22 @@ wavefront's tiles) over N devices, the model and classifier replicated
 (the first N cards; on the CPU, N shards of it); a group N does not
 divide runs on the first. The shards launch in turn from one thread, and
 the sampler's host sets the pace, so --dp spreads the work without
-speeding it up (PERF.md §6: no mesh beat one card on 4 H100s). --sp > 1
-(spatial partitioning) raises NotImplementedError.
+speeding it up (PERF.md §6: no mesh beat one card on 4 H100s).
+
+--sp S > 1 (spatial partitioning) runs as dp * sp processes, one per
+(data index, spatial rank), each holding S-th of every tile's rows in the
+UNet (ddnm_tpu_torch/parallel/spatial.py):
+
+  torchrun --nproc_per_node D*S hq_main_torch.py ... --dp D --sp S
+
+one card a rank (cuda:LOCAL_RANK), or --device cuda:0 for every rank on
+one card (its spatial groups then use gloo; NCCL where each rank of a
+group has its own card). S must divide the 256 px tile (hq_main.py's
+check) and the model's lowest grid. The data rows split a tile group
+(single-image mode) or the sweep's images (sweep mode); spatial rank 0 of
+each data row writes the images and the --resume state, the other ranks
+write nothing. Classifier guidance with --sp > 1 raises
+NotImplementedError (ROADMAP.md Queue 1, guidance under --sp).
 """
 
 from __future__ import annotations
@@ -97,7 +111,8 @@ def parse_args(argv=None):
                    choices=["uniform", "end_dense"],
                    help="key-step placement of --encoder_cache")
     p.add_argument("--sp", type=int, default=1,
-                   help="spatial partitioning: > 1 is not ported yet and raises")
+                   help="spatial partitioning: shard each tile's rows over this many "
+                        "processes (launch dp * sp ranks with torchrun)")
     p.add_argument("--dp", type=int, default=1,
                    help="data parallelism: shard each tile group over this many devices")
     p.add_argument("--resume", action="store_true",
@@ -173,9 +188,10 @@ def main(argv=None):
     from ddnm_tpu_torch.config import load_hq_config
     from ddnm_tpu_torch.data.io import load_image, load_mask, save_image
     from ddnm_tpu_torch.data.metrics import ssim
-    from ddnm_tpu_torch.models import cast_torso, classifier_guidance_fn
+    from ddnm_tpu_torch.models import cast_torso, classifier_guidance_fn, shard_spatially
     from ddnm_tpu_torch.models.unet_adm import init_like_flax
     from ddnm_tpu_torch.parallel import make_mesh_2d, multihost, replicate_all
+    from ddnm_tpu_torch.parallel.spatial import lowest_rows
     from ddnm_tpu_torch.runner import load_checkpoint
     from ddnm_tpu_torch.runtime import resolve_device
     from ddnm_tpu_torch.sampling.accel import adm_split_fns
@@ -190,9 +206,16 @@ def main(argv=None):
     if not cfg_path.exists():
         cfg_path = REPO_ROOT / ns.config
     conf = load_hq_config(cfg_path)
-    mesh = None
-    if ns.dp > 1 or ns.sp > 1:
-        mesh = make_mesh_2d(ns.dp, ns.sp, device=dev)  # --sp > 1 raises
+    guided = bool(conf.class_cond) and float(conf.classifier_scale or 0) > 0
+    if ns.sp > 1:
+        if 256 % ns.sp != 0:  # hq_main.py:299-303
+            raise SystemExit(f"--sp {ns.sp} must divide the 256-px tile height "
+                             "(use 2, 4, 8, ...)")
+        if guided:
+            raise NotImplementedError(
+                "classifier guidance (classifier_scale > 0) under --sp > 1 is not ported: "
+                "ROADMAP.md Queue 1, guidance under --sp (the halo exchange's backward, "
+                "partial sums in gn_bwd_reduce, the attention backward's dK / dV)")
 
     size = int(conf.image_size or 256)
     tile, stride = size, size // 2  # the model's native tile, 2:1 overlap
@@ -209,6 +232,16 @@ def main(argv=None):
     model = model.eval()
     if ns.dtype == "bfloat16":
         cast_torso(model, torch.bfloat16)
+    mesh = grid = None
+    if ns.sp > 1:
+        lowest_rows(model, size, ns.sp)  # ValueError where sp does not divide it
+        mesh = grid = make_mesh_2d(ns.dp, ns.sp, device=dev)
+        shard_spatially(model, grid.spatial)
+    elif ns.dp > 1:
+        mesh = make_mesh_2d(ns.dp, 1, device=dev)
+    # who writes files: spatial rank 0 of a data row (of data row 0 in
+    # single-image mode, where the data rows share one canvas)
+    writes = grid is None or grid.writer
 
     if conf.class_cond:
         label = ns.class_label if ns.class_label is not None else 0
@@ -230,7 +263,7 @@ def main(argv=None):
     # the model's under --random_init, as the JAX CLI draws both from one key
     guidance_fn = None
     cckpt = ns.classifier_ckpt or conf.classifier_path
-    if conf.class_cond and float(conf.classifier_scale or 0) > 0:
+    if guided:
         classifier = build_classifier_from_hq(conf, dev)
         if cckpt and Path(cckpt).exists():
             logger.info("loading classifier checkpoint %s", cckpt)
@@ -255,7 +288,7 @@ def main(argv=None):
         time_shift=(1 if conf.inpa_inj_time_shift is None else int(conf.inpa_inj_time_shift)),
     )
     calls = n_model_calls(tables)
-    if mesh is not None:
+    if mesh is not None and grid is None:
         # one copy of the model (and classifier) a device, as hq_main.py
         # replicates run_params
         model_fn, guidance_fn, encode_fn, decode_fn = replicate_all(
@@ -275,14 +308,15 @@ def main(argv=None):
     # what tells a run apart beyond the tiling's own inputs (hq_main.py:347)
     base_salt = (ns.class_label, float(conf.classifier_scale or 0), ns.sigma_y, ns.dtype)
 
-    def run_one(gt, mask, image_index, tiles_dir, salt):
+    def run_one(gt, mask, image_index, tiles_dir, salt, write):
         """One Mask-Shift restoration; the tiling output dict. With
-        --resume the state lives in `tiles_dir`."""
+        --resume the state lives in `tiles_dir` (written where `write`)."""
         tiles_dir.mkdir(parents=True, exist_ok=True)
 
         def progress(t, x0_np):
             i, j = t.index
-            save_image(to01(x0_np[0]), tiles_dir / f"{i}_{j}.png")
+            if write:
+                save_image(to01(x0_np[0]), tiles_dir / f"{i}_{j}.png")
             tiles_done.append(t.index)
 
         return mask_shift_sample(
@@ -290,7 +324,7 @@ def main(argv=None):
             scale=ns.scale, resize_y=ns.resize_y, mask=mask, parallel=ns.parallel_tiles,
             progress_fn=progress, tile_init=tile_init, tile=tile, stride=stride,
             guidance_fn=guidance_fn, device=dev, checkpoint_dir=tiles_dir if ns.resume else None,
-            resume=ns.resume, resume_salt=salt, **accel)
+            resume=ns.resume, resume_salt=salt, checkpoint_writer=write, **accel)
 
     # --- sweep mode (conf-declared eval dataset or --gt_path) -------------
     # an explicit --path_y always means single-image mode
@@ -311,6 +345,11 @@ def main(argv=None):
         pairs = InpaintPairs(
             eval_ds["gt_path"], eval_ds["mask_path"], image_size=pair_size,
             max_len=ns.max_len if ns.max_len is not None else eval_ds.get("max_len"))
+        first, last = 0, len(pairs)
+        if grid is not None:
+            # each data row restores its own slice; its spatial group shares it
+            first, last = multihost.process_subset(len(pairs), grid.data_index, grid.dp)
+            accel["mesh"] = grid.spatial_only()
         paths = dict(eval_ds.get("paths") or {})
         tree = {k: Path(paths.get(k) or out_dir / k)
                 for k in ("srs", "lrs", "gts", "gt_keep_masks")}
@@ -320,10 +359,11 @@ def main(argv=None):
 
         def write_outputs(idx, name, gt, mask, final, apy):
             final01, gt01 = to01(final), to01(gt)
-            save_image(final01, tree["srs"] / name)
-            save_image(to01(apy), tree["lrs"] / name)
-            save_image(gt01, tree["gts"] / name)
-            save_image(mask, tree["gt_keep_masks"] / name)
+            if writes:
+                save_image(final01, tree["srs"] / name)
+                save_image(to01(apy), tree["lrs"] / name)
+                save_image(gt01, tree["gts"] / name)
+                save_image(mask, tree["gt_keep_masks"] / name)
             mse = float(np.mean((final01 - gt01) ** 2))
             p = 10.0 * np.log10(1.0 / max(mse, 1e-12))
             s = float(ssim(torch.from_numpy(final01[None]), torch.from_numpy(gt01[None]))[0])
@@ -336,10 +376,11 @@ def main(argv=None):
             logger.warning("--sweep_batch needs single-tile %dpx canvases and no --resume: "
                            "falling back to the per-image sweep", tile)
             sweep_batch = 1
-        items = list(pairs)
+        items = [pairs[i] for i in range(first, last)]
         t0 = time.perf_counter()
         for c0 in range(0, len(items), sweep_batch):
             chunk = items[c0:c0 + sweep_batch]
+            c0 += first  # the images' global indices
             masks = [it["gt_keep_mask"][..., 0] for it in chunk]
             if sweep_batch > 1:
                 out = batched_tile_sample(
@@ -349,7 +390,7 @@ def main(argv=None):
             else:
                 name = chunk[0]["GT_name"]
                 out = run_one(chunk[0]["GT"][None], masks[0], c0,
-                              out_dir / "tiles" / Path(name).stem, base_salt + (name,))
+                              out_dir / "tiles" / Path(name).stem, base_salt + (name,), writes)
             for i, it in enumerate(chunk):
                 write_outputs(c0 + i, it["GT_name"], it["GT"], masks[i],
                               out["final"][i], out["apy"][i])
@@ -365,19 +406,22 @@ def main(argv=None):
                          "a conf data.eval entry (sweep)")
     gt = (load_image(ns.path_y) * 2.0 - 1.0)[None]
     mask = load_mask(ns.mask_path) if ns.mask_path else None
+    writes = writes and (grid is None or grid.data_index == 0)
     t0 = time.perf_counter()
-    out = run_one(gt, mask, 0, out_dir / "tiles", base_salt)
+    out = run_one(gt, mask, 0, out_dir / "tiles", base_salt, writes)
     sync()
     wall = time.perf_counter() - t0
-    save_image(to01(out["final"][0]), out_dir / "final.png")
-    save_image(to01(out["apy"][0]), out_dir / "Apy.png")
-    save_image(to01(out["y"][0]), out_dir / "y.png")
+    if writes:
+        save_image(to01(out["final"][0]), out_dir / "final.png")
+        save_image(to01(out["apy"][0]), out_dir / "Apy.png")
+        save_image(to01(out["y"][0]), out_dir / "y.png")
     n_tiles = len(tiles_done)
     out["stats"] = {"wall_seconds": wall, "tiles": n_tiles, "model_calls": calls * n_tiles,
                     "seconds_per_tile": wall / max(n_tiles, 1),
                     "model_calls_per_second": calls * n_tiles / wall}
-    logger.info("wrote %s: %d tiles x %d model calls in %.2f s", out_dir / "final.png",
-                n_tiles, calls, wall)
+    logger.info("%s: %d tiles x %d model calls in %.2f s",
+                f"wrote {out_dir / 'final.png'}" if writes else "restored (this rank writes "
+                "nothing)", n_tiles, calls, wall)
     return out
 
 

@@ -208,12 +208,15 @@ def hq_pair(tmp_path, monkeypatch, conf, flags: list) -> tuple[dict, dict]:
     # raised NotImplementedError)
     pytest.param(["--solver", "multistep"], {}, None, id="flags0-conf_kw0-multistep"),
     pytest.param(["--encoder_cache", "2"], {}, None, id="flags1-conf_kw1-encoder_cache"),
-    (["--sp", "2"], {}, "mesh"),
+    # --sp 2 runs as two processes (tests/test_torch_spatial.py); in one
+    # process, without a process group, it names the launch it needs
+    pytest.param(["--sp", "2"], {}, (RuntimeError, "torchrun --nproc_per_node 2"),
+                 id="flags2-conf_kw2-mesh"),
     pytest.param(["--dp", "2"], {}, None, id="flags3-conf_kw3-mesh"),
     pytest.param(["--resume"], {}, None, id="flags4-conf_kw4-resume"),
 ])
 def test_unported_paths_raise(tmp_path, toy_conf, flags, conf_kw, err, monkeypatch):
-    """--sp raises NotImplementedError before writing anything; --solver
+    """--sp 2 without a process group raises before writing anything; --solver
     multistep, --encoder_cache, --resume and --dp 2 (a CPU mesh of 2 against
     hq_main.py's on 2 of its virtual devices: the CLI's mesh and replicas;
     the canvas's wavefronts are single tiles, which run on the first entry,
@@ -226,7 +229,8 @@ def test_unported_paths_raise(tmp_path, toy_conf, flags, conf_kw, err, monkeypat
         assert float(np.abs(ours["final"] - ref["final"]).max()) <= 1e-4
         assert not list((tmp_path / "port" / "tiles").glob("*.npz"))
         return
-    with pytest.raises(NotImplementedError, match=err):
+    exc, match = err
+    with pytest.raises(exc, match=match):
         hq_main_torch.main(["--config", str(toy_conf(**conf_kw)), "--deg", "sr_averagepooling",
                             "--random_init", "--device", "cpu", "--path_y", "x.png",
                             "-i", str(tmp_path / "o")] + flags)

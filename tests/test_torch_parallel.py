@@ -129,7 +129,9 @@ def test_local_device_and_meshes(clean_env):
     assert mesh.size == 3 and mesh.devices == (torch.device("cpu"),) * 3
     assert make_mesh(devices=["cpu"] * 2).size == 2
     assert make_mesh_2d(2, 1, device="cpu").size == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 F"):
+    # sp > 1 is a grid of processes (tests/test_torch_spatial.py): without a
+    # process group it names the launch it needs
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         make_mesh_2d(1, 2, device="cpu")
     # shards of one device share one copy; a Replicas passes through
     model = torch.nn.Linear(2, 2)

@@ -1,0 +1,246 @@
+#!/usr/bin/env python3
+"""Seconds per face256 tile with each tile's rows split over processes
+(spatial partitioning, ddnm_tpu_torch/parallel/spatial.py), against one
+process on one card.
+
+The full-width face256 ADM of configs/hq/face256.yml (128 channels,
+random weights from seed 1234, the layers its init zeroes drawn too so that
+eps depends on the input; bf16 torso) restores one 256 px tile (4x
+average-pooling SR, zero noise) through tiling.batched_tile_sample (one tile a data row) with
+`--calls` model calls (a respacing of that many steps, no jumps). For each
+layout DxS (`--layouts`, dp x sp) and spatial backend (`--backends`: auto
+is NCCL where each rank of a group has its own card, gloo otherwise) the
+tool starts D * S processes (gloo rendezvous on 127.0.0.1), one card a rank
+where the machine has D * S cards, else all on cuda:0. Each rank builds the
+model, shards it, runs one warm-up tile and then `--repeat` timed tiles
+(synchronised card to synchronised card; the best is kept). A layout with
+D > 1 restores D tiles at once (the data rows each take one): its seconds
+per tile are the wall time over D. Also per model call: the rank's
+launches of each kernel and its collectives by kind, and the host seconds
+spent inside the collectives (the tool wraps SpatialGroup.all_gather with
+a clock; the exchange and its host copies, not the kernels it waits
+behind). Every rank's tile must be bit-equal to its group's others', and
+each layout's to 1x1's within the bf16 rounding (printed, not gated).
+
+    python3 tools/time_spatial.py [--layouts 1x1 1x2] [--backends auto gloo]
+        [--calls 20] [--repeat 2] [--out chiprun_out/time_spatial.json]
+
+Prints one line per layout and, last, one JSON object (the card's name and
+power limit beside the numbers). Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+if str(HERE) not in sys.path:
+    sys.path.insert(0, str(HERE))
+
+FACE256 = HERE / "configs" / "hq" / "face256.yml"
+
+
+def _tables(calls: int):
+    from ddnm_tpu_torch.config import load_hq_config
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables
+    from ddnm_tpu_torch.schedules import named_beta_schedule
+
+    conf = load_hq_config(FACE256)
+    return build_posterior_tables(
+        betas=named_beta_schedule(str(conf.noise_schedule), int(conf.diffusion_steps),
+                                  use_scale=True),
+        timestep_respacing=str(calls),
+        schedule_jump_params=dict(t_T=calls, n_sample=1, jump_length=1, jump_n_sample=1))
+
+
+def worker(dp: int, sp: int, backend: str, calls: int, repeat: int, out: Path) -> None:
+    """One rank: the timed tiles of this layout, written to `out`."""
+    from ddnm_tpu_torch import ops
+    from ddnm_tpu_torch.config import load_hq_config
+    from ddnm_tpu_torch.models import cast_torso, shard_spatially
+    from ddnm_tpu_torch.models.unet_adm import _ZERO_INIT, init_like_flax
+    from ddnm_tpu_torch.parallel import multihost, spatial
+    from ddnm_tpu_torch.tiling import batched_tile_sample
+    from hq_main_torch import build_adm_from_hq
+
+    world = dp * sp
+    grid = None
+    if world > 1:
+        multihost.maybe_init_distributed()
+        rank = multihost.process_index()
+        dev = torch.device("cuda", rank if torch.cuda.device_count() >= world else 0)
+        torch.cuda.set_device(dev)
+        grid = spatial.make_mesh_2d(dp, sp, device=dev,
+                                    backend=None if backend == "auto" else backend)
+    else:
+        dev = torch.device("cuda", 0)
+    model = init_like_flax(build_adm_from_hq(load_hq_config(FACE256), dev), 1234).eval()
+    gen = torch.Generator(device=dev).manual_seed(1235)
+    with torch.no_grad():  # the layers the init zeroes, drawn: eps then depends on x
+        for name, mod in model.named_modules():
+            if name.endswith(_ZERO_INIT) and hasattr(mod, "weight"):
+                w = mod.weight
+                w.normal_(0.0, 1.0 / w[0].numel() ** 0.5, generator=gen)
+    model = cast_torso(model, torch.bfloat16)
+    mesh = None
+    if grid is not None:
+        if sp > 1:
+            shard_spatially(model, grid.spatial)
+        mesh = grid
+    clock = {"seconds": 0.0}
+    gather = spatial.SpatialGroup.all_gather
+
+    def timed_gather(self, t, kind):
+        t0 = time.perf_counter()
+        parts = gather(self, t, kind)
+        clock["seconds"] += time.perf_counter() - t0
+        return parts
+
+    spatial.SpatialGroup.all_gather = timed_gather
+    tables = _tables(calls)
+    rng = np.random.default_rng(0)
+    gts = rng.uniform(-1, 1, (dp, 256, 256, 3)).astype(np.float32)
+    zero = lambda gens, shape: torch.zeros(shape, device=dev)
+
+    def run():
+        return batched_tile_sample(lambda x, t: model(x, t), gts, "sr_averagepooling", tables,
+                                   1234, scale=4, noise_fn=zero, device=dev, mesh=mesh)
+
+    run()  # warm-up: cuDNN's plans, the allocator, the kernels' first launches
+    best = float("inf")
+    for _ in range(repeat):
+        ops.reset_launch_counts()
+        spatial.reset_collective_counts()
+        clock["seconds"] = 0.0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    launches = {**ops.launch_counts(), **ops.spatial_launch_counts()}
+    out.write_text(json.dumps({
+        "rank": multihost.process_index(), "device": str(dev),
+        "backend": grid.spatial.backend if grid is not None and sp > 1 else None,
+        "seconds": best, "seconds_per_tile": best / dp,
+        "launches_per_call": {k: v / calls for k, v in launches.items() if v},
+        "collectives_per_call": {k: v / calls for k, v in spatial.COLLECTIVES.items() if v},
+        "collective_host_seconds_per_call": clock["seconds"] / calls,
+        "sha256": hashlib.sha256(res["final"].tobytes()).hexdigest(),
+        "final": res["final"][0, ::8, ::8].tolist()}))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_layout(dp: int, sp: int, backend: str, calls: int, repeat: int, tmp: Path) -> list:
+    world = dp * sp
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        if world == 1:
+            env = {k: v for k, v in env.items() if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE",
+                                                              "MASTER_ADDR", "MASTER_PORT")}
+        log = open(tmp / f"{dp}x{sp}_{backend}_{rank}.log", "w+")
+        procs.append((log, subprocess.Popen(
+            [sys.executable, __file__, "--worker", f"{dp}x{sp}", backend, str(calls),
+             str(repeat), str(tmp / f"{dp}x{sp}_{backend}_{rank}.json")], cwd=HERE, env=env,
+            stdout=log, stderr=subprocess.STDOUT)))
+    try:
+        for log, proc in procs:
+            if proc.wait(timeout=900) != 0:
+                log.seek(0)
+                raise RuntimeError(f"{dp}x{sp} {backend}: a rank exited {proc.returncode}: "
+                                   f"{log.read()[-3000:]}")
+    finally:
+        for log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return [json.loads((tmp / f"{dp}x{sp}_{backend}_{r}.json").read_text())
+            for r in range(world)]
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--layouts", nargs="+", default=["1x1", "1x2"])
+    p.add_argument("--backends", nargs="+", default=["auto"], choices=["auto", "nccl", "gloo"])
+    p.add_argument("--calls", type=int, default=20)
+    p.add_argument("--repeat", type=int, default=2)
+    p.add_argument("--out", type=str, default=None)
+    p.add_argument("--worker", nargs=5, default=None, help=argparse.SUPPRESS)
+    ns = p.parse_args(argv)
+    if ns.worker:
+        layout, backend, calls, repeat, out = ns.worker
+        dp, sp = (int(v) for v in layout.split("x"))
+        worker(dp, sp, backend, int(calls), int(repeat), Path(out))
+        return 0
+    if not torch.cuda.is_available():
+        raise RuntimeError("tools/time_spatial.py needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print(f"{len(smi)} card(s): {smi[0]}", flush=True)
+    results, base = [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        for layout in ns.layouts:
+            dp, sp = (int(v) for v in layout.split("x"))
+            if sp == 1 and dp > 1:
+                raise ValueError(f"layout {layout}: a grid of processes needs sp > 1")
+            for backend in (["auto"] if dp * sp == 1 else ns.backends):
+                ranks = run_layout(dp, sp, backend, ns.calls, ns.repeat, Path(tmp))
+                r0 = ranks[0]
+                final = np.asarray(r0.pop("final"))
+                for r in ranks[1:]:
+                    r.pop("final")
+                groups_equal = all(
+                    len({ranks[d * sp + s]["sha256"] for s in range(sp)}) == 1
+                    for d in range(dp))
+                if base is None and dp * sp == 1:
+                    base = final
+                diff = None if base is None else float(np.abs(final - base).max())
+                row = {"layout": layout, "dp": dp, "sp": sp, "backend": r0["backend"],
+                       "devices": sorted({r["device"] for r in ranks}),
+                       "seconds_per_tile": max(r["seconds_per_tile"] for r in ranks),
+                       "calls": ns.calls, "launches_per_call": r0["launches_per_call"],
+                       "collectives_per_call": r0["collectives_per_call"],
+                       "collective_host_seconds_per_call":
+                           r0["collective_host_seconds_per_call"],
+                       "ranks_bit_equal_in_group": groups_equal,
+                       "max_abs_vs_1x1_subsampled": diff}
+                results.append(row)
+                print(f"{layout} ({row['backend']}, {row['devices']}): "
+                      f"{row['seconds_per_tile']:.4f} s per tile, "
+                      f"{row['seconds_per_tile'] / ns.calls * 1e3:.2f} ms per model call, "
+                      f"{row['collective_host_seconds_per_call'] * 1e3:.2f} ms of it in "
+                      f"collectives; per call {row['launches_per_call']} launches, "
+                      f"{row['collectives_per_call']} collectives; group bit-equal "
+                      f"{groups_equal}; against 1x1 {diff}", flush=True)
+                if not groups_equal:
+                    raise AssertionError(f"{layout}: the ranks of a group disagree")
+    summary = {"card": smi[0], "cards": len(smi), "model_calls": ns.calls, "layouts": results}
+    if ns.out:
+        Path(ns.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(ns.out).write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
