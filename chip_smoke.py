@@ -184,7 +184,26 @@ far it got. A failure in any phase raises.
      sp 2 final against sp 1's, the ranks bit-equal, each shard's launches
      (GroupNorm partial, finalize, apply, gathered attention) and
      collectives per model call exact. The ranks are this script run as
-     `chip_smoke.py --spatial-worker KIND OUT_JSON [ARGS]`.
+     `chip_smoke.py --spatial-worker KIND OUT_JSON [ARGS]`;
+ 22. classifier guidance under spatial partitioning at sp = 2: (a) the
+     backward kernels' spatial modes against their plain versions, bf16
+     and fp32, at every GroupNorm and attention of the 256 px classifier's
+     backward at batch 1 with its rows halved: gn_bwd_reduce's partial
+     mode on each shard and gn_bwd_finalize on the shards' sums (added in
+     rank order) against the one-launch gn_bwd_reduce on the whole map;
+     attn_bwd_dq / attn_bwd_dkdv at Tq = T / 2 against every key, a
+     shard's dq rows bit-equal to the full kernel's and the shards' dK / dV
+     partials summed against its dK / dV; ms, device ms, bounds, SDPA's
+     autograd backward as the pair's yardstick, totals per sharded guidance
+     call; (b) the toy32 guided golden with the ADM and the classifier
+     sharded, fp32, two processes on cuda:0 (gloo): within 0.01 dB of the
+     JAX package's PSNR on both ranks, the ranks' finals bit-equal,
+     launches and collectives (the backward's apart) exact; (c)
+     hq_main_torch on configs/hq/inet256.yml guided at full width (bf16,
+     random weights from seed 1234, the classifier dense, 10 model calls a
+     tile): --sp 1 in process, --sp 2 as two processes on cuda:0; s per
+     call at each, the guidance gradient at one input at sp 2 against sp 1,
+     the ranks bit-equal, launches and collectives per call exact.
 Phases 5, 7, 16 and 19 also print each runner's images/s end to end against in
 the sampler ("runner overlap" lines).
 
@@ -213,13 +232,15 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-21 sets the launch counts to 0 just before each run it
-drives and checks them exactly just after (phase 21's ranks each their
-own).
+Each of phases 4-22 sets the launch counts to 0 just before each run it
+drives and checks them exactly just after (the ranks of phases 21 and 22
+each their own).
 
 The line before the last is the JSON summary of the kernels (the stats
 kernel's partial and finalize modes under its entry's "modes", attention
-with Tq != Tk as "attention_gathered"); the last line is {"ok": true,
+with Tq != Tk as "attention_gathered", the backward's spatial modes as
+"gn_bwd_partial", "gn_bwd_finalize", "attn_bwd_dq_gathered" and
+"attn_bwd_dkdv_gathered"); the last line is {"ok": true,
 "device": {...}}. Outputs go to a temporary directory.
 """
 
@@ -1515,13 +1536,14 @@ def decode_f32(d: dict) -> np.ndarray:
     return np.frombuffer(base64.b64decode(d["f32_b64"]), dtype="<f4").reshape(d["shape"])
 
 
-def guided_golden_run(model, classifier, device, tier: str = "toy32"):
+def guided_golden_run(model, classifier, device, tier: str = "toy32", grid=None):
     """The guided hq golden protocol (tests/fixtures/toy_adm32_guided_golden.json)
     through the port's sample_posterior with `classifier_guidance_fn`:
     the golden's ground truth, x_T from RandomState(11), zero noise, 4x
     average-pooling SR, respacing 25 with the jump schedule, class 2, scale
-    2.0. Returns (batch PSNR, final images, per-image max |final - JAX
-    output|, seconds)."""
+    2.0. `grid`: the model and the classifier are sharded over its spatial
+    group, and both callables go through Grid.wrap. Returns (batch PSNR,
+    final images, per-image max |final - JAX output|, seconds)."""
     from ddnm_tpu_torch import schedules as sch
     from ddnm_tpu_torch.models import classifier_guidance_fn
     from ddnm_tpu_torch.operators import build_functional_operator
@@ -1541,9 +1563,13 @@ def guided_golden_run(model, classifier, device, tier: str = "toy32"):
         schedule_jump_params=proto["schedule_jump_params"])
     guidance = classifier_guidance_fn(classifier, proto["guided_class"],
                                       proto["classifier_scale"])
+    model_fn = lambda z, s: model(z, s)
+    if grid is not None:
+        model_fn, _, _, guidance = grid.wrap(model_fn, model=model, guidance_fn=guidance,
+                                             classifier=classifier)
     zero = lambda gens, shape: torch.zeros(shape, device=device)
     t0 = time.perf_counter()
-    x, _ = sample_posterior(lambda z, s: model(z, s), xt, op.Ap(op.A(gt)), op, tables,
+    x, _ = sample_posterior(model_fn, xt, op.Ap(op.A(gt)), op, tables,
                             [None] * n, noise_fn=zero, guidance_fn=guidance)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -3421,17 +3447,21 @@ def spatial_kernels(shapes: dict, sp: int = 2) -> dict:
 
 
 def spatial_worker(argv: list) -> int:
-    """One rank of a phase 21 process group (`chip_smoke.py --spatial-worker
-    KIND OUT_JSON [ARGS]`; the parent sets RANK, WORLD_SIZE, MASTER_ADDR and
-    MASTER_PORT). KIND "golden": the toy32 hq golden hq_sr_ap_4x on the
-    spatial grid of every rank, fp32, each rank on cuda:0; "hq":
-    hq_main_torch.main(ARGS). Writes the rank's launches, collectives and
-    a hash of its final images to OUT_JSON."""
+    """One rank of a phase 21 or 22 process group (`chip_smoke.py
+    --spatial-worker KIND OUT_JSON [ARGS]`; the parent sets RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT). KIND "golden": the toy32 hq
+    golden hq_sr_ap_4x on the spatial grid of every rank, fp32, each rank on
+    cuda:0; "hq": hq_main_torch.main(ARGS); "guided_golden" (phase 22): the
+    toy32 guided golden, the ADM and the classifier sharded; "guided_hq"
+    (phase 22): the guidance gradient of the dense 256 px classifier
+    (ARGS[0], a state dict) on the grid at a fixed input, saved beside
+    OUT_JSON, then hq_main_torch.main(ARGS[1:]). Writes the rank's
+    launches, collectives and a hash of its final images to OUT_JSON."""
     import hashlib
 
     from ddnm_tpu_torch.models import shard_spatially
-    from ddnm_tpu_torch.parallel import (COLLECTIVES, make_mesh_2d, multihost,
-                                         reset_collective_counts)
+    from ddnm_tpu_torch.parallel import (BACKWARD_COLLECTIVES, COLLECTIVES, make_mesh_2d,
+                                         multihost, reset_collective_counts)
 
     kind, out_json, rest = argv[0], Path(argv[1]), argv[2:]
     torch.backends.cudnn.allow_tf32 = False
@@ -3456,10 +3486,46 @@ def spatial_worker(argv: list) -> int:
         reset_collective_counts()
         out = hq_main_torch.main(rest)
         result = dict(stats=out["stats"], sha256=digest(out["final"]))
+    elif kind == "guided_golden":
+        multihost.maybe_init_distributed()
+        import torch.distributed as dist
+
+        grid = make_mesh_2d(1, dist.get_world_size(), device="cuda:0")
+        model = shard_spatially(toy_adm("cuda:0"), grid.spatial)
+        clf = shard_spatially(toy_classifier("cuda:0"), grid.spatial)
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        psnr, x, per_image, secs = guided_golden_run(model, clf, "cuda:0", grid=grid)
+        result = dict(psnr=psnr, per_image=per_image, seconds=secs,
+                      sha256=digest(x.cpu().numpy()))
+    elif kind == "guided_hq":
+        import hq_main_torch
+        import torch.distributed as dist
+        from ddnm_tpu_torch.models import classifier_guidance_fn
+
+        multihost.maybe_init_distributed()
+        grid = make_mesh_2d(1, dist.get_world_size(), device="cuda:0")
+        clf = cc_classifier("cuda:0")
+        clf.load_state_dict(torch.load(rest[0], map_location="cuda:0"))
+        shard_spatially(clf, grid.spatial)
+        x, t = guidance_probe_input()
+        _, _, _, guide = grid.wrap(guidance_fn=classifier_guidance_fn(clf, 951, 1.0),
+                                   classifier=clf)
+        grad = guide(x, t)
+        torch.cuda.synchronize()
+        torch.save(grad.cpu(), out_json.with_suffix(".grad.pt"))
+        del clf
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        out = hq_main_torch.main(rest[1:])
+        result = dict(stats=out["stats"], sha256=digest(out["final"]),
+                      grad_sha256=digest(grad.cpu().numpy()))
     else:
         raise ValueError(f"unknown spatial worker kind {kind!r}")
     result.update(launches=ops.launch_counts(), spatial_launches=ops.spatial_launch_counts(),
-                  collectives=dict(COLLECTIVES), rank=multihost.process_index())
+                  collectives=dict(COLLECTIVES),
+                  backward_collectives=dict(BACKWARD_COLLECTIVES),
+                  rank=multihost.process_index())
     out_json.write_text(json.dumps(result))
     return 0
 
@@ -3532,7 +3598,8 @@ def spatial_golden(n_gn: int, n_attn: int, n_conv: int) -> dict:
           f"collectives {ranks[0]['collectives']} ({calls} model calls)", flush=True)
     if not r["ranks_bit_equal"] or any(abs(p - golden) > HQ_PSNR_TOL for p in r["psnr"]):
         raise AssertionError(f"spatial golden: {r}")
-    want = dict(groupnorm_partial=n_gn * calls, groupnorm_finalize=n_gn * calls,
+    want = dict(dict.fromkeys(ops.spatial_launch_counts(), 0),
+                groupnorm_partial=n_gn * calls, groupnorm_finalize=n_gn * calls,
                 attention_gathered=n_attn * calls)
     want_coll = dict(halo=n_conv * calls, groupnorm=n_gn * calls, attention=n_attn * calls,
                      rows=calls, batch=0)
@@ -3608,7 +3675,8 @@ def spatial_hq(n_gn: int, n_attn: int, n_conv: int) -> tuple[dict, dict]:
         raise AssertionError(f"face256 at sp 2: {stats}")
     if launches_one != expected_launches(n_gn * calls, n_attn * calls):
         raise AssertionError(f"face256 at sp 1: launches {launches_one}")
-    want = dict(groupnorm_partial=n_gn * calls, groupnorm_finalize=n_gn * calls,
+    want = dict(dict.fromkeys(ops.spatial_launch_counts(), 0),
+                groupnorm_partial=n_gn * calls, groupnorm_finalize=n_gn * calls,
                 attention_gathered=n_attn * calls)
     want_coll = dict(halo=n_conv * calls, groupnorm=n_gn * calls, attention=n_attn * calls,
                      rows=calls, batch=0)
@@ -3618,6 +3686,356 @@ def spatial_hq(n_gn: int, n_attn: int, n_conv: int) -> tuple[dict, dict]:
             raise AssertionError(f"face256 at sp 2, rank {x['rank']}: launches "
                                  f"{x['launches']} / {x['spatial_launches']}, collectives "
                                  f"{x['collectives']}; want {want}, {want_coll}")
+    return stats, {**ranks[0]["launches"], **ranks[0]["spatial_launches"]}
+
+
+# ------------------------------------------------------------------ phase 22
+
+# inet256 guided at sp = 2 against sp = 1 on the same dense classifier
+# weights, bf16: the guidance gradient at one input, relative to max |sp 1|
+# (the shards' GroupNorm sums, the gathered attention and the summed dK / dV
+# partials add in other orders, each partial rounded to bf16; printed with
+# the fp32 gradient's distance, which the toy32 runs gate), and the final
+# tile after the cut's 10 calls as PSNR of one against the other
+SP_GUIDED_GRAD_TOL = 0.1
+SP_GUIDED_PSNR_MIN = 30.0
+
+
+def _timed(fn, plain, nbytes: float, flops: float, peak: float) -> dict:
+    """ms back to back, device ms, plain ms and the bound of one call."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return dict(ms=cuda_ms(fn), device_ms=device_ms(fn), plain_ms=cuda_ms(plain, iters=5),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def spatial_grad_kernels(shapes: dict, sp: int = 2) -> dict:
+    """Phase 22(a): the backward kernels' spatial modes against their plain
+    versions on the card, at the 256 px classifier's backward shapes at
+    batch 1 (`shapes`, grad_shapes: the guided inet256 tile's) with the rows
+    cut over `sp` shards, in bf16 and fp32, and against the one-launch
+    kernels on the whole map: gn_bwd_reduce's partial mode on each shard and
+    gn_bwd_finalize on the shards' sums added in rank order (against the
+    plain versions, and the coefficients against gn_bwd_reduce's on the
+    whole map; the partial the same bits twice); attn_bwd_dq and
+    attn_bwd_dkdv with Tq = T / sp against every key (against the plain
+    versions; a shard's dq, LSE and D bit-equal to the full kernel's rows;
+    the shards' dK, dV partials added in rank order against the full
+    kernel's). Times (back to back and on the device), bounds, and per
+    sharded guidance call (bf16, one shard) their sums; SDPA's autograd
+    backward at Tq != Tk as the pair's yardstick."""
+    from ddnm_tpu_torch.ops.groupnorm import (_bwd_finalize, _bwd_partial, _torch_bwd_finalize,
+                                              _torch_bwd_partial)
+    from ddnm_tpu_torch.parallel.spatial import _rank_order_sum
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    names = ("gn_bwd_partial", "gn_bwd_finalize", "attn_bwd_dq_gathered",
+             "attn_bwd_dkdv_gathered")
+    per_call = {k: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                        library_ms=None) for k in names}
+    per_call["attn_bwd_pair_sdpa_ms"] = 0.0
+    rows = []
+
+    def add(name, calls, r, err):
+        f = per_call[name]
+        for k in ("ms", "device_ms", "plain_ms", "bound_ms"):
+            f[k] += calls * r[k]
+        f["bound_by"] = r["bound_by"]
+        f["max_abs_err"] = max(f["max_abs_err"], err)
+
+    for key, calls in sorted(((k, c) for k, c in shapes.items() if k[0] == "gn"), key=str):
+        _, (b, h, w, c), swish, film = key
+        for dtype in (torch.bfloat16, torch.float32):
+            elem = torch.empty((), dtype=dtype).element_size()
+            x, dy = (rnd(b, h, w, c) * 2 + 0.5).to(dtype), rnd(b, h, w, c).to(dtype)
+            gamma, beta = rnd(c), rnd(c)
+            fs, ft = (rnd(b, c) * 0.3, rnd(b, c) * 0.3) if film else (None, None)
+            a_, b_ = _stats_affine(x, gamma, beta, 32, 1e-5, fs, ft)  # the whole map's
+            xs = [t.contiguous() for t in x.chunk(sp, dim=1)]
+            dys = [t.contiguous() for t in dy.chunk(sp, dim=1)]
+            parts = [_bwd_partial(xr, dr, 32, swish, a_, b_) for xr, dr in zip(xs, dys)]
+            bits = torch.equal(parts[0], _bwd_partial(xs[0], dys[0], 32, swish, a_, b_))
+            err_p = max(_rel_err(p, _torch_bwd_partial(xr, dr, swish, a_, b_))
+                        for p, xr, dr in zip(parts, xs, dys))
+            sums = _rank_order_sum(parts)
+            coef = _bwd_finalize(sums, h * w, gamma, 32, 1e-5, fs)
+            err_f = _rel_err(coef, _torch_bwd_finalize(sums, h * w, gamma, 32, 1e-5, fs))
+            err_w = _rel_err(coef, _bwd_reduce(x, dy, gamma, 32, 1e-5, swish, a_, b_, fs))
+            tol = TOL[("gn_bwd_reduce", dtype)]
+            if not bits or max(err_p, err_f, err_w) > tol:
+                raise AssertionError(f"spatial GroupNorm backward {tuple(xs[0].shape)} {dtype} "
+                                     f"swish={swish} film={film}: partial {err_p:.2e} (same "
+                                     f"bits twice: {bits}), finalize {err_f:.2e}, against the "
+                                     f"whole map {err_w:.2e} > {tol}")
+            n = xs[0].numel()
+            t_p = _timed(lambda: _bwd_partial(xs[0], dys[0], 32, swish, a_, b_),
+                         lambda: _torch_bwd_partial(xs[0], dys[0], swish, a_, b_),
+                         2 * n * elem + 16 * b * c + (8 * b * c if swish else 0),
+                         (6 + (12 if swish else 0)) * n, PEAK_FLOPS[torch.float32])
+            t_f = _timed(lambda: _bwd_finalize(sums, h * w, gamma, 32, 1e-5, fs),
+                         lambda: _torch_bwd_finalize(sums, h * w, gamma, 32, 1e-5, fs),
+                         28 * b * c + 4 * c + (4 * b * c if film else 0), 10 * b * c,
+                         PEAK_FLOPS[torch.float32])
+            dt = str(dtype).split(".")[-1]
+            rows.append(dict(kind="gn_bwd", shape=list(xs[0].shape), dtype=dt, swish=swish,
+                             film=film, calls_per_guidance=calls, partial=dict(t_p,
+                             max_abs_err=err_p), finalize=dict(t_f, max_abs_err=err_f),
+                             against_whole_map=err_w))
+            print(f"spatial GroupNorm backward shard {tuple(xs[0].shape)} {dt} swish {swish} "
+                  f"film {film}: partial {t_p['ms']:.4f} ms (device {t_p['device_ms']:.4f}, "
+                  f"plain {t_p['plain_ms']:.4f}, bound {t_p['bound_ms']:.5f}), finalize "
+                  f"{t_f['ms']:.4f} ms (device {t_f['device_ms']:.4f}, plain "
+                  f"{t_f['plain_ms']:.4f}, bound {t_f['bound_ms']:.6f}); errors {err_p:.1e} / "
+                  f"{err_f:.1e}, {sp} shards against the whole map {err_w:.1e}", flush=True)
+            if dtype == torch.bfloat16:
+                add("gn_bwd_partial", calls, t_p, err_p)
+                add("gn_bwd_finalize", calls, t_f, err_f)
+    for key, calls in sorted(((k, c) for k, c in shapes.items() if k[0] == "attn"), key=str):
+        _, (bh, t, c) = key
+        if t % sp:  # the attention pool's (T + 1 tokens), which runs whole on every rank
+            continue
+        tq = t // sp
+        for dtype in (torch.bfloat16, torch.float32):
+            elem = torch.empty((), dtype=dtype).element_size()
+            q, k, v, do = (rnd(bh, t, c).to(dtype) for _ in range(4))
+            scale = c ** -0.25
+            o = _kernel_attention(q, k, v, scale)
+            dq_full, lse_full, dsum_full = _attn_bwd_dq(q, k, v, o, do, scale)
+            dk_full, dv_full = _attn_bwd_dkdv(q, k, v, do, lse_full, dsum_full, scale)
+            bits, err_q, err_kv, dks, dvs = True, 0.0, 0.0, [], []
+            for r in range(sp):
+                rs = slice(r * tq, (r + 1) * tq)
+                qr, dor = q[:, rs].contiguous(), do[:, rs].contiguous()
+                orr = _kernel_attention(qr, k, v, scale)
+                dq, lse, dsum = _attn_bwd_dq(qr, k, v, orr, dor, scale)
+                bits &= all(torch.equal(a, b_) for a, b_ in ((dq, dq_full[:, rs]),
+                            (lse, lse_full[:, rs]), (dsum, dsum_full[:, rs])))
+                err_q = max(err_q, _rel_err(dq, _torch_attn_bwd_dq(qr, k, v, orr, dor,
+                                                                    scale)[0]))
+                dk, dv = _attn_bwd_dkdv(qr, k, v, dor, lse, dsum, scale)
+                pk, pv = _torch_attn_bwd_dkdv(qr, k, v, dor, lse, dsum, scale)
+                err_kv = max(err_kv, _rel_err(dk, pk), _rel_err(dv, pv))
+                dks.append(dk)
+                dvs.append(dv)
+            err_sum = max(_rel_err(_rank_order_sum(dks), dk_full),
+                          _rel_err(_rank_order_sum(dvs), dv_full))
+            tol_q, tol_kv = TOL[("attn_bwd_dq", dtype)], TOL[("attn_bwd_dkdv", dtype)]
+            if not bits or err_q > tol_q or max(err_kv, err_sum) > tol_kv:
+                raise AssertionError(f"attention backward Tq {tq} Tk {t} C {c} {dtype}: dq "
+                                     f"{err_q:.2e} (rows bit-equal {bits}), dK / dV "
+                                     f"{err_kv:.2e}, shards summed against the full kernel "
+                                     f"{err_sum:.2e}")
+            qr, dor = q[:, :tq].contiguous(), do[:, :tq].contiguous()
+            orr = _kernel_attention(qr, k, v, scale)
+            _, lse, dsum = _attn_bwd_dq(qr, k, v, orr, dor, scale)
+            rows_b = 2 * bh * tq * 4
+            t_q = _timed(lambda: _attn_bwd_dq(qr, k, v, orr, dor, scale),
+                         lambda: _torch_attn_bwd_dq(qr, k, v, orr, dor, scale),
+                         (4 * qr.numel() + 2 * k.numel()) * elem + rows_b, 6 * bh * tq * t * c,
+                         PEAK_FLOPS[dtype])
+            t_kv = _timed(lambda: _attn_bwd_dkdv(qr, k, v, dor, lse, dsum, scale),
+                          lambda: _torch_attn_bwd_dkdv(qr, k, v, dor, lse, dsum, scale),
+                          (2 * qr.numel() + 4 * k.numel()) * elem + rows_b,
+                          8 * bh * tq * t * c, PEAK_FLOPS[dtype])
+            lin = [z[:, None].detach().requires_grad_(True) for z in (qr, k, v)]
+            lout = F.scaled_dot_product_attention(*lin, scale=scale)
+            sdpa = cuda_ms(lambda: torch.autograd.grad(lout, lin, dor[:, None],
+                                                       retain_graph=True), iters=10)
+            dt = str(dtype).split(".")[-1]
+            rows.append(dict(kind="attn_bwd", shape=[bh, tq, t, c], dtype=dt,
+                             calls_per_guidance=calls, rows_bit_equal=bits,
+                             dq=dict(t_q, max_abs_err=err_q), dkdv=dict(t_kv, max_abs_err=err_kv),
+                             summed_against_full=err_sum, sdpa_autograd_ms=sdpa))
+            print(f"spatial attention backward Tq {tq} Tk {t} (B*heads {bh}, C {c}) {dt}: dq "
+                  f"{t_q['ms']:.4f} ms (device {t_q['device_ms']:.4f}, plain "
+                  f"{t_q['plain_ms']:.4f}, bound {t_q['bound_ms']:.5f} by {t_q['bound_by']}), "
+                  f"dkdv {t_kv['ms']:.4f} ms (device {t_kv['device_ms']:.4f}, plain "
+                  f"{t_kv['plain_ms']:.4f}, bound {t_kv['bound_ms']:.5f}); SDPA autograd "
+                  f"{sdpa:.4f} ms; dq rows bit-equal {bits}, errors {err_q:.1e} / {err_kv:.1e}, "
+                  f"{sp} shards' dK / dV summed against the full kernel {err_sum:.1e}",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                add("attn_bwd_dq_gathered", calls, t_q, err_q)
+                add("attn_bwd_dkdv_gathered", calls, t_kv, max(err_kv, err_sum))
+                per_call["attn_bwd_pair_sdpa_ms"] += calls * sdpa
+    print(f"per sharded 256 px guidance call (bf16, batch 1, sp {sp}, one shard): "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f}, plain "
+                      f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.4f})"
+                      for k, v in per_call.items() if isinstance(v, dict))
+          + f"; SDPA autograd for the attention pairs {per_call['attn_bwd_pair_sdpa_ms']:.4f} ms",
+          flush=True)
+    return {"per_call": per_call, "shapes": rows}
+
+
+def guidance_probe_input():
+    """The fixed input of phase 22(c)'s guidance gradient: one 256 px image
+    and its timestep."""
+    g = torch.Generator("cuda").manual_seed(22)
+    return (torch.randn(1, 256, 256, 3, device="cuda", generator=g),
+            torch.full((1,), 500.0, device="cuda"))
+
+
+def spatial_guided_golden(counts: dict) -> dict:
+    """Phase 22(b): the toy32 guided golden (tests/fixtures/
+    toy_adm32_guided_golden.json; fp32, TF32 off) at sp = 2, the ADM and
+    the classifier sharded, two processes on cuda:0 (gloo): within
+    HQ_PSNR_TOL of the JAX package's PSNR on both ranks, their finals
+    bit-equal, each rank's launches and collectives, the backward's
+    included, exact. `counts`: the module counts of the toy ADM and
+    classifier, and their 3x3 convolutions."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.sampling.posterior import build_posterior_tables, n_model_calls
+
+    golden = json.loads(GUIDED_GOLDEN.read_text())
+    want_psnr = golden["tiers"]["toy32"]["psnr"]
+    proto = golden["protocol"]
+    calls = n_model_calls(build_posterior_tables(
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing=proto["timestep_respacing"],
+        schedule_jump_params=proto["schedule_jump_params"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spatial_processes("guided_golden", 2, [], Path(tmp))
+    r = {"psnr": [x["psnr"] for x in ranks], "jax_psnr": want_psnr,
+         "per_image_max_abs_vs_jax": ranks[0]["per_image"],
+         "seconds": [x["seconds"] for x in ranks],
+         "process_seconds": [x["process_seconds"] for x in ranks],
+         "ranks_bit_equal": len({x["sha256"] for x in ranks}) == 1, "model_calls": calls,
+         "spatial_launches": ranks[0]["spatial_launches"],
+         "collectives": ranks[0]["collectives"],
+         "backward_collectives": ranks[0]["backward_collectives"]}
+    print(f"(b) toy32 guided golden at sp 2 (two processes on cuda:0, gloo): PSNR {r['psnr']} "
+          f"(JAX {want_psnr:.4f}), per-image max |x - JAX| "
+          f"{['%.2e' % e for e in r['per_image_max_abs_vs_jax']]}, {r['seconds']} s in the "
+          f"sampler ({calls} model calls); ranks' finals bit-equal {r['ranks_bit_equal']}; "
+          f"launches {ranks[0]['launches']} / {r['spatial_launches']}, collectives "
+          f"{r['collectives']}, backward {r['backward_collectives']}", flush=True)
+    if not r["ranks_bit_equal"] or any(abs(p - want_psnr) > HQ_PSNR_TOL for p in r["psnr"]):
+        raise AssertionError(f"spatial guided golden: {r}")
+    _check_guided_counts("toy32 guided golden", ranks, calls, **counts)
+    return r
+
+
+def _check_guided_counts(what: str, ranks: list, calls: int, n_gn: int, n_attn: int,
+                         n_conv: int, n_gn_c: int, n_attn_c: int, n_conv_c: int) -> None:
+    """Each rank's launches and collectives of `calls` guided model calls at
+    sp > 1 against the module counts of the UNet (n_*) and the classifier
+    (n_*_c, its attention pool among the attentions: the pool runs whole
+    on every rank, its attention and backward the Tq == Tk launches)."""
+    sharded_attn = n_attn + n_attn_c - 1
+    want = dict(dict.fromkeys(ops.spatial_launch_counts(), 0),
+                groupnorm_partial=(n_gn + n_gn_c) * calls,
+                groupnorm_finalize=(n_gn + n_gn_c) * calls,
+                attention_gathered=sharded_attn * calls, gn_bwd_partial=n_gn_c * calls,
+                gn_bwd_finalize=n_gn_c * calls, attn_bwd_dq_gathered=(n_attn_c - 1) * calls,
+                attn_bwd_dkdv_gathered=(n_attn_c - 1) * calls)
+    want_launches = dict(expected_launches(), groupnorm_apply=(n_gn + n_gn_c) * calls,
+                         gn_bwd_dx=n_gn_c * calls, attention=calls, attn_bwd_dq=calls,
+                         attn_bwd_dkdv=calls)
+    # rows: the UNet's output, the classifier's pooled map, the gradient
+    want_coll = dict(halo=(n_conv + n_conv_c) * calls, groupnorm=(n_gn + n_gn_c) * calls,
+                     attention=sharded_attn * calls, rows=3 * calls, batch=0)
+    want_bwd = dict(halo_grad=n_conv_c * calls, groupnorm_grad=n_gn_c * calls,
+                    attention_grad=(n_attn_c - 1) * calls)
+    for x in ranks:
+        got = (x["spatial_launches"], x["launches"], x["collectives"],
+               x["backward_collectives"])
+        if got != (want, want_launches, want_coll, want_bwd):
+            raise AssertionError(f"{what} rank {x['rank']}: launches {got[1]} / {got[0]}, "
+                                 f"collectives {got[2]} / {got[3]}; want {want_launches} / "
+                                 f"{want}, {want_coll} / {want_bwd}")
+
+
+def spatial_guided_hq(counts: dict) -> tuple[dict, dict]:
+    """Phase 22(c): configs/hq/inet256.yml guided (the 553.8M ADM, random
+    weights from seed 1234; the 54.1M classifier, `cc_classifier`'s dense
+    random weights from seed 1234 through --classifier_ckpt: with the
+    init's zero layers most of its backward would carry zeros) at full
+    width, bf16, cut to 10 model calls (respacing 10, no jumps), one 256 px
+    tile (4x SR with --resize_y of a 64 x 64 PNG): --sp 1 in this
+    process, --sp 2 as two processes on cuda:0 (gloo). Seconds per tile
+    and per call at each; the guidance gradient of the same classifier
+    at one input (`guidance_probe_input`) at sp 2 against sp 1 within
+    SP_GUIDED_GRAD_TOL, the ranks' bit-equal; the finals' PSNR against
+    each other at least SP_GUIDED_PSNR_MIN, the ranks' bit-equal;
+    launches and collectives per shard exact. Returns (stats, launches of
+    rank 0)."""
+    import hq_main_torch
+    from ddnm_tpu_torch.data.io import load_image, save_image
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+
+    conf = INET256.read_text()
+    for old, new in (('timestep_respacing: "100"', 'timestep_respacing: "10"'),
+                     ("t_T: 100\n  n_sample: 1\n  jump_length: 10\n  jump_n_sample: 3",
+                      "t_T: 10\n  n_sample: 1\n  jump_length: 1\n  jump_n_sample: 1")):
+        if conf.count(old) != 1:
+            raise AssertionError(f"configs/hq/inet256.yml: expected one {old!r}")
+        conf = conf.replace(old, new)
+    calls = 10
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "inet256_sp.yml").write_text(conf)
+        img = load_image(REPO / "exp" / "datasets" / "imagenet" / "00000.png")
+        save_image(img[:256, :256].reshape(64, 4, 64, 4, 3).mean(axis=(1, 3)), tmp / "y64.png")
+        clf = cc_classifier()
+        torch.save(clf.state_dict(), tmp / "clf_dense.pt")
+        x, t = guidance_probe_input()
+        grad1 = classifier_guidance_fn(clf, 951, 1.0)(x, t).cpu()
+        clf32 = cc_classifier(dtype=torch.float32)
+        ref32 = classifier_guidance_fn(clf32, 951, 1.0)(x, t).cpu()
+        del clf, clf32
+        torch.cuda.empty_cache()
+        argv = ["--config", str(tmp / "inet256_sp.yml"), "--path_y", str(tmp / "y64.png"),
+                "--deg", "sr_averagepooling", "--scale", "4", "--resize_y", "--class", "951",
+                "--random_init", "--seed", "1234", "--classifier_ckpt",
+                str(tmp / "clf_dense.pt"), "--dtype", "bfloat16", "--device", "cuda:0"]
+        ops.reset_launch_counts()
+        one = hq_main_torch.main(argv + ["-i", str(tmp / "sp1")])
+        launches_one = ops.launch_counts()
+        torch.cuda.empty_cache()
+        ranks = spatial_processes("guided_hq", 2, [str(tmp / "clf_dense.pt")]
+                                  + argv + ["--sp", "2", "-i", str(tmp / "sp2")], tmp)
+        grad2 = torch.load(tmp / "guided_hq_rank0.grad.pt")
+        a = load_image(tmp / "sp2" / "final.png")
+        b = load_image(tmp / "sp1" / "final.png")
+    scale = float(grad1.abs().max())
+    grad_err = float((grad2 - grad1).abs().max()) / scale
+    bf16_err = float((grad1 - ref32).abs().max()) / float(ref32.abs().max())
+    psnr = 10.0 * math.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-12))
+    per_call = {k: v / calls for k, v in {**ranks[0]["launches"],
+                                         **ranks[0]["spatial_launches"]}.items() if v}
+    stats = {"model_calls": calls, "sp1_seconds_per_tile": one["stats"]["seconds_per_tile"],
+             "sp2_seconds_per_tile": [x["stats"]["seconds_per_tile"] for x in ranks],
+             "sp2_process_seconds": [x["process_seconds"] for x in ranks],
+             "sp1_seconds_per_call": one["stats"]["seconds_per_tile"] / calls,
+             "sp2_seconds_per_call": ranks[0]["stats"]["seconds_per_tile"] / calls,
+             "ranks_bit_equal": len({x["sha256"] for x in ranks}) == 1,
+             "grad_ranks_bit_equal": len({x["grad_sha256"] for x in ranks}) == 1,
+             "grad_sp2_vs_sp1": grad_err, "grad_bf16_vs_fp32_sp1": bf16_err,
+             "sp2_vs_sp1_psnr": psnr, "launches_per_shard_per_call": per_call,
+             "collectives_per_call": {k: v / calls for k, v in
+                                      ranks[0]["collectives"].items()},
+             "backward_collectives_per_call": {k: v / calls for k, v in
+                                               ranks[0]["backward_collectives"].items()}}
+    print(f"(c) inet256 guided (full width, bf16, {calls} model calls a tile): "
+          f"{stats['sp1_seconds_per_tile']:.3f} s per tile at sp 1, "
+          f"{stats['sp2_seconds_per_tile']} at sp 2 (two processes on cuda:0, gloo): "
+          f"{stats['sp1_seconds_per_call']:.4f} / {stats['sp2_seconds_per_call']:.4f} s per "
+          f"call; guidance gradient at sp 2 against sp 1: max |d| / max |sp 1| {grad_err:.3e} "
+          f"(bf16 sp 1 against fp32 {bf16_err:.3e}), ranks bit-equal "
+          f"{stats['grad_ranks_bit_equal']}; final at sp 2 against sp 1 PSNR {psnr:.2f} dB, "
+          f"ranks bit-equal {stats['ranks_bit_equal']}; per shard and call {per_call}, "
+          f"collectives {stats['collectives_per_call']}, backward "
+          f"{stats['backward_collectives_per_call']}", flush=True)
+    if (not stats["ranks_bit_equal"] or not stats["grad_ranks_bit_equal"]
+            or not grad_err <= SP_GUIDED_GRAD_TOL or psnr < SP_GUIDED_PSNR_MIN):
+        raise AssertionError(f"inet256 guided at sp 2: {stats}")
+    n = counts
+    if launches_one != expected_launches((n["n_gn"] + n["n_gn_c"]) * calls,
+                                         (n["n_attn"] + n["n_attn_c"]) * calls,
+                                         n["n_gn_c"] * calls, n["n_attn_c"] * calls):
+        raise AssertionError(f"inet256 guided at sp 1: launches {launches_one}")
+    _check_guided_counts("inet256 guided", ranks, calls, **counts)
     return stats, {**ranks[0]["launches"], **ranks[0]["spatial_launches"]}
 
 
@@ -3644,6 +4062,7 @@ def main() -> int:
         print(f"built {path.name} with nvcc in {secs:.2f} s", flush=True)
         for line in ptxas_summary(_build.ptxas_report(
                 "fgc_conv_kernel", "gn_apply_kernel", "fwht_kernel", "gn_bwd_reduce_kernel",
+                "gn_bwd_finalize_kernel",
                 "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel")):
             print(line, flush=True)
 
@@ -3991,6 +4410,34 @@ def main() -> int:
         sp_hq, launches_sp = spatial_hq(n_gn_face, n_attn_face, n_conv_face)
         spatial = {"kernels": sp_kernels["shapes"], "golden": sp_golden, "face256": sp_hq}
 
+    with phase(22, "classifier guidance under spatial partitioning at sp = 2 (the backward "
+                   "kernels' new modes, the toy32 guided golden and inet256 guided at full "
+                   "width, two processes on cuda:0)"):
+        clf = cc_classifier()
+        clf_counts = dict(zip(("n_gn_c", "n_attn_c"), module_counts(clf)),
+                          n_conv_c=conv3x3_count(clf))
+        clf_grad_shapes = grad_shapes(clf, torch.zeros(1, 256, 256, 3, device="cuda"))
+        del clf
+        with torch.device("meta"):
+            adm_meta = build_adm_from_hq(load_hq_config(INET256), "meta")
+        inet_counts = dict(n_gn=n_gn_hq, n_attn=n_attn_hq, n_conv=conv3x3_count(adm_meta),
+                           **clf_counts)
+        del adm_meta
+        toy, toy_clf = toy_adm("cpu"), toy_classifier("cpu")
+        toy_guided_counts = dict(zip(("n_gn", "n_attn"), module_counts(toy)),
+                                 n_conv=conv3x3_count(toy),
+                                 **dict(zip(("n_gn_c", "n_attn_c"), module_counts(toy_clf))),
+                                 n_conv_c=conv3x3_count(toy_clf))
+        del toy, toy_clf
+        torch.cuda.empty_cache()
+        print(f"module counts (GroupNorm, attention, 3x3 conv): inet256 guided {inet_counts}, "
+              f"toy32 guided {toy_guided_counts}", flush=True)
+        sp_grad = spatial_grad_kernels(clf_grad_shapes)
+        sp_guided_golden = spatial_guided_golden(toy_guided_counts)
+        sp_guided_hq, launches_sp_guided = spatial_guided_hq(inet_counts)
+        spatial_guided = {"kernels": sp_grad["shapes"], "per_guidance_call": sp_grad["per_call"],
+                          "golden": sp_guided_golden, "inet256": sp_guided_hq}
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -4052,10 +4499,24 @@ def main() -> int:
         for kind in SOURCES] + [
         {"name": "attention_gathered", "route": "cuda", "source": SOURCES["attention"][0],
          "replaces": SOURCES["attention"][1], "launches": launches_sp["attention_gathered"],
-         **sp_kernels["per_forward"]["attention_gathered"]}], "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
+         **sp_kernels["per_forward"]["attention_gathered"]}] + [
+        # the backward kernels' spatial modes (phase 22): launches per shard of
+        # the guided inet256 tile at sp = 2 (10 calls), the rest per sharded
+        # guidance call of the 256 px classifier (bf16, batch 1, one shard)
+        {"name": name, "route": "cuda", "source": SOURCES[base][0],
+         "replaces": SOURCES[base][1], "launches": launches_sp_guided[name],
+         **{k: sp_grad["per_call"][name][k] for k in
+            ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
+        for name, base in (("gn_bwd_partial", "gn_bwd_reduce"),
+                           ("gn_bwd_finalize", "gn_bwd_reduce"),
+                           ("attn_bwd_dq_gathered", "attn_bwd_dq"),
+                           ("attn_bwd_dkdv_gathered", "attn_bwd_dkdv"))],
+        "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
         "guided_toy32": guided_toy, "guided": guided, "solver_parity": solver,
         "accelerators": accel_stats, "served": served, "served_hq": served_hq,
-        "data_long_tail": long_tail, "multi_device": multi_device, "spatial": spatial}
+        "data_long_tail": long_tail, "multi_device": multi_device, "spatial": spatial,
+        "spatial_guided": spatial_guided}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,10 +19,11 @@ baseline JPEG decoder (`data/jpeg.py`), the CelebA and LSUN lmdb datasets
 (`data/extra_datasets.py`), the checkpoint registry (`data/checkpoints.py`)
 and `hq_evaluation_torch.py`, and data parallelism (`parallel/`: the runner,
 tiles and served groups sharded over a mesh of cards, `--dp`, one slice
-of the dataset per process under torchrun). Still raising
-NotImplementedError: spatial partitioning (`--sp`, `make_mesh_2d` with
-sp > 1); refused with ValueError: WebP (a real LSUN lmdb's values),
-progressive and CMYK JPEG; the bench is absent.
+of the dataset per process under torchrun), and spatial partitioning
+(`--sp`, `make_mesh_2d` with sp > 1: a grid of processes, each UNet and
+classifier holding a block of every tile's rows, guidance included).
+Refused with ValueError: WebP (a real LSUN lmdb's values), progressive
+and CMYK JPEG; the bench is absent.
 """
 
 from ddnm_tpu_torch.runtime import resolve_device

@@ -72,7 +72,13 @@
 // count t_k apart (ddnm_attention_kv): the grid, the Q rows and the output
 // follow t_q; the key tiles, the TMA maps of K and V, the score rows and
 // the masks follow t_k. Each shard computes only its own rows (t_q = T /
-// sp), not the whole attention sliced.
+// sp), not the whole attention sliced. The four backward kernels do the
+// same (ddnm_attention_bwd_dq_kv, ddnm_attention_bwd_dkdv_kv): the dq pass's
+// grid, Q, dO, O, LSE and D follow t_q and its streamed K / V tiles, masks
+// and TMA maps t_k; the dkdv pass's grid and dK / dV rows follow t_k and its
+// streamed Q / dO tiles, LSE and D t_q. A shard's dK and dV are partials
+// (its queries' share of every key's gradient): the caller sums the
+// shards' in rank order (models/nn.py attention(spatial=)).
 //
 // fp32 (attn_kernel<float>; the fp32 parity runs, never the bf16 main
 // path): fp32 FMA on the CUDA cores with an online softmax, not TF32 tensor
@@ -841,14 +847,16 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
   }
 }
 
-// grid (ceil(T / kBwdQ), B*), block kBwdThreads. Thread t owns query row
+// grid (ceil(Tq / kBwdQ), B*), block kBwdThreads. Thread t owns query row
 // t / 8 and keys t % 8 + 8 u (u < 8) of each key tile for the scores, and
-// channels t % 8 + 8 w (w < C / 8) of its row for dQ.
+// channels t % 8 + 8 w (w < C / 8) of its row for dQ. q, o, dout, dq: (B*,
+// t_q, C); k, v: (B*, t_k, C); lse, dsum: (B*, t_q).
 template <typename T, int C>
 __global__ void __launch_bounds__(kBwdThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
-                   float* __restrict__ lse, float* __restrict__ dsum, int t_len, float scale) {
+                   float* __restrict__ lse, float* __restrict__ dsum, int t_q, int t_k,
+                   float scale) {
   constexpr int LD = C + 1, SD = kBwdK + 1, NW = C / 8;
   extern __shared__ float sm[];
   float* qs = sm;                  // [kBwdQ][LD]
@@ -860,12 +868,13 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
   const int tid = threadIdx.x, r = tid >> 3, lane = tid & 7;
   const int q0 = blockIdx.x * kBwdQ;
-  const size_t base = (size_t)blockIdx.y * t_len * C;
-  load_rows<T, C>(qs, q + base, q0, kBwdQ, t_len);
-  load_rows<T, C>(dos, dout + base, q0, kBwdQ, t_len);
+  const size_t base = (size_t)blockIdx.y * t_q * C;     // q, o, dout, dq
+  const size_t kv_base = (size_t)blockIdx.y * t_k * C;  // k, v
+  load_rows<T, C>(qs, q + base, q0, kBwdQ, t_q);
+  load_rows<T, C>(dos, dout + base, q0, kBwdQ, t_q);
   {  // D = rowsum(dO o O): 8 lanes a row
     float acc = 0.f;
-    if (q0 + r < t_len)
+    if (q0 + r < t_q)
       for (int c = lane; c < C; c += 8)
         acc += to_f(dout[base + (size_t)(q0 + r) * C + c]) * to_f(o[base + (size_t)(q0 + r) * C + c]);
 #pragma unroll
@@ -875,9 +884,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
   // sweep 1: each row's log-sum-exp
   float m = -INFINITY, l = 0.f;
-  for (int kt = 0; kt < t_len; kt += kBwdK) {
+  for (int kt = 0; kt < t_k; kt += kBwdK) {
     __syncthreads();
-    load_rows<T, C>(ks, k + base, kt, kBwdK, t_len);
+    load_rows<T, C>(ks, k + kv_base, kt, kBwdK, t_k);
     __syncthreads();
     float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll 8
@@ -888,7 +897,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      if (kt + lane + 8 * u < t_len) {
+      if (kt + lane + 8 * u < t_k) {
         const float x = s[u] * scale;
         if (x > m) {
           l = l * expf(m - x) + 1.f;
@@ -914,10 +923,10 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   float acc[NW];
 #pragma unroll
   for (int w = 0; w < NW; ++w) acc[w] = 0.f;
-  for (int kt = 0; kt < t_len; kt += kBwdK) {
+  for (int kt = 0; kt < t_k; kt += kBwdK) {
     __syncthreads();
-    load_rows<T, C>(ks, k + base, kt, kBwdK, t_len);
-    load_rows<T, C>(vs, v + base, kt, kBwdK, t_len);
+    load_rows<T, C>(ks, k + kv_base, kt, kBwdK, t_k);
+    load_rows<T, C>(vs, v + kv_base, kt, kBwdK, t_k);
     __syncthreads();
     float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     float dp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -932,7 +941,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const bool ok = q0 + r < t_len && kt + lane + 8 * u < t_len;
+      const bool ok = q0 + r < t_q && kt + lane + 8 * u < t_k;
       const float p = ok ? expf(s[u] * scale - row_lse) : 0.f;
       ss[r * SD + lane + 8 * u] = p * (dp[u] - d_r);
     }
@@ -944,26 +953,27 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       for (int w = 0; w < NW; ++w) acc[w] = fmaf(ds, ks[j * LD + lane + 8 * w], acc[w]);
     }
   }
-  if (q0 + r < t_len) {
+  if (q0 + r < t_q) {
     T* dqr = dq + base + (size_t)(q0 + r) * C;
 #pragma unroll
     for (int w = 0; w < NW; ++w) dqr[lane + 8 * w] = from_f<T>(acc[w] * scale);
     if (lane == 0) {
-      lse[(size_t)blockIdx.y * t_len + q0 + r] = row_lse;
-      dsum[(size_t)blockIdx.y * t_len + q0 + r] = d_r;
+      lse[(size_t)blockIdx.y * t_q + q0 + r] = row_lse;
+      dsum[(size_t)blockIdx.y * t_q + q0 + r] = d_r;
     }
   }
 }
 
-// grid (ceil(T / kBwdKV), B*), block kBwdThreads. Thread t owns key t / 8
+// grid (ceil(Tk / kBwdKV), B*), block kBwdThreads. Thread t owns key t / 8
 // and query rows t % 8 + 8 u (u < 8) of each query tile for the scores,
-// and channels t % 8 + 8 w (w < C / 8) of its key for dK and dV.
+// and channels t % 8 + 8 w (w < C / 8) of its key for dK and dV. q, dout:
+// (B*, t_q, C); k, v, dk, dv: (B*, t_k, C); lse, dsum: (B*, t_q).
 template <typename T, int C>
 __global__ void __launch_bounds__(kBwdThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv,
-                     int t_len, float scale) {
+                     int t_q, int t_k, float scale) {
   constexpr int LD = C + 1, PD = kBwdQT + 1, NW = C / 8;
   extern __shared__ float sm[];
   float* ks = sm;                   // [kBwdKV][LD]
@@ -977,20 +987,21 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int tid = threadIdx.x, j = tid >> 3, lane = tid & 7;
   const int k0 = blockIdx.x * kBwdKV;
-  const size_t base = (size_t)blockIdx.y * t_len * C;
-  const size_t rows = (size_t)blockIdx.y * t_len;
-  load_rows<T, C>(ks, k + base, k0, kBwdKV, t_len);
-  load_rows<T, C>(vs, v + base, k0, kBwdKV, t_len);
+  const size_t base = (size_t)blockIdx.y * t_q * C;     // q, dout
+  const size_t kv_base = (size_t)blockIdx.y * t_k * C;  // k, v, dk, dv
+  const size_t rows = (size_t)blockIdx.y * t_q;
+  load_rows<T, C>(ks, k + kv_base, k0, kBwdKV, t_k);
+  load_rows<T, C>(vs, v + kv_base, k0, kBwdKV, t_k);
   float adk[NW], adv[NW];
 #pragma unroll
   for (int w = 0; w < NW; ++w) adk[w] = adv[w] = 0.f;
-  for (int qt = 0; qt < t_len; qt += kBwdQT) {
+  for (int qt = 0; qt < t_q; qt += kBwdQT) {
     __syncthreads();
-    load_rows<T, C>(qs, q + base, qt, kBwdQT, t_len);
-    load_rows<T, C>(dos, dout + base, qt, kBwdQT, t_len);
+    load_rows<T, C>(qs, q + base, qt, kBwdQT, t_q);
+    load_rows<T, C>(dos, dout + base, qt, kBwdQT, t_q);
     for (int i = tid; i < kBwdQT; i += kBwdThreads) {
-      lse_s[i] = qt + i < t_len ? lse[rows + qt + i] : 0.f;
-      d_s[i] = qt + i < t_len ? dsum[rows + qt + i] : 0.f;
+      lse_s[i] = qt + i < t_q ? lse[rows + qt + i] : 0.f;
+      d_s[i] = qt + i < t_q ? dsum[rows + qt + i] : 0.f;
     }
     __syncthreads();
     float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -1007,7 +1018,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int i = lane + 8 * u;
-      const bool ok = k0 + j < t_len && qt + i < t_len;
+      const bool ok = k0 + j < t_k && qt + i < t_q;
       const float p = ok ? expf(s[u] * scale - lse_s[i]) : 0.f;
       ps[j * PD + i] = p;
       dss[j * PD + i] = p * (dp[u] - d_s[i]);
@@ -1023,9 +1034,9 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       }
     }
   }
-  if (k0 + j < t_len) {
-    T* dkr = dk + base + (size_t)(k0 + j) * C;
-    T* dvr = dv + base + (size_t)(k0 + j) * C;
+  if (k0 + j < t_k) {
+    T* dkr = dk + kv_base + (size_t)(k0 + j) * C;
+    T* dvr = dv + kv_base + (size_t)(k0 + j) * C;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       dkr[lane + 8 * w] = from_f<T>(adk[w] * scale);
@@ -1227,16 +1238,18 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc
   }
 }
 
-// grid (ceil(T / kBwdRows), B*), block kBwdMmaThreads, dynamic shared
-// memory bwd_layout(C, 0).total. tm_k, tm_v: the (C, T, B) tensor maps of K
-// and V with boxes of 64 rows (TMA only). Streams 2 ceil(T / 64) tiles:
+// grid (ceil(Tq / kBwdRows), B*), block kBwdMmaThreads, dynamic shared
+// memory bwd_layout(C, 0).total. q, o, dout, dq: (B*, t_q, C); k, v: (B*,
+// t_k, C); lse, dsum: (B*, t_q). tm_k, tm_v: the (C, Tk, B) tensor maps of K
+// and V with boxes of 64 rows (TMA only). Streams 2 ceil(Tk / 64) tiles:
 // K_0 .. K_n-1 (the LSE sweep), then (K, V)_0 .. (K, V)_n-1.
 template <int C>
 __global__ void __launch_bounds__(kBwdMmaThreads, bwd_dq_min_blocks(C))
 attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
                        const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                       float* __restrict__ lse, float* __restrict__ dsum, int t_len, float scale,
+                       float* __restrict__ lse, float* __restrict__ dsum, int t_q, int t_k,
+                       float scale,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v) {
   constexpr int R = bwd_stream_rows(C, 0);
@@ -1253,27 +1266,28 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * kBwdRows;
-  const size_t base = (size_t)blockIdx.y * t_len * C;
-  const int n_t = (t_len + R - 1) / R;
+  const size_t base = (size_t)blockIdx.y * t_q * C;     // q, o, dout, dq
+  const size_t kv_base = (size_t)blockIdx.y * t_k * C;  // k, v
+  const int n_t = (t_k + R - 1) / R;
   const int n_tiles = 2 * n_t;
   const float sl2 = scale * kLog2e;
   auto stage = [&](int i) { return smem + ring + (i % kStages) * lay.stage; };
   auto load = [&](int i) {
-    load_stream<C, R>(stage(i), &tm_k, &tm_v, k + base, v + base, i >= n_t, (i % n_t) * R, t_len,
-                      bars + i % kStages);
+    load_stream<C, R>(stage(i), &tm_k, &tm_v, k + kv_base, v + kv_base, i >= n_t, (i % n_t) * R,
+                      t_k, bars + i % kStages);
   };
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(bars + s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  load_resident<C>(qs, q + base, q0, t_len);
-  load_resident<C>(dos, dout + base, q0, t_len);
+  load_resident<C>(qs, q + base, q0, t_q);
+  load_resident<C>(dos, dout + base, q0, t_q);
   cp_async_commit();
   {  // D = rowsum(dO o O) in fp32: two threads a row, 16-byte loads
     const int r = tid >> 1;
     float acc = 0.f;
-    if (q0 + r < t_len) {
+    if (q0 + r < t_q) {
       const size_t at = base + (size_t)(q0 + r) * C + (tid & 1) * (C / 2);
 #pragma unroll
       for (int c = 0; c < C / 2; c += 8) {
@@ -1334,7 +1348,7 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            x[j][e] = k0 + j * 8 + 2 * t4 + e < t_len ? s[j][2 * h + e] * sl2 : -INFINITY;
+            x[j][e] = k0 + j * 8 + 2 * t4 + e < t_k ? s[j][2 * h + e] * sl2 : -INFINITY;
             mt = fmaxf(mt, x[j][e]);
           }
         const float mn = fmaxf(m[h], mt);
@@ -1362,9 +1376,9 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
           lse2[h] = m[h] + log2f(l[h]);
           dd[h] = row_d[warp * 16 + g + 8 * h];
           const int r = row0 + 8 * h;
-          if (t4 == 0 && r < t_len) {
-            lse[(size_t)blockIdx.y * t_len + r] = lse2[h] * kLn2;
-            dsum[(size_t)blockIdx.y * t_len + r] = dd[h];
+          if (t4 == 0 && r < t_q) {
+            lse[(size_t)blockIdx.y * t_q + r] = lse2[h] * kLn2;
+            dsum[(size_t)blockIdx.y * t_q + r] = dd[h];
           }
         }
       }
@@ -1378,7 +1392,7 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
           const float p =
-              k0 + j * 8 + 2 * t4 + (e & 1) < t_len ? ex2(s[j][e] * sl2 - lse2[h]) : 0.f;
+              k0 + j * 8 + 2 * t4 + (e & 1) < t_k ? ex2(s[j][e] * sl2 - lse2[h]) : 0.f;
           s[j][e] = p * (dp[j][e] - dd[h]);
         }
       unsigned a[R / 16][4];
@@ -1387,11 +1401,12 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     }
     __syncthreads();  // the stage is free for the next copy
   }
-  store_rows<C>(dq + base, acc, row0, t_len, scale);
+  store_rows<C>(dq + base, acc, row0, t_q, scale);
 }
 
-// grid (ceil(T / kBwdRows), B*), block kBwdMmaThreads, dynamic shared
-// memory bwd_layout(C, 1).total. tm_q, tm_do: the (C, T, B) tensor maps of Q
+// grid (ceil(Tk / kBwdRows), B*), block kBwdMmaThreads, dynamic shared
+// memory bwd_layout(C, 1).total. q, dout: (B*, t_q, C); k, v, dk, dv: (B*,
+// t_k, C); lse, dsum: (B*, t_q). tm_q, tm_do: the (C, Tq, B) tensor maps of Q
 // and dO with boxes of bwd_stream_rows(C, 1) rows (TMA only). Streams the
 // (Q, dO) tiles; each tile's LSE log2 e and D are read from global memory
 // one tile ahead and staged in shared memory.
@@ -1401,7 +1416,7 @@ attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int t_len, float scale,
+                         __nv_bfloat16* __restrict__ dv, int t_q, int t_k, float scale,
                          const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do) {
   constexpr int R = bwd_stream_rows(C, 1);
@@ -1418,20 +1433,21 @@ attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int k0 = blockIdx.x * kBwdRows;
-  const size_t base = (size_t)blockIdx.y * t_len * C;
-  const size_t rows = (size_t)blockIdx.y * t_len;
-  const int n_t = (t_len + R - 1) / R;
+  const size_t base = (size_t)blockIdx.y * t_q * C;     // q, dout
+  const size_t kv_base = (size_t)blockIdx.y * t_k * C;  // k, v, dk, dv
+  const size_t rows = (size_t)blockIdx.y * t_q;
+  const int n_t = (t_q + R - 1) / R;
   const float sl2 = scale * kLog2e;
   auto stage = [&](int i) { return smem + ring + (i % kStages) * lay.stage; };
   auto load = [&](int i) {
-    load_stream<C, R>(stage(i), &tm_q, &tm_do, q + base, dout + base, true, i * R, t_len,
+    load_stream<C, R>(stage(i), &tm_q, &tm_do, q + base, dout + base, true, i * R, t_q,
                       bars + i % kStages);
   };
   // thread tid < 2 R: LSE log2 e (tid < R) or D of query row i R + tid % R
   // of tile i; 0 past T
   auto fetch = [&](int i) {
     const int qi = i * R + tid % R;
-    if (tid >= 2 * R || i >= n_t || qi >= t_len) return 0.f;
+    if (tid >= 2 * R || i >= n_t || qi >= t_q) return 0.f;
     return tid < R ? lse[rows + qi] * kLog2e : dsum[rows + qi];
   };
 
@@ -1439,8 +1455,8 @@ attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     for (int s = 0; s < kStages; ++s) mbar_init(bars + s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  load_resident<C>(ks, k + base, k0, t_len);
-  load_resident<C>(vs, v + base, k0, t_len);
+  load_resident<C>(ks, k + kv_base, k0, t_k);
+  load_resident<C>(vs, v + kv_base, k0, t_k);
   cp_async_commit();
   if (tid < 2 * R) stats[tid] = fetch(0);
   __syncthreads();  // the barriers are initialised, tile 0's statistics staged
@@ -1484,7 +1500,7 @@ attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + 2 * t4 + (e & 1);  // query row of the tile
-        const float p = q0 + col < t_len ? ex2(s[j][e] * sl2 - lse_t[col]) : 0.f;
+        const float p = q0 + col < t_q ? ex2(s[j][e] * sl2 - lse_t[col]) : 0.f;
         s[j][e] = p;
         dp[j][e] = p * (dp[j][e] - d_t[col]);
       }
@@ -1497,8 +1513,8 @@ attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     __syncthreads();  // the stage is free for the next copy, tile i + 1's statistics staged
   }
   const int key0 = k0 + warp * 16 + g;
-  store_rows<C>(dk + base, adk, key0, t_len, scale);
-  store_rows<C>(dv + base, adv, key0, t_len, 1.f);
+  store_rows<C>(dk + kv_base, adk, key0, t_k, scale);
+  store_rows<C>(dv + kv_base, adv, key0, t_k, 1.f);
 }
 
 // One launch of the backward pass `which` (0: dq, 1: dkdv) in `dtype` (0:
@@ -1506,8 +1522,8 @@ attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 template <int C>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
-                       int batch, int t_len, float scale, int dtype, int which, int smem_bytes,
-                       cudaStream_t s) {
+                       int batch, int t_q, int t_k, float scale, int dtype, int which,
+                       int smem_bytes, cudaStream_t s) {
   static int granted[2][2][kMaxDevices] = {};  // [dtype][which][device]
   using bf = __nv_bfloat16;
   const void* kernel =
@@ -1521,36 +1537,37 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
     const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
                 *fv = static_cast<const float*>(v), *fdo = static_cast<const float*>(dout);
     if (which == 0) {
-      dim3 grid((t_len + kBwdQ - 1) / kBwdQ, batch);
+      dim3 grid((t_q + kBwdQ - 1) / kBwdQ, batch);
       attn_bwd_dq_kernel<float, C><<<grid, kBwdThreads, smem_bytes, s>>>(
           fq, fk, fv, static_cast<const float*>(o), fdo, static_cast<float*>(dq), lse, dsum,
-          t_len, scale);
+          t_q, t_k, scale);
     } else {
-      dim3 grid((t_len + kBwdKV - 1) / kBwdKV, batch);
+      dim3 grid((t_k + kBwdKV - 1) / kBwdKV, batch);
       attn_bwd_dkdv_kernel<float, C><<<grid, kBwdThreads, smem_bytes, s>>>(
-          fq, fk, fv, fdo, lse, dsum, static_cast<float*>(dk), static_cast<float*>(dv), t_len,
-          scale);
+          fq, fk, fv, fdo, lse, dsum, static_cast<float*>(dk), static_cast<float*>(dv), t_q,
+          t_k, scale);
     }
     return cudaGetLastError();
   }
   const bf *bq = static_cast<const bf*>(q), *bk = static_cast<const bf*>(k),
            *bv = static_cast<const bf*>(v), *bdo = static_cast<const bf*>(dout);
   CUtensorMap tx = {}, ty = {};  // the streamed pair: (K, V) for dq, (Q, dO) for dkdv
+  const int t_stream = which ? t_q : t_k, t_res = which ? t_k : t_q;
   if constexpr (uses_tma(C)) {
     const int rows = bwd_stream_rows(C, which);
-    if ((err = make_tensor_map(&tx, which ? q : k, batch, t_len, C, rows)) != cudaSuccess ||
-        (err = make_tensor_map(&ty, which ? dout : v, batch, t_len, C, rows)) != cudaSuccess)
+    if ((err = make_tensor_map(&tx, which ? q : k, batch, t_stream, C, rows)) != cudaSuccess ||
+        (err = make_tensor_map(&ty, which ? dout : v, batch, t_stream, C, rows)) != cudaSuccess)
       return err;
   }
-  dim3 grid((t_len + kBwdRows - 1) / kBwdRows, batch);
+  dim3 grid((t_res + kBwdRows - 1) / kBwdRows, batch);
   if (which == 0)
     attn_bwd_dq_mma_kernel<C><<<grid, kBwdMmaThreads, smem_bytes, s>>>(
-        bq, bk, bv, static_cast<const bf*>(o), bdo, static_cast<bf*>(dq), lse, dsum, t_len,
+        bq, bk, bv, static_cast<const bf*>(o), bdo, static_cast<bf*>(dq), lse, dsum, t_q, t_k,
         scale, tx, ty);
   else
     attn_bwd_dkdv_mma_kernel<C><<<grid, kBwdMmaThreads, smem_bytes, s>>>(
-        bq, bk, bv, bdo, lse, dsum, static_cast<bf*>(dk), static_cast<bf*>(dv), t_len, scale, tx,
-        ty);
+        bq, bk, bv, bdo, lse, dsum, static_cast<bf*>(dk), static_cast<bf*>(dv), t_q, t_k, scale,
+        tx, ty);
   return cudaGetLastError();
 }
 
@@ -1558,9 +1575,9 @@ bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; 
 
 cudaError_t attention_bwd(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, void* dq, void* dk, void* dv, void* lse, void* dsum,
-                          int batch, int t_len, int c_dim, float scale, int dtype, int which,
-                          int smem_bytes, void* stream) {
-  if (batch <= 0 || batch > 65535 || t_len <= 0 || (dtype != 0 && dtype != 1) ||
+                          int batch, int t_q, int t_k, int c_dim, float scale, int dtype,
+                          int which, int smem_bytes, void* stream) {
+  if (batch <= 0 || batch > 65535 || t_q <= 0 || t_k <= 0 || (dtype != 0 && dtype != 1) ||
       (c_dim != 32 && c_dim != 64 && c_dim != 128))
     return cudaErrorInvalidValue;
   const int want = dtype == 1 ? bwd_layout(c_dim, which).total
@@ -1577,13 +1594,13 @@ cudaError_t attention_bwd(const void* q, const void* k, const void* v, const voi
   float* d = static_cast<float*>(dsum);
   switch (c_dim) {
     case 32:
-      return launch_bwd<32>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_len, scale, dtype, which,
-                            smem_bytes, s);
+      return launch_bwd<32>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_q, t_k, scale, dtype,
+                            which, smem_bytes, s);
     case 64:
-      return launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_len, scale, dtype, which,
-                            smem_bytes, s);
+      return launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_q, t_k, scale, dtype,
+                            which, smem_bytes, s);
     default:
-      return launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_len, scale, dtype,
+      return launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_q, t_k, scale, dtype,
                              which, smem_bytes, s);
   }
 }
@@ -1648,8 +1665,8 @@ int ddnm_attention_bwd_dq(const void* q, const void* k, const void* v, const voi
                           int t_len, int c_dim, float scale, int dtype, int smem_bytes,
                           void* stream) {
   return static_cast<int>(attention_bwd(q, k, v, o, dout, dq, nullptr, nullptr, lse, dsum,
-                                        batch, t_len, c_dim, scale, dtype, 0, smem_bytes,
-                                        stream));
+                                        batch, t_len, t_len, c_dim, scale, dtype, 0,
+                                        smem_bytes, stream));
 }
 
 // Attention backward, second pass: dk, dv (batch, t_len, c_dim) written
@@ -1660,7 +1677,30 @@ int ddnm_attention_bwd_dkdv(const void* q, const void* k, const void* v, const v
                             void* stream) {
   return static_cast<int>(attention_bwd(q, k, v, nullptr, dout, nullptr, dk, dv,
                                         const_cast<void*>(lse), const_cast<void*>(dsum), batch,
-                                        t_len, c_dim, scale, dtype, 1, smem_bytes, stream));
+                                        t_len, t_len, c_dim, scale, dtype, 1, smem_bytes, stream));
+}
+
+// The two passes with queries and keys of other lengths (a spatial shard's
+// queries against the keys and values gathered from every shard): q, o,
+// dout, dq (batch, t_q, c_dim); k, v, dk, dv (batch, t_k, c_dim); lse, dsum
+// (batch, t_q). The dq pass's grid runs over t_q and streams t_k keys, the
+// dkdv pass's over t_k and streams t_q queries; the rest as above.
+int ddnm_attention_bwd_dq_kv(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, void* dq, void* lse, void* dsum, int batch,
+                             int t_q, int t_k, int c_dim, float scale, int dtype, int smem_bytes,
+                             void* stream) {
+  return static_cast<int>(attention_bwd(q, k, v, o, dout, dq, nullptr, nullptr, lse, dsum,
+                                        batch, t_q, t_k, c_dim, scale, dtype, 0, smem_bytes,
+                                        stream));
+}
+
+int ddnm_attention_bwd_dkdv_kv(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* dsum, void* dk, void* dv, int batch,
+                               int t_q, int t_k, int c_dim, float scale, int dtype,
+                               int smem_bytes, void* stream) {
+  return static_cast<int>(attention_bwd(q, k, v, nullptr, dout, nullptr, dk, dv,
+                                        const_cast<void*>(lse), const_cast<void*>(dsum), batch,
+                                        t_q, t_k, c_dim, scale, dtype, 1, smem_bytes, stream));
 }
 
 }  // extern "C\"

@@ -38,6 +38,12 @@
 // per-channel sums, the shards' sums are added in rank order outside the
 // kernel (one all_gather), and gn_finalize_kernel folds them into a, b
 // with the stats kernel's own arithmetic: one tiny launch per norm.
+// Their gradient (classifier guidance under spatial shards) needs the whole
+// map's sums too: gn_bwd_reduce_kernel's partial mode writes one shard's
+// per-channel sums of x, x^2, dy' and dy' x, the shards' are added in rank
+// order outside the kernel, and gn_bwd_finalize_kernel folds them into the
+// coefficients of dx with the reduce kernel's own arithmetic; gn_bwd_dx_kernel
+// then runs unchanged on the shard.
 //
 // Apply (gn_apply_kernel): a bytes-bound elementwise pass, y = x * a + b
 // in fp32, cast, optional SiLU in fp32 on the cast value and one more cast
@@ -752,8 +758,15 @@ template <int VEC> __device__ __forceinline__ void st_vec(float* p, const float 
 //   4. the rank that holds its channels' whole sums finalises their groups
 //      from shared memory alone (gamma and film_scale came in with the
 //      first stage).
+// Partial mode (`partial` = 1; a spatial shard's rows, whose groups span
+// every shard): step 4 stops before the fold and writes its channels'
+// four sums, out (4, B, C) fp32 = (sum x, sum x^2, sum dy', sum dy' x);
+// the shards' sums are added in rank order outside the kernel and
+// gn_bwd_finalize_kernel folds them. gamma and film_scale are then unread
+// (may be null).
 // No fp32 atomics: every launch gives the same bits. a, b: the forward's
-// affine (read only when swish); film_scale may be null. out: (3, B, C) fp32.
+// affine (read only when swish; under spatial shards the whole map's);
+// film_scale may be null. out: (3, B, C) fp32.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -761,7 +774,7 @@ gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                      const float* __restrict__ aff_a, const float* __restrict__ aff_b,
                      float* __restrict__ out, float* __restrict__ scratch,
                      unsigned* __restrict__ counters, int batch, int hw, int c_total, int cpg,
-                     int span, int lanes_c, float eps, int swish) {
+                     int span, int lanes_c, float eps, int swish, int partial) {
   extern __shared__ __align__(16) float sm[];
   using Raw = typename VecLoad<T, VEC>::Raw;
   const int t = threadIdx.x;
@@ -781,7 +794,7 @@ gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
   const float* fsb = film_scale != nullptr ? film_scale + (size_t)b * c_total + c0 : nullptr;
   for (int j = t; j < span; j += kBwdThreads) {
-    cp_async4(gam + j, gamma + c0 + j);
+    if (gamma != nullptr) cp_async4(gam + j, gamma + c0 + j);
     if (fsb != nullptr) cp_async4(fil + j, fsb + j);
   }
   cp_async_commit();
@@ -905,9 +918,17 @@ gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     }
   }
 
+  // partial mode: this rank's channels' four sums, unweighted
+  if (last && partial) {
+    for (int j = ch0 + t; j < ch0 + nch; j += kBwdThreads)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        out[((size_t)q * batch + b) * c_total + c0 + j] = fin[q * span + j];
+  }
+
   // 4. the dy' sums of this rank's channels weighed by g = gamma (1 +
   // film_scale), one thread a channel; fixed-order group sums; A, Bx, Cx
-  if (last) {
+  if (last && !partial) {
     for (int j = ch0 + t; j < ch0 + nch; j += kBwdThreads) {
       const float g = fsb != nullptr ? gam[j] * (1.f + fil[j]) : gam[j];
       fin[2 * span + j] *= g;
@@ -955,7 +976,8 @@ cudaError_t launch_bwd_reduce(const void* x, const void* dy, const float* gamma,
                               const float* film_scale, const float* aff_a, const float* aff_b,
                               float* out, float* scratch, unsigned* counters, int batch, int hw,
                               int c_total, int cpg, float eps, int swish, int span, int runs,
-                              int cluster, int lanes_c, int smem_bytes, cudaStream_t stream) {
+                              int cluster, int lanes_c, int smem_bytes, int partial,
+                              cudaStream_t stream) {
   auto kernel = gn_bwd_reduce_kernel<T, VEC>;
   // all of the SM's shared memory, so that two rings fit: a function
   // attribute of the current device, so set once on each device
@@ -989,8 +1011,51 @@ cudaError_t launch_bwd_reduce(const void* x, const void* dy, const float* gamma,
   cfg.numAttrs = cluster > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dy), gamma, film_scale,
-      aff_a, aff_b, out, scratch, counters, batch, hw, c_total, cpg, span, lanes_c, eps, swish);
+      aff_a, aff_b, out, scratch, counters, batch, hw, c_total, cpg, span, lanes_c, eps, swish,
+      partial);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The fold of gn_bwd_reduce_kernel's step 4 on given sums: the spatial
+// shards' partial sums (4, B, C) = (sum x, sum x^2, sum dy', sum dy' x),
+// added in rank order by the caller, of a map of `hw` pixels in all. grid
+// (B), block kFinalizeThreads, dynamic shared memory 12 * groups bytes.
+// Step 4's own arithmetic: the dy' sums weighed per channel by g = gamma
+// (1 + film_scale), fixed-order group sums (sum4), mean and rstd by the fast
+// variance, then A, Bx, Cx per channel. out: (3, B, C) fp32. A few
+// thousand floats a launch: it costs its launch.
+__global__ void __launch_bounds__(kFinalizeThreads)
+gn_bwd_finalize_kernel(const float* __restrict__ sums, const float* __restrict__ gamma,
+                       const float* __restrict__ film_scale, float* __restrict__ out, int batch,
+                       int hw, int c_total, int cpg, float eps) {
+  extern __shared__ float gstat[];  // [3][groups]: rstd, Bx, Cx
+  const int b = blockIdx.x;
+  const int ng = c_total / cpg;
+  const float inv_n = 1.f / static_cast<float>(static_cast<double>(hw) * cpg);
+  const size_t bc = (size_t)batch * c_total, o = (size_t)b * c_total;
+  const float* fs = film_scale != nullptr ? film_scale + o : nullptr;
+  auto g_of = [&](int c) { return fs != nullptr ? gamma[c] * (1.f + fs[c]) : gamma[c]; };
+  for (int gi = threadIdx.x; gi < ng; gi += blockDim.x) {
+    const int c0 = gi * cpg;
+    const float g1 = sum4(cpg, [&](int j) { return sums[o + c0 + j]; });
+    const float g2 = sum4(cpg, [&](int j) { return sums[bc + o + c0 + j]; });
+    const float g3 = sum4(cpg, [&](int j) { return sums[2 * bc + o + c0 + j] * g_of(c0 + j); });
+    const float g4 = sum4(cpg, [&](int j) { return sums[3 * bc + o + c0 + j] * g_of(c0 + j); });
+    const float mean = g1 * inv_n;
+    const float rstd = rsqrtf(fmaxf(g2 * inv_n - mean * mean, 0.f) + eps);
+    const float c1 = g3 * inv_n;                      // mean_g(g dy')
+    const float c2 = rstd * (g4 * inv_n - mean * c1);  // mean_g(g dy' x^)
+    gstat[gi] = rstd;
+    gstat[ng + gi] = -rstd * rstd * c2;                  // Bx
+    gstat[2 * ng + gi] = rstd * (mean * rstd * c2 - c1);  // Cx
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
+    const int gi = c / cpg;
+    out[o + c] = gstat[gi] * g_of(c);
+    out[bc + o + c] = gstat[ng + gi];
+    out[2 * bc + o + c] = gstat[2 * ng + gi];
+  }
 }
 
 // dx = A dy' + Bx x + Cx, dy' = dy SiLU'(a x + b) when swish: the apply
@@ -1169,6 +1234,54 @@ int ddnm_gn_apply(const void* x, const void* a, const void* b, void* y, int batc
   return static_cast<int>(err);
 }
 
+// The backward reduce kernel's launch, whole (partial = 0) or partial (1);
+// see the entry points below.
+static int gn_bwd_entry(const void* x, const void* dy, const void* gamma,
+                        const void* film_scale, const void* a, const void* b, void* out,
+                        void* scratch, void* counters, int batch, int hw, int c_total,
+                        int groups, float eps, int swish, int vec, int span, int runs,
+                        int cluster, int lanes_c, int smem_bytes, int dtype, int partial,
+                        void* stream) {
+  if (groups <= 0 || c_total % groups != 0 || span <= 0 || vec <= 0 || lanes_c <= 0 ||
+      batch <= 0 || hw <= 0 || cluster <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cpg = c_total / groups;
+  const bool ok = c_total % span == 0 && span % cpg == 0 && span % vec == 0 &&
+                  lanes_c <= kBwdThreads && (lanes_c & (lanes_c - 1)) == 0 &&
+                  cluster <= kBwdMaxCluster && (cluster & (cluster - 1)) == 0 &&
+                  runs >= cluster && runs % cluster == 0 && runs <= hw &&
+                  batch <= 65535 && c_total / span <= 65535 && (!swish || (a && b)) &&
+                  (runs == cluster || (scratch && counters)) && (partial || gamma) &&
+                  smem_bytes == bwd_smem_bytes(span, vec, cpg, dtype == 0 ? 4 : 2);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const float* g = static_cast<const float*>(gamma);
+  const float* fs = static_cast<const float*>(film_scale);
+  const float* fa = static_cast<const float*>(a);
+  const float* fb = static_cast<const float*>(b);
+  float* o = static_cast<float*>(out);
+  float* sc = static_cast<float*>(scratch);
+  unsigned* cn = static_cast<unsigned*>(counters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4)
+    err = launch_bwd_reduce<float, 4>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw, c_total, cpg,
+                                      eps, swish, span, runs, cluster, lanes_c, smem_bytes,
+                                      partial, s);
+  else if (dtype == 0 && vec == 1)
+    err = launch_bwd_reduce<float, 1>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw, c_total, cpg,
+                                      eps, swish, span, runs, cluster, lanes_c, smem_bytes,
+                                      partial, s);
+  else if (dtype == 1 && vec == 8)
+    err = launch_bwd_reduce<__nv_bfloat16, 8>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw,
+                                              c_total, cpg, eps, swish, span, runs, cluster,
+                                              lanes_c, smem_bytes, partial, s);
+  else if (dtype == 1 && vec == 1)
+    err = launch_bwd_reduce<__nv_bfloat16, 1>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw,
+                                              c_total, cpg, eps, swish, span, runs, cluster,
+                                              lanes_c, smem_bytes, partial, s);
+  return static_cast<int>(err);
+}
+
 // GroupNorm backward, first pass. x, dy: (batch, hw, c_total) contiguous,
 // dtype as above; gamma: (c_total,) fp32; film_scale: (batch, c_total) fp32
 // or null; a, b: the forward's (batch, c_total) fp32 affine (read only when
@@ -1186,42 +1299,40 @@ int ddnm_gn_bwd_reduce(const void* x, const void* dy, const void* gamma, const v
                        int batch, int hw, int c_total, int groups, float eps, int swish, int vec,
                        int span, int runs, int cluster, int lanes_c, int smem_bytes, int dtype,
                        void* stream) {
-  if (groups <= 0 || c_total % groups != 0 || span <= 0 || vec <= 0 || lanes_c <= 0 ||
-      batch <= 0 || hw <= 0 || cluster <= 0)
+  return gn_bwd_entry(x, dy, gamma, film_scale, a, b, out, scratch, counters, batch, hw,
+                      c_total, groups, eps, swish, vec, span, runs, cluster, lanes_c, smem_bytes,
+                      dtype, 0, stream);
+}
+
+// The backward reduce kernel's partial mode (a spatial shard's rows): out
+// (4, batch, c_total) fp32 gets the per-channel sums of x, x^2, dy' and dy'
+// x over the hw pixels given, dy' through the SiLU' at a, b (the whole
+// map's affine) when swish; the plan, scratch and counters as
+// ddnm_gn_bwd_reduce's.
+int ddnm_gn_bwd_partial(const void* x, const void* dy, const void* a, const void* b, void* out,
+                        void* scratch, void* counters, int batch, int hw, int c_total,
+                        int groups, int swish, int vec, int span, int runs, int cluster,
+                        int lanes_c, int smem_bytes, int dtype, void* stream) {
+  return gn_bwd_entry(x, dy, nullptr, nullptr, a, b, out, scratch, counters, batch, hw,
+                      c_total, groups, 0.f, swish, vec, span, runs, cluster, lanes_c, smem_bytes,
+                      dtype, 1, stream);
+}
+
+// The finalize of the partial mode: sums (4, batch, c_total) fp32, every
+// shard's added in rank order; hw the pixels of the whole map; gamma
+// (c_total,) and film_scale (batch, c_total) or null, fp32; out (3, batch,
+// c_total) fp32 = (A, Bx, Cx), read by ddnm_gn_bwd_dx.
+int ddnm_gn_bwd_finalize(const void* sums, const void* gamma, const void* film_scale, void* out,
+                         int batch, int hw, int c_total, int groups, float eps, void* stream) {
+  if (groups <= 0 || c_total % groups != 0 || batch <= 0 || batch > 65535 || hw <= 0 ||
+      12 * groups > 48 * 1024 || sums == nullptr || gamma == nullptr || out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int cpg = c_total / groups;
-  const bool ok = c_total % span == 0 && span % cpg == 0 && span % vec == 0 &&
-                  lanes_c <= kBwdThreads && (lanes_c & (lanes_c - 1)) == 0 &&
-                  cluster <= kBwdMaxCluster && (cluster & (cluster - 1)) == 0 &&
-                  runs >= cluster && runs % cluster == 0 && runs <= hw &&
-                  batch <= 65535 && c_total / span <= 65535 && (!swish || (a && b)) &&
-                  (runs == cluster || (scratch && counters)) &&
-                  smem_bytes == bwd_smem_bytes(span, vec, cpg, dtype == 0 ? 4 : 2);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const float* g = static_cast<const float*>(gamma);
-  const float* fs = static_cast<const float*>(film_scale);
-  const float* fa = static_cast<const float*>(a);
-  const float* fb = static_cast<const float*>(b);
-  float* o = static_cast<float*>(out);
-  float* sc = static_cast<float*>(scratch);
-  unsigned* cn = static_cast<unsigned*>(counters);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && vec == 4)
-    err = launch_bwd_reduce<float, 4>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw, c_total, cpg,
-                                      eps, swish, span, runs, cluster, lanes_c, smem_bytes, s);
-  else if (dtype == 0 && vec == 1)
-    err = launch_bwd_reduce<float, 1>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw, c_total, cpg,
-                                      eps, swish, span, runs, cluster, lanes_c, smem_bytes, s);
-  else if (dtype == 1 && vec == 8)
-    err = launch_bwd_reduce<__nv_bfloat16, 8>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw,
-                                              c_total, cpg, eps, swish, span, runs, cluster,
-                                              lanes_c, smem_bytes, s);
-  else if (dtype == 1 && vec == 1)
-    err = launch_bwd_reduce<__nv_bfloat16, 1>(x, dy, g, fs, fa, fb, o, sc, cn, batch, hw,
-                                              c_total, cpg, eps, swish, span, runs, cluster,
-                                              lanes_c, smem_bytes, s);
-  return static_cast<int>(err);
+  gn_bwd_finalize_kernel<<<batch, kFinalizeThreads, 12 * groups,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sums), static_cast<const float*>(gamma),
+      static_cast<const float*>(film_scale), static_cast<float*>(out), batch, hw, c_total,
+      c_total / groups, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // GroupNorm backward, second pass. x, dy, dx: (batch, hwc / c_total,

@@ -22,8 +22,12 @@ spatial group of its process, which then holds only its block of the
 map's rows: a convolution takes its halo rows from its neighbours
 (parallel/halo.py), a GroupNorm the whole map's statistics, an attention
 the keys and values of every shard. The weights stay where they are.
-Gradients are not sharded: a sharded GroupNorm or attention with grad
-raises NotImplementedError.
+With grad (a sharded classifier under guidance) each exchange carries its
+gradient back: the halo rows' to their senders (`halo.HaloPad`), the
+GroupNorm's through the whole map's sums (`ops.ShardedGroupNormFunction`),
+the attention's dK and dV partials summed over the shards in rank order
+(`parallel.spatial.gather_shards`), so each shard's input gradient is its
+rows of the unsharded one.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from ddnm_tpu_torch.ops import AttentionFunction, GroupNormFunction, fused_attention, group_norm
+from ddnm_tpu_torch.ops.groupnorm import ShardedGroupNormFunction
 from ddnm_tpu_torch.parallel import halo
+from ddnm_tpu_torch.parallel.spatial import gather_shards
 
 __all__ = [
     "shard_spatially",
@@ -106,7 +112,10 @@ class GroupNormF32(nn.Module):
 
     `spatial` (set by `shard_spatially`): x is this process's rows of a
     map split over that group, normalised with the whole map's
-    statistics (ops.group_norm's spatial path)."""
+    statistics (ops.group_norm's spatial path; with grad
+    ops.ShardedGroupNormFunction). `replicated` (a norm that runs on
+    values every rank holds whole, as the spatial_v2 pool's): never
+    sharded."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
                  swish: bool = False):
@@ -116,6 +125,7 @@ class GroupNormF32(nn.Module):
         self.swish = swish
         self.force: str | None = None
         self.spatial = None
+        self.replicated = False
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
@@ -125,7 +135,11 @@ class GroupNormF32(nn.Module):
             nhwc = nhwc.contiguous()
         if self.spatial is not None:
             if _needs_grad(nhwc, film_scale, film_shift):
-                raise NotImplementedError(_NO_SHARDED_GRAD)
+                y = ShardedGroupNormFunction.apply(
+                    nhwc, self.weight, self.bias, film_scale, film_shift, self.num_groups,
+                    self.eps, self.swish, self.force or ("kernel" if nhwc.is_cuda else "torch"),
+                    self.spatial)
+                return y.permute(0, 3, 1, 2)
             y = group_norm(nhwc, self.weight, self.bias, num_groups=self.num_groups,
                            eps=self.eps, swish=self.swish, film_scale=film_scale,
                            film_shift=film_shift, force=self.force, spatial=self.spatial)
@@ -153,11 +167,6 @@ def nearest_upsample(x, factor: int = 2):
     return x.reshape(b, h * factor, w * factor, c)
 
 
-_NO_SHARDED_GRAD = (
-    "gradients through a spatially sharded UNet (classifier guidance under --sp > 1) are not "
-    "ported: ROADMAP.md Queue 1, guidance under --sp")
-
-
 def attention(q, k, v, scale: float, force: str | None = None, spatial=None):
     """Scaled dot-product attention over (B*, T, C) token grids, fp32
     softmax; dispatches through ops.fused_attention, or through
@@ -165,12 +174,17 @@ def attention(q, k, v, scale: float, force: str | None = None, spatial=None):
     are this process's tokens (a contiguous block of the row-major
     sequence) of a map split over that group; its queries attend to the
     keys and values of every shard, gathered in rank order (one
-    all_gather), through the kernel's Tq != Tk launch."""
+    all_gather), through the kernel's Tq != Tk launch; with grad, the
+    shard's dq is its own and its dK, dV of every key are partials, which
+    the gather's backward sums over the shards in rank order and then
+    keeps this shard's block of."""
     if spatial is not None:
+        kv = gather_shards(torch.stack([k, v]), spatial, 2, "attention", "attention_grad")
+        k, v = (t.contiguous() for t in kv.unbind(0))
         if _needs_grad(q, k, v):
-            raise NotImplementedError(_NO_SHARDED_GRAD)
-        k, v = spatial.gather(torch.stack([k, v]), 2, "attention").unbind(0)
-        return fused_attention(q, k.contiguous(), v.contiguous(), scale, force=force)
+            return AttentionFunction.apply(q, k, v, scale,
+                                           force or ("kernel" if q.is_cuda else "torch"))
+        return fused_attention(q, k, v, scale, force=force)
     if _needs_grad(q, k, v):
         return AttentionFunction.apply(q, k, v, scale,
                                        force or ("kernel" if q.is_cuda else "torch"))
@@ -213,13 +227,14 @@ def shard_spatially(model: nn.Module, spatial) -> nn.Module:
     """Attach `spatial` (a parallel.spatial.SpatialGroup; None detaches)
     to every 3x3 convolution and every module that holds a `spatial`
     attribute (the GroupNorms, the attention blocks, the DDPM downsample's
-    pad, the ADM head) of `model`, in place, as set_op_force does for
+    pad, the ADM head, the classifier's pool) of `model` but those marked
+    `replicated`, in place, as set_op_force does for
     `force`: the model then maps this process's rows of a map to its rows
     of the output. The same parameters, no copy."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d) and tuple(m.kernel_size) == (3, 3):
             _shard_conv(m, spatial)
-        elif hasattr(m, "spatial"):
+        elif hasattr(m, "spatial") and not getattr(m, "replicated", False):
             m.spatial = spatial
     return model
 

@@ -35,6 +35,17 @@ in fp32 under a bf16 classifier (the positional embedding, the spatial
 pools' Linears and norm, the adaptive pool's 1x1 conv) keep fp32 weights
 under `cast_torso` (`keep_fp32`).
 
+Under spatial shards (`shard_spatially` on a classifier: classifier
+guidance under --sp), the torso runs sharded as the UNet's does, and the
+pool heads see the whole map: the attention and adaptive pools gather
+the normed lowest map's rows (parallel.spatial.gather_rows, whose
+gradient is this rank's block), and the spatial pools add the shards'
+partial means (sum_replicated), so the logits, the loss and the
+gradients entering the torso are the same on every rank. The guidance
+hooks go through `Grid.wrap(guidance_fn=)` (classifier_guidance_from_params
+takes `spatial=`): x's rows of this rank in, the gradient's rows of every
+rank out.
+
 `forward(..., mode="encode")` returns the encoder cache of the encoder
 propagation (sampling/accel.py): (h, skips) after the middle block;
 `mode="decode", cache=(h, skips)` runs the output blocks and the head on a
@@ -60,6 +71,7 @@ from ddnm_tpu_torch.models.nn import (
     swish,
     timestep_embedding_adm,
 )
+from ddnm_tpu_torch.parallel.spatial import gather_rows, split_rows, sum_replicated
 
 __all__ = ["ADMUNet", "ADMSuperResModel", "ADMClassifier", "AttentionPool2d", "ResBlock",
            "AttentionBlock", "Downsample", "Upsample", "parse_channel_mult",
@@ -582,7 +594,9 @@ class ADMClassifier(_ADMTorso):
                   block's, concatenated; out.0 Linear, ReLU, out.2 Linear
       spatial_v2: the same features; out.0 Linear, out.1 GroupNorm + SiLU on
                   a 1 x 1 map, out.3 Linear
-    """
+
+    `spatial` (models/nn.py shard_spatially): the pools' exchange over a
+    spatial group (module docstring)."""
 
     def __init__(self, image_size: int = 256, in_channels: int = 3,
                  model_channels: int = 128, out_channels: int = 1000,
@@ -623,6 +637,8 @@ class ADMClassifier(_ADMTorso):
             else:
                 self.out = nn.ModuleList([_LinearF32(feats, 2048), _norm(2048, swish=True),
                                           nn.Identity(), _LinearF32(2048, out_channels)])
+                self.out[1].replicated = True  # on the pooled features every rank holds
+        self.spatial = None
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x, timesteps):
@@ -630,17 +646,28 @@ class ADMClassifier(_ADMTorso):
         orig_dtype = x.dtype
         h, hs = self._torso(x.to(self.dtype).permute(0, 3, 1, 2), emb)
         if self.pool.startswith("spatial"):
-            feats = torch.cat([z.to(orig_dtype).mean(dim=(2, 3)) for z in hs + [h]], dim=-1)
+            feats = torch.cat([self._mean(z.to(orig_dtype)) for z in hs + [h]], dim=-1)
+            if self.spatial is not None:
+                feats = sum_replicated(feats, self.spatial)
             feats = self.out[0](feats)
             if self.pool == "spatial":
                 return self.out[2](torch.relu(feats))
             feats = self.out[1](feats[:, :, None, None])[:, :, 0, 0]
             return self.out[3](feats)
         h = self.out[0](h.to(orig_dtype))  # norm + SiLU in the input's dtype
+        if self.spatial is not None:  # the whole map's rows on every rank
+            h = gather_rows(h, self.spatial, axis=2)
         if self.pool == "adaptive":
             h = self.out[3](h.mean(dim=(2, 3), keepdim=True))
             return h.reshape(h.shape[0], -1)
         return self.out[2](h)
+
+    def _mean(self, z):
+        """The mean over the map of an NCHW block; sharded, this shard's sum
+        over the whole map's pixel count (the shards' add to the mean)."""
+        if self.spatial is None:
+            return z.mean(dim=(2, 3))
+        return z.sum(dim=(2, 3)) / (z.shape[2] * self.spatial.size * z.shape[3])
 
     @classmethod
     def from_config(cls, classifier_config, image_size: int) -> "ADMClassifier":
@@ -673,10 +700,15 @@ def _frozen(classifier):
     return classifier
 
 
-def _log_prob_grad(classifier_apply, x, t, classes):
+def _log_prob_grad(classifier_apply, x, t, classes, spatial=None):
     """grad_x sum_i log softmax(classifier(x_i, t_i))[classes_i], fp32 like
     x. The logits and log_softmax stay in the classifier's dtype, as in
-    JAX."""
+    JAX. `spatial`: the classifier is sharded over that group; the
+    gradient is taken with respect to this rank's rows of x and its rows
+    gathered back."""
+    if spatial is not None:
+        grad = _log_prob_grad(classifier_apply, split_rows(x, spatial), t, classes)
+        return gather_rows(grad, spatial)
     with torch.enable_grad():
         x_in = x.detach().requires_grad_(True)
         logits = classifier_apply(x_in, t)
@@ -692,25 +724,30 @@ def classifier_guidance_fn(classifier, classes, scale: float):
     hq_demo/main.py:87-96), the samplers' guidance hook: guidance(x, t,
     at=None) on NHWC x (fp32) and timesteps t (B,). `classifier(x, t)`
     gives the logits (an ADMClassifier, which is set to eval and frozen);
-    `classes` is one label or one per image."""
+    `classes` is one label or one per image. A classifier sharded over a
+    spatial group takes x's rows of its rank: wrap the hook with
+    `Grid.wrap(guidance_fn=, classifier=)`, which gathers the gradient."""
     classifier = _frozen(classifier)
 
     def guidance(x, t, at=None):
         return _log_prob_grad(classifier, x, t, classes) * scale
 
+    guidance.classifier = classifier  # its lowest grid, for Grid.wrap's check
     return guidance
 
 
-def classifier_guidance_from_params(classifier_apply, scale: float):
+def classifier_guidance_from_params(classifier_apply, scale: float, spatial=None):
     """The guidance hook with per-example labels read from run_params
     (ddnm_tpu `classifier_guidance_from_params`): guidance(run_params, x,
     t, at=None) with run_params["classifier"] (handed to
     classifier_apply(params, x, t)) and run_params["classes"] (B,), so one
-    hook serves any class mix."""
+    hook serves any class mix. `spatial`: the classifier is sharded over
+    that group (shard_spatially); x is the whole tile, and the gradient
+    comes back whole on every rank."""
 
     def guidance(run_params, x, t, at=None):
         params = _frozen(run_params["classifier"])
         return _log_prob_grad(lambda z, s: classifier_apply(params, z, s), x, t,
-                              run_params["classes"]) * scale
+                              run_params["classes"], spatial) * scale
 
     return guidance

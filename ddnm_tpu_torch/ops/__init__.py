@@ -25,7 +25,9 @@ launches, so a run can show that it went through the kernels.
 GroupNormFunction and AttentionFunction are group_norm and fused_attention
 with a backward (dx of the GroupNorm; dq, dk, dv of attention), which runs
 hand-written backward kernels of their own on a card (gn_bwd_reduce,
-gn_bwd_dx; attn_bwd_dq, attn_bwd_dkdv). They have no TPU counterpart: the
+gn_bwd_dx; attn_bwd_dq, attn_bwd_dkdv); ShardedGroupNormFunction is the
+GroupNorm of a spatial shard with its gradient (gn_bwd_reduce's partial
+mode and gn_bwd_finalize, then gn_bwd_dx). They have no TPU counterpart: the
 JAX package takes the classifier-guidance gradient with jax.grad through
 its XLA GroupNorm and attention.
 """
@@ -47,7 +49,9 @@ __all__ = ["AttentionFunction", "GroupNormFunction", "fused_attention", "fused_g
 _TABLES = (_groupnorm.LAUNCHES, _attention.LAUNCHES, _fwht.LAUNCHES,
            _fused_gn_conv.LAUNCHES)
 # the spatial path's kernels (the stats kernel's partial mode, the finalize,
-# attention of a shard's queries against gathered keys), counted apart
+# attention of a shard's queries against gathered keys, and in the gradient
+# the backward reduce kernel's partial mode, its finalize and the attention
+# backward against gathered keys), counted apart
 _SPATIAL_TABLES = (_groupnorm.SPATIAL_LAUNCHES, _attention.SPATIAL_LAUNCHES)
 
 
@@ -58,7 +62,9 @@ def launch_counts() -> dict[str, int]:
 
 def spatial_launch_counts() -> dict[str, int]:
     """Launches of the spatial path's kernel wrappers since the last reset:
-    groupnorm_partial, groupnorm_finalize, attention_gathered."""
+    groupnorm_partial, groupnorm_finalize, attention_gathered, and the
+    gradient's gn_bwd_partial, gn_bwd_finalize, attn_bwd_dq_gathered and
+    attn_bwd_dkdv_gathered."""
     return {name: n for table in _SPATIAL_TABLES for name, n in table.items()}
 
 

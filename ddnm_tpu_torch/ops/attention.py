@@ -32,6 +32,12 @@ fp32 gates. Head dimensions 32, 64 and 128 (`_bwd_plan`). What holds the
 bf16 pair back (2.3x SDPA's autograd backward at (32, 1024, 64) on an
 H100): registers bound the blocks an SM, every warp reads the whole
 streamed tile for its 16 rows, and the dq pass sweeps K twice (the LSE).
+
+The backward takes Tq != Tk as the forward does (a spatial shard's queries
+against the gathered keys, under grad): both kernels launch through
+`ddnm_attention_bwd_dq_kv` / `ddnm_attention_bwd_dkdv_kv` and count in
+`SPATIAL_LAUNCHES["attn_bwd_dq_gathered"]` / `["attn_bwd_dkdv_gathered"]`.
+Their dk and dv are then this shard's partials of every key's gradient.
 """
 
 from __future__ import annotations
@@ -45,8 +51,10 @@ from ddnm_tpu_torch.ops import _build
 __all__ = ["fused_attention", "AttentionFunction", "LAUNCHES"]
 
 LAUNCHES = {"attention": 0, "attn_bwd_dq": 0, "attn_bwd_dkdv": 0}
-# the forward with Tq != Tk (a spatial shard's queries, every shard's keys)
-SPATIAL_LAUNCHES = {"attention_gathered": 0}
+# the forward and the two backward passes with Tq != Tk (a spatial shard's
+# queries, every shard's keys)
+SPATIAL_LAUNCHES = {"attention_gathered": 0, "attn_bwd_dq_gathered": 0,
+                    "attn_bwd_dkdv_gathered": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 512  # kMaxC in csrc/attention.cu
@@ -231,48 +239,56 @@ def _bwd_mma_smem(C: int, dkdv: bool) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_plan(B: int, T: int, C: int, dtype: torch.dtype) -> dict:
-    """The two backward kernels' launches for (B, T, C) in `dtype`: kernel,
-    threads, and each kernel's grid and dynamic shared-memory bytes (fp32:
-    rows padded to C + 1 floats, the kernels' bwd_*_smem_floats; bf16:
-    `_bwd_mma_smem`, with the rows of its streamed tiles and whether they
-    come by TMA). Raises ValueError for a shape they do not take."""
+def _bwd_plan(B: int, T: int, C: int, dtype: torch.dtype, Tk: int | None = None) -> dict:
+    """The two backward kernels' launches for (B, T, C) queries against (B,
+    Tk, C) keys and values (Tk = T by default) in `dtype`: kernel, threads,
+    and each kernel's grid (dq by the queries, dkdv by the keys) and
+    dynamic shared-memory bytes (fp32: rows padded to C + 1 floats, the
+    kernels' bwd_*_smem_floats; bf16: `_bwd_mma_smem`, with the rows of its
+    streamed tiles and whether they come by TMA). Raises ValueError for a
+    shape they do not take."""
+    Tk = T if Tk is None else Tk
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"attention backward takes float32/bfloat16, got {dtype}")
     if C not in BWD_HEAD_DIMS:
         raise ValueError(f"attention backward takes C in {BWD_HEAD_DIMS}, got {C}")
     if B < 1 or B > 65535:  # CUDA grid y limit
         raise ValueError(f"attention backward takes 1 <= B* <= 65535, got {B}")
-    if T < 1:
-        raise ValueError(f"attention backward takes T >= 1, got {T}")
+    if T < 1 or Tk < 1:
+        raise ValueError(f"attention backward takes T >= 1, got {T} queries and {Tk} keys")
     if dtype == torch.bfloat16:
-        grid = (-(-T // _BWD_ROWS), B)
         return {"kernel": "mma", "threads": _BWD_MMA_THREADS, "tma": C % 64 == 0,
-                **{name: {"grid": grid, "smem": _bwd_mma_smem(C, dkdv),
+                **{name: {"grid": (-(-rows // _BWD_ROWS), B), "smem": _bwd_mma_smem(C, dkdv),
                           "stream_rows": _bwd_stream_rows(C, dkdv)}
-                   for name, dkdv in (("dq", False), ("dkdv", True))}}
+                   for name, dkdv, rows in (("dq", False, T), ("dkdv", True, Tk))}}
     dq = 4 * ((2 * _BWD_Q + 2 * _BWD_K) * (C + 1) + _BWD_Q * (_BWD_K + 1) + _BWD_Q)
     dkdv = 4 * ((2 * _BWD_KV + 2 * _BWD_QT) * (C + 1) + 2 * _BWD_KV * (_BWD_QT + 1)
                 + 2 * _BWD_QT)
     return {"kernel": "fma", "threads": _BWD_THREADS,
             "dq": {"grid": (-(-T // _BWD_Q), B), "smem": dq},
-            "dkdv": {"grid": (-(-T // _BWD_KV), B), "smem": dkdv}}
+            "dkdv": {"grid": (-(-Tk // _BWD_KV), B), "smem": dkdv}}
 
 
-def _check_bwd(tensors, names):
-    """The backward plan of the tensors, which must share q's shape, dtype
-    and device and be contiguous; and the tensors themselves, each copied
-    where the bf16 kernels' 16-byte copies need it (`_aligned`)."""
-    shape, dtype, dev = tensors[0].shape, tensors[0].dtype, tensors[0].device
-    if not tensors[0].is_cuda:
+def _check_bwd(queries, keys):
+    """The backward plan and the tensors: `queries` (name, tensor) of q's
+    shape (B, Tq, C) and `keys` of k's (B, Tk, C), all of one dtype and
+    device and contiguous; each copied where the bf16 kernels' 16-byte
+    copies need it (`_aligned`)."""
+    q, k = queries[0][1], keys[0][1]
+    shape, dtype, dev = q.shape, q.dtype, q.device
+    if not q.is_cuda:
         raise ValueError("the attention backward kernels take CUDA tensors only")
-    for t, name in zip(tensors, names):
-        if t.shape != shape or t.dtype != dtype or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"attention backward: {name} must be a contiguous tensor of "
-                             f"q's shape {tuple(shape)}, dtype and device")
-    if len(shape) != 3:
-        raise ValueError(f"attention backward takes (B, T, C), got {tuple(shape)}")
-    plan = _bwd_plan(*shape, dtype)
+    if len(shape) != 3 or k.ndim != 3 or (k.shape[0], k.shape[2]) != (shape[0], shape[2]):
+        raise ValueError(f"attention backward takes q (B, Tq, C) and k (B, Tk, C), got "
+                         f"{tuple(shape)}, {tuple(k.shape)}")
+    for group, ref in ((queries, "q"), (keys, "k")):
+        want = shape if ref == "q" else k.shape
+        for name, t in group:
+            if t.shape != want or t.dtype != dtype or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"attention backward: {name} must be a contiguous tensor of "
+                                 f"{ref}'s shape {tuple(want)}, q's dtype and device")
+    plan = _bwd_plan(*shape, dtype, k.shape[1])
+    tensors = [t for _, t in queries + keys]
     if plan["kernel"] == "mma":
         tensors = [_aligned(t) for t in tensors]
     return plan, tensors
@@ -280,40 +296,62 @@ def _check_bwd(tensors, names):
 
 def _attn_bwd_dq(q, k, v, o, do, scale):
     """(dq, lse, dsum): one launch of the dq kernel; lse and dsum are the
-    (B, T) fp32 rows the dkdv kernel reads."""
-    plan, (q, k, v, o, do) = _check_bwd((q, k, v, o, do), ("q", "k", "v", "o", "do"))
+    (B, Tq) fp32 rows the dkdv kernel reads."""
+    plan, (q, o, do, k, v) = _check_bwd((("q", q), ("o", o), ("do", do)), (("k", k), ("v", v)))
     B, T, C = q.shape
+    Tk = k.shape[1]
     lib = _build.load_library()
     dq = torch.empty_like(q)
     rows = q.new_empty((2, B, T), dtype=torch.float32)
     dev = q.device
     with _build.device_guard(dev):
-        _build.check(lib.ddnm_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(), B, T, C, float(scale),
-            _DTYPE_CODE[q.dtype], plan["dq"]["smem"], _build.raw_stream(dev)),
-            "ddnm_attention_bwd_dq")
-    _build.count_launch(LAUNCHES, "attn_bwd_dq")
+        if Tk == T:
+            _build.check(lib.ddnm_attention_bwd_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                dq.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(), B, T, C, float(scale),
+                _DTYPE_CODE[q.dtype], plan["dq"]["smem"], _build.raw_stream(dev)),
+                "ddnm_attention_bwd_dq")
+        else:
+            _build.check(lib.ddnm_attention_bwd_dq_kv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                dq.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(), B, T, Tk, C,
+                float(scale), _DTYPE_CODE[q.dtype], plan["dq"]["smem"], _build.raw_stream(dev)),
+                "ddnm_attention_bwd_dq_kv")
+    if Tk == T:
+        _build.count_launch(LAUNCHES, "attn_bwd_dq")
+    else:
+        _build.count_launch(SPATIAL_LAUNCHES, "attn_bwd_dq_gathered")
     return dq, rows[0], rows[1]
 
 
 def _attn_bwd_dkdv(q, k, v, do, lse, dsum, scale):
     """(dk, dv): one launch of the dkdv kernel."""
-    plan, (q, k, v, do) = _check_bwd((q, k, v, do), ("q", "k", "v", "do"))
+    plan, (q, do, k, v) = _check_bwd((("q", q), ("do", do)), (("k", k), ("v", v)))
     B, T, C = q.shape
+    Tk = k.shape[1]
     for t in (lse, dsum):
         if t.shape != (B, T) or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("attention backward: lse and dsum are contiguous (B, T) fp32")
+            raise ValueError("attention backward: lse and dsum are contiguous (B, Tq) fp32")
     lib = _build.load_library()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dev = q.device
     with _build.device_guard(dev):
-        _build.check(lib.ddnm_attention_bwd_dkdv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, C, float(scale),
-            _DTYPE_CODE[q.dtype], plan["dkdv"]["smem"], _build.raw_stream(dev)),
-            "ddnm_attention_bwd_dkdv")
-    _build.count_launch(LAUNCHES, "attn_bwd_dkdv")
+        if Tk == T:
+            _build.check(lib.ddnm_attention_bwd_dkdv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, C, float(scale),
+                _DTYPE_CODE[q.dtype], plan["dkdv"]["smem"], _build.raw_stream(dev)),
+                "ddnm_attention_bwd_dkdv")
+        else:
+            _build.check(lib.ddnm_attention_bwd_dkdv_kv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, Tk, C, float(scale),
+                _DTYPE_CODE[q.dtype], plan["dkdv"]["smem"], _build.raw_stream(dev)),
+                "ddnm_attention_bwd_dkdv_kv")
+    if Tk == T:
+        _build.count_launch(LAUNCHES, "attn_bwd_dkdv")
+    else:
+        _build.count_launch(SPATIAL_LAUNCHES, "attn_bwd_dkdv_gathered")
     return dk, dv
 
 

@@ -39,6 +39,18 @@ combine their sums through distributed shared memory; its launch plan is
 kernel's layout), each beside its plain version (`_torch_bwd_reduce`,
 `_torch_bwd_dx`); `_torch_group_norm_backward` is the whole formula in
 plain PyTorch.
+
+`ShardedGroupNormFunction` is the spatial path with that gradient (the
+guidance gradient under spatial shards). Its forward is the spatial
+forward above, saving the whole map's affine; its backward needs the
+whole map's sums too: the backward reduce kernel in its partial mode
+(`_bwd_partial`, plain `_torch_bwd_partial`) sums this shard's x, x^2, dy'
+and dy' x per channel (dy' through the SiLU' at the whole map's a, b), the
+group adds every shard's (4, B, C) sums in rank order (one all_gather),
+`gn_bwd_finalize_kernel` folds them into the coefficients of dx with the
+reduce kernel's own arithmetic (`_bwd_finalize`, plain
+`_torch_bwd_finalize`), and `gn_bwd_dx` runs on the shard's rows. Those
+two launches count in `SPATIAL_LAUNCHES` too.
 """
 
 from __future__ import annotations
@@ -50,12 +62,14 @@ import torch
 
 from ddnm_tpu_torch.ops import _build
 
-__all__ = ["group_norm", "GroupNormFunction", "LAUNCHES"]
+__all__ = ["group_norm", "GroupNormFunction", "ShardedGroupNormFunction", "LAUNCHES"]
 
 # launches of each kernel wrapper since the last reset (ops.reset_launch_counts)
 LAUNCHES = {"groupnorm_stats": 0, "groupnorm_apply": 0, "gn_bwd_reduce": 0, "gn_bwd_dx": 0}
-# the spatial path's: the stats kernel's partial mode and the finalize
-SPATIAL_LAUNCHES = {"groupnorm_partial": 0, "groupnorm_finalize": 0}
+# the spatial path's: the stats kernel's partial mode and the finalize, and
+# in the gradient the backward reduce kernel's partial mode and its finalize
+SPATIAL_LAUNCHES = {"groupnorm_partial": 0, "groupnorm_finalize": 0, "gn_bwd_partial": 0,
+                    "gn_bwd_finalize": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -370,20 +384,26 @@ def _kernel_group_norm(x, scale, bias, num_groups, eps, swish,
     return _apply(x, a, b, swish)
 
 
-def _sharded_group_norm(x, scale, bias, num_groups, eps, swish, film_scale, film_shift,
-                        spatial, mode):
-    """GroupNorm of one spatial shard of a map (module docstring): partial
-    sums, every shard's added in rank order, the finalize, the apply."""
+def _sharded_affine(x, scale, bias, num_groups, eps, film_scale, film_shift, spatial, mode):
+    """The whole map's (a, b) of one spatial shard's rows x: partial sums,
+    every shard's added in rank order, the finalize."""
     B, H, W, C = x.shape
     hw = H * W * spatial.size
     if mode == "kernel":
         sums = spatial.sum_shards(_stats_partial(x, num_groups))
-        a, b = _finalize(sums, hw, scale, bias, num_groups, eps, film_scale, film_shift)
-        return _apply(x, a, b, swish)
+        return _finalize(sums, hw, scale, bias, num_groups, eps, film_scale, film_shift)
     sums = spatial.sum_shards(_torch_stats_partial(x))
-    a, b = _torch_affine_from_sums(sums, hw, scale, bias, num_groups, eps, film_scale,
+    return _torch_affine_from_sums(sums, hw, scale, bias, num_groups, eps, film_scale,
                                    film_shift)
-    return _torch_apply(x, a, b, swish)
+
+
+def _sharded_group_norm(x, scale, bias, num_groups, eps, swish, film_scale, film_shift,
+                        spatial, mode):
+    """GroupNorm of one spatial shard of a map (module docstring): partial
+    sums, every shard's added in rank order, the finalize, the apply."""
+    a, b = _sharded_affine(x, scale, bias, num_groups, eps, film_scale, film_shift, spatial,
+                           mode)
+    return _apply(x, a, b, swish) if mode == "kernel" else _torch_apply(x, a, b, swish)
 
 
 def group_norm(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
@@ -422,31 +442,47 @@ def _silu_grad(u, dtype):
     return sig * (1.0 + f * (1.0 - sig))
 
 
-def _torch_bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None,
-                      film_scale=None):
-    """The per-(B, C) fp32 coefficients (3, B, C) of dx = A dy' + Bx x + Cx
-    (`gn_bwd_reduce_kernel`): dy' is dy through the SiLU's derivative at
-    a x + b when `swish`; mean and rstd are recomputed from x (the fast
-    variance, as the forward), g = scale (1 + film_scale), and
-    dx = rstd (g dy' - mean_g(g dy') - x^ mean_g(g dy' x^))."""
-    B, H, W, C = x.shape
+def _torch_bwd_partial(x, dy, swish, a=None, b=None):
+    """(4, B, C) fp32 per-channel sums over H*W of x, x^2, dy' and dy' x
+    (the backward reduce kernel's partial mode): dy' is dy through the
+    SiLU's derivative at a x + b when `swish`."""
     xf, d = _wide(x), _wide(dy)
     if swish:
         d = d * _silu_grad(xf * a[:, None, None, :] + b[:, None, None, :], x.dtype)
-    g = scale.to(xf.dtype)[None].expand(B, C)
+    return torch.stack([xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2)), d.sum(dim=(1, 2)),
+                        (d * xf).sum(dim=(1, 2))])
+
+
+def _torch_bwd_finalize(sums, hw, scale, num_groups, eps, film_scale=None):
+    """The (3, B, C) coefficients of dx = A dy' + Bx x + Cx from (4, B, C)
+    per-channel sums (`_torch_bwd_partial`'s) over a map of `hw` pixels
+    (gn_bwd_finalize_kernel): mean and rstd from the sums of x (the fast
+    variance, as the forward), g = scale (1 + film_scale), and
+    dx = rstd (g dy' - mean_g(g dy') - x^ mean_g(g dy' x^))."""
+    _, B, C = sums.shape
+    g = scale.to(sums.dtype)[None].expand(B, C)
     if film_scale is not None:
-        g = g * (1.0 + film_scale.to(xf.dtype))
+        g = g * (1.0 + film_scale.to(sums.dtype))
     rep = C // num_groups
-    n = H * W * rep
+    n = hw * rep
     group = lambda t: t.reshape(B, num_groups, rep).sum(-1)
-    mean = group(xf.sum(dim=(1, 2))) / n
-    var = torch.clamp(group((xf * xf).sum(dim=(1, 2))) / n - mean * mean, min=0.0)
+    mean = group(sums[0]) / n
+    var = torch.clamp(group(sums[1]) / n - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
-    c1 = group(g * d.sum(dim=(1, 2))) / n
-    c2 = rstd * (group(g * (d * xf).sum(dim=(1, 2))) / n - mean * c1)
+    c1 = group(g * sums[2]) / n
+    c2 = rstd * (group(g * sums[3]) / n - mean * c1)
     per_c = lambda t: torch.repeat_interleave(t, rep, dim=1)
     return torch.stack([per_c(rstd) * g, per_c(-rstd * rstd * c2),
                         per_c(rstd * (mean * rstd * c2 - c1))])
+
+
+def _torch_bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None,
+                      film_scale=None):
+    """The per-(B, C) fp32 coefficients (3, B, C) of dx = A dy' + Bx x + Cx
+    (`gn_bwd_reduce_kernel`): the partial sums of the whole map, folded."""
+    B, H, W, C = x.shape
+    return _torch_bwd_finalize(_torch_bwd_partial(x, dy, swish, a, b), H * W, scale,
+                               num_groups, eps, film_scale)
 
 
 def _torch_bwd_dx(x, dy, coef, swish, a=None, b=None):
@@ -515,8 +551,11 @@ def _bwd_reduce_layout(B: int, HW: int, C: int, cpg: int, elem_size: int, vec: i
 
 @functools.lru_cache(maxsize=256)
 def _bwd_reduce_plan(B: int, HW: int, C: int, G: int, elem_size: int,
-                     aligned: bool = True, sms: int = 132) -> dict:
-    """The backward reduce kernel's launch for (B, H*W, C) with G groups.
+                     aligned: bool = True, sms: int = 132, partial: bool = False) -> dict:
+    """The backward reduce kernel's launch for (B, H*W, C) with G groups;
+    `partial`: its partial mode (a spatial shard's sums), the same launch
+    with `out_rows` 4 per-(B, C) rows of output (sums of x, x^2, dy', dy'
+    x) in place of 3 (A, Bx, Cx).
 
     Channels go 16 bytes a load (`vec`; 1 where x or dy is off 16 bytes or
     C is not a multiple), 256 threads a block: `lanes_c` channel lanes
@@ -584,12 +623,12 @@ def _bwd_reduce_plan(B: int, HW: int, C: int, G: int, elem_size: int,
             if runs < 2:
                 runs = cluster = 1
     return {**_bwd_reduce_layout(B, HW, C, cpg, elem_size, vec, span, runs, cluster),
-            "enough_work": enough}
+            "enough_work": enough, "out_rows": 4 if partial else 3}
 
 
-def _bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None, film_scale=None):
-    """The (3, B, C) fp32 coefficients of dx: one launch of the backward
-    reduce kernel."""
+def _bwd_launch(x, dy, scale, num_groups, eps, swish, a, b, film_scale, partial):
+    """One launch of the backward reduce kernel, whole (the (3, B, C)
+    coefficients of dx) or in its partial mode (the (4, B, C) sums)."""
     _check_input(x, num_groups)
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError("the GroupNorm backward takes a contiguous dy of x's shape and dtype")
@@ -597,30 +636,80 @@ def _bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None, film_scale
     dev = x.device
     aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
     plan = _bwd_reduce_plan(B, H * W, C, num_groups, x.element_size(), aligned,
-                            _build.sm_count(dev))
+                            _build.sm_count(dev), partial)
     lib = _build.load_library()
+    if not partial:
+        scale = _vec(scale, (C,), dev)
+        if film_scale is not None:
+            film_scale = _vec(film_scale, (B, C), dev)
+    if swish:
+        a, b = _vec(a, (B, C), dev), _vec(b, (B, C), dev)
+    rows = plan["out_rows"]
+    if plan["scratch"]:
+        buf = x.new_empty(rows * B * C + plan["scratch"], dtype=torch.float32)
+        out = buf[:rows * B * C].view(rows, B, C)
+        scratch, counters = buf.data_ptr() + 4 * rows * B * C, _counters(dev, plan["counters"])
+    else:
+        out = x.new_empty((rows, B, C), dtype=torch.float32)
+        scratch = counters = None
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    tail = (int(bool(swish)), plan["vec"], plan["span"], plan["runs"], plan["cluster"],
+            plan["lanes_c"], plan["smem"], _DTYPE_CODE[x.dtype], _build.raw_stream(dev))
+    counts = counters.data_ptr() if counters is not None else None
+    with _build.device_guard(dev):
+        if partial:
+            _build.check(lib.ddnm_gn_bwd_partial(
+                x.data_ptr(), dy.data_ptr(), ptr(a) if swish else None,
+                ptr(b) if swish else None, out.data_ptr(), scratch, counts, B, H * W, C,
+                num_groups, *tail), "ddnm_gn_bwd_partial")
+        else:
+            _build.check(lib.ddnm_gn_bwd_reduce(
+                x.data_ptr(), dy.data_ptr(), scale.data_ptr(), ptr(film_scale),
+                ptr(a) if swish else None, ptr(b) if swish else None, out.data_ptr(), scratch,
+                counts, B, H * W, C, num_groups, float(eps), *tail), "ddnm_gn_bwd_reduce")
+    return out
+
+
+def _bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None, film_scale=None):
+    """The (3, B, C) fp32 coefficients of dx: one launch of the backward
+    reduce kernel."""
+    out = _bwd_launch(x, dy, scale, num_groups, eps, swish, a, b, film_scale, False)
+    _build.count_launch(LAUNCHES, "gn_bwd_reduce")
+    return out
+
+
+def _bwd_partial(x, dy, num_groups, swish, a=None, b=None):
+    """(4, B, C) fp32 per-channel sums of x, x^2, dy' and dy' x over this
+    shard's H*W: one launch of the backward reduce kernel in its partial
+    mode (the same plan)."""
+    out = _bwd_launch(x, dy, None, num_groups, 0.0, swish, a, b, None, True)
+    _build.count_launch(SPATIAL_LAUNCHES, "gn_bwd_partial")
+    return out
+
+
+def _bwd_finalize(sums, hw, scale, num_groups, eps, film_scale=None):
+    """The (3, B, C) fp32 coefficients of dx from the shards' added (4, B,
+    C) sums over a map of `hw` pixels: one launch of the backward finalize
+    kernel."""
+    if not sums.is_cuda:
+        raise ValueError("the GroupNorm backward finalize kernel takes CUDA tensors only")
+    _, B, C = sums.shape
+    if C % num_groups or not 1 <= B <= 65535 or 12 * num_groups > 48 * 1024:
+        raise ValueError(f"GroupNorm backward finalize takes (4, B <= 65535, C) sums with "
+                         f"C % G == 0, got {tuple(sums.shape)} and {num_groups} groups")
+    dev = sums.device
+    sums = _vec(sums, (4, B, C), dev)
     scale = _vec(scale, (C,), dev)
     if film_scale is not None:
         film_scale = _vec(film_scale, (B, C), dev)
-    if swish:
-        a, b = _vec(a, (B, C), dev), _vec(b, (B, C), dev)
-    if plan["scratch"]:
-        buf = x.new_empty(3 * B * C + plan["scratch"], dtype=torch.float32)
-        out = buf[:3 * B * C].view(3, B, C)
-        scratch, counters = buf.data_ptr() + 12 * B * C, _counters(dev, plan["counters"])
-    else:
-        out = x.new_empty((3, B, C), dtype=torch.float32)
-        scratch = counters = None
-    ptr = lambda t: t.data_ptr() if t is not None else None
+    lib = _build.load_library()
+    out = sums.new_empty((3, B, C))
     with _build.device_guard(dev):
-        _build.check(lib.ddnm_gn_bwd_reduce(
-            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), ptr(film_scale),
-            ptr(a) if swish else None, ptr(b) if swish else None, out.data_ptr(), scratch,
-            counters.data_ptr() if counters is not None else None, B, H * W, C, num_groups,
-            float(eps), int(bool(swish)), plan["vec"], plan["span"], plan["runs"],
-            plan["cluster"], plan["lanes_c"], plan["smem"], _DTYPE_CODE[x.dtype],
-            _build.raw_stream(dev)), "ddnm_gn_bwd_reduce")
-    _build.count_launch(LAUNCHES, "gn_bwd_reduce")
+        _build.check(lib.ddnm_gn_bwd_finalize(
+            sums.data_ptr(), scale.data_ptr(),
+            film_scale.data_ptr() if film_scale is not None else None, out.data_ptr(), B,
+            int(hw), C, num_groups, float(eps), _build.raw_stream(dev)), "ddnm_gn_bwd_finalize")
+    _build.count_launch(SPATIAL_LAUNCHES, "gn_bwd_finalize")
     return out
 
 
@@ -682,3 +771,48 @@ class GroupNormFunction(torch.autograd.Function):
             dx = _torch_group_norm_backward(x, dy.to(x.dtype), scale, bias, num_groups, eps,
                                             swish, film_scale, film_shift)
         return dx, None, None, None, None, None, None, None, None
+
+
+class ShardedGroupNormFunction(torch.autograd.Function):
+    """GroupNormFunction over one spatial shard's rows of a map split over
+    `spatial` (module docstring): apply(x, scale, bias, film_scale,
+    film_shift, num_groups, eps, swish, mode, spatial). The forward is
+    `group_norm(spatial=)`; the backward sums the shards' partial sums of
+    x, x^2, dy' and dy' x in rank order (one all_gather, counted under
+    "groupnorm_grad") and folds them, so that each shard's dx is its rows
+    of the whole map's. Only x may require grad."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, film_scale, film_shift, num_groups, eps, swish, mode,
+                spatial):
+        if any(t is not None and t.requires_grad
+               for t in (scale, bias, film_scale, film_shift)):
+            raise ValueError("ShardedGroupNormFunction gives the gradient of x only: the "
+                             "scale, bias and FiLM must not require grad")
+        if mode not in ("kernel", "torch"):
+            raise ValueError(f"mode must be 'kernel' or 'torch', got {mode!r}")
+        a, b = _sharded_affine(x, scale, bias, num_groups, eps, film_scale, film_shift, spatial,
+                               mode)
+        y = _apply(x, a, b, swish) if mode == "kernel" else _torch_apply(x, a, b, swish)
+        ctx.save_for_backward(x, scale, film_scale, a, b)
+        ctx.conf = (num_groups, eps, swish, mode, spatial)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        num_groups, eps, swish, mode, spatial = ctx.conf
+        x, scale, film_scale, a, b = ctx.saved_tensors
+        B, H, W, C = x.shape
+        hw = H * W * spatial.size
+        if mode == "kernel":
+            dy = dy.to(x.dtype).contiguous()
+            sums = spatial.sum_shards(_bwd_partial(x, dy, num_groups, swish, a, b),
+                                      "groupnorm_grad")
+            coef = _bwd_finalize(sums, hw, scale, num_groups, eps, film_scale)
+            dx = _bwd_dx(x, dy, coef, swish, a, b)
+        else:
+            dy = dy.to(x.dtype)
+            sums = spatial.sum_shards(_torch_bwd_partial(x, dy, swish, a, b), "groupnorm_grad")
+            coef = _torch_bwd_finalize(sums, hw, scale, num_groups, eps, film_scale)
+            dx = _torch_bwd_dx(x, dy, coef, swish, a, b)
+        return dx, None, None, None, None, None, None, None, None, None

@@ -24,27 +24,33 @@ from ddnm_tpu_torch.parallel.multihost import (
     process_subset,
 )
 from ddnm_tpu_torch.parallel.spatial import (
+    BACKWARD_COLLECTIVES,
     COLLECTIVES,
     SPATIAL_AXIS,
     Grid,
     SpatialGroup,
     gather_rows,
+    gather_shards,
     grid_sampler,
     make_mesh_2d,
     reset_collective_counts,
     shard_tiles,
     split_rows,
+    sum_replicated,
 )
 
 __all__ = [
+    "BACKWARD_COLLECTIVES",
     "COLLECTIVES",
     "DATA_AXIS",
     "Grid",
     "SpatialGroup",
     "gather_rows",
+    "gather_shards",
     "grid_sampler",
     "reset_collective_counts",
     "split_rows",
+    "sum_replicated",
     "Mesh",
     "Replicas",
     "SPATIAL_AXIS",

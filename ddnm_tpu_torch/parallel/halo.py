@@ -17,6 +17,17 @@ which every backend takes); `edge_rows`, `neighbour_rows` and `apply` are
 what each shard sends, what it takes from the gathered rows, and the
 concatenation. `pad` is the three together. Tensors are NCHW (the UNets'
 layout, channels_last in memory), rows on axis 2.
+
+The gradient (classifier guidance under spatial shards): where x requires
+grad, `pad` runs as `HaloPad`, whose backward returns each halo row's
+gradient to the shard that sent the row. A shard's gradient of its padded
+map splits into its own rows' and its halo rows' (`halo_grads`); one
+all_gather of every shard's halo-row gradients (counted under
+"halo_grad"), and each shard adds the gradients of the rows it sent to
+its edge rows (`add_sent_grads`): the shard above's gradient of its rows
+below onto its first `below` rows, the shard below's gradient of its rows
+above onto its last `above` rows. The zero rows at the image's edges were
+sent by no one and take no gradient.
 """
 
 from __future__ import annotations
@@ -25,7 +36,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["rows_needed", "edge_rows", "neighbour_rows", "apply", "exchange", "pad"]
+__all__ = ["rows_needed", "edge_rows", "neighbour_rows", "apply", "exchange", "pad",
+           "halo_grads", "add_sent_grads", "HaloPad"]
 
 # (stride, padding) of a 3x3 convolution -> (rows above, rows below) it needs
 _HALO = {(1, 1): (1, 1), (2, 1): (1, 0), (2, 0): (0, 1)}
@@ -85,5 +97,52 @@ def exchange(x: torch.Tensor, spatial, above: int, below: int
 
 
 def pad(x: torch.Tensor, spatial, above: int, below: int) -> torch.Tensor:
-    """x with its neighbours' halo rows (zeros at the image's edges)."""
+    """x with its neighbours' halo rows (zeros at the image's edges); with
+    a gradient (`HaloPad`) where grad is on and x requires it."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return HaloPad.apply(x, spatial, above, below)
     return apply(x, *exchange(x, spatial, above, below))
+
+
+def halo_grads(g: torch.Tensor, above: int, below: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gradient of the shard's own rows, what it sends back) from the
+    gradient `g` of its padded map (`apply`'s output): its rows, and its
+    halo rows' gradients, those above then those below, as one contiguous
+    (B, C, above + below, W) tensor."""
+    h = g.shape[2] - above - below
+    own = g[:, :, above:above + h]
+    sent = torch.cat([g[:, :, :above], g[:, :, above + h:]], dim=2).contiguous()
+    return own, sent
+
+
+def add_sent_grads(own: torch.Tensor, parts, rank: int, above: int, below: int
+                   ) -> torch.Tensor:
+    """Shard `rank`'s gradient of its rows from its own rows' gradient and
+    every shard's `halo_grads` in rank order: the shard above's gradient of
+    its rows below (this shard's first `below` rows) and the shard below's
+    of its rows above (this shard's last `above` rows) added, in that
+    order."""
+    dx = own.clone()
+    h = dx.shape[2]
+    if rank > 0 and below:
+        dx[:, :, :below] += parts[rank - 1][:, :, above:above + below].to(dx.dtype)
+    if rank < len(parts) - 1 and above:
+        dx[:, :, h - above:] += parts[rank + 1][:, :, :above].to(dx.dtype)
+    return dx
+
+
+class HaloPad(torch.autograd.Function):
+    """`pad` with the halo rows' gradient returned to their senders:
+    apply(x, spatial, above, below) (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, spatial, above, below):
+        ctx.conf = (spatial, above, below)
+        return apply(x, *exchange(x, spatial, above, below))
+
+    @staticmethod
+    def backward(ctx, g):
+        spatial, above, below = ctx.conf
+        own, sent = halo_grads(g, above, below)
+        parts = spatial.all_gather(sent, "halo_grad")
+        return add_sent_grads(own, parts, spatial.rank, above, below), None, None, None

@@ -30,6 +30,27 @@ data axis splits a tile group's batch over the data indices
 (`grid_sampler`), each data row's output all_gathered over the ranks of
 one spatial rank.
 
+Gradients (classifier guidance under spatial shards): every exchange is a
+`torch.autograd.Function` over `SpatialGroup.all_gather`, and its backward
+depends on what consumes the gathered tensor:
+
+  - a partitioned consumer (each shard uses it for its own rows: the
+    attention's keys and values, a GroupNorm's summed statistics, the halo
+    rows) gives a partial gradient on each shard: the backward gathers the
+    shards' partials, adds them in rank order and keeps its own block
+    (`gather_shards`; the halo's in parallel/halo.py, the GroupNorm's in
+    ops/groupnorm.py);
+  - a replicated consumer (every rank computes the same thing from it: a
+    model output's rows, the classifier's pooled map, its logits and
+    loss) gives every rank the whole gradient already: the backward is the
+    slice of its own block, no collective (`gather_rows`,
+    `sum_replicated`). A sum here would give sp times the gradient.
+
+Every sum adds the shards in rank order, so every rank holds the same
+bits. `Grid.wrap(guidance_fn=, classifier=)` runs the guidance hook on this
+rank's rows of the tile, so the gradient is taken through the sharded
+classifier, and gathers the gradient's rows back.
+
 `make_mesh_2d(dp, sp)` with sp > 1 returns this process's `Grid`; with
 sp == 1 it is the in-process data mesh (parallel/mesh.py). A spatial group
 uses NCCL where each of its ranks has a card of its own, gloo otherwise
@@ -60,9 +81,9 @@ from ddnm_tpu_torch.parallel.mesh import (
     warn_unsharded,
 )
 
-__all__ = ["SPATIAL_AXIS", "COLLECTIVES", "SpatialGroup", "Grid", "make_mesh_2d",
-           "shard_tiles", "split_rows", "gather_rows", "grid_sampler", "lowest_rows",
-           "reset_collective_counts"]
+__all__ = ["SPATIAL_AXIS", "COLLECTIVES", "BACKWARD_COLLECTIVES", "SpatialGroup", "Grid",
+           "make_mesh_2d", "shard_tiles", "split_rows", "gather_rows", "gather_shards",
+           "sum_replicated", "grid_sampler", "lowest_rows", "reset_collective_counts"]
 
 SPATIAL_AXIS = "spatial"
 
@@ -70,13 +91,19 @@ logger = logging.getLogger("ddnm_tpu_torch")
 
 # collectives since the last reset, by what they carry: a convolution's
 # halo rows, a GroupNorm's partial sums, an attention's keys and values,
-# a model output's rows, a data-sharded batch
+# a replicated consumer's rows (a model output's, the classifier's pooled
+# map or its pools' summed means), a data-sharded batch
 COLLECTIVES = {"halo": 0, "groupnorm": 0, "attention": 0, "rows": 0, "batch": 0}
+# the backward's collectives, apart: the halo rows' gradients returned to
+# their senders, a GroupNorm's partial sums of its gradient, the partial
+# gradients of an attention's gathered keys and values
+BACKWARD_COLLECTIVES = {"halo_grad": 0, "groupnorm_grad": 0, "attention_grad": 0}
 
 
 def reset_collective_counts() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
+    for table in (COLLECTIVES, BACKWARD_COLLECTIVES):
+        for k in table:
+            table[k] = 0
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -96,7 +123,7 @@ class SpatialGroup:
         on gloo."""
         import torch.distributed as dist
 
-        COLLECTIVES[kind] += 1
+        (BACKWARD_COLLECTIVES if kind in BACKWARD_COLLECTIVES else COLLECTIVES)[kind] += 1
         t = t.contiguous()
         hop = t.is_cuda and self.backend == "gloo"
         src = t.cpu() if hop else t
@@ -110,14 +137,73 @@ class SpatialGroup:
         """Every member's `t` concatenated along `dim` in rank order."""
         return torch.cat(self.all_gather(t, kind), dim=dim)
 
-    def sum_shards(self, t: torch.Tensor) -> torch.Tensor:
+    def sum_shards(self, t: torch.Tensor, kind: str = "groupnorm") -> torch.Tensor:
         """The sum of every member's `t`, added in rank order (the same bits
         on every member)."""
-        parts = self.all_gather(t, "groupnorm")
-        acc = parts[0].clone()
-        for p in parts[1:]:
-            acc += p
-        return acc
+        return _rank_order_sum(self.all_gather(t, kind))
+
+
+def _rank_order_sum(parts) -> torch.Tensor:
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc += p
+    return acc
+
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """Every member's block concatenated along `dim`, for a replicated
+    consumer: the backward is this member's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, spatial, dim, kind):
+        ctx.conf = (spatial.rank, t.shape[dim], dim)
+        return spatial.gather(t, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        rank, k, dim = ctx.conf
+        return g.narrow(dim, rank * k, k), None, None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    """Every member's block concatenated along `dim`, for a partitioned
+    consumer: the backward adds every member's partial gradient in rank
+    order (one all_gather, counted under `grad_kind`) and keeps this
+    member's block."""
+
+    @staticmethod
+    def forward(ctx, t, spatial, dim, kind, grad_kind):
+        ctx.conf = (spatial, t.shape[dim], dim, grad_kind)
+        return spatial.gather(t, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        spatial, k, dim, grad_kind = ctx.conf
+        total = spatial.sum_shards(g, grad_kind)
+        return total.narrow(dim, spatial.rank * k, k), None, None, None, None
+
+
+def gather_shards(t: torch.Tensor, spatial: SpatialGroup, dim: int, kind: str,
+                  grad_kind: str) -> torch.Tensor:
+    """Every member's `t` concatenated along `dim` in rank order, for a
+    partitioned consumer (module docstring): with grad, the gradient of
+    this member's block is every member's partial, added in rank order."""
+    if _needs_grad(t):
+        return _GatherShards.apply(t, spatial, dim, kind, grad_kind)
+    return spatial.gather(t, dim, kind)
+
+
+def sum_replicated(t: torch.Tensor, spatial: SpatialGroup, kind: str = "rows") -> torch.Tensor:
+    """The sum of every member's `t` in rank order (one all_gather), for a
+    replicated consumer: with grad, each member's `t` takes the whole
+    gradient of the sum (the classifier's spatial pools' partial means)."""
+    if _needs_grad(t):
+        return _rank_order_sum(_GatherReplicated.apply(t[None], spatial, 0, kind).unbind(0))
+    return spatial.sum_shards(t, kind)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -146,15 +232,22 @@ class Grid:
         own images)."""
         return dataclasses.replace(self, dp=1, data_index=0, data=None)
 
-    def wrap(self, model_fn=None, encode_fn=None, decode_fn=None, model=None):
+    def wrap(self, model_fn=None, encode_fn=None, decode_fn=None, model=None, *,
+             guidance_fn=None, classifier=None):
         """(model_fn, encode_fn, decode_fn) of the whole tile over this
         grid's spatial group (module docstring); None stays None. `model`
-        (the sharded UNet) gives the lowest grid to check."""
+        (the sharded UNet) gives the lowest grid to check. With
+        `guidance_fn`, (model_fn, encode_fn, decode_fn, guidance_fn): the
+        guidance hook guidance_fn(x, t, ...) of a classifier sharded over
+        this group runs on this rank's rows of the whole tile x (its
+        gradient taken with respect to those rows, through the sharded
+        classifier), and the gradient's rows are gathered back, the same
+        bits on every rank; `classifier` gives its lowest grid to check."""
         sg = self.spatial
 
-        def rows(x):
-            if model is not None:
-                lowest_rows(model, x.shape[1], sg.size)
+        def rows(x, net=model):
+            if net is not None:
+                lowest_rows(net, x.shape[1], sg.size)
             return split_rows(x, sg)
 
         def wrapped_model(x, t, *args, **kw):
@@ -166,9 +259,17 @@ class Grid:
         def wrapped_decode(cache, x, t):
             return gather_rows(decode_fn(cache, rows(x), t), sg)
 
-        return (None if model_fn is None else wrapped_model,
-                None if encode_fn is None else wrapped_encode,
-                None if decode_fn is None else wrapped_decode)
+        if classifier is not None and getattr(classifier, "spatial", None) is not sg:
+            raise ValueError("the guidance hook's classifier is not sharded over this grid's "
+                             "spatial group: shard_spatially(classifier, grid.spatial) first")
+
+        def wrapped_guidance(x, t, *args, **kw):
+            return gather_rows(guidance_fn(rows(x, classifier), t, *args, **kw), sg)
+
+        out = (None if model_fn is None else wrapped_model,
+               None if encode_fn is None else wrapped_encode,
+               None if decode_fn is None else wrapped_decode)
+        return out if guidance_fn is None else out + (wrapped_guidance,)
 
 
 def _host_devices(dev: torch.device) -> list:
@@ -247,7 +348,10 @@ def split_rows(x: torch.Tensor, spatial: SpatialGroup, axis: int = 1) -> torch.T
 
 def gather_rows(x: torch.Tensor, spatial: SpatialGroup, axis: int = 1) -> torch.Tensor:
     """Every rank's block of `axis`, concatenated in rank order (the whole
-    map on every rank)."""
+    map on every rank), for a replicated consumer: with grad, the gradient
+    of this rank's block is its block of the gradient."""
+    if _needs_grad(x):
+        return _GatherReplicated.apply(x, spatial, axis, "rows")
     return spatial.gather(x, axis, "rows")
 
 

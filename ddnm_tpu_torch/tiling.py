@@ -50,7 +50,10 @@ runs the tiling on the whole canvas; `model_fn`, `encode_fn` and
 that each rank's UNet runs on its block of the tile's rows and the output
 is gathered back to the whole tile; a group's tiles split over the data
 indices where dp divides them, else every data row runs the whole group.
-Guidance does not compose with a spatial grid (NotImplementedError).
+`guidance_fn` (a hook of a classifier that `shard_spatially` has sharded
+over the same group, classifier_guidance_fn) is wrapped likewise
+(`Grid.wrap(guidance_fn=)`): its gradient is taken with respect to each
+rank's rows through the sharded classifier and gathered back whole.
 """
 
 from __future__ import annotations
@@ -259,10 +262,12 @@ def _over_mesh(mesh, model_fn, guidance_fn, encode_fn, decode_fn):
     mesh, wrapped over a Grid's spatial group (module docstring)."""
     if not isinstance(mesh, Grid):
         return replicate_all(mesh, model_fn, guidance_fn, encode_fn, decode_fn)
-    if guidance_fn is not None and mesh.sp > 1:
-        raise NotImplementedError("classifier guidance under spatial partitioning is not "
-                                  "ported (ROADMAP.md Queue 1, guidance under --sp)")
-    model_fn, encode_fn, decode_fn = mesh.wrap(model_fn, encode_fn, decode_fn)
+    if guidance_fn is None:
+        model_fn, encode_fn, decode_fn = mesh.wrap(model_fn, encode_fn, decode_fn)
+        return model_fn, guidance_fn, encode_fn, decode_fn
+    model_fn, encode_fn, decode_fn, guidance_fn = mesh.wrap(
+        model_fn, encode_fn, decode_fn, guidance_fn=guidance_fn,
+        classifier=getattr(guidance_fn, "classifier", None))
     return model_fn, guidance_fn, encode_fn, decode_fn
 
 

@@ -40,8 +40,11 @@ group has its own card). S must divide the 256 px tile (hq_main.py's
 check) and the model's lowest grid. The data rows split a tile group
 (single-image mode) or the sweep's images (sweep mode); spatial rank 0 of
 each data row writes the images and the --resume state, the other ranks
-write nothing. Classifier guidance with --sp > 1 raises
-NotImplementedError (ROADMAP.md Queue 1, guidance under --sp).
+write nothing. Guidance shards the classifier over the same rows: its
+gradient is taken through the sharded classifier (the halo, GroupNorm and
+attention exchanges carry it back) and gathered whole on every rank; S
+must then divide the classifier's lowest grid too (8 rows for inet256).
+--solver multistep and --encoder_cache run guided under --sp as at S = 1.
 """
 
 from __future__ import annotations
@@ -211,11 +214,6 @@ def main(argv=None):
         if 256 % ns.sp != 0:  # hq_main.py:299-303
             raise SystemExit(f"--sp {ns.sp} must divide the 256-px tile height "
                              "(use 2, 4, 8, ...)")
-        if guided:
-            raise NotImplementedError(
-                "classifier guidance (classifier_scale > 0) under --sp > 1 is not ported: "
-                "ROADMAP.md Queue 1, guidance under --sp (the halo exchange's backward, "
-                "partial sums in gn_bwd_reduce, the attention backward's dK / dV)")
 
     size = int(conf.image_size or 256)
     tile, stride = size, size // 2  # the model's native tile, 2:1 overlap
@@ -276,6 +274,9 @@ def main(argv=None):
                 f"{cckpt!r}; pass --classifier_ckpt or --random_init")
         if ns.dtype == "bfloat16":
             cast_torso(classifier, torch.bfloat16)
+        if grid is not None:  # the classifier's rows over the UNet's spatial group
+            lowest_rows(classifier, size, ns.sp)
+            shard_spatially(classifier, grid.spatial)
         guidance_fn = classifier_guidance_fn(classifier, label,
                                              float(conf.classifier_scale))
 

@@ -813,3 +813,69 @@ def test_backward_entry_points_have_ctypes_signatures():
     for name in ("ddnm_attention_bwd_dq", "ddnm_attention_bwd_dkdv"):
         assert _SIGNATURES[name][:8] == [P] * 8 and _SIGNATURES[name][-1] is P
         assert _SIGNATURES[name][11] is ctypes.c_float  # the scale
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_reduce_partial_plan_at_the_sharded_classifier_shapes(sp, dtype):
+    """The backward reduce kernel's partial mode (a spatial shard's sums) at
+    every GroupNorm of the 256 px classifier's backward at batch 1 with its
+    rows cut over sp shards: the whole kernel's launch at the shard's
+    pixels, with 4 rows of per-(B, C) output (the sums of x, x^2, dy' and
+    dy' x) in place of 3; every pixel of the shard read once and each group
+    finalised once."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    for B, H, W, C in _gn_grad_shapes("cc256_b1"):
+        assert H % sp == 0
+        hw = H // sp * W
+        whole = _bwd_reduce_plan(B, hw, C, 32, elem, True, H100_SMS)
+        part = _bwd_reduce_plan(B, hw, C, 32, elem, True, H100_SMS, True)
+        assert whole["out_rows"] == 3 and part == {**whole, "out_rows": 4}
+        p, ch, px, fin, slots = _reduce_coverage(B, hw, C, 32, elem, True)
+        assert (ch == 1).all() and (px == 1).all() and (fin == 1).all()
+        assert all(i < part["counters"] for _, i in slots)
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_plan_with_fewer_queries_than_keys(sp, dtype):
+    """The attention backward with a spatial shard's Tq = T / sp queries
+    against every one of the T keys, at each sharded head of the 256 px
+    classifier (its attention pool runs whole): the dq pass's grid by the
+    queries, the dkdv pass's by the keys, the shared memory of the Tq == Tk
+    launch (it follows C alone); Tk = T by default."""
+    rows = 32 if dtype == torch.float32 else 64
+    heads = {k[1] for k in _classifier_grad_shapes()["cc256_b1"] if k[0] == "attn"}
+    sharded = sorted((B, T, C) for B, T, C in heads if T % 2 == 0)
+    assert sharded == [(4, 1024, 64), (8, 64, 64), (8, 256, 64)]
+    for B, T, C in sharded:
+        tq = T // sp
+        p = _bwd_plan(B, tq, C, dtype, T)
+        same = _bwd_plan(B, T, C, dtype)
+        assert same == _bwd_plan(B, T, C, dtype, T)
+        assert p["dq"]["grid"] == (-(-tq // rows), B)
+        kv_rows = 32 if dtype == torch.float32 else 64
+        assert p["dkdv"]["grid"] == (-(-T // kv_rows), B) == same["dkdv"]["grid"]
+        for name in ("dq", "dkdv"):
+            assert p[name]["smem"] == same[name]["smem"]
+    with pytest.raises(ValueError, match="T >= 1"):
+        _bwd_plan(4, 16, 64, dtype, 0)
+
+
+def test_sharded_backward_wrappers_check_before_they_build():
+    """On a CPU tensor the spatial modes' wrappers raise before touching the
+    library (no nvcc here): the kernels take CUDA tensors only; the
+    attention backward checks that k and v share one shape against q's."""
+    from ddnm_tpu_torch.ops.attention import _attn_bwd_dkdv, _attn_bwd_dq
+    from ddnm_tpu_torch.ops.groupnorm import _bwd_finalize, _bwd_partial
+
+    x = torch.zeros(1, 4, 4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        _bwd_partial(x, x, 32, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        _bwd_finalize(torch.zeros(4, 1, 64), 32, torch.ones(64), 32, 1e-5)
+    q, k = torch.zeros(2, 8, 64), torch.zeros(2, 16, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        _attn_bwd_dq(q, k, k, q, q, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _attn_bwd_dkdv(q, k, k, q, torch.zeros(2, 8), torch.zeros(2, 8), 1.0)

@@ -191,15 +191,12 @@ def test_grid_without_a_process_group_names_its_launch():
 
 
 def test_hq_cli_refuses_what_sp_does_not_take(tmp_path):
-    """hq_main_torch --sp: guidance raises NotImplementedError naming the
-    roadmap item, before any process group; 256 % sp and the model's lowest
-    grid (smoke.yml: 32 rows) are checked."""
+    """hq_main_torch --sp: 256 % sp and the model's lowest grid (smoke.yml:
+    32 rows) are checked, before any process group."""
     import hq_main_torch
 
     common = ["--deg", "sr_averagepooling", "--random_init", "--device", "cpu", "-i",
               str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, guidance under --sp"):
-        hq_main_torch.main(["--config", "configs/hq/inet256.yml", "--sp", "2", *common])
     with pytest.raises(SystemExit, match="must divide the 256-px tile"):
         hq_main_torch.main(["--config", "configs/hq/smoke.yml", "--sp", "3", *common])
     with pytest.raises(ValueError, match="lowest grid"):

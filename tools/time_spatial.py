@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Seconds per face256 tile with each tile's rows split over processes
-(spatial partitioning, ddnm_tpu_torch/parallel/spatial.py), against one
-process on one card.
+"""Seconds per face256 tile, or per guided inet256 tile, with each tile's
+rows split over processes (spatial partitioning,
+ddnm_tpu_torch/parallel/spatial.py), against one process on one card.
 
 The full-width face256 ADM of configs/hq/face256.yml (128 channels,
 random weights from seed 1234, the layers its init zeroes drawn too so that
@@ -22,7 +22,15 @@ a clock; the exchange and its host copies, not the kernels it waits
 behind). Every rank's tile must be bit-equal to its group's others', and
 each layout's to 1x1's within the bf16 rounding (printed, not gated).
 
-    python3 tools/time_spatial.py [--layouts 1x1 1x2] [--backends auto gloo]
+`--model inet256_guided` times the guided call instead: the inet256 ADM of
+configs/hq/inet256.yml (256 channels, class 951, random weights from seed
+1234 with the zeroed layers drawn too) and its 54.1M classifier (the same
+seed, dense), both bf16 and both sharded, guidance scale 1.0: each model
+call is the UNet's forward and the classifier's forward and backward, the
+backward's collectives counted apart (`BACKWARD_COLLECTIVES`).
+
+    python3 tools/time_spatial.py [--model face256|inet256_guided]
+        [--layouts 1x1 1x2] [--backends auto gloo]
         [--calls 20] [--repeat 2] [--out chiprun_out/time_spatial.json]
 
 Prints one line per layout and, last, one JSON object (the card's name and
@@ -49,15 +57,17 @@ HERE = Path(__file__).resolve().parents[1]
 if str(HERE) not in sys.path:
     sys.path.insert(0, str(HERE))
 
-FACE256 = HERE / "configs" / "hq" / "face256.yml"
+CONFIGS = {"face256": HERE / "configs" / "hq" / "face256.yml",
+           "inet256_guided": HERE / "configs" / "hq" / "inet256.yml"}
+GUIDED_CLASS = 951
 
 
-def _tables(calls: int):
+def _tables(model: str, calls: int):
     from ddnm_tpu_torch.config import load_hq_config
     from ddnm_tpu_torch.sampling.posterior import build_posterior_tables
     from ddnm_tpu_torch.schedules import named_beta_schedule
 
-    conf = load_hq_config(FACE256)
+    conf = load_hq_config(CONFIGS[model])
     return build_posterior_tables(
         betas=named_beta_schedule(str(conf.noise_schedule), int(conf.diffusion_steps),
                                   use_scale=True),
@@ -65,15 +75,16 @@ def _tables(calls: int):
         schedule_jump_params=dict(t_T=calls, n_sample=1, jump_length=1, jump_n_sample=1))
 
 
-def worker(dp: int, sp: int, backend: str, calls: int, repeat: int, out: Path) -> None:
+def worker(model_name: str, dp: int, sp: int, backend: str, calls: int, repeat: int,
+           out: Path) -> None:
     """One rank: the timed tiles of this layout, written to `out`."""
     from ddnm_tpu_torch import ops
     from ddnm_tpu_torch.config import load_hq_config
-    from ddnm_tpu_torch.models import cast_torso, shard_spatially
+    from ddnm_tpu_torch.models import cast_torso, classifier_guidance_fn, shard_spatially
     from ddnm_tpu_torch.models.unet_adm import _ZERO_INIT, init_like_flax
     from ddnm_tpu_torch.parallel import multihost, spatial
     from ddnm_tpu_torch.tiling import batched_tile_sample
-    from hq_main_torch import build_adm_from_hq
+    from hq_main_torch import build_adm_from_hq, build_classifier_from_hq
 
     world = dp * sp
     grid = None
@@ -86,7 +97,8 @@ def worker(dp: int, sp: int, backend: str, calls: int, repeat: int, out: Path) -
                                     backend=None if backend == "auto" else backend)
     else:
         dev = torch.device("cuda", 0)
-    model = init_like_flax(build_adm_from_hq(load_hq_config(FACE256), dev), 1234).eval()
+    conf = load_hq_config(CONFIGS[model_name])
+    model = init_like_flax(build_adm_from_hq(conf, dev), 1234).eval()
     gen = torch.Generator(device=dev).manual_seed(1235)
     with torch.no_grad():  # the layers the init zeroes, drawn: eps then depends on x
         for name, mod in model.named_modules():
@@ -94,11 +106,25 @@ def worker(dp: int, sp: int, backend: str, calls: int, repeat: int, out: Path) -
                 w = mod.weight
                 w.normal_(0.0, 1.0 / w[0].numel() ** 0.5, generator=gen)
     model = cast_torso(model, torch.bfloat16)
+    guidance_fn = clf = None
+    if model_name == "inet256_guided":
+        clf = build_classifier_from_hq(conf, dev)
+        clf.zero_init = ()  # dense: every norm's and attention's backward carries signal
+        clf = cast_torso(init_like_flax(clf, 1234).eval(), torch.bfloat16)
     mesh = None
     if grid is not None:
         if sp > 1:
             shard_spatially(model, grid.spatial)
+            if clf is not None:
+                shard_spatially(clf, grid.spatial)
         mesh = grid
+    if clf is not None:
+        guidance_fn = classifier_guidance_fn(clf, GUIDED_CLASS, float(conf.classifier_scale))
+
+    def model_fn(x, t):
+        if not model.num_classes:
+            return model(x, t)
+        return model(x, t, torch.full((x.shape[0],), GUIDED_CLASS, device=x.device))
     clock = {"seconds": 0.0}
     gather = spatial.SpatialGroup.all_gather
 
@@ -109,14 +135,15 @@ def worker(dp: int, sp: int, backend: str, calls: int, repeat: int, out: Path) -
         return parts
 
     spatial.SpatialGroup.all_gather = timed_gather
-    tables = _tables(calls)
+    tables = _tables(model_name, calls)
     rng = np.random.default_rng(0)
     gts = rng.uniform(-1, 1, (dp, 256, 256, 3)).astype(np.float32)
     zero = lambda gens, shape: torch.zeros(shape, device=dev)
 
     def run():
-        return batched_tile_sample(lambda x, t: model(x, t), gts, "sr_averagepooling", tables,
-                                   1234, scale=4, noise_fn=zero, device=dev, mesh=mesh)
+        return batched_tile_sample(model_fn, gts, "sr_averagepooling", tables, 1234, scale=4,
+                                   noise_fn=zero, guidance_fn=guidance_fn, device=dev,
+                                   mesh=mesh)
 
     run()  # warm-up: cuDNN's plans, the allocator, the kernels' first launches
     best = float("inf")
@@ -135,7 +162,8 @@ def worker(dp: int, sp: int, backend: str, calls: int, repeat: int, out: Path) -
         "backend": grid.spatial.backend if grid is not None and sp > 1 else None,
         "seconds": best, "seconds_per_tile": best / dp,
         "launches_per_call": {k: v / calls for k, v in launches.items() if v},
-        "collectives_per_call": {k: v / calls for k, v in spatial.COLLECTIVES.items() if v},
+        "collectives_per_call": {k: v / calls for k, v in {
+            **spatial.COLLECTIVES, **spatial.BACKWARD_COLLECTIVES}.items() if v},
         "collective_host_seconds_per_call": clock["seconds"] / calls,
         "sha256": hashlib.sha256(res["final"].tobytes()).hexdigest(),
         "final": res["final"][0, ::8, ::8].tolist()}))
@@ -147,7 +175,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_layout(dp: int, sp: int, backend: str, calls: int, repeat: int, tmp: Path) -> list:
+def run_layout(model: str, dp: int, sp: int, backend: str, calls: int, repeat: int,
+               tmp: Path) -> list:
     world = dp * sp
     port = free_port()
     procs = []
@@ -159,7 +188,7 @@ def run_layout(dp: int, sp: int, backend: str, calls: int, repeat: int, tmp: Pat
                                                               "MASTER_ADDR", "MASTER_PORT")}
         log = open(tmp / f"{dp}x{sp}_{backend}_{rank}.log", "w+")
         procs.append((log, subprocess.Popen(
-            [sys.executable, __file__, "--worker", f"{dp}x{sp}", backend, str(calls),
+            [sys.executable, __file__, "--worker", model, f"{dp}x{sp}", backend, str(calls),
              str(repeat), str(tmp / f"{dp}x{sp}_{backend}_{rank}.json")], cwd=HERE, env=env,
             stdout=log, stderr=subprocess.STDOUT)))
     try:
@@ -180,17 +209,18 @@ def run_layout(dp: int, sp: int, backend: str, calls: int, repeat: int, tmp: Pat
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", default="face256", choices=sorted(CONFIGS))
     p.add_argument("--layouts", nargs="+", default=["1x1", "1x2"])
     p.add_argument("--backends", nargs="+", default=["auto"], choices=["auto", "nccl", "gloo"])
     p.add_argument("--calls", type=int, default=20)
     p.add_argument("--repeat", type=int, default=2)
     p.add_argument("--out", type=str, default=None)
-    p.add_argument("--worker", nargs=5, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--worker", nargs=6, default=None, help=argparse.SUPPRESS)
     ns = p.parse_args(argv)
     if ns.worker:
-        layout, backend, calls, repeat, out = ns.worker
+        model, layout, backend, calls, repeat, out = ns.worker
         dp, sp = (int(v) for v in layout.split("x"))
-        worker(dp, sp, backend, int(calls), int(repeat), Path(out))
+        worker(model, dp, sp, backend, int(calls), int(repeat), Path(out))
         return 0
     if not torch.cuda.is_available():
         raise RuntimeError("tools/time_spatial.py needs a CUDA card")
@@ -204,7 +234,7 @@ def main(argv=None) -> int:
             if sp == 1 and dp > 1:
                 raise ValueError(f"layout {layout}: a grid of processes needs sp > 1")
             for backend in (["auto"] if dp * sp == 1 else ns.backends):
-                ranks = run_layout(dp, sp, backend, ns.calls, ns.repeat, Path(tmp))
+                ranks = run_layout(ns.model, dp, sp, backend, ns.calls, ns.repeat, Path(tmp))
                 r0 = ranks[0]
                 final = np.asarray(r0.pop("final"))
                 for r in ranks[1:]:
@@ -234,7 +264,8 @@ def main(argv=None) -> int:
                       f"{groups_equal}; against 1x1 {diff}", flush=True)
                 if not groups_equal:
                     raise AssertionError(f"{layout}: the ranks of a group disagree")
-    summary = {"card": smi[0], "cards": len(smi), "model_calls": ns.calls, "layouts": results}
+    summary = {"card": smi[0], "cards": len(smi), "model": ns.model, "model_calls": ns.calls,
+               "layouts": results}
     if ns.out:
         Path(ns.out).parent.mkdir(parents=True, exist_ok=True)
         Path(ns.out).write_text(json.dumps(summary, indent=1))
