@@ -22,6 +22,11 @@ A CUDA tensor goes through the kernel, a CPU tensor through the plain
 version; `force=` picks one explicitly. Each kernel wrapper counts its
 launches, so a run can show that it went through the kernels.
 
+The GroupNorm stats and apply kernels and the attention kernel are also
+the custom ops ddnm::gn_stats_affine, ddnm::gn_apply and ddnm::attention
+(ops/library.py, registered on import), the route torch.export sees: the
+wrappers take it while a tracer runs or under `force="op"`.
+
 GroupNormFunction and AttentionFunction are group_norm and fused_attention
 with a backward (dx of the GroupNorm; dq, dk, dv of attention), which runs
 hand-written backward kernels of their own on a card (gn_bwd_reduce,
@@ -37,6 +42,7 @@ from ddnm_tpu_torch.ops import attention as _attention
 from ddnm_tpu_torch.ops import fused_gn_conv as _fused_gn_conv
 from ddnm_tpu_torch.ops import fwht as _fwht
 from ddnm_tpu_torch.ops import groupnorm as _groupnorm
+from ddnm_tpu_torch.ops import library  # noqa: F401  (registers the ddnm:: ops)
 from ddnm_tpu_torch.ops.attention import AttentionFunction, fused_attention
 from ddnm_tpu_torch.ops.fused_gn_conv import fused_gn_conv
 from ddnm_tpu_torch.ops.fwht import fwht, hadamard_matrix

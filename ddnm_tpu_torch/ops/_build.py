@@ -26,7 +26,7 @@ import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SMEM_PER_BLOCK", "TAGGED_LAUNCHES", "build",
            "load_library", "check", "count_launch", "device_guard", "launch_tag",
-           "ptxas_report", "raw_stream", "sm_count"]
+           "ptxas_report", "raw_stream", "sm_count", "tracing"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -196,6 +196,14 @@ def launch_tag(tag):
         yield
     finally:
         _tag = prev
+
+
+def tracing(x) -> bool:
+    """True while torch.export or torch.compile traces the caller, where x
+    is a stand-in with no data (a FakeTensor): the kernel wrappers then go
+    through their ddnm:: custom ops (ops/library.py), which a tracer sees,
+    where a ctypes launch would need a data pointer."""
+    return type(x) is not torch.Tensor or torch.compiler.is_compiling()
 
 
 def device_guard(device):

@@ -177,13 +177,18 @@ def fused_attention(q, k, v, scale: float, *, force: str | None = None):
     keys and values; fp32 softmax.
 
     `force`: None (the kernel for a CUDA tensor, the plain version for a CPU
-    tensor), "kernel" or "torch"."""
+    tensor), "kernel", "torch" or "op": the ddnm::attention custom op
+    (ops/library.py), whose CUDA implementation is the kernel and whose
+    CPU implementation the plain version. Traced code (torch.export)
+    takes the op under None and "kernel"."""
     mode = force or ("kernel" if q.is_cuda else "torch")
+    if mode == "op" or (mode == "kernel" or force is None) and _build.tracing(q):
+        return torch.ops.ddnm.attention(q, k, v, scale)
     if mode == "torch":
         return _torch_attention(q, k, v, scale)
     if mode == "kernel":
         return _kernel_attention(q, k, v, scale)
-    raise ValueError(f"force must be None, 'kernel' or 'torch', got {force!r}")
+    raise ValueError(f"force must be None, 'kernel', 'torch' or 'op', got {force!r}")
 
 
 # ------------------------------------------------------------------ backward

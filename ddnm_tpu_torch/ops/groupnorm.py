@@ -253,6 +253,14 @@ def _vec(t, shape, device):
 def _stats_affine(x, scale, bias, num_groups, eps, film_scale, film_shift):
     """Per-(B, C) fp32 affine (a, b) of the normalize pass: one launch of
     the stats kernel; a, b in one (2, B, C) buffer."""
+    out = _stats_affine_buffer(x, scale, bias, num_groups, eps, film_scale, film_shift)
+    return out.select(0, 0), out.select(0, 1)  # cheaper on the host than unbind
+
+
+def _stats_affine_buffer(x, scale, bias, num_groups, eps, film_scale, film_shift):
+    """The (2, B, C) fp32 buffer of `_stats_affine`'s a and b (the
+    ddnm::gn_stats_affine op returns it whole: an op's outputs may not
+    alias each other)."""
     _check_input(x, num_groups)
     B, H, W, C = x.shape
     plan = _stats_plan(B, H * W, C, num_groups, x.element_size(), x.data_ptr() % 16 == 0)
@@ -281,7 +289,7 @@ def _stats_affine(x, scale, bias, num_groups, eps, film_scale, film_shift):
             plan["threads"], plan["lanes_c"], plan["smem"], _DTYPE_CODE[x.dtype],
             _build.raw_stream(dev)), "ddnm_gn_stats_affine")
     _build.count_launch(LAUNCHES, "groupnorm_stats")
-    return out.select(0, 0), out.select(0, 1)  # cheaper on the host than unbind
+    return out
 
 
 def _stats_partial(x, num_groups):
@@ -413,12 +421,22 @@ def group_norm(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
     applied after normalization, and optional SiLU; returns x.dtype.
 
     `force`: None (the kernels for a CUDA tensor, the plain version for a
-    CPU tensor), "kernel" or "torch". `spatial`: x is this process's rows
-    of a map split over a spatial group (parallel/spatial.py
+    CPU tensor), "kernel", "torch" or "op": the ddnm::gn_stats_affine and
+    ddnm::gn_apply custom ops (ops/library.py), whose CUDA implementations
+    are the kernels and whose CPU implementations the two plain versions
+    `_torch_stats_affine` and `_torch_apply`. Traced code (torch.export)
+    takes the ops under None and "kernel". `spatial`: x is this process's
+    rows of a map split over a spatial group (parallel/spatial.py
     `SpatialGroup`); the statistics are the whole map's."""
     if (film_scale is None) != (film_shift is None):
         raise ValueError("film_scale and film_shift go together")
     mode = force or ("kernel" if x.is_cuda else "torch")
+    if mode == "op" or (mode == "kernel" or force is None) and _build.tracing(x):
+        if spatial is not None:
+            raise ValueError("the spatial GroupNorm has no ddnm:: op route")
+        ab = torch.ops.ddnm.gn_stats_affine(x, scale, bias, film_scale, film_shift,
+                                            num_groups, eps)
+        return torch.ops.ddnm.gn_apply(x, ab[0], ab[1], swish)
     if spatial is not None and mode in ("kernel", "torch"):
         return _sharded_group_norm(x, scale, bias, num_groups, eps, swish, film_scale,
                                    film_shift, spatial, mode)
@@ -428,7 +446,7 @@ def group_norm(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
     if mode == "kernel":
         return _kernel_group_norm(x, scale, bias, num_groups, eps, swish,
                                   film_scale, film_shift)
-    raise ValueError(f"force must be None, 'kernel' or 'torch', got {force!r}")
+    raise ValueError(f"force must be None, 'kernel', 'torch' or 'op', got {force!r}")
 
 
 # ------------------------------------------------------------------ backward

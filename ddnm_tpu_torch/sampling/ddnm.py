@@ -128,7 +128,9 @@ def sample_simplified(
 
     `gens`: one torch.Generator per image (sampling/rng.py); every step
     draws `noise_fn(gens, x.shape)`, travel steps included, as the JAX
-    sampler does. `sigma_y` is the *scaled* measurement noise (the runner
+    sampler does. A `threefry.KeyNoise` in their place draws JAX's own
+    noise from a JAX key, split before every step as the JAX scan splits
+    it (serving.py's trajectories). `sigma_y` is the *scaled* measurement noise (the runner
     doubles the CLI value for the [-1, 1] domain). `op_ctx`: a runtime
     operator context (e.g. a per-image mask) for A_ctx / Ap_ctx.
 
@@ -167,9 +169,11 @@ def _check_solver(solver: str) -> None:
 
 def _drive(step, x_init, sched: DDNMSchedule, gens, noise_fn):
     """The eager loop over the static schedule: every step draws
-    `noise_fn(gens, x.shape)`, travel steps included, as the JAX sampler
-    does; a travel step re-noises the last x0 prediction, any other runs
-    `step(x, t_f[B], at, at_next, noise) -> (x_next, x0_pred)`."""
+    `noise_fn(gens, x.shape)` (or the next draw of a KeyNoise), travel
+    steps included, as the JAX sampler does; a travel step re-noises the
+    last x0 prediction, any other runs `step(x, t_f[B], at, at_next,
+    noise) -> (x_next, x0_pred)`. torch.export unrolls it (serving.py):
+    the schedule's scalars become the program's constants."""
     dev = x_init.device
     n = x_init.shape[0]
     t_f_all, at_all, at_next_all = _step_scalars(sched, dev)

@@ -209,10 +209,12 @@ class _DeviceTables:
         gamma = np.asarray(tables.gamma_t, np.float32)
         nonzero = (np.arange(len(gamma)) != 0).astype(np.float32)
         self.noise_scale = f(nonzero * np.sqrt(np.maximum(gamma, np.float32(0))))
-        # the undo at t: beta[min(t + shift, T - 1)]
+        # the undo at t: beta[min(t + shift, T - 1)], its square roots taken
+        # on the CPU and uploaded (no .numpy(): torch.export traces this,
+        # serving.py)
         betas = torch.as_tensor(np.asarray(tables.betas, np.float32))
-        self.undo_keep = f(torch.sqrt(1.0 - betas).numpy())
-        self.undo_noise = f(torch.sqrt(betas).numpy())
+        self.undo_keep = torch.sqrt(1.0 - betas).to(device)
+        self.undo_noise = torch.sqrt(betas).to(device)
         self.shift = int(tables.travel_shift)
         self.last = len(betas) - 1
 
@@ -258,8 +260,9 @@ def sample_posterior(
 
     model_fn(x, t_orig[B]) -> (B, H, W, 2C) with channels [eps, var_values].
     `apy` is A+y of each image (or tile). `gens`: one generator per image
-    (sampling/rng.py); every step draws `noise_fn(gens, x.shape)`, undo
-    steps included, as the JAX sampler does. `guidance_fn(x, t_orig)`
+    (sampling/rng.py), or a `threefry.KeyNoise` (JAX's noise from a JAX
+    key); every step draws `noise_fn(gens, x.shape)`, undo steps
+    included, as the JAX sampler does. `guidance_fn(x, t_orig)`
     returns grad log p(y|x) * scale, added to the mean times gamma_t.
     `paste_mask` / `paste_content`: the Mask-Shift blend of each tile.
     `op_ctx`: the runtime operator context (a per-image mask) of a

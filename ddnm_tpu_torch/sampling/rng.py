@@ -7,6 +7,11 @@ tile row, tile column, stream) (`tile_generators`), so a tile draws the
 same noise whatever wavefront group it runs in (the JAX package folds a
 key per tile for the same reason). torch's generators do not reproduce JAX's threefry bits: tests that
 compare the two frameworks inject the noise through `noise_fn`.
+
+A sampler takes a `threefry.KeyNoise` in place of the generators to draw
+JAX's own noise from a JAX key (the exported samplers of serving.py do):
+`draw_noise` then splits its key before every step, as the JAX samplers
+do, and draws `normal` from the second half.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from ddnm_tpu_torch.sampling.threefry import KeyNoise
 
 __all__ = [
     "STREAM_INIT",
@@ -72,8 +79,14 @@ def default_noise(gens: Sequence[torch.Generator], shape: tuple) -> torch.Tensor
     ])
 
 
-def draw_noise(noise_fn: NoiseFn, gens: Sequence[torch.Generator], shape: tuple,
+def draw_noise(noise_fn: NoiseFn, gens: Sequence[torch.Generator] | KeyNoise, shape: tuple,
                device: torch.device) -> torch.Tensor:
+    """The next step's noise of `shape`: `noise_fn(gens, shape)`, or the
+    next draw of a KeyNoise (which takes no noise_fn but the default)."""
+    if isinstance(gens, KeyNoise):
+        if noise_fn is not default_noise:
+            raise ValueError("a KeyNoise draws JAX's noise from its key: it takes no noise_fn")
+        return gens.draw(shape).to(device)
     if len(gens) != shape[0]:
         raise ValueError(f"{len(gens)} generators for a batch of {shape[0]}")
     return noise_fn(gens, tuple(shape)).to(device)

@@ -89,8 +89,8 @@ def parse_args(argv=None):
                    choices=["float32", "bfloat16"])
     p.add_argument("--t_sampling", type=int, default=None)
     p.add_argument("--dp", type=int, default=1,
-                   help="> 1 (a batch sharded over several cards) is not ported yet: "
-                        "raises")
+                   help="shard each served batch over this many chips "
+                        "(1-D data mesh; max_batch must divide by it)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max_batch", type=int, default=8)

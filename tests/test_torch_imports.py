@@ -23,7 +23,8 @@ PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "main_t
                                           REPO / "serve_torch.py",
                                           REPO / "hq_evaluation_torch.py", EXPERIMENT,
                                           REPO / "tools" / "time_runner_overlap.py",
-                                          REPO / "tools" / "profile_torch_serve.py"]
+                                          REPO / "tools" / "profile_torch_serve.py",
+                                          REPO / "tools" / "time_serving.py"]
 
 
 def _blocked(name: str) -> bool:
@@ -31,8 +32,9 @@ def _blocked(name: str) -> bool:
 
 
 def test_port_imports_with_foreign_packages_blocked():
-    """Every module of the port (the server, utils.observability and the
-    parallel package among them), main_torch, hq_main_torch, evaluation_torch, serve_torch,
+    """Every module of the port (the server, utils.observability, the
+    parallel package, serving, sampling.threefry and ops.library among
+    them), main_torch, hq_main_torch, evaluation_torch, serve_torch,
     hq_evaluation_torch, chip_smoke and the ported experiment import in a
     process where the blocked packages cannot be found, and leave lmdb
     unimported (the LSUN datasets import it when opened); importing runs
@@ -55,7 +57,9 @@ def test_port_imports_with_foreign_packages_blocked():
         for name in names:
             importlib.import_module(name)
         assert set(("ddnm_tpu_torch.parallel.mesh", "ddnm_tpu_torch.parallel.multihost",
-                    "ddnm_tpu_torch.parallel.spatial")).issubset(names), names
+                    "ddnm_tpu_torch.parallel.spatial", "ddnm_tpu_torch.serving",
+                    "ddnm_tpu_torch.sampling.threefry",
+                    "ddnm_tpu_torch.ops.library")).issubset(names), names
         import chip_smoke, evaluation_torch, hq_evaluation_torch, hq_main_torch
         import main_torch, serve_torch
         spec = importlib.util.spec_from_file_location("fused_gn_conv_torch",
