@@ -145,9 +145,14 @@ far it got. A failure in any phase raises.
  19. the data long tail: every committed JPEG fixture through the port's
      numpy decoder against PIL's committed decode (max |diff| <= 1 level,
      pixels that differ counted), the decode's ms per image at 256 x 256
-     and 500 x 375 against the PNG reader's; phase 5's main path on the
-     JPEG copies of its 8 images (exp/datasets/celeba_hq_jpeg), launches
-     exact (7100 GroupNorm, 600 attention), images/s against phase 5's;
+     and 500 x 375 against the PNG reader's; every image-format fixture
+     (exp/datasets/formats, exp/datasets/celeba_hq_mixed: WebP, progressive
+     and CMYK JPEG, palette / 16-bit / low-bit / interlaced PNG, PPM, PGM,
+     BMP) against PIL's committed decode and mode (byte-equal, JPEG within
+     a level), ms per 256 px image by format; phase 5's main path on
+     celeba_hq_mixed (its 8 images as WebP, progressive and CMYK JPEG,
+     palette PNG and BMP), launches exact (7100 GroupNorm, 600 attention),
+     images/s against phase 5's;
      hq_evaluation_torch.py --face_sweep on the face256 ADM at full width
      (random weights, bf16, a depth cut to 95 model calls a tile), 2 JPEG
      gts of 320 x 288 cropped to 256 by the pair loader, --sweep_batch 2:
@@ -1041,11 +1046,11 @@ def hq_adm():
     return cast_torso(model.eval(), torch.bfloat16)
 
 
-def hq_golden_run(model, device, task) -> tuple[float, torch.Tensor, float]:
-    """One unguided hq golden task through the port's sample_posterior
-    under the golden protocol (tests/_golden_adm.py run_hq_task): returns
-    (PSNR of the 2-image batch against the ground truth, final images,
-    seconds)."""
+def hq_golden_run(model, device, task, sample=None) -> tuple[float, torch.Tensor, float]:
+    """One unguided hq golden task through the port's sample_posterior (or
+    `sample`, e.g. parallel.grid_sampler of it) under the golden protocol
+    (tests/_golden_adm.py run_hq_task): returns (PSNR of the 2-image batch
+    against the ground truth, final images, seconds)."""
     from ddnm_tpu_torch import schedules as sch
     from ddnm_tpu_torch.data.io import load_image
     from ddnm_tpu_torch.operators import build_functional_operator
@@ -1065,8 +1070,8 @@ def hq_golden_run(model, device, task) -> tuple[float, torch.Tensor, float]:
         timestep_respacing=HQ_RESPACING, sigma_y=sigma_y, schedule_jump_params=HQ_JUMP)
     zero = lambda gens, shape: torch.zeros(shape, device=device)
     t0 = time.perf_counter()
-    x, _ = sample_posterior(lambda z, t: model(z, t), xt, op.Ap(op.A(gt)), op, tables,
-                            [None, None], noise_fn=zero)
+    x, _ = (sample or sample_posterior)(lambda z, t: model(z, t), xt, op.Ap(op.A(gt)), op,
+                                        tables, [None, None], noise_fn=zero)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1558,13 +1563,15 @@ def decode_f32(d: dict) -> np.ndarray:
     return np.frombuffer(base64.b64decode(d["f32_b64"]), dtype="<f4").reshape(d["shape"])
 
 
-def guided_golden_run(model, classifier, device, tier: str = "toy32", grid=None):
+def guided_golden_run(model, classifier, device, tier: str = "toy32", grid=None,
+                      sample=None):
     """The guided hq golden protocol (tests/fixtures/toy_adm32_guided_golden.json)
     through the port's sample_posterior with `classifier_guidance_fn`:
     the golden's ground truth, x_T from RandomState(11), zero noise, 4x
     average-pooling SR, respacing 25 with the jump schedule, class 2, scale
     2.0. `grid`: the model and the classifier are sharded over its spatial
-    group, and both callables go through Grid.wrap. Returns (batch PSNR,
+    group, and both callables go through Grid.wrap; `sample` replaces
+    sample_posterior (e.g. parallel.grid_sampler of it). Returns (batch PSNR,
     final images, per-image max |final - JAX output|, seconds)."""
     from ddnm_tpu_torch import schedules as sch
     from ddnm_tpu_torch.models import classifier_guidance_fn
@@ -1591,8 +1598,8 @@ def guided_golden_run(model, classifier, device, tier: str = "toy32", grid=None)
                                              classifier=classifier)
     zero = lambda gens, shape: torch.zeros(shape, device=device)
     t0 = time.perf_counter()
-    x, _ = sample_posterior(model_fn, xt, op.Ap(op.A(gt)), op, tables,
-                            [None] * n, noise_fn=zero, guidance_fn=guidance)
+    x, _ = (sample or sample_posterior)(model_fn, xt, op.Ap(op.A(gt)), op, tables,
+                                        [None] * n, noise_fn=zero, guidance_fn=guidance)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -2870,6 +2877,70 @@ def jpeg_decode_check() -> dict:
     return dict(files=rows, **timing)
 
 
+FORMATS_ORACLE = REPO / "tests" / "fixtures" / "formats_pil_decode.npz"
+
+
+def format_decode_check() -> dict:
+    """Phase 19 (a): every image-format fixture (tools/make_torch_format_fixtures.py)
+    through the port's `decode_image` against PIL's mode and decode committed
+    beside it (its RGBA or RGB pixels, or their SHA-256): byte-equal, JPEG
+    within one level; then ms per 256 x 256 image of celeba_hq_mixed by
+    format on this host (best of 3 rounds)."""
+    import hashlib
+
+    from ddnm_tpu_torch.data.io import convert, decode_image, decode_png, has_alpha
+
+    oracle = np.load(FORMATS_ORACLE)
+    keys = sorted({k.split("|")[0] for k in oracle.files})
+    rows = {}
+    for key in keys:
+        arr, mode = decode_image((REPO / key).read_bytes(), key)
+        want_mode = bytes(oracle[f"{key}|mode"]).decode()
+        if mode != want_mode:
+            raise AssertionError(f"{key}: mode {mode}, PIL {want_mode}")
+        ours = convert(arr, mode, "RGBA" if has_alpha(mode) else "RGB")
+        if f"{key}|sha256" in oracle.files:
+            if (list(ours.shape) != oracle[f"{key}|shape"].tolist()
+                    or hashlib.sha256(ours.tobytes()).digest() != bytes(oracle[f"{key}|sha256"])):
+                raise AssertionError(f"{key}: pixels differ from PIL's (SHA-256)")
+            worst = 0
+        else:
+            ref = decode_png(bytes(oracle[f"{key}|png"]))
+            if ours.shape != ref.shape:
+                raise AssertionError(f"{key}: decoded {ours.shape}, PIL {ref.shape}")
+            worst = int(np.abs(ours.astype(np.int16) - ref.astype(np.int16)).max())
+        gate = 1 if key.endswith(".jpg") else 0
+        rows[key] = dict(mode=mode, shape=list(ours.shape), max_abs=worst)
+        print(f"format {key}: mode {mode}, {ours.shape[1]} x {ours.shape[0]}, max |diff| "
+              f"against PIL {worst} (gate {gate})", flush=True)
+        if worst > gate:
+            raise AssertionError(f"{key}: {worst} levels from PIL's decode (gate {gate})")
+    mixed = REPO / "exp" / "datasets" / "celeba_hq_mixed"
+    kinds = {}
+    for path in sorted(mixed.iterdir()):
+        data = path.read_bytes()
+        mode = decode_image(data, path.name)[1]
+        if path.suffix == ".webp":
+            kind = "webp_lossless" if data[12:16] == b"VP8L" else "webp_lossy"
+        elif path.suffix == ".jpg":
+            kind = "jpeg_cmyk" if mode == "CMYK" else "jpeg_progressive"
+        else:
+            kind = f"{path.suffix[1:]}_{mode.lower()}"
+        kinds.setdefault(kind, []).append(data)
+    timing = {}
+    for kind, blobs in sorted(kinds.items()):
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for data in blobs:
+                decode_image(data)
+            best = min(best, (time.perf_counter() - t0) / len(blobs))
+        timing[f"{kind}_256x256_ms"] = 1e3 * best
+    print("format decode ms per 256 x 256 image on the host (best of 3): "
+          + json.dumps(timing), flush=True)
+    return dict(files=rows, **timing)
+
+
 def face_sweep_path(n_gn: int, n_attn: int) -> tuple[dict, dict]:
     """Phase 19 (c): hq_evaluation_torch.py --face_sweep at full width: the
     face256 ADM of configs/hq/face256.yml (128 channels, its channel_mult,
@@ -2962,8 +3033,8 @@ def main_path(deg: str, deg_scale: str, simplified: bool, n_gn: int, n_attn: int
               want_fwht: int, path_y: str = "celeba_hq", keep: dict | None = None
               ) -> tuple[dict, dict]:
     """main_torch on configs/celeba_hq.yml, flag_ddpm256.pt, the 8 images of
-    exp/datasets/<path_y> (the PNGs of celeba_hq, or their JPEG copies in
-    celeba_hq_jpeg), bf16 torso, batch 8, 100 steps, sigma_y 0; checks 8
+    exp/datasets/<path_y> (the PNGs of celeba_hq, or their copies in other
+    formats in celeba_hq_mixed), bf16 torso, batch 8, 100 steps, sigma_y 0; checks 8
     PNGs, PSNR > 14 dB and every kernel's launch count exactly. Returns (the
     run's stats, its launch counts); `keep` gets the outputs (read_outputs)."""
     import main_torch
@@ -4678,24 +4749,25 @@ def main() -> int:
                    "guided bf16, max_batch 2)"):
         served_hq, launches_served_hq = served_hq_path(*counts["hq"], *counts["classifier"])
 
-    with phase(19, "the data long tail on the card (JPEG decode, the main path on JPEG, "
-                   "the face sweep through hq_evaluation_torch)"):
+    with phase(19, "the data long tail on the card (JPEG and image-format decodes, the main "
+                   "path on mixed formats, the face sweep through hq_evaluation_torch)"):
         decode = jpeg_decode_check()
-        jpeg_stats, launches_jpeg = main_path("sr_averagepooling", "4", True, n_gn, n_attn, 0,
-                                              path_y="celeba_hq_jpeg")
-        print("main path on JPEG against phase 5 (PNG), images/s end to end "
-              f"{jpeg_stats['images_per_second']:.4f} against "
+        decode["formats"] = format_decode_check()
+        mixed_stats, launches_mixed = main_path("sr_averagepooling", "4", True, n_gn, n_attn, 0,
+                                              path_y="celeba_hq_mixed")
+        print("main path on mixed formats against phase 5 (PNG), images/s end to end "
+              f"{mixed_stats['images_per_second']:.4f} against "
               f"{main_stats['images_per_second']:.4f}, in the sampler "
-              f"{jpeg_stats['num_samples'] / jpeg_stats['sample_seconds']:.4f} against "
+              f"{mixed_stats['num_samples'] / mixed_stats['sample_seconds']:.4f} against "
               f"{main_stats['num_samples'] / main_stats['sample_seconds']:.4f}; launches per "
-              f"batch {launches_jpeg['groupnorm_stats']} GroupNorm, "
-              f"{launches_jpeg['attention']} attention", flush=True)
+              f"batch {launches_mixed['groupnorm_stats']} GroupNorm, "
+              f"{launches_mixed['attention']} attention", flush=True)
         with torch.device("meta"):
             face_meta = build_adm_from_hq(load_hq_config(FACE256), "meta")
         face_stats, launches_face = face_sweep_path(*module_counts(face_meta))
         del face_meta
-        long_tail = dict(decode=decode, jpeg_main={
-            k: jpeg_stats[k] for k in ("images_per_second", "sample_seconds", "wall_seconds",
+        long_tail = dict(decode=decode, mixed_main={
+            k: mixed_stats[k] for k in ("images_per_second", "sample_seconds", "wall_seconds",
                                        "num_samples", "avg_psnr")}, face_sweep=face_stats)
 
     with phase(20, "data parallelism on a mesh of 2 (the runner, two processes, "
@@ -4797,7 +4869,7 @@ def main() -> int:
                               **{run: counts_[kind] for run, counts_ in launches_accel.items()},
                               "served": launches_served[kind],
                               "served_hq": launches_served_hq[kind],
-                              "jpeg_main": launches_jpeg[kind],
+                              "mixed_main": launches_mixed[kind],
                               "face_sweep": launches_face[kind],
                               "dp_runner": launches_dp_runner[kind],
                               "dp_served": launches_dp_served[kind],

@@ -14,8 +14,9 @@ Ported: the main runner in both modes on the DDPM and ADM UNets
 (`sampling/solvers.py`), the encoder cache (`sampling/accel.py`) and the
 hq CLI's tile-granular `--resume`, the runner's host overlap with
 `utils/observability.py` (`MetricsLogger`, `--trace_dir`) and online
-serving (`server.py`, `serve_torch.py`), and the data long tail: a numpy
-baseline JPEG decoder (`data/jpeg.py`), the CelebA and LSUN lmdb datasets
+serving (`server.py`, `serve_torch.py`), and the data long tail: numpy
+decoders of every image format the JAX package reads through PIL
+(`data/io.py`, `data/jpeg.py`, `data/webp.py`), the CelebA and LSUN lmdb datasets
 (`data/extra_datasets.py`), the checkpoint registry (`data/checkpoints.py`)
 and `hq_evaluation_torch.py`, and data parallelism (`parallel/`: the runner,
 tiles and served groups sharded over a mesh of cards, `--dp`, one slice

@@ -12,9 +12,9 @@
   - CelebA (the aligned crop, its test split) and the non-ood LSUN lmdb
     (`<exp>/datasets/<category>`'s val split): data/extra_datasets.py.
 
-Images decode with the port's PNG and JPEG readers (told apart by their
-bytes) and resize with data/resize.py, which reproduces PIL's uint8
-resampler.
+Images decode with the port's readers (data/io.py `decode_image`: PNG,
+JPEG, WebP, BMP, PNM, told apart by their bytes) and resize with
+data/resize.py, which reproduces PIL's uint8 resampler.
 """
 
 from __future__ import annotations

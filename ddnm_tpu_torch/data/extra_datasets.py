@@ -12,13 +12,11 @@ ddnm_tpu/data/extra_datasets.py without PIL).
     directory, each value centre-cropped to its short edge then BICUBIC.
     They need the `lmdb` package, which neither the development host nor
     the card's machine has: opening one raises the JAX package's
-    ImportError. Values decode with `decode_rgb8` (PNG and baseline JPEG).
-    LSUN's own export writes WebP values, which the port cannot decode yet:
-    an item of a real LSUN lmdb raises the WebP refusal (ROADMAP.md lists
-    the decoder as still missing).
+    ImportError. Values decode with `decode_rgb8` (PNG, JPEG, WebP, BMP,
+    PNM; LSUN's own export writes WebP).
 
-Images decode with the port's readers (data/io.py, data/jpeg.py), which
-give PIL's `convert("RGB")` bytes for the formats they read.
+Images decode with the port's readers (data/io.py, data/jpeg.py,
+data/webp.py), which give PIL's `convert("RGB")` bytes.
 """
 
 from __future__ import annotations

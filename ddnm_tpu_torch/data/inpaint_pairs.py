@@ -12,7 +12,7 @@ round trip through uint8 ((x * 255) truncated), then `center_crop_arr`
 to scale it to `image_size`, a centre crop), which data/resize.py holds
 to PIL's bytes; the crop leaves an image already at `image_size` x
 `image_size` as the round trip gives it. Any image the port's readers decode
-(PNG, baseline JPEG) is accepted.
+(PNG, JPEG, WebP, BMP, PNM) is accepted.
 """
 
 from __future__ import annotations

@@ -7,10 +7,13 @@ The machine that runs the port has no imaging package, so this module
 decodes in numpy, to the bytes that libjpeg-turbo's default decode (which
 PIL runs) gives:
 
-  - sequential Huffman frames (SOF0 / SOF1) with 8-bit samples, 1 or 3
-    components, sampling factors of 1 or 2 (4:4:4, 4:2:2, 4:2:0, 4:4:0),
-    8- and 16-bit quantisation tables, optimised Huffman tables, restart
-    intervals (DRI / RSTn), interleaved or one-component scans;
+  - sequential and progressive Huffman frames (SOF0 / SOF1 / SOF2) with
+    8-bit samples, 1, 3 or 4 components, sampling factors of 1 or 2
+    (4:4:4, 4:2:2, 4:2:0, 4:4:0), 8- and 16-bit quantisation tables,
+    optimised Huffman tables, restart intervals (DRI / RSTn), interleaved
+    or one-component scans; progressive scans (jdphuff.c: DC first and
+    refinement, AC first and refinement with EOB runs and correction bits)
+    fill one coefficient array before the inverse DCT;
   - the integer ISLOW inverse DCT (libjpeg-turbo `jidctint.c`) with its
     13-bit constants, descale and range-limit table;
   - "fancy" triangular upsampling of the chroma planes (`jdsample.c`
@@ -19,13 +22,17 @@ PIL runs) gives:
   - the fixed-point YCbCr -> RGB tables of `jdcolor.c`; a 3-component
     file is RGB when an Adobe APP14 segment says transform 0 (or, with no
     JFIF or Adobe segment, its component ids spell R, G, B), as libjpeg
-    decides.
+    decides; a 4-component file is CMYK (Adobe transform 0, or no Adobe
+    segment) or YCCK (any other transform), which `jdcolor.c`
+    ycck_cmyk_convert turns into CMYK; PIL reads either as "CMYK;I", the
+    inverted samples Adobe writes.
 
 APPn, COM and the JFIF / EXIF segments are skipped; like PIL, the decoder
-does not rotate by the EXIF orientation. Progressive, arithmetic-coded,
-lossless, hierarchical and 12-bit frames, 4-component (CMYK / YCCK)
-files and sampling factors above 2 raise ValueError naming the file and
-the feature.
+does not rotate by the EXIF orientation. Arithmetic-coded, lossless,
+hierarchical and 12-bit frames, sampling factors above 2, and progressive
+files whose scans leave one of the first ten coefficients unrefined
+(libjpeg then smooths the blocks, jdcoefct.c decompress_smooth_data)
+raise ValueError naming the file and the feature.
 
 Entropy decoding reads one symbol at a time in Python through 12-bit
 lookup tables (a code of 12 bits or less and, where they fit, its extra
@@ -40,7 +47,13 @@ import struct
 
 import numpy as np
 
-__all__ = ["decode_jpeg", "is_jpeg"]
+__all__ = ["decode_jpeg", "is_jpeg", "MAX_PIXELS"]
+
+# PIL's DecompressionBombError threshold (2 * Image.MAX_IMAGE_PIXELS): every
+# decoder of the port refuses a larger image before allocating it
+MAX_PIXELS = 2 * 89478485
+
+_SMOOTHED = 10  # coefficients (zigzag 0-9) libjpeg-turbo's block smoothing reads
 
 # zigzag position -> natural (row-major) index, with 16 trailing entries of
 # 63 that absorb a run past the block's end in corrupt data, as libjpeg's
@@ -53,7 +66,7 @@ _ZIGZAG = np.array([
 _NATURAL = tuple(_ZIGZAG.tolist()) + (63,) * 16
 
 _SOF_REFUSED = {
-    0xC2: "progressive DCT (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential (SOF5)", 0xC6: "differential progressive (SOF6)",
     0xC7: "differential lossless (SOF7)", 0xC9: "arithmetic coding (SOF9)",
     0xCA: "arithmetic coding, progressive (SOF10)", 0xCB: "arithmetic coding, lossless (SOF11)",
@@ -126,6 +139,7 @@ class _Huffman:
             raise ValueError("bad Huffman table")
         self.is_ac = is_ac
         self.values = values
+        self._symbols = None
         self.invalid = (16, 63, 0, 0) if is_ac else (16, 0, 0, 0)
         lut = [self.invalid] * (1 << _PEEK)
         self.maxcode = [-1] * 17
@@ -179,6 +193,30 @@ class _Huffman:
                 return self._entry(
                     self.values[self.valptr[length] + code - self.mincode[length]], length)
         return self.invalid
+
+
+    def symbol(self, w: int, off: int) -> tuple:
+        """(bits, symbol) of the code at bit `off` of the 64-bit window `w`,
+        as the progressive scans read them (EOB runs and ZRL keep their run);
+        a code no symbol has reads as symbol 0."""
+        if self._symbols is None:
+            table = [(0, 0)] * (1 << _PEEK)
+            for length in range(1, _PEEK + 1):
+                for code in range(self.mincode[length], self.maxcode[length] + 1):
+                    sym = self.values[self.valptr[length] + code - self.mincode[length]]
+                    lo = code << (_PEEK - length)
+                    table[lo:lo + (1 << (_PEEK - length))] = [(length, sym)] * (
+                        1 << (_PEEK - length))
+            self._symbols = table
+        entry = self._symbols[(w >> (52 - off)) & 0xFFF]
+        if entry[0]:
+            return entry
+        peek = (w >> (48 - off)) & 0xFFFF
+        for length in range(_PEEK + 1, 17):
+            code = peek >> (16 - length)
+            if code <= self.maxcode[length]:
+                return length, self.values[self.valptr[length] + code - self.mincode[length]]
+        return 16, 0
 
 
 def _windows(data: bytes) -> list:
@@ -245,11 +283,118 @@ def _decode_blocks(data: bytes, bases: list, pattern: list, start: int, stop: in
         raise ValueError("corrupt or truncated JPEG data") from None
 
 
+def _decode_progressive(data: bytes, bases: list, pattern: list, start: int, stop: int,
+                        coefs: list, ss: int, se: int, ah: int, al: int) -> None:
+    """Decode blocks `start:stop` of a progressive scan (one restart
+    interval; jdphuff.c) from its unstuffed bytes into `coefs` (flat,
+    natural order): DC first (differences shifted by Al) or refinement
+    (one bit), AC first (run / size symbols, EOB runs) or refinement
+    (new +-1 << Al coefficients and correction bits of the non-zero ones)."""
+    W = _windows(data)
+    pos = 0
+    nat = _NATURAL
+    npat = len(pattern)
+
+    def get(n: int) -> int:
+        nonlocal pos
+        if n == 0:
+            return 0
+        v = (W[pos >> 3] >> (64 - (pos & 7) - n)) & ((1 << n) - 1)
+        pos += n
+        return v
+
+    def sym(table: _Huffman) -> int:
+        nonlocal pos
+        length, s = table.symbol(W[pos >> 3], pos & 7)
+        pos += length
+        return s
+
+    def extend(x: int, s: int) -> int:
+        return x if x >> (s - 1) else x - (1 << s) + 1
+
+    try:
+        if ss == 0 and ah == 0:  # DC first
+            preds = [0] * npat
+            for b in range(start, stop):
+                ci, dct, _ = pattern[b % npat]
+                s = sym(dct)
+                if s:
+                    preds[ci] += extend(get(s), s)
+                coefs[bases[b]] = preds[ci] << al
+        elif ss == 0:  # DC refinement
+            p1 = 1 << al
+            for b in range(start, stop):
+                if get(1):
+                    coefs[bases[b]] |= p1
+        elif ah == 0:  # AC first
+            act = pattern[0][2]
+            eobrun = 0
+            for b in range(start, stop):
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                base, k = bases[b], ss
+                while k <= se:
+                    rs = sym(act)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        coefs[base + nat[k]] = extend(get(s), s) << al
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = (1 << r) + get(r) - 1
+                        break
+                    k += 1
+        else:  # AC refinement
+            act = pattern[0][2]
+            p1, m1 = 1 << al, -1 << al
+            eobrun = 0
+            for b in range(start, stop):
+                base, k = bases[b], ss
+                if eobrun == 0:
+                    while k <= se:
+                        rs = sym(act)
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            s = p1 if get(1) else m1
+                        elif r != 15:
+                            eobrun = (1 << r) + get(r)
+                            break
+                        while True:  # past the non-zero ones (correction bits) and r zeros
+                            i = base + nat[k]
+                            c = coefs[i]
+                            if c:
+                                if get(1) and not c & p1:
+                                    coefs[i] = c + p1 if c >= 0 else c + m1
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                            if k > se:
+                                break
+                        if s:
+                            coefs[base + nat[k]] = s
+                        k += 1
+                if eobrun > 0:
+                    while k <= se:
+                        i = base + nat[k]
+                        c = coefs[i]
+                        if c and get(1) and not c & p1:
+                            coefs[i] = c + p1 if c >= 0 else c + m1
+                        k += 1
+                    eobrun -= 1
+    except IndexError:
+        raise ValueError("corrupt or truncated JPEG data") from None
+
+
 class _Component:
     def __init__(self, cid: int, h: int, v: int, tq: int):
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
         self.q = None  # the quantisation table, latched at its first scan
         self.scanned = False
+        self.coef_bits = [-1] * 64  # progressive: the Al each coefficient was last scanned at
 
 
 def _idct_pass(x: np.ndarray, axis: int, shift: int) -> np.ndarray:
@@ -327,21 +472,24 @@ def _upsample(p: np.ndarray, hr: int, vr: int) -> np.ndarray:
     return _interleave(rows[0], rows[1], 0).astype(np.uint8)
 
 
-def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """jdcolor.c ycc_rgb_convert with its tables and sample range limit."""
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, clip: bool = True) -> np.ndarray:
+    """jdcolor.c ycc_rgb_convert with its tables and sample range limit
+    (clip=False: the sums before the limit, as ycck_cmyk_convert takes them)."""
     y = y.astype(np.int64)
     r = y + _CR_R[cr]
     g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
     b = y + _CB_B[cb]
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    out = np.stack([r, g, b], axis=-1)
+    return np.clip(out, 0, 255).astype(np.uint8) if clip else out
 
 
 def decode_jpeg(raw: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes -> uint8 (H, W) for a 1-component file, else (H, W, 3)
-    RGB, as libjpeg-turbo's default decode. `name` labels errors."""
+    """JPEG bytes -> uint8 (H, W) for a 1-component file, (H, W, 3) RGB for
+    3 components, (H, W, 4) CMYK (PIL's "CMYK" mode) for 4, as
+    libjpeg-turbo's default decode. `name` labels errors."""
 
     def refuse(feature: str):
-        raise ValueError(f"{name}: {feature} JPEG is not supported (sequential Huffman "
+        raise ValueError(f"{name}: {feature} JPEG is not supported (Huffman-coded "
                          "8-bit only; see ROADMAP.md)")
 
     if not is_jpeg(raw):
@@ -350,9 +498,11 @@ def decode_jpeg(raw: bytes, name: str = "<bytes>") -> np.ndarray:
     tables: dict = {}
     comps: list = []
     width = height = restart = 0
+    progressive = False
     jfif, adobe = False, None
     idx: list = []
     val: list = []
+    coefs: list | None = None
     pos, n = 2, len(raw)
     while True:
         while pos < n and raw[pos] != 0xFF:  # stray bytes before a marker
@@ -376,16 +526,18 @@ def decode_jpeg(raw: bytes, name: str = "<bytes>") -> np.ndarray:
         pos += length
         if marker in _SOF_REFUSED:
             refuse(_SOF_REFUSED[marker])
-        if marker in (0xC0, 0xC1):
+        if marker in (0xC0, 0xC1, 0xC2):
+            progressive = marker == 0xC2
             precision, height, width, nf = struct.unpack_from(">BHHB", seg)
             if precision != 8:
                 refuse(f"{precision}-bit")
-            if nf == 4:
-                refuse("4-component (CMYK / YCCK)")
-            if nf not in (1, 3):
+            if nf not in (1, 3, 4):
                 refuse(f"{nf}-component")
             if height == 0 or width == 0:
                 refuse("a DNL-defined height (or empty)")
+            if width * height > MAX_PIXELS:
+                raise ValueError(f"{name}: {width} x {height} pixels is more than "
+                                 f"{MAX_PIXELS} (a decompression bomb to PIL)")
             comps = []
             for i in range(nf):
                 cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
@@ -422,11 +574,23 @@ def decode_jpeg(raw: bytes, name: str = "<bytes>") -> np.ndarray:
         elif marker == 0xDA:  # SOS
             if not comps:
                 raise ValueError(f"{name}: scan before the frame header")
+            if progressive and coefs is None:
+                coefs = [0] * (64 * _layout(comps, width, height)[4])
             pos = _scan(raw, pos, seg, comps, qt, tables, width, height, restart,
-                        idx, val, name)
+                        idx, val, coefs, name)
     if not comps or not all(c.scanned for c in comps):
         raise ValueError(f"{name}: JPEG without image data for every component")
-    return _reconstruct(comps, width, height, idx, val, jfif, adobe)
+    if progressive:
+        # libjpeg-turbo smooths blocks (jdcoefct.c smoothing_ok) when every
+        # DC is known and one of the first ten coefficients is not exact
+        if (all(c.coef_bits[0] >= 0 for c in comps)
+                and any(b != 0 for c in comps for b in c.coef_bits[1:_SMOOTHED])):
+            refuse("progressive with unrefined low coefficients (libjpeg block smoothing)")
+        coef = np.asarray(coefs, np.int64)
+    else:
+        coef = np.zeros(64 * _layout(comps, width, height)[4], np.int64)
+        coef[np.asarray(idx, np.int64)] = val
+    return _reconstruct(comps, width, height, coef, jfif, adobe)
 
 
 def _layout(comps: list, width: int, height: int):
@@ -446,13 +610,28 @@ def _layout(comps: list, width: int, height: int):
     return hmax, vmax, mcux, mcuy, offset
 
 
-def _scan(raw, pos, seg, comps, qt, tables, width, height, restart, idx, val, name) -> int:
-    """Decode one sequential scan that starts at `pos`; returns the offset
-    just past its entropy-coded data."""
+def _scan(raw, pos, seg, comps, qt, tables, width, height, restart, idx, val, coefs,
+          name) -> int:
+    """Decode one scan that starts at `pos` (sequential into idx / val,
+    progressive into coefs); returns the offset just past its
+    entropy-coded data."""
     ns = seg[0]
     by_id = {c.cid: c for c in comps}
     scomps, pattern = [], []
     hmax, vmax, mcux, mcuy, _ = _layout(comps, width, height)
+    ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
+    ah, al = ahal >> 4, ahal & 15
+    if coefs is None:
+        if ss != 0 or se != 63 or ahal != 0:
+            raise ValueError(f"{name}: spectral selection or successive approximation in a "
+                             "sequential scan")
+        need_dc = need_ac = True
+    else:  # jdphuff.c start_pass_phuff_decoder's checks
+        if ((ss == 0 and se != 0) or (ss and (se < ss or se > 63 or ns != 1))
+                or (ah and al != ah - 1) or al > 13):
+            raise ValueError(f"{name}: bad progressive scan parameters "
+                             f"(Ss {ss}, Se {se}, Ah {ah}, Al {al})")
+        need_dc, need_ac = ss == 0 and ah == 0, ss > 0
     for i in range(ns):
         cid, tdta = seg[1 + 2 * i], seg[2 + 2 * i]
         if cid not in by_id:
@@ -464,14 +643,13 @@ def _scan(raw, pos, seg, comps, qt, tables, width, height, restart, idx, val, na
             c.q = qt[c.tq].copy()
         c.scanned = True
         try:
-            dct, act = tables[(0, tdta >> 4)], tables[(1, tdta & 15)]
+            dct = tables[(0, tdta >> 4)] if need_dc else None
+            act = tables[(1, tdta & 15)] if need_ac else None
         except KeyError:
             raise ValueError(f"{name}: scan uses an undefined Huffman table") from None
+        if coefs is not None:
+            c.coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
         scomps.append((c, dct, act))
-    ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
-    if ss != 0 or se != 63 or ahal != 0:
-        raise ValueError(f"{name}: spectral selection or successive approximation in a "
-                         "sequential scan")
     if ns == 1:  # non-interleaved: one block an MCU over the component's own extent
         c, dct, act = scomps[0]
         rows, cols = -(-c.ds_h // 8), -(-c.ds_w // 8)
@@ -501,20 +679,22 @@ def _scan(raw, pos, seg, comps, qt, tables, width, height, restart, idx, val, na
         raise ValueError(f"{name}: corrupt JPEG data: {len(pieces)} restart intervals, "
                          f"{need} expected")
     for i in range(need):
+        piece = pieces[i].replace(b"\xff\x00", b"\xff")
+        stop = min((i + 1) * per, total)
         try:
-            _decode_blocks(pieces[i].replace(b"\xff\x00", b"\xff"), bases, pattern,
-                           i * per, min((i + 1) * per, total), idx, val)
+            if coefs is None:
+                _decode_blocks(piece, bases, pattern, i * per, stop, idx, val)
+            else:
+                _decode_progressive(piece, bases, pattern, i * per, stop, coefs, ss, se, ah, al)
         except ValueError as e:
             raise ValueError(f"{name}: {e}") from None
     return end
 
 
-def _reconstruct(comps, width, height, idx, val, jfif, adobe) -> np.ndarray:
-    """Coefficients -> dequantised -> IDCT -> planes -> upsampled ->
-    colour converted."""
+def _reconstruct(comps, width, height, coef, jfif, adobe) -> np.ndarray:
+    """Coefficients (flat, natural order) -> dequantised -> IDCT -> planes
+    -> upsampled -> colour converted."""
     hmax, vmax, _, _, nblocks = _layout(comps, width, height)
-    coef = np.zeros(nblocks * 64, np.int64)
-    coef[np.asarray(idx, np.int64)] = val
     coef = coef.reshape(nblocks, 64)
     for c in comps:
         coef[c.offset:c.offset + c.bw * c.bh] *= c.q
@@ -526,6 +706,11 @@ def _reconstruct(comps, width, height, idx, val, jfif, adobe) -> np.ndarray:
         planes.append(_upsample(plane, hmax // c.h, vmax // c.v)[:height, :width])
     if len(planes) == 1:
         return np.ascontiguousarray(planes[0])
+    if len(planes) == 4:
+        if adobe is not None and adobe != 0:  # YCCK -> CMYK (jdcolor.c ycck_cmyk_convert)
+            cmy = 255 - _ycc_to_rgb(*planes[:3], clip=False)
+            planes = [*np.moveaxis(np.clip(cmy, 0, 255).astype(np.uint8), -1, 0), planes[3]]
+        return 255 - np.stack(planes, axis=-1)  # PIL's "CMYK;I"
     if jfif:
         rgb = False
     elif adobe is not None:

@@ -15,12 +15,13 @@ JSON keys:
     order than lane 0 runs one image at a time (`_LanePinnedConv`).
 
   - `RestorationServer`, a stdlib ThreadingHTTPServer front. Handler
-    threads decode PNG or JPEG uploads into numpy (the port's codecs,
-    data/io.py and data/jpeg.py) and enqueue; ONE worker thread drains
-    the queue (micro-batching with a max-wait deadline) and is the only
+    threads decode uploads into numpy (the port's decoders, data/io.py
+    `decode_image`: PNG, JPEG, WebP, BMP, PNM, in PIL's modes) and
+    enqueue; ONE worker thread drains the queue (micro-batching with a
+    max-wait deadline) and is the only
     thread that touches the device (over a mesh, it launches each group's
     shards in turn). `POST
-    /restore?deg=<task>[&input=degraded|gt][&class=N]` with a PNG or JPEG
+    /restore?deg=<task>[&input=degraded|gt][&class=N]` with an image
     body returns the restored PNG; `GET /healthz` returns JSON stats (counters,
     realized batch, queue depth, request-latency percentiles).
 
@@ -72,8 +73,8 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from ddnm_tpu_torch.data.io import decode_png, encode_png
-from ddnm_tpu_torch.data.jpeg import decode_jpeg, is_jpeg
+from ddnm_tpu_torch.data.io import convert, decode_image, encode_png
+from ddnm_tpu_torch.data.io import has_alpha as image_has_alpha  # a handler local is has_alpha
 from ddnm_tpu_torch.data.transforms import data_transform, inverse_data_transform
 from ddnm_tpu_torch.operators.functional import FunctionalOperator
 from ddnm_tpu_torch.parallel.mesh import replicate, sharded_sampler
@@ -1000,29 +1001,6 @@ class RestorationServer:
             r.event.set()
 
 
-def _gray(rgb: np.ndarray) -> np.ndarray:
-    """uint8 RGB -> uint8 L with PIL's ITU-R 601-2 integer luma
-    (Image.convert("L")): (19595 R + 38470 G + 7471 B + 2^15) >> 16."""
-    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
-    return ((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16).astype(np.uint8)
-
-
-def _decode_upload(raw: bytes) -> tuple[np.ndarray, bool]:
-    """PNG or JPEG bytes -> (uint8 (H, W, c), has_alpha): gray, gray+alpha,
-    RGB or RGBA PNGs as the port's codec reads them (a palette or 16-bit PNG
-    raises); a JPEG decodes to gray or RGB with no alpha, as serve.py's PIL
-    opens it (a progressive or CMYK JPEG raises)."""
-    img = decode_jpeg(raw, "upload") if is_jpeg(raw) else decode_png(raw)
-    if img.ndim == 2:
-        img = img[..., None]
-    return img, img.shape[-1] in (2, 4)
-
-
-def _as_rgb(img: np.ndarray) -> np.ndarray:
-    """uint8 (H, W, c) -> (H, W, 3), alpha dropped, gray replicated."""
-    return np.repeat(img[..., :1], 3, axis=-1) if img.shape[-1] <= 2 else img[..., :3]
-
-
 def _make_handler(server: RestorationServer):
     class Handler(BaseHTTPRequestHandler):
         # quiet by default; the service is the log surface
@@ -1111,7 +1089,10 @@ def _make_handler(server: RestorationServer):
                 if not 0 < length <= _MAX_BODY:
                     self._send_json(413, {"error": "bad content length"})
                     return
-                img, has_alpha = _decode_upload(self.rfile.read(length))
+                # serve.py's Image.open: the pixels in PIL's mode, and its
+                # "A" in img.getbands()
+                img, mode = decode_image(self.rfile.read(length), "upload")
+                has_alpha = image_has_alpha(mode)
             except Exception as exc:
                 self._send_json(400, {"error": f"bad image: {exc}"})
                 return
@@ -1152,13 +1133,13 @@ def _make_handler(server: RestorationServer):
             ctx = None
             if has_alpha:
                 # RGBA upload: alpha is the per-request keep-mask
-                arr = _as_rgb(img).astype(np.float32) / 255.0
-                ctx = (img[..., -1:].astype(np.float32) > 127.0).astype(np.float32)
+                rgba = convert(img, mode, "RGBA").astype(np.float32)
+                arr = rgba[..., :3] / 255.0
+                ctx = (rgba[..., 3:] > 127.0).astype(np.float32)
             elif expected[-1] == 1:  # grayscale measurement
-                gray = img if img.shape[-1] == 1 else _gray(img)[..., None]
-                arr = gray.astype(np.float32) / 255.0
+                arr = (convert(img, mode, "L").astype(np.float32) / 255.0)[..., None]
             else:
-                arr = _as_rgb(img).astype(np.float32) / 255.0
+                arr = convert(img, mode, "RGB").astype(np.float32) / 255.0
             if arr.shape != expected:
                 self._send_json(
                     400, {"error": f"{input_kind} input for {deg!r} must be "

@@ -58,11 +58,23 @@ def test_save_image_quantises_like_jax(tmp_path):
 
 
 def test_png_decoder_rejects_what_it_does_not_read(tmp_path):
-    Image.new("P", (4, 4)).save(tmp_path / "pal.png")
-    with pytest.raises(ValueError, match="unsupported"):
-        tio.decode_png((tmp_path / "pal.png").read_bytes())
+    """A palette PNG, once refused, decodes to PIL's mode "P" (its palette
+    expanded); what is not a PNG, or a PNG with an unknown critical chunk,
+    is still refused."""
+    pal = Image.new("P", (4, 4))
+    pal.putpalette(list(range(48)))
+    pal.putpixel((1, 2), 5)
+    pal.save(tmp_path / "pal.png")
+    arr, mode = tio.decode_image((tmp_path / "pal.png").read_bytes())
+    assert mode == "P"
+    assert np.array_equal(tio.convert(arr, mode, "RGB"),
+                          np.asarray(Image.open(tmp_path / "pal.png").convert("RGB")))
     with pytest.raises(ValueError, match="not a PNG"):
         tio.decode_png(b"GIF89a")
+    data = tio.encode_png(np.zeros((2, 2), np.uint8))
+    bogus = data[:33] + tio._chunk(b"ABCD", b"") + data[33:]
+    with pytest.raises(ValueError, match="unsupported PNG chunk"):
+        tio.decode_png(bogus)
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)

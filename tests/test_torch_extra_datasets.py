@@ -5,7 +5,7 @@ dequantizations, the checkpoint registry and a JPEG upload through the
 server's decoder (the cases of tests/test_datasets_extra.py carried over).
 
 Tolerances: names, labels, targets, keys and errors equal; pixels equal
-where both sides decode PNG, within 1 uint8 level where they decode JPEG
+where both sides decode PNG or WebP, within 1 uint8 level where they decode JPEG
 (the port's numpy decoder against PIL; equal on this host's Pillow);
 dequantized values equal for the same numpy Generator. The lmdb package
 is absent on both machines: LSUN runs on an in-memory stand-in that has
@@ -214,11 +214,16 @@ def test_lsun_multi_matches_jax(tmp_path, monkeypatch):
 
 
 def test_lsun_webp_value_refused(tmp_path, monkeypatch):
-    """LSUN's own export stores WebP: the port names the format it lacks."""
-    _install_fake_lmdb(monkeypatch, {"cat_val_lmdb": {b"w": _encoded((9, 9, 9), "WEBP")}})
-    ds = tx.LSUNDataset(tmp_path, "cat", "val", image_size=8)
-    with pytest.raises(ValueError, match="WebP images are not supported"):
-        ds[0]
+    """LSUN's own export stores WebP (lossy, as the LSUN tools write it):
+    once refused, the port's items now equal the JAX LSUNDataset's on the
+    same lmdb, byte for byte (the numpy VP8 decoder against PIL's libwebp)."""
+    store = {f"w{i}".encode(): _encoded((i * 60, 90, 30), "WEBP", size=(37, 29))
+             for i in range(3)}
+    _install_fake_lmdb(monkeypatch, {"cat_val_lmdb": store})
+    ours = tx.LSUNDataset(tmp_path, "cat", "val", image_size=16)
+    ref = jx.LSUNDataset(tmp_path, "cat", "val", image_size=16)
+    assert len(ours) == 3 and ours.keys == ref.keys
+    _same_items(ours, ref, levels=0)
 
 
 def test_lsun_classes_validation_matches_jax():
@@ -322,17 +327,17 @@ def test_checkpoint_registry_and_errors_match_jax(tmp_path):
 
 @pytest.mark.parametrize("mode", ["RGB", "L"])
 def test_server_decodes_a_jpeg_upload_as_pil(mode):
-    """serve_torch's upload decoder takes a JPEG: no alpha, gray or RGB, the
-    pixels serve.py's PIL would see (RGB, L) within a level."""
-    from ddnm_tpu_torch.server import _as_rgb, _decode_upload, _gray
+    """serve_torch's upload decoder (data/io.py decode_image) takes a JPEG:
+    no alpha, gray or RGB, the pixels serve.py's PIL would see (RGB, L)
+    within a level."""
+    from ddnm_tpu_torch.data.io import convert, decode_image, has_alpha
 
     rgb = np.random.default_rng(6).integers(0, 256, (24, 40, 3), dtype=np.uint8)
     buf = io.BytesIO()
     Image.fromarray(rgb).convert(mode).save(buf, "JPEG", quality=90)
-    img, has_alpha = _decode_upload(buf.getvalue())
-    assert not has_alpha
+    img, img_mode = decode_image(buf.getvalue(), "upload")
     pil = Image.open(io.BytesIO(buf.getvalue()))
+    assert img_mode == pil.mode and not has_alpha(img_mode)
     assert "A" not in pil.getbands()
-    _close(_as_rgb(img), np.asarray(pil.convert("RGB")), 1)
-    gray = img if img.shape[-1] == 1 else _gray(img)[..., None]
-    _close(gray[..., 0], np.asarray(pil.convert("L")), 1)
+    _close(convert(img, img_mode, "RGB"), np.asarray(pil.convert("RGB")), 1)
+    _close(convert(img, img_mode, "L"), np.asarray(pil.convert("L")), 1)

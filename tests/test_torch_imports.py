@@ -24,7 +24,8 @@ PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "main_t
                                           REPO / "hq_evaluation_torch.py", EXPERIMENT,
                                           REPO / "tools" / "time_runner_overlap.py",
                                           REPO / "tools" / "profile_torch_serve.py",
-                                          REPO / "tools" / "time_serving.py"]
+                                          REPO / "tools" / "time_serving.py",
+                                          REPO / "tools" / "check_spatial_nccl.py"]
 
 
 def _blocked(name: str) -> bool:
@@ -33,8 +34,8 @@ def _blocked(name: str) -> bool:
 
 def test_port_imports_with_foreign_packages_blocked():
     """Every module of the port (the server, utils.observability, the
-    parallel package, serving, sampling.threefry and ops.library among
-    them), main_torch, hq_main_torch, evaluation_torch, serve_torch,
+    parallel package, serving, sampling.threefry, ops.library and the
+    WebP decoder among them), main_torch, hq_main_torch, evaluation_torch, serve_torch,
     hq_evaluation_torch, chip_smoke and the ported experiment import in a
     process where the blocked packages cannot be found, and leave lmdb
     unimported (the LSUN datasets import it when opened); importing runs
@@ -59,7 +60,8 @@ def test_port_imports_with_foreign_packages_blocked():
         assert set(("ddnm_tpu_torch.parallel.mesh", "ddnm_tpu_torch.parallel.multihost",
                     "ddnm_tpu_torch.parallel.spatial", "ddnm_tpu_torch.serving",
                     "ddnm_tpu_torch.sampling.threefry",
-                    "ddnm_tpu_torch.ops.library")).issubset(names), names
+                    "ddnm_tpu_torch.ops.library", "ddnm_tpu_torch.data.webp",
+                    "ddnm_tpu_torch.data.webp_tables")).issubset(names), names
         import chip_smoke, evaluation_torch, hq_evaluation_torch, hq_main_torch
         import main_torch, serve_torch
         spec = importlib.util.spec_from_file_location("fused_gn_conv_torch",

@@ -8,8 +8,13 @@ one scan per component, a gray plane declared 2 x 2). Gate: every pixel
 within 1 uint8 level of PIL's decode; each case records the share of
 pixels that are equal (the decoder follows libjpeg-turbo's integer IDCT,
 fancy upsampling and colour tables, so it is 1.0 on this host's Pillow).
-Progressive and CMYK files are refused with a ValueError; a PNG named .jpg
-still decodes (the reader looks at the bytes)."""
+Progressive files (PIL's scan script, restart markers) and 4-component
+files (PIL's CMYK, and YCCK from the encoder below) are held to the same
+gate, CMYK before and after PIL's conversion to RGB; a progressive file
+whose scans stop before the low coefficients are exact, which libjpeg
+smooths, is refused, and the test shows that the unsmoothed decode would
+not be PIL's. A PNG named .jpg still decodes (the reader looks at the
+bytes)."""
 
 import io
 import struct
@@ -159,10 +164,12 @@ def _encode_blocks(bits: _Bits, blocks, pred: int, dc, ac) -> int:
     return pred
 
 
-def _encode(planes, factors, q: int = 6, one_scan: bool = True) -> bytes:
-    """Baseline JPEG of full-size uint8 planes (1 or 3, YCbCr), each
-    component box-downsampled to its (h, v) factors; component ids 1..n,
-    no JFIF or Adobe segment; one interleaved scan or one scan each."""
+def _encode(planes, factors, q: int = 6, one_scan: bool = True,
+            adobe: int | None = None) -> bytes:
+    """Baseline JPEG of full-size uint8 planes (1, 3 or 4; YCbCr, or YCCK
+    with `adobe` 2), each component box-downsampled to its (h, v) factors;
+    component ids 1..n, no JFIF segment, an Adobe APP14 segment with
+    transform `adobe` if given; one interleaved scan or one scan each."""
     height, width = planes[0].shape
     hmax, vmax = max(h for h, _ in factors), max(v for _, v in factors)
     mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
@@ -179,6 +186,8 @@ def _encode(planes, factors, q: int = 6, one_scan: bool = True) -> bytes:
     n = len(planes)
     seg = lambda m, body: b"\xff" + bytes([m]) + struct.pack(">H", len(body) + 2) + body  # noqa: E731
     out = b"\xff\xd8" + seg(0xDB, bytes([0]) + bytes([q]) * 64)
+    if adobe is not None:
+        out += seg(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
     out += seg(0xC0, struct.pack(">BHHB", 8, height, width, n) + b"".join(
         bytes([i + 1, (h << 4) | v, 0]) for i, (h, v) in enumerate(factors)))
     for tc, syms, length in ((0, _DC_SYMS, 4), (1, _AC_SYMS, 8)):
@@ -230,24 +239,124 @@ def test_decode_hand_encoded_layouts(case, size, tmp_path, record_property):
     _check(path, record_property)
 
 
-def test_refuses_progressive_and_cmyk(tmp_path):
+def test_refuses_progressive_and_cmyk(tmp_path, record_property):
+    """Progressive and CMYK files, once refused, decode as PIL's; sampling
+    factors above 2 are still refused."""
     rgb = _image(40, 30, seed=1)
     Image.fromarray(rgb).save(tmp_path / "p.jpg", "JPEG", progressive=True)
-    with pytest.raises(ValueError, match=r"p\.jpg: progressive"):
-        tio.read_rgb8(tmp_path / "p.jpg")
+    _check(tmp_path / "p.jpg", record_property)
     Image.fromarray(rgb).convert("CMYK").save(tmp_path / "c.jpg", "JPEG")
-    with pytest.raises(ValueError, match=r"c\.jpg: 4-component \(CMYK"):
-        tio.load_image(tmp_path / "c.jpg")
+    _check(tmp_path / "c.jpg", record_property)
     with pytest.raises(ValueError, match="sampling factor 4x1"):
         decode_jpeg(_encode([rgb[..., 0]] * 3, [(4, 1), (1, 1), (1, 1)]))
+
+
+@pytest.mark.parametrize("quality", [25, 90])
+@pytest.mark.parametrize("sub", ["444", "422", "420"])
+@pytest.mark.parametrize("size", [(37, 53), (131, 97)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_progressive_matches_pil(size, sub, quality, tmp_path, record_property):
+    """PIL's progressive scan script: DC first and refinement, AC spectral
+    bands, AC refinement with EOB runs and correction bits."""
+    path = tmp_path / "p.jpg"
+    Image.fromarray(_image(*size, seed=quality + size[0])).save(
+        path, "JPEG", quality=quality, subsampling=SUBSAMPLING[sub], progressive=True)
+    assert b"\xff\xc2" in path.read_bytes()
+    _check(path, record_property)
+
+
+@pytest.mark.parametrize("option", ["restart", "gray", "optimize"])
+def test_progressive_options_match_pil(option, tmp_path, record_property):
+    path = tmp_path / "p.jpg"
+    img = _image(131, 97, seed=4)
+    kw = {"restart": {"restart_marker_blocks": 3}, "optimize": {"optimize": True}}.get(option, {})
+    Image.fromarray(img[..., 0] if option == "gray" else img).save(
+        path, "JPEG", quality=80, progressive=True, **kw)
+    _check(path, record_property)
+
+
+def _scans_cut(data: bytes, keep: int) -> bytes:
+    """A JPEG with only its first `keep` scans (and EOI)."""
+    pos, seen = 2, 0
+    while True:
+        marker, (length,) = data[pos + 1], struct.unpack_from(">H", data, pos + 2)
+        if marker == 0xDA:
+            seen += 1
+            if seen > keep:
+                return data[:pos] + b"\xff\xd9"
+            end = pos + 2 + length
+            while not (data[end] == 0xFF and data[end + 1] not in (0x00, *range(0xD0, 0xD8))):
+                end += 1
+            pos = end
+        else:
+            pos += 2 + length
+
+
+def test_progressive_scans_stopping_early(tmp_path, monkeypatch):
+    """A file whose scans stop before the low AC coefficients are exact is
+    refused: libjpeg-turbo smooths its blocks (jdcoefct.c), and the decode
+    without smoothing is more than a level from PIL's."""
+    from ddnm_tpu_torch.data import jpeg
+
+    buf = io.BytesIO()
+    Image.fromarray(_image(64, 48, seed=9)).save(buf, "JPEG", quality=85, progressive=True)
+    cut = _scans_cut(buf.getvalue(), 3)
+    pil = np.asarray(Image.open(io.BytesIO(cut)).convert("RGB")).astype(int)
+    with pytest.raises(ValueError, match="x.jpg: progressive with unrefined low coefficients"):
+        decode_jpeg(cut, "x.jpg")
+    monkeypatch.setattr(jpeg, "_SMOOTHED", 1)  # skip the check: decode without smoothing
+    assert np.abs(tio.decode_rgb8(cut).astype(int) - pil).max() > 1
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_cmyk_matches_pil(progressive, tmp_path, record_property):
+    """PIL's CMYK JPEG (Adobe, inverted): the four planes within a level of
+    PIL's, then Pillow's cmyk2rgb to RGB and L."""
+    cmyk = np.random.default_rng(12).integers(0, 256, (53, 37, 4)).astype(np.uint8)
+    cmyk[..., :3] = np.minimum(cmyk[..., :3], _image(37, 53, seed=12))
+    path = tmp_path / "c.jpg"
+    Image.fromarray(cmyk, "CMYK").save(path, "JPEG", quality=90, progressive=progressive)
+    arr, mode = tio.decode_image(path.read_bytes())
+    pil = Image.open(path)
+    assert mode == pil.mode == "CMYK"
+    assert np.abs(arr.astype(int) - np.asarray(pil).astype(int)).max() <= 1
+    _check(path, record_property)
+    np.testing.assert_array_equal(tio.convert(arr, mode, "L"), np.asarray(pil.convert("L")))
+
+
+@pytest.mark.parametrize("adobe", [0, 2], ids=["cmyk", "ycck"])
+@pytest.mark.parametrize("factors", [[(1, 1)] * 4, [(2, 2), (1, 1), (1, 1), (2, 2)]],
+                         ids=["444", "420"])
+def test_four_components_hand_encoded(adobe, factors, tmp_path, record_property):
+    """Adobe transform 0 (CMYK as stored) and 2 (YCCK, which libjpeg turns
+    into CMYK with its YCbCr tables), written by the encoder above."""
+    rgb = _image(37, 53, seed=13)
+    k = np.random.default_rng(13).integers(0, 64, rgb.shape[:2]).astype(np.uint8)
+    if adobe == 2:
+        ycc = np.asarray(Image.fromarray(255 - rgb).convert("YCbCr"))
+        planes = [ycc[..., i] for i in range(3)] + [k]
+    else:
+        planes = [rgb[..., i] for i in range(3)] + [k]
+    path = tmp_path / "k.jpg"
+    path.write_bytes(_encode(planes, factors, adobe=adobe))
+    _check(path, record_property)
+    pil = Image.open(path)
+    arr, mode = tio.decode_image(path.read_bytes())
+    assert mode == pil.mode == "CMYK"
+    assert np.abs(arr.astype(int) - np.asarray(pil).astype(int)).max() <= 1
 
 
 @pytest.mark.parametrize("fmt,word", [("WEBP", "WebP"), ("BMP", "BMP"), ("TIFF", "TIFF"),
                                       ("GIF", "GIF")])
 def test_other_formats_refused_by_name(fmt, word, tmp_path):
+    """WebP and BMP, once refused, now read as PIL reads them; TIFF and GIF
+    are still refused by name."""
+    rgb = _image(9, 7, seed=2)
     buf = io.BytesIO()
-    Image.fromarray(_image(9, 7, seed=2)).save(buf, fmt)
+    Image.fromarray(rgb).save(buf, fmt, **({"lossless": True} if fmt == "WEBP" else {}))
     (tmp_path / "x.jpg").write_bytes(buf.getvalue())
+    if fmt in ("WEBP", "BMP"):
+        assert np.array_equal(tio.read_rgb8(tmp_path / "x.jpg"), rgb)
+        return
     with pytest.raises(ValueError, match=f"x.jpg: {word} images are not supported"):
         tio.read_rgb8(tmp_path / "x.jpg")
 

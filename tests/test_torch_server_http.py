@@ -94,6 +94,110 @@ def _post(url, body):
         return e.code, e.read(), dict(e.headers)
 
 
+class _GatedService(_FakeService):
+    """The JAX suite's fake service whose dispatch says it has started
+    (`entered`) and then waits for `gate`."""
+
+    def __init__(self):
+        super().__init__()
+        self.entered, self.gate = threading.Event(), threading.Event()
+
+    def restore_async(self, images, deg, seqs, **kw):
+        self.entered.set()
+        if not self.gate.wait(timeout=60):
+            raise RuntimeError("gate never opened")
+        return super().restore_async(images, deg, seqs, **kw)
+
+
+class _UploadRecorder(_FakeService):
+    """A fake service with a mask task ("m") and a task whose measurement
+    is gray ("g"), for servers whose submit() is recorded."""
+
+    def __init__(self):
+        super().__init__(image_size=RES)
+        self.tasks, self.ctx_tasks = ("m", "g"), ("m",)
+
+    def y_shape(self, deg):
+        return (RES, RES, 1) if deg == "g" else (RES, RES, 3)
+
+    def restore_async(self, images, deg, seqs, *, input_kind="degraded", ctxs=None,
+                      classes=None):
+        return np.zeros((len(seqs), RES, RES, 3), np.float32)
+
+
+def _recorded_uploads(server_cls, uploads) -> list:
+    """(status, submitted image, submitted mask) of each (url tail, body)
+    upload through a server of `server_cls` over _UploadRecorder."""
+    server = server_cls(_UploadRecorder(), max_wait_ms=1.0)
+    seen = []
+    submit = server.submit
+
+    def recording_submit(arr, deg, input_kind, ctx=None, cls=None):
+        seen.append((np.asarray(arr), None if ctx is None else np.asarray(ctx)))
+        return submit(arr, deg, input_kind, ctx=ctx, cls=cls)
+
+    server.submit = recording_submit
+    server.start()
+    try:
+        base = "http://%s:%d" % server.address
+        out = []
+        for tail, body in uploads:
+            n = len(seen)
+            status, reply, _ = _post(f"{base}/restore?{tail}", body)
+            assert status == 200, reply
+            out.append((status,) + seen[n])
+        return out
+    finally:
+        server.stop()
+
+
+def test_uploads_of_other_formats_parse_as_the_jax_server():
+    """An RGBA WebP is a per-request mask; a palette PNG with tRNS has no
+    alpha band (mode "P"), so no mask; a 16-bit gray PNG ("I;16") is a gray
+    measurement, clipped at 255: what the port's handler submits equals
+    what ddnm_tpu/server.py's (PIL) submits, byte for byte."""
+    import io
+    import struct
+    import zlib
+
+    from PIL import Image
+
+    from ddnm_tpu.server import RestorationServer as JRestorationServer
+
+    rng = np.random.default_rng(31)
+    rgba = np.concatenate([_u8(_gt_images(1, seed=31)[0]),
+                           (_masks(1, seed=31)[0] * 255).astype(np.uint8)], -1)
+    buf = io.BytesIO()
+    Image.fromarray(rgba).save(buf, "WEBP", quality=80)
+    webp = buf.getvalue()
+    pal = Image.fromarray(_u8(_gt_images(1, seed=32)[0])).quantize(16)
+    buf = io.BytesIO()
+    pal.save(buf, "PNG", transparency=bytes([0, 128] + [255] * 14))
+    palette = buf.getvalue()
+    gray16 = rng.integers(0, 600, (RES, RES)).astype(">u2")
+
+    def chunk(tag, b):
+        return struct.pack(">I", len(b)) + tag + b + struct.pack(">I", zlib.crc32(tag + b))
+
+    raw = b"".join(b"\0" + row.tobytes() for row in gray16)
+    ihdr = struct.pack(">IIBBBBB", RES, RES, 16, 0, 0, 0, 0)
+    png16 = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw))
+             + chunk(b"IEND", b""))
+    assert Image.open(io.BytesIO(png16)).mode == "I;16"
+    uploads = [("deg=m&input=gt", webp), ("deg=m&input=gt", palette),
+               ("deg=g&input=degraded", png16)]
+    ours = _recorded_uploads(RestorationServer, uploads)
+    ref = _recorded_uploads(JRestorationServer, uploads)
+    for (s0, a0, c0), (s1, a1, c1) in zip(ours, ref):
+        assert s0 == s1 == 200
+        np.testing.assert_array_equal(a0, a1)
+        assert (c0 is None) == (c1 is None)
+        if c0 is not None:
+            np.testing.assert_array_equal(c0, c1)
+    assert ours[0][2] is not None and ours[1][2] is None
+    assert ours[2][1].shape == (RES, RES, 1) and ours[2][1].max() == 1.0
+
+
 def _get(url):
     with urllib.request.urlopen(url, timeout=30) as resp:
         return json.loads(resp.read())
@@ -202,7 +306,7 @@ def test_rgba_and_gray_uploads_decode_as_pil_does(service):
     an RGB upload for a grayscale measurement converts with PIL's luma."""
     from PIL import Image
 
-    from ddnm_tpu_torch.server import _gray
+    from ddnm_tpu_torch.data.io import convert
 
     server = RestorationServer(service)
     server.start()
@@ -218,7 +322,8 @@ def test_rgba_and_gray_uploads_decode_as_pil_does(service):
     finally:
         server.stop()
     rgb = np.random.default_rng(0).integers(0, 256, (16, 16, 3), dtype=np.uint8)
-    np.testing.assert_array_equal(_gray(rgb), np.asarray(Image.fromarray(rgb).convert("L")))
+    np.testing.assert_array_equal(convert(rgb, "RGB", "L"),
+                                  np.asarray(Image.fromarray(rgb).convert("L")))
 
 
 def test_overload_sheds_with_503_queue_full():
@@ -251,16 +356,23 @@ def test_cancelled_requests_skip_device_work_and_time_out_with_504(service):
     assert server.stats.cancelled == 1 and server.stats.requests == 1
     server._httpd.server_close()
     # through HTTP: the handler gives up after request_timeout_s (504); the
-    # two requests queued behind a slow group are then skipped by the worker
-    fake = _FakeService(dispatch_delay_s=0.6)
-    server = RestorationServer(fake, max_wait_ms=1.0, request_timeout_s=0.1)
+    # two requests queued behind a slow group are then skipped by the worker.
+    # The group is slow because its dispatch waits on a gate that opens only
+    # once all three handlers have answered, so no wall-clock sleep orders
+    # the events: request 0 is dispatched alone before 1 and 2 are sent.
+    fake = _GatedService()
+    server = RestorationServer(fake, max_wait_ms=1.0, request_timeout_s=0.5)
     server.start()
     try:
         url = "http://%s:%d/restore?deg=a&input=gt" % server.address
         body = _png(np.zeros((8, 8, 3), np.float32))
         results = {}
-        _parallel(lambda i: (time.sleep(0.2 * (i > 0)),
-                             results.__setitem__(i, _post(url, body))), 3)
+        first = threading.Thread(target=lambda: results.__setitem__(0, _post(url, body)))
+        first.start()
+        assert fake.entered.wait(timeout=60)
+        _parallel(lambda i: results.__setitem__(i + 1, _post(url, body)), 2)
+        first.join()
+        fake.gate.set()
         assert [results[i][0] for i in range(3)] == [504] * 3
         assert all(b"timed out" in results[i][1] for i in range(3))
         deadline = time.monotonic() + 5
@@ -268,6 +380,7 @@ def test_cancelled_requests_skip_device_work_and_time_out_with_504(service):
             time.sleep(0.05)
         assert server.stats.cancelled == 2 and server.stats.requests == 1
     finally:
+        fake.gate.set()
         server.stop()
 
 
