@@ -222,6 +222,37 @@ far it got. A failure in any phase raises.
      paste + ctx) exported on the card, (c) the simplified one (toy_ddpm32.pt,
      a travel step) exported with CPU tensors, moved onto the card and
      held to its own CPU run within 1e-4; launches exact.
+ 24. the training path (ddnm_tpu_torch/training.py, tools/train_*_torch.py):
+     (a) the GroupNorm backward finalize kernel with the parameter
+     gradients (gn_bwd_param: dx's coefficients and the gradients of the
+     scale, bias and FiLM, from the backward reduce kernel's partial sums)
+     against its plain version at every distinct norm shape of the 114M
+     flagship DDPM at batch 16 (fp32, with and without SiLU) and with FiLM
+     at a toy ADM shape, the same bits twice; the training backward of a
+     norm (sums, the finalize, dx) against its plain version and autograd,
+     each of these outputs (A, Bx, Cx, dx, d scale, d bias, d film_scale,
+     d film_shift) within 1e-4 of its own largest value; the fp32
+     attention backward pair at C = 512 ((16, 256, 512), (16, 64, 512))
+     and 256 ((16, 256, 256)) against its plain version and autograd
+     within 1e-4 of the largest gradient; ms back to back and
+     on the device beside F.group_norm's and SDPA's autograd backward;
+     (b) 3 Adam steps of the toy32 DDPM, ADM and classifier from their
+     committed weights (toy_ddpm32.pt, toy_adm32.pt, toy_clf32.pt) on the
+     port's own draws from PRNGKey(1), fp32, TF32 off, cuDNN deterministic,
+     against tests/fixtures/toy_train_golden.json (JAX and optax on the
+     CPU, tools/emit_torch_train_golden.py): each loss within 1e-4
+     relative, each leaf's gradient L2 norm at step 1 within 1e-3
+     relative, each leaf's parameter sum after step 3 within 3 x 2 x lr x
+     its size (Adam's first steps move a near-zero gradient by +-lr
+     whatever its sign, so bits are not the gate), the first batch's
+     checksum; (c) 5 steps of tools/train_flagship_golden_torch.py's loop
+     on the 114M flagship DDPM at 256 px, batch 16, fp32 (TF32 allowed),
+     freshly initialised, on the 50/50 blob and natural mix drawn on the
+     card: s a step, one profiled step's device busy and idle share, peak
+     memory, every kernel's launches a step exact (71 GroupNorms and 6
+     attentions forward and back), each loss finite; the export read back
+     through data/checkpoints.load_checkpoint into a fresh UNet, and one
+     bf16 sampling step of it held to the trained module's own.
 Phases 5, 7, 16 and 19 also print each runner's images/s end to end against in
 the sampler ("runner overlap" lines).
 
@@ -240,8 +271,8 @@ their plain versions at every shape of phase 10's ADM forward (one tile,
 bf16) and of phase 12's (batch 8, 256 px, bf16) and sums their times per
 such forward.
 Phase 2 prints the -Xptxas -v registers and spills of the conv, apply,
-Walsh-Hadamard, GroupNorm backward reduce and bf16 attention backward
-kernels. Phase 3 also holds the
+Walsh-Hadamard, GroupNorm backward reduce and parameter-gradient, and the
+bf16 and fp32 attention backward kernels. Phase 3 also holds the
 Walsh-Hadamard kernel against its plain version at the SVD paths' shapes and at edge shapes (one
 slab, a ragged slab count, every tier's P, P = 1 and 2, 100 MB), each with
 the same bits on a second call and on a strided view, one wrapper call and
@@ -250,7 +281,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-23 sets the launch counts to 0 just before each run it
+Each of phases 4-24 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after (the ranks of phases 21 and 22
 each their own).
 
@@ -258,7 +289,9 @@ The line before the last is the JSON summary of the kernels (the stats
 kernel's partial and finalize modes under its entry's "modes", attention
 with Tq != Tk as "attention_gathered", the backward's spatial modes as
 "gn_bwd_partial", "gn_bwd_finalize", "attn_bwd_dq_gathered" and
-"attn_bwd_dkdv_gathered"); the last line is {"ok": true,
+"attn_bwd_dkdv_gathered", and the training path's "gn_bwd_param" and
+"attn_bwd_c512", with their launches from phase 24's flagship steps); the
+last line is {"ok": true,
 "device": {...}}. Outputs go to a temporary directory.
 """
 
@@ -308,11 +341,15 @@ from ddnm_tpu_torch.ops.fwht import (  # noqa: E402
 from ddnm_tpu_torch.ops.groupnorm import (  # noqa: E402
     _apply,
     _bwd_dx,
+    _bwd_finalize,
     _bwd_reduce,
+    _bwd_sums,
     _kernel_group_norm,
     _stats_affine,
     _torch_apply,
     _torch_bwd_dx,
+    _torch_bwd_finalize,
+    _torch_bwd_partial,
     _torch_bwd_reduce,
     _torch_group_norm,
     _torch_group_norm_backward,
@@ -385,6 +422,14 @@ TOL = {
     ("gn_bwd", torch.bfloat16): 3e-2,
     ("attn_bwd", torch.float32): 1e-4,
     ("attn_bwd", torch.bfloat16): 5e-2,
+    # training: the parameter-gradient fold on the same sums (fp32 folds
+    # in another order), and the whole training backward of a norm against
+    # the plain one (sums of B H W terms in another order); their outputs
+    # span six orders of magnitude (d scale sums B H W terms, Bx and Cx are
+    # ~1e-3), so each output is held to 1e-4 of its own largest value
+    # (OWN_SCALE), where the other kinds share one scale
+    ("gn_param", torch.float32): 1e-4,
+    ("gn_train", torch.float32): 1e-4,
 }
 # the kernels of the JSON summary: source, and the pl.pallas_call it replaces
 SOURCES = {
@@ -409,6 +454,11 @@ SOURCES = {
                       "ddnm_tpu/models/unet_adm.py:556 (jax.grad through XLA)"),
 }
 BACKWARD = ("gn_bwd_reduce", "gn_bwd_dx", "attn_bwd_dq", "attn_bwd_dkdv")
+# the backward kinds whose every output has a tolerance of its own scale,
+# and the names of those outputs (gn_param's coefficients split by row)
+OWN_SCALE = {"gn_param": ("A", "Bx", "Cx", "d_scale", "d_bias", "d_film_scale",
+                          "d_film_shift"),
+             "gn_train": ("dx", "d_scale", "d_bias", "d_film_scale", "d_film_shift")}
 # attention shapes beyond the UNet forwards': T = 1, T = 17, C = 32, both
 # sides of the whole-row softmax limit (the last runs the online softmax),
 # the ADM heads of configs/imagenet_256.yml (64 channels; 1024, 256 and 64
@@ -1419,16 +1469,23 @@ def grad_shapes(model, x_nhwc, *args) -> dict:
 
 
 def check_backward(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Generator,
-                   swish: bool = False, film: bool = False) -> dict:
+                   swish: bool = False, film: bool = False, timed: bool = True) -> dict:
     """A backward kernel (gn_bwd_reduce, gn_bwd_dx, attn_bwd_dq,
-    attn_bwd_dkdv) or a pair (gn_bwd: reduce then dx; attn_bwd: dq then
-    dkdv) against its plain version at one shape, with the forward's
-    saved tensors made by the forward kernels; a pair also against
-    autograd through the plain forward and timed beside the library's
-    autograd backward (F.group_norm, without FiLM or SiLU; SDPA), with the
-    graph built once and only the backward timed. gn_bwd_reduce,
-    attn_bwd_dq and attn_bwd_dkdv must give the same bits on a second
-    call. Returns a result dict as check_kernel's."""
+    attn_bwd_dkdv; in training gn_param: gn_bwd_finalize with the parameter
+    gradients on the partial sums of the reduce kernel) or a pair (gn_bwd:
+    reduce then dx; attn_bwd: dq then dkdv; gn_train: the training backward
+    of a norm, sums, the finalize and dx, with the gradients of the scale,
+    bias and FiLM) against its
+    plain version at one shape, with the forward's saved tensors made by
+    the forward kernels; a pair also against autograd through the plain
+    forward and timed beside the library's autograd backward (F.group_norm,
+    without FiLM or SiLU, with its weight and bias for gn_train; SDPA),
+    with the graph built once and only the backward timed. gn_bwd_reduce,
+    gn_param, attn_bwd_dq and attn_bwd_dkdv must give the same bits on a
+    second call. Every output is held to TOL times the largest plain value
+    of all outputs (at least 1), or, for the OWN_SCALE kinds, of its own;
+    `err_over_tol` is the worst output's ratio. `timed` False: the checks
+    alone. Returns a result dict as check_kernel's."""
     dev = "cuda"
     library = autograd_ref = None
     elem = torch.empty((), dtype=dtype).element_size()
@@ -1455,6 +1512,42 @@ def check_backward(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Gener
             kern = lambda: _bwd_dx(x, dy, coef, swish, a_, b_)
             plain = lambda: _torch_bwd_dx(x, dy, coef, swish, a_, b_)
             nbytes, flops = 3 * n * elem + 3 * B * C * 4, (4 + silu) * n
+        elif kind == "gn_param":
+            sums = _bwd_sums(x, dy, 32, swish, a_, b_)
+            drop = lambda out: [t for t in out if t is not None]  # noqa: E731
+            split = lambda out: [*out[0].unbind(0), *drop(out[1:])]  # noqa: E731
+            kern = lambda: split(_bwd_finalize(sums, H * W, g, 32, 1e-5, fs, b))
+            plain = lambda: split(_torch_bwd_finalize(sums, H * W, g, 32, 1e-5, fs, b))
+            if not all(torch.equal(u, v) for u, v in zip(kern(), kern())):
+                raise AssertionError(f"gn_param {shape} {dtype}: two calls differ")
+            cpg = C // 32
+            film_floats = 3 * B * C if film else 0  # film_scale read, two gradients written
+            nbytes = 4 * (4 * B * C + 2 * C + 3 * B * C + 2 * C + film_floats)
+            flops = B * C * (4 * cpg + 24)
+        elif kind == "gn_train":
+            def kern():
+                sums = _bwd_sums(x, dy, 32, swish, a_, b_)
+                coef, *grads = _bwd_finalize(sums, H * W, g, 32, 1e-5, fs, b)
+                return [_bwd_dx(x, dy, coef, swish, a_, b_)] + [t for t in grads
+                                                                if t is not None]
+
+            def plain():
+                sums = _torch_bwd_partial(x, dy, swish, a_, b_)
+                coef, *grads = _torch_bwd_finalize(sums, H * W, g, 32, 1e-5, fs, b)
+                return [_torch_bwd_dx(x, dy, coef, swish, a_, b_)] + [t for t in grads
+                                                                      if t is not None]
+
+            leaves = [x.clone(), g.clone(), b.clone()] + ([fs.clone(), ft.clone()] if film
+                                                          else [])
+            leaves = [t.requires_grad_(True) for t in leaves]
+            autograd_ref = torch.autograd.grad(
+                _torch_group_norm(*leaves[:3], 32, 1e-5, swish, *leaves[3:]), leaves, dy)
+            xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)  # channels_last bytes
+            wl, bl = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            yl = F.group_norm(xl, 32, wl, bl, 1e-5)
+            dyl = dy.permute(0, 3, 1, 2)
+            library = lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl, retain_graph=True)
+            nbytes, flops = 3 * n * elem, (16 + 2 * silu) * n
         else:
             kern = lambda: _bwd_dx(x, dy, _bwd_reduce(x, dy, g, 32, 1e-5, swish, a_, b_, fs),
                                    swish, a_, b_)
@@ -1500,24 +1593,43 @@ def check_backward(kind: str, shape: tuple, dtype: torch.dtype, gen: torch.Gener
     as_list = lambda out: list(out) if isinstance(out, (tuple, list)) else [out]
     refs = [t.float() for t in as_list(plain())]
     got = as_list(kern())
-    err = max(float((k.float() - r).abs().max()) for k, r in zip(got, refs))
     torch.cuda.synchronize()
-    tol = TOL[(kind, dtype)] * max(1.0, max(float(r.abs().max()) for r in refs))
-    if not err <= tol:
-        raise AssertionError(f"{kind} {shape} {dtype} swish={swish} film={film}: kernel vs "
-                             f"plain max abs {err:.3e} > {tol:.3e}")
+    names = OWN_SCALE.get(kind, ())
+    if names and not film:
+        names = tuple(n for n in names if "film" not in n)
+    label = lambda i: names[i] if names else f"output {i}"  # noqa: E731
+
+    def held(ref, against):
+        """(name, error, tolerance, err / tol) of the worst output of `got`
+        against `ref`, each output checked."""
+        errs = [float((k.float() - r).abs().max()) for k, r in zip(got, ref)]
+        if names:
+            tols = [TOL[(kind, dtype)] * float(r.abs().max()) for r in ref]
+        else:
+            tols = [TOL[(kind, dtype)] * max(1.0, max(float(r.abs().max()) for r in ref))] \
+                * len(ref)
+        for i, (e, t) in enumerate(zip(errs, tols)):
+            if not e <= t:
+                raise AssertionError(f"{kind} {shape} {dtype} swish={swish} film={film}: "
+                                     f"{label(i)}, kernel vs {against} max abs {e:.3e} > "
+                                     f"{t:.3e}")
+        ratios = [e / t if t > 0 else 0.0 for e, t in zip(errs, tols)]
+        i = max(range(len(ratios)), key=ratios.__getitem__)
+        return label(i), errs[i], tols[i], ratios[i]
+
+    worst, _, tol, ratio = held(refs, "plain")
     out = {"kind": kind, "shape": shape, "dtype": str(dtype).replace("torch.", ""),
-           "swish": swish, "film": film, "max_abs_err": err, "tol": tol}
+           "swish": swish, "film": film, "max_abs_err": max(float((k.float() - r).abs().max())
+                                                            for k, r in zip(got, refs)),
+           "tol": tol, "worst": worst, "err_over_tol": ratio}
     if autograd_ref is not None:
-        ref = [t.float() for t in as_list(autograd_ref)]
-        a_err = max(float((k.float() - r).abs().max()) for k, r in zip(got, ref))
-        a_tol = TOL[(kind, dtype)] * max(1.0, max(float(r.abs().max()) for r in ref))
-        if not a_err <= a_tol:
-            raise AssertionError(f"{kind} {shape} {dtype} swish={swish} film={film}: kernels "
-                                 f"vs autograd through the plain forward {a_err:.3e} > "
-                                 f"{a_tol:.3e}")
-        out.update(autograd_err=a_err, autograd_tol=a_tol)
+        a_worst, a_err, a_tol, a_ratio = held([t.float() for t in as_list(autograd_ref)],
+                                              "autograd through the plain forward")
+        out.update(autograd_err=a_err, autograd_tol=a_tol, autograd_worst=a_worst,
+                   autograd_err_over_tol=a_ratio)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    if not timed:
+        return out
     out.update(ms=cuda_ms(kern, iters=10), device_ms=device_ms(kern, iters=10),
                plain_ms=cuda_ms(plain, iters=5, warmup=1),
                library_ms=cuda_ms(library, iters=10) if library else None,
@@ -4428,6 +4540,274 @@ def serving_toy_trajectories(tmp: Path) -> tuple[dict, dict]:
     return out, launches_of["simplified"]
 
 
+TRAIN_GOLDEN = REPO / "tests" / "fixtures" / "toy_train_golden.json"
+# phase 24's toy models: the port's trainer module (tools/*_torch.py) and
+# the committed weights the steps start from
+TRAIN_MODELS = {"ddpm": ("train_toy_golden_torch", "toy_ddpm32.pt"),
+                "adm": ("train_toy_adm_golden_torch", "toy_adm32.pt"),
+                "clf": ("train_toy_classifier_golden_torch", "toy_clf32.pt")}
+# the fp32 attention backward at the DDPM AttnBlocks' heads: the flagship's
+# 16 px and 8 px maps (C = 512) and big128's 16 px map (C = 256), batch 16
+TRAIN_ATTENTION_SHAPES = ((16, 256, 512), (16, 64, 512), (16, 256, 256))
+
+
+def _tools_module(name: str):
+    import importlib
+
+    for sub in ("tools", "tools/experiments"):
+        if str(REPO / sub) not in sys.path:
+            sys.path.insert(0, str(REPO / sub))
+    return importlib.import_module(name)
+
+
+def train_golden_run(name: str, device, golden: dict | None = None) -> dict:
+    """The steps of tests/fixtures/toy_train_golden.json's protocol on the
+    port: the toy model `name` (ddpm, adm, clf) from its committed weights,
+    its trainer's step (tools/train_toy_*_torch.py) at the protocol's
+    batch and learning rate, keys from PRNGKey(seed) split before every
+    step, fp32: every loss, each leaf's gradient L2 norm at step 1, each
+    leaf's parameter sum after the last step, the first batch's checksum."""
+    from ddnm_tpu_torch import training
+    from ddnm_tpu_torch.data.checkpoints import load_checkpoint
+    from ddnm_tpu_torch.sampling import threefry
+
+    golden = golden or json.loads(TRAIN_GOLDEN.read_text())
+    proto = golden["protocol"]
+    mod_name, fixture = TRAIN_MODELS[name]
+    mod = _tools_module(mod_name)
+    model = mod.build_model("cpu")
+    load_checkpoint(model, REPO / "tests" / "fixtures" / fixture)
+    model = model.to(device).train()
+    spec = mod.make_spec(proto["steps"], proto["batch"], proto["lr"][name])
+    abar = torch.as_tensor(spec.abar, device=device)
+    opt = training.make_optimizer(model, spec.lr)
+    key = threefry.prng_key(proto["seed"], device)
+    losses, grad_norms, first = [], {}, {}
+    for i in range(proto["steps"]):
+        ks = threefry.split(key)
+        key, k = ks[0], ks[1]
+        if i == 0:
+            b = training.draw_batch(k, spec, device)
+            first = {"x0_sum": float(b["x0"].double().sum()),
+                     "x0_abs": float(b["x0"].double().abs().sum()),
+                     "t_sum": int(b["t"].sum()), "noise_sum": float(b["noise"].double().sum()),
+                     "noise_abs": float(b["noise"].double().abs().sum())}
+        loss, _ = training.train_step(model, opt, k, spec, i, abar)
+        losses.append(float(loss))
+        if i == 0:
+            grad_norms = {n: float(q.grad.double().norm()) for n, q in model.named_parameters()}
+    return {"losses": losses, "grad_norms_step1": grad_norms,
+            "param_sums_final": {n: float(q.detach().double().sum())
+                                 for n, q in model.named_parameters()},
+            "first_batch": first, "lr": spec.lr, "steps": proto["steps"],
+            "sizes": {n: q.numel() for n, q in model.named_parameters()}}
+
+
+def check_train_golden(name: str, got: dict, golden: dict) -> dict:
+    """Hold a `train_golden_run` to the JAX golden: each loss within 1e-4
+    relative, each leaf's step-1 gradient norm within 1e-3 relative (or
+    1e-6 of the largest leaf's norm, for a leaf whose gradient is 0 in
+    exact arithmetic), each
+    leaf's parameter sum within 3 x 2 x lr x its size (Adam's first steps
+    move a near-zero gradient by +-lr whatever its sign: bits are not the
+    gate), the first batch's sums within 1e-5 relative (float32 draws) and
+    its timesteps exact. Raises on a miss; returns the worst of each."""
+    want = golden[name]
+    if set(got["grad_norms_step1"]) != set(want["grad_norms_step1"]):
+        raise AssertionError(f"{name}: the port's leaves differ from the golden's")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    # a leaf whose gradient is 0 in exact arithmetic (a key bias under the
+    # softmax, a bias a GroupNorm follows) holds rounding noise alone: its
+    # norm is held to 1e-6 of the largest leaf's instead
+    floor = 1e-6 * max(want["grad_norms_step1"].values())
+    norm_rel = max(abs(got["grad_norms_step1"][k] - v) / max(abs(v), 1e3 * floor)
+                   for k, v in want["grad_norms_step1"].items())
+    sum_share = max(abs(got["param_sums_final"][k] - v)
+                    / (3 * 2 * got["lr"] * got["sizes"][k])
+                    for k, v in want["param_sums_final"].items())
+    fb, wb = got["first_batch"], want["first_batch"]
+    batch_rel = max(abs(fb[k] - wb[k]) / max(abs(wb[k]), 1.0)
+                    for k in ("x0_sum", "x0_abs", "noise_sum", "noise_abs"))
+    out = {"losses": got["losses"], "golden_losses": want["losses"], "loss_rel": loss_rel,
+           "grad_norm_rel": norm_rel, "param_sum_share_of_gate": sum_share,
+           "first_batch_rel": batch_rel, "t_sum": fb["t_sum"]}
+    if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and sum_share <= 1.0
+            and batch_rel <= 1e-5 and fb["t_sum"] == wb["t_sum"]):
+        raise AssertionError(f"{name}: train steps against the JAX golden: {out}")
+    return out
+
+
+def training_kernels(gen: torch.Generator) -> dict:
+    """Phase 24 (a): gn_bwd_param (the backward finalize with the parameter
+    gradients) against its plain version at every
+    distinct norm shape of the flagship at batch 16 (with and without
+    SiLU) and with FiLM at a toy ADM shape; the training backward of a
+    norm and the attention backward pair at the DDPM heads against their
+    plain versions and autograd, timed at the main shapes."""
+    from ddnm_tpu_torch.models import DDPMUNet
+
+    flag = _tools_module("train_flagship_golden_torch")
+    model = DDPMUNet(**flag.DDPM_KW).cuda().eval()
+    shapes = grad_shapes(model, torch.zeros(1, 256, 256, 3, device="cuda"))
+    del model
+    torch.cuda.empty_cache()
+    gn = sorted({((16,) + key[1][1:], key[2]) for key in shapes if key[0] == "gn"})
+    results = {"gn_param": [], "gn_train": [], "attn_bwd": []}
+    main_gn = ((16, 256, 256, 128), True)  # the first ResnetBlock's norm1, 256 px
+    for shape, swish in gn:
+        results["gn_param"].append(check_backward("gn_param", shape, torch.float32, gen, swish,
+                                                  timed=(shape, swish) == main_gn))
+        results["gn_train"].append(check_backward("gn_train", shape, torch.float32, gen, swish,
+                                                  timed=(shape, swish) == main_gn))
+    for kind in ("gn_param", "gn_train"):  # FiLM: the toy ADM's 16 px ResBlocks
+        results[kind].append(check_backward(kind, (16, 16, 16, 64), torch.float32, gen,
+                                            True, True, timed=False))
+    for shape in TRAIN_ATTENTION_SHAPES:
+        results["attn_bwd"].append(check_backward("attn_bwd", shape, torch.float32, gen))
+    for kind, rows in results.items():
+        for r in rows:
+            t = (f", {r['ms']:.4f} ms ({r['device_ms']:.4f} on the device), plain "
+                 f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} ({r['bound_by']})"
+                 + (f", library {r['library_ms']:.4f} ({r['library_device_ms']:.4f} on the "
+                    f"device)" if r.get("library_ms") is not None else "")
+                 if "ms" in r else "")
+            print(f"{kind} {r['shape']} fp32 swish={r['swish']} film={r['film']}: max abs "
+                  f"{r['max_abs_err']:.3e}, worst output {r['worst']} at "
+                  f"{r['err_over_tol']:.3f} of its tol {r['tol']:.3e}"
+                  + (f", autograd worst {r['autograd_worst']} {r['autograd_err']:.3e} at "
+                     f"{r['autograd_err_over_tol']:.3f} of its tol" if "autograd_err" in r
+                     else "")
+                  + t, flush=True)
+    return {"norm_shapes": len(gn), **results}
+
+
+def train_golden_parity() -> dict:
+    """Phase 24 (b): the three toy models' train steps against the JAX
+    golden on the card, fp32, TF32 off, cuDNN deterministic."""
+    golden = json.loads(TRAIN_GOLDEN.read_text())
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for name in TRAIN_MODELS:
+            ops.reset_launch_counts()
+            got = train_golden_run(name, "cuda", golden)
+            counts = ops.launch_counts()
+            if not (counts["gn_bwd_param"] and counts["gn_bwd_sums"] == counts["gn_bwd_param"]
+                    and counts["gn_bwd_reduce"] == 0):
+                raise AssertionError(f"{name}: the train steps did not take the training "
+                                     f"backward kernels: {counts}")
+            out[name] = check_train_golden(name, got, golden)
+            print(f"train golden {name}: losses {got['losses']} (JAX {golden[name]['losses']}),"
+                  f" loss rel {out[name]['loss_rel']:.2e}, grad norm rel "
+                  f"{out[name]['grad_norm_rel']:.2e}, param sums at "
+                  f"{out[name]['param_sum_share_of_gate']:.3f} of their gate", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def flagship_training(tmp: Path) -> tuple[dict, dict]:
+    """Phase 24 (c): 5 steps of the flagship trainer's loop (fresh 114M
+    DDPM, 256 px, batch 16, fp32 with TF32 allowed, the mix drawn on the
+    card) with every kernel's launches exact, one more step profiled and
+    one timed, the export read back into a fresh UNet and a 2-step bf16
+    simplified trajectory of it against the trained module's. Returns
+    (stats, launches of the 5 steps)."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch import training
+    from ddnm_tpu_torch.data.checkpoints import load_checkpoint
+    from ddnm_tpu_torch.models import DDPMUNet, cast_torso
+    from ddnm_tpu_torch.operators import build_functional_operator
+    from ddnm_tpu_torch.sampling import build_schedule, sample_simplified, threefry
+
+    flag = _tools_module("train_flagship_golden_torch")
+    steps, batch, lr = 5, 16, 2e-4
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        model, result = flag.train(steps, batch, lr, tmp, device="cuda", log_every=1)
+        launches = ops.launch_counts()
+        trained = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        n_gn, n_attn = module_counts(model)
+        want = expected_launches(steps * n_gn, steps * n_attn, 0, steps * n_attn,
+                                 gn_bwd_sums=steps * n_gn, gn_bwd_param=steps * n_gn)
+        want["gn_bwd_dx"] = steps * n_gn  # the training backward: sums, param, dx
+        if launches != want or any(ops.spatial_launch_counts().values()):
+            raise AssertionError(f"flagship training launches {launches} != {want}, spatial "
+                                 f"{ops.spatial_launch_counts()}")
+        losses = [row["loss"] for row in result["tail"]]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"flagship training losses {losses}")
+        # one more step timed alone, and one profiled: busy and idle share
+        spec = training.TrainSpec(kind="eps", res=256, batch=batch, lr=lr, steps=steps,
+                                  data=_tools_module("train_mid_golden_torch").make_mix,
+                                  abar=flag.mid._abar("ddpm"), cosine=True)
+        abar = torch.as_tensor(spec.abar, device="cuda")
+        opt = training.make_optimizer(model, lr)
+        key = threefry.prng_key(2, "cuda")
+        step = lambda: training.train_step(model, opt, key, spec, 0, abar)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        prof = call_profile(step)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the export round trip
+        fresh = DDPMUNet(**flag.DDPM_KW)
+        load_checkpoint(fresh, tmp / "flag_ddpm256.pt")
+        model.load_state_dict(trained)  # the weights of the 5 steps, which were exported
+        if set(trained) != set(fresh.state_dict()) or not all(
+                torch.equal(fresh.state_dict()[k], v.half().float()) for k, v in trained.items()):
+            raise AssertionError("flagship export: the fresh UNet's weights are not the trained "
+                                 "module's rounded to fp16")
+        model.eval()
+        fresh = fresh.cuda().eval()
+        cast_torso(model, torch.bfloat16)
+        cast_torso(fresh, torch.bfloat16)
+        # a 2-step simplified DDNM+ trajectory (t = 500, then 0; 4x SR, zero
+        # noise) of each
+        key = threefry.prng_key(3, "cuda")
+        x0, x_t = (threefry.normal(k, (2, 256, 256, 3)) for k in threefry.split(key))
+        op = build_functional_operator("sr_averagepooling", image_size=256, deg_scale=4,
+                                       device="cuda")
+        sched = build_schedule(betas=sch.get_beta_schedule(
+            "linear", beta_start=1e-4, beta_end=0.02, num_diffusion_timesteps=1000),
+            t_sampling=2)
+        zero = lambda gens, shape: torch.zeros(shape, device="cuda")  # noqa: E731
+        with torch.no_grad():
+            a, b = (sample_simplified(lambda x, t, m=m: m(x, t), x_t, op.A(x0.clamp(-1, 1)),
+                                      op, sched, [None] * 2, noise_fn=zero)[0]
+                    for m in (model, fresh))
+        call_err = float((a - b).abs().max())
+        call_tol = 3e-2 * max(1.0, float(b.abs().max()))
+        if not call_err <= call_tol:
+            raise AssertionError(f"flagship export: one bf16 sampling step of the reloaded UNet"
+                                 f" {call_err:.3e} from the trained one's (> {call_tol:.3e})")
+        stats = {"steps": steps, "batch": batch, "res": 256, "losses": losses,
+                 "s_per_step_loop": result["seconds"] / steps, "s_per_step": step_s,
+                 "profiled_step": prof, "busy_share": prof["busy_ms"] / (step_s * 1e3),
+                 "peak_memory_gb": peak_gb, "params_m": training.param_count(model) / 1e6,
+                 "launches_per_step": {k: v // steps for k, v in launches.items() if v},
+                 "export_bf16_step_max_abs": call_err, "export_bf16_step_tol": call_tol}
+        print(f"flagship training: losses {losses}, {step_s:.3f} s a step "
+              f"({result['seconds'] / steps:.3f} s a step over the 5-step loop, its first "
+              f"included), profiled step busy {prof['busy_ms']:.1f} ms of {step_s * 1e3:.1f} "
+              f"(idle share {1 - stats['busy_share']:.3f}), peak memory {peak_gb:.2f} GB, "
+              f"launches a step {stats['launches_per_step']}, export bf16 sampling step max abs "
+              f"{call_err:.3e}", flush=True)
+        del model, fresh, opt
+        torch.cuda.empty_cache()
+        return stats, launches
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False; "
@@ -4451,7 +4831,8 @@ def main() -> int:
         print(f"built {path.name} with nvcc in {secs:.2f} s", flush=True)
         for line in ptxas_summary(_build.ptxas_report(
                 "fgc_conv_kernel", "gn_apply_kernel", "fwht_kernel", "gn_bwd_reduce_kernel",
-                "gn_bwd_finalize_kernel",
+                "gn_bwd_finalize_kernel", "attn_bwd_dq_kernel",
+                "attn_bwd_dkdv_kernel",
                 "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel")):
             print(line, flush=True)
 
@@ -4838,6 +5219,16 @@ def main() -> int:
         serving_stats = {"op_route_host_us": route, "flag_step": flag_step,
                          "toy32_trajectories": toy_traj}
 
+    with phase(24, "the training path (GroupNorm parameter gradients and the attention "
+                   "backward at C = 256 / 512 against their plain versions; toy32 train "
+                   "steps against the JAX golden; 5 flagship steps at full width)"):
+        train_kernels = training_kernels(torch.Generator(device="cuda").manual_seed(24))
+        train_golden = train_golden_parity()
+        with tempfile.TemporaryDirectory() as tmp:
+            flag_train, launches_train = flagship_training(Path(tmp))
+        training_stats = {"kernels": train_kernels, "golden": train_golden,
+                          "flagship": flag_train}
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -4913,12 +5304,28 @@ def main() -> int:
         for name, base in (("gn_bwd_partial", "gn_bwd_reduce"),
                            ("gn_bwd_finalize", "gn_bwd_reduce"),
                            ("attn_bwd_dq_gathered", "attn_bwd_dq"),
-                           ("attn_bwd_dkdv_gathered", "attn_bwd_dkdv"))],
+                           ("attn_bwd_dkdv_gathered", "attn_bwd_dkdv"))] + [
+        # the training path (phase 24): launches over the flagship's 5 steps
+        # (attn_bwd_c512: both passes of the fp32 pair at C = 512), the rest
+        # at the flagship's first norm ((16, 256, 256, 128) with its SiLU)
+        # and its 16 px attention ((16, 256, 512)), fp32
+        {"name": name, "route": "cuda", "source": SOURCES[base][0],
+         "replaces": "none (training: jax.grad through XLA in tools/train_*_golden.py)",
+         "launches": n, **{k: row[k] for k in
+                           ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}}
+        for name, base, n, row in (
+            ("gn_bwd_param", "gn_bwd_reduce", launches_train["gn_bwd_param"],
+             next(r for r in train_kernels["gn_param"] if "ms" in r)),
+            ("attn_bwd_c512", "attn_bwd_dq",
+             launches_train["attn_bwd_dq"] + launches_train["attn_bwd_dkdv"],
+             train_kernels["attn_bwd"][0]))],
         "hq_main_path": hq_stats, "imagenet_rows": inet_rows,
         "guided_toy32": guided_toy, "guided": guided, "solver_parity": solver,
         "accelerators": accel_stats, "served": served, "served_hq": served_hq,
         "data_long_tail": long_tail, "multi_device": multi_device, "spatial": spatial,
-        "spatial_guided": spatial_guided, "serving": serving_stats}
+        "spatial_guided": spatial_guided, "serving": serving_stats,
+        "training": training_stats}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -136,10 +136,17 @@
 // fp32 (attn_bwd_dq_kernel<float, C>, attn_bwd_dkdv_kernel<float, C>; the
 // fp32 parity runs): fp32 FMA on the CUDA cores, as the fp32 forward and
 // for the same reason (TF32 would break the 1e-4 gates), bound by shared-
-// memory reads. The dq kernel takes kBwdQ query rows a block and sweeps the
-// key tiles twice (LSE, then dS and dQ); the dkdv kernel kBwdKV keys a
-// block over all query tiles. Rows and keys past T are zeros in shared
-// memory and are masked out of every sum.
+// memory reads. The dq kernel takes bwd_rows(C) query rows a block and
+// sweeps the key tiles twice (LSE, then dS and dQ); the dkdv kernel
+// bwd_rows(C) keys a block over all query tiles. Rows and keys past T are
+// zeros in shared memory and are masked out of every sum. Head dimensions
+// 32, 64, 128 (the classifier's heads) and 256, 512 (the DDPM UNet's
+// single-head AttnBlocks under training: the flagship's (16, 256, 512) and
+// (16, 64, 512)). At C = 512 the staged rows alone would overflow a block's
+// 227 KB, so that instantiation halves the rows a block and the tile
+// (bwd_rows, bwd_per_lane): 128 threads, one block an SM. A simple design
+// that is right; the tensor-core path of the bf16 kernels (C <= 128) is
+// the model for a faster one.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -821,19 +828,25 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
 // ------------------------------------------------- backward, fp32: CUDA-core FMA
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdQ = 32;    // dq kernel: query rows per block (8 threads a row)
-constexpr int kBwdK = 64;    // dq kernel: keys per tile (8 per thread)
-constexpr int kBwdKV = 32;   // dkdv kernel: keys per block (8 threads a key)
-constexpr int kBwdQT = 64;   // dkdv kernel: query rows per tile (8 per thread)
+// The tiles of a head dimension: `rows` query rows a dq block and keys a
+// dkdv block (8 threads each), `per_lane` keys (dq) or query rows (dkdv) a
+// thread takes of each streamed tile of 8 * per_lane, and 8 * rows threads.
+// 32 rows and tiles of 64 up to C = 256; at C = 512 the rows padded to C + 1
+// floats would take 394 KB (dq) and 402 KB (dkdv) of shared memory, so 16
+// rows and tiles of 32 (199 KB, 201 KB: one block an SM, 4 warps).
+__host__ __device__ constexpr int bwd_rows(int c) { return c > 256 ? 16 : 32; }
+__host__ __device__ constexpr int bwd_per_lane(int c) { return c > 256 ? 4 : 8; }
+__host__ __device__ constexpr int bwd_threads(int c) { return 8 * bwd_rows(c); }
 
 // Dynamic shared memory (floats) of the two kernels: rows padded by one
 // float (C + 1) so the 8 rows a warp reads sit in 8 different banks.
 __host__ __device__ constexpr int bwd_dq_smem_floats(int c) {
-  return (2 * kBwdQ + 2 * kBwdK) * (c + 1) + kBwdQ * (kBwdK + 1) + kBwdQ;
+  return (2 * bwd_rows(c) + 2 * 8 * bwd_per_lane(c)) * (c + 1) +
+         bwd_rows(c) * (8 * bwd_per_lane(c) + 1) + bwd_rows(c);
 }
 __host__ __device__ constexpr int bwd_dkdv_smem_floats(int c) {
-  return (2 * kBwdKV + 2 * kBwdQT) * (c + 1) + 2 * kBwdKV * (kBwdQT + 1) + 2 * kBwdQT;
+  return (2 * bwd_rows(c) + 2 * 8 * bwd_per_lane(c)) * (c + 1) +
+         2 * bwd_rows(c) * (8 * bwd_per_lane(c) + 1) + 2 * 8 * bwd_per_lane(c);
 }
 
 // Rows [r0, r0 + rows) of a (t_len, C) slab into shared memory as fp32,
@@ -841,22 +854,24 @@ __host__ __device__ constexpr int bwd_dkdv_smem_floats(int c) {
 template <typename T, int C>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int r0,
                                           int rows, int t_len) {
-  for (int e = threadIdx.x; e < rows * C; e += kBwdThreads) {
+  for (int e = threadIdx.x; e < rows * C; e += bwd_threads(C)) {
     const int r = e / C, c = e - r * C;
     dst[r * (C + 1) + c] = r0 + r < t_len ? to_f(src[(size_t)(r0 + r) * C + c]) : 0.f;
   }
 }
 
-// grid (ceil(Tq / kBwdQ), B*), block kBwdThreads. Thread t owns query row
-// t / 8 and keys t % 8 + 8 u (u < 8) of each key tile for the scores, and
-// channels t % 8 + 8 w (w < C / 8) of its row for dQ. q, o, dout, dq: (B*,
-// t_q, C); k, v: (B*, t_k, C); lse, dsum: (B*, t_q).
+// grid (ceil(Tq / QR), B*), block 8 QR threads (QR = bwd_rows(C)). Thread t
+// owns query row t / 8 and keys t % 8 + 8 u (u < U = bwd_per_lane(C)) of each
+// key tile of 8 U for the scores, and channels t % 8 + 8 w (w < C / 8) of its
+// row for dQ. q, o, dout, dq: (B*, t_q, C); k, v: (B*, t_k, C); lse, dsum:
+// (B*, t_q).
 template <typename T, int C>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(bwd_threads(C))
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
                    float* __restrict__ lse, float* __restrict__ dsum, int t_q, int t_k,
                    float scale) {
+  constexpr int kBwdQ = bwd_rows(C), U = bwd_per_lane(C), kBwdK = 8 * U;
   constexpr int LD = C + 1, SD = kBwdK + 1, NW = C / 8;
   extern __shared__ float sm[];
   float* qs = sm;                  // [kBwdQ][LD]
@@ -888,15 +903,15 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     __syncthreads();
     load_rows<T, C>(ks, k + kv_base, kt, kBwdK, t_k);
     __syncthreads();
-    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float s[U] = {};
 #pragma unroll 8
     for (int c = 0; c < C; ++c) {
       const float qv = qs[r * LD + c];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) s[u] = fmaf(qv, ks[(lane + 8 * u) * LD + c], s[u]);
+      for (int u = 0; u < U; ++u) s[u] = fmaf(qv, ks[(lane + 8 * u) * LD + c], s[u]);
     }
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < U; ++u) {
       if (kt + lane + 8 * u < t_k) {
         const float x = s[u] * scale;
         if (x > m) {
@@ -928,19 +943,19 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     load_rows<T, C>(ks, k + kv_base, kt, kBwdK, t_k);
     load_rows<T, C>(vs, v + kv_base, kt, kBwdK, t_k);
     __syncthreads();
-    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float dp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float s[U] = {};
+    float dp[U] = {};
 #pragma unroll 4
     for (int c = 0; c < C; ++c) {
       const float qv = qs[r * LD + c], dv = dos[r * LD + c];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
+      for (int u = 0; u < U; ++u) {
         s[u] = fmaf(qv, ks[(lane + 8 * u) * LD + c], s[u]);
         dp[u] = fmaf(dv, vs[(lane + 8 * u) * LD + c], dp[u]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < U; ++u) {
       const bool ok = q0 + r < t_q && kt + lane + 8 * u < t_k;
       const float p = ok ? expf(s[u] * scale - row_lse) : 0.f;
       ss[r * SD + lane + 8 * u] = p * (dp[u] - d_r);
@@ -964,16 +979,19 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
-// grid (ceil(Tk / kBwdKV), B*), block kBwdThreads. Thread t owns key t / 8
-// and query rows t % 8 + 8 u (u < 8) of each query tile for the scores,
-// and channels t % 8 + 8 w (w < C / 8) of its key for dK and dV. q, dout:
-// (B*, t_q, C); k, v, dk, dv: (B*, t_k, C); lse, dsum: (B*, t_q).
+// grid (ceil(Tk / KV), B*), block 8 KV threads (KV = bwd_rows(C)). Thread t
+// owns key t / 8 and query rows t % 8 + 8 u (u < U = bwd_per_lane(C)) of each
+// query tile of 8 U for the scores, and channels t % 8 + 8 w (w < C / 8) of
+// its key for dK and dV. q, dout: (B*, t_q, C); k, v, dk, dv: (B*, t_k, C);
+// lse, dsum: (B*, t_q).
 template <typename T, int C>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(bwd_threads(C))
 attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv,
                      int t_q, int t_k, float scale) {
+  constexpr int kBwdKV = bwd_rows(C), U = bwd_per_lane(C), kBwdQT = 8 * U;
+  constexpr int kBwdThreads = bwd_threads(C);
   constexpr int LD = C + 1, PD = kBwdQT + 1, NW = C / 8;
   extern __shared__ float sm[];
   float* ks = sm;                   // [kBwdKV][LD]
@@ -1004,19 +1022,19 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       d_s[i] = qt + i < t_q ? dsum[rows + qt + i] : 0.f;
     }
     __syncthreads();
-    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float dp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float s[U] = {};
+    float dp[U] = {};
 #pragma unroll 4
     for (int c = 0; c < C; ++c) {
       const float kv = ks[j * LD + c], vv = vs[j * LD + c];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
+      for (int u = 0; u < U; ++u) {
         s[u] = fmaf(qs[(lane + 8 * u) * LD + c], kv, s[u]);
         dp[u] = fmaf(dos[(lane + 8 * u) * LD + c], vv, dp[u]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int i = lane + 8 * u;
       const bool ok = k0 + j < t_k && qt + i < t_q;
       const float p = ok ? expf(s[u] * scale - lse_s[i]) : 0.f;
@@ -1518,7 +1536,7 @@ attn_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 }
 
 // One launch of the backward pass `which` (0: dq, 1: dkdv) in `dtype` (0:
-// fp32 FMA kernels, 1: bf16 tensor-core kernels).
+// fp32 FMA kernels, 1: bf16 tensor-core kernels, C <= 128 only).
 template <int C>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
@@ -1526,49 +1544,55 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        int smem_bytes, cudaStream_t s) {
   static int granted[2][2][kMaxDevices] = {};  // [dtype][which][device]
   using bf = __nv_bfloat16;
-  const void* kernel =
-      dtype == 0 ? (which == 0 ? reinterpret_cast<const void*>(attn_bwd_dq_kernel<float, C>)
-                               : reinterpret_cast<const void*>(attn_bwd_dkdv_kernel<float, C>))
-                 : (which == 0 ? reinterpret_cast<const void*>(attn_bwd_dq_mma_kernel<C>)
-                               : reinterpret_cast<const void*>(attn_bwd_dkdv_mma_kernel<C>));
-  cudaError_t err = grant_smem(kernel, granted[dtype][which], smem_bytes);
-  if (err != cudaSuccess) return err;
   if (dtype == 0) {
+    const void* kernel = which == 0 ? reinterpret_cast<const void*>(attn_bwd_dq_kernel<float, C>)
+                                    : reinterpret_cast<const void*>(attn_bwd_dkdv_kernel<float, C>);
+    cudaError_t err = grant_smem(kernel, granted[0][which], smem_bytes);
+    if (err != cudaSuccess) return err;
     const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
                 *fv = static_cast<const float*>(v), *fdo = static_cast<const float*>(dout);
+    constexpr int rows = bwd_rows(C);
     if (which == 0) {
-      dim3 grid((t_q + kBwdQ - 1) / kBwdQ, batch);
-      attn_bwd_dq_kernel<float, C><<<grid, kBwdThreads, smem_bytes, s>>>(
+      dim3 grid((t_q + rows - 1) / rows, batch);
+      attn_bwd_dq_kernel<float, C><<<grid, bwd_threads(C), smem_bytes, s>>>(
           fq, fk, fv, static_cast<const float*>(o), fdo, static_cast<float*>(dq), lse, dsum,
           t_q, t_k, scale);
     } else {
-      dim3 grid((t_k + kBwdKV - 1) / kBwdKV, batch);
-      attn_bwd_dkdv_kernel<float, C><<<grid, kBwdThreads, smem_bytes, s>>>(
+      dim3 grid((t_k + rows - 1) / rows, batch);
+      attn_bwd_dkdv_kernel<float, C><<<grid, bwd_threads(C), smem_bytes, s>>>(
           fq, fk, fv, fdo, lse, dsum, static_cast<float*>(dk), static_cast<float*>(dv), t_q,
           t_k, scale);
     }
     return cudaGetLastError();
   }
-  const bf *bq = static_cast<const bf*>(q), *bk = static_cast<const bf*>(k),
-           *bv = static_cast<const bf*>(v), *bdo = static_cast<const bf*>(dout);
-  CUtensorMap tx = {}, ty = {};  // the streamed pair: (K, V) for dq, (Q, dO) for dkdv
-  const int t_stream = which ? t_q : t_k, t_res = which ? t_k : t_q;
-  if constexpr (uses_tma(C)) {
-    const int rows = bwd_stream_rows(C, which);
-    if ((err = make_tensor_map(&tx, which ? q : k, batch, t_stream, C, rows)) != cudaSuccess ||
-        (err = make_tensor_map(&ty, which ? dout : v, batch, t_stream, C, rows)) != cudaSuccess)
-      return err;
+  if constexpr (C > 128) {
+    return cudaErrorInvalidValue;
+  } else {
+    const void* kernel = which == 0 ? reinterpret_cast<const void*>(attn_bwd_dq_mma_kernel<C>)
+                                    : reinterpret_cast<const void*>(attn_bwd_dkdv_mma_kernel<C>);
+    cudaError_t err = grant_smem(kernel, granted[1][which], smem_bytes);
+    if (err != cudaSuccess) return err;
+    const bf *bq = static_cast<const bf*>(q), *bk = static_cast<const bf*>(k),
+             *bv = static_cast<const bf*>(v), *bdo = static_cast<const bf*>(dout);
+    CUtensorMap tx = {}, ty = {};  // the streamed pair: (K, V) for dq, (Q, dO) for dkdv
+    const int t_stream = which ? t_q : t_k, t_res = which ? t_k : t_q;
+    if constexpr (uses_tma(C)) {
+      const int rows = bwd_stream_rows(C, which);
+      if ((err = make_tensor_map(&tx, which ? q : k, batch, t_stream, C, rows)) != cudaSuccess ||
+          (err = make_tensor_map(&ty, which ? dout : v, batch, t_stream, C, rows)) != cudaSuccess)
+        return err;
+    }
+    dim3 grid((t_res + kBwdRows - 1) / kBwdRows, batch);
+    if (which == 0)
+      attn_bwd_dq_mma_kernel<C><<<grid, kBwdMmaThreads, smem_bytes, s>>>(
+          bq, bk, bv, static_cast<const bf*>(o), bdo, static_cast<bf*>(dq), lse, dsum, t_q, t_k,
+          scale, tx, ty);
+    else
+      attn_bwd_dkdv_mma_kernel<C><<<grid, kBwdMmaThreads, smem_bytes, s>>>(
+          bq, bk, bv, bdo, lse, dsum, static_cast<bf*>(dk), static_cast<bf*>(dv), t_q, t_k, scale,
+          tx, ty);
+    return cudaGetLastError();
   }
-  dim3 grid((t_res + kBwdRows - 1) / kBwdRows, batch);
-  if (which == 0)
-    attn_bwd_dq_mma_kernel<C><<<grid, kBwdMmaThreads, smem_bytes, s>>>(
-        bq, bk, bv, static_cast<const bf*>(o), bdo, static_cast<bf*>(dq), lse, dsum, t_q, t_k,
-        scale, tx, ty);
-  else
-    attn_bwd_dkdv_mma_kernel<C><<<grid, kBwdMmaThreads, smem_bytes, s>>>(
-        bq, bk, bv, bdo, lse, dsum, static_cast<bf*>(dk), static_cast<bf*>(dv), t_q, t_k, scale,
-        tx, ty);
-  return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
@@ -1577,8 +1601,9 @@ cudaError_t attention_bwd(const void* q, const void* k, const void* v, const voi
                           const void* dout, void* dq, void* dk, void* dv, void* lse, void* dsum,
                           int batch, int t_q, int t_k, int c_dim, float scale, int dtype,
                           int which, int smem_bytes, void* stream) {
+  const bool fp32_dim = c_dim == 256 || c_dim == 512;  // the fp32 kernels' only
   if (batch <= 0 || batch > 65535 || t_q <= 0 || t_k <= 0 || (dtype != 0 && dtype != 1) ||
-      (c_dim != 32 && c_dim != 64 && c_dim != 128))
+      (c_dim != 32 && c_dim != 64 && c_dim != 128 && !fp32_dim) || (dtype == 1 && fp32_dim))
     return cudaErrorInvalidValue;
   const int want = dtype == 1 ? bwd_layout(c_dim, which).total
                               : (which == 0 ? bwd_dq_smem_floats(c_dim)
@@ -1599,8 +1624,14 @@ cudaError_t attention_bwd(const void* q, const void* k, const void* v, const voi
     case 64:
       return launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_q, t_k, scale, dtype,
                             which, smem_bytes, s);
-    default:
+    case 128:
       return launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_q, t_k, scale, dtype,
+                             which, smem_bytes, s);
+    case 256:
+      return launch_bwd<256>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_q, t_k, scale, dtype,
+                             which, smem_bytes, s);
+    default:
+      return launch_bwd<512>(q, k, v, o, dout, dq, dk, dv, l, d, batch, t_q, t_k, scale, dtype,
                              which, smem_bytes, s);
   }
 }
@@ -1654,7 +1685,8 @@ int ddnm_attention_kv(const void* q, const void* k, const void* v, void* o, int 
 
 // Attention backward, first pass: q, k, v, o, dout, dq: (batch, t_len,
 // c_dim) contiguous; dtype 0 = float32 (FMA kernel), 1 = bfloat16
-// (tensor-core kernel, 16-byte aligned pointers); c_dim 32, 64 or 128; lse,
+// (tensor-core kernel, 16-byte aligned pointers); c_dim 32, 64 or 128, and
+// for float32 also 256 or 512; lse,
 // dsum: (batch, t_len) fp32, written (each row's log-sum-exp of the scaled
 // scores and rowsum(dout o o)). smem_bytes: the kernel's dynamic shared
 // memory (ops/attention.py `_bwd_plan`). Returns cudaGetLastError(), or

@@ -86,6 +86,11 @@
 // gn_bwd_dx_kernel: the elementwise pass (the apply kernel's layout:
 // 16-byte loads and stores, a thread's channels and coefficients fixed in
 // registers), the SiLU factor recomputed from x, a and b.
+// Training (the scale, bias or FiLM require grad): the reduce kernel's
+// partial mode writes the whole map's four sums, gn_bwd_finalize_kernel
+// folds them into dx's coefficients and, beside them, the parameter
+// gradients (d gamma, d beta, d film_scale, d film_shift), and
+// gn_bwd_dx_kernel runs as above: three launches a norm.
 
 #include <cstdint>
 
@@ -1016,27 +1021,43 @@ cudaError_t launch_bwd_reduce(const void* x, const void* dy, const float* gamma,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The fold of gn_bwd_reduce_kernel's step 4 on given sums: the spatial
-// shards' partial sums (4, B, C) = (sum x, sum x^2, sum dy', sum dy' x),
-// added in rank order by the caller, of a map of `hw` pixels in all. grid
-// (B), block kFinalizeThreads, dynamic shared memory 12 * groups bytes.
-// Step 4's own arithmetic: the dy' sums weighed per channel by g = gamma
-// (1 + film_scale), fixed-order group sums (sum4), mean and rstd by the fast
-// variance, then A, Bx, Cx per channel. out: (3, B, C) fp32. A few
-// thousand floats a launch: it costs its launch.
+// The fold of gn_bwd_reduce_kernel's step 4 on given sums (4, B, C) =
+// (sum x, sum x^2, sum dy', sum dy' x) of a map of `hw` pixels in all:
+// under spatial shards every shard's partial sums added in rank order by
+// the caller, in training the whole map's from the reduce kernel's partial
+// mode. Step 4's own arithmetic: the dy' sums weighed per channel by
+// g = gamma (1 + film_scale), fixed-order group sums (sum4), mean and rstd
+// by the fast variance, then coef (3, B, C) = (A, Bx, Cx) per channel.
+// d_gamma given (training; then d_beta and beta too, and d_film_scale,
+// d_film_shift where film_scale is): the parameter gradients beside them.
+// With S_dy = sum dy', S_dyx = sum dy' x and sum dy' x^ = rstd (S_dyx -
+// mean S_dy), in the FiLM convention y = (x^ gamma + beta) (1 + s) + shift:
+//   d shift[b, c] = S_dy,
+//   d s[b, c]     = gamma_c rstd (S_dyx - mean S_dy) + beta_c S_dy,
+//   d gamma_c     = sum_b (1 + s_bc) rstd (S_dyx - mean S_dy),
+//   d beta_c      = sum_b (1 + s_bc) S_dy.
+// No TPU counterpart: the JAX package takes these gradients with jax.grad
+// through XLA. grid (ceil(C / kFinalizeThreads)), block kFinalizeThreads:
+// thread c walks the images in order (the sums over b in a fixed order, no
+// atomics) and folds its group's four sums per image. A few B C cpg floats
+// read a launch: it costs its launch. All fp32.
 __global__ void __launch_bounds__(kFinalizeThreads)
 gn_bwd_finalize_kernel(const float* __restrict__ sums, const float* __restrict__ gamma,
-                       const float* __restrict__ film_scale, float* __restrict__ out, int batch,
-                       int hw, int c_total, int cpg, float eps) {
-  extern __shared__ float gstat[];  // [3][groups]: rstd, Bx, Cx
-  const int b = blockIdx.x;
-  const int ng = c_total / cpg;
+                       const float* __restrict__ beta, const float* __restrict__ film_scale,
+                       float* __restrict__ coef, float* __restrict__ d_gamma,
+                       float* __restrict__ d_beta, float* __restrict__ d_film_scale,
+                       float* __restrict__ d_film_shift, int batch, int hw, int c_total,
+                       int cpg, float eps) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= c_total) return;
   const float inv_n = 1.f / static_cast<float>(static_cast<double>(hw) * cpg);
-  const size_t bc = (size_t)batch * c_total, o = (size_t)b * c_total;
-  const float* fs = film_scale != nullptr ? film_scale + o : nullptr;
-  auto g_of = [&](int c) { return fs != nullptr ? gamma[c] * (1.f + fs[c]) : gamma[c]; };
-  for (int gi = threadIdx.x; gi < ng; gi += blockDim.x) {
-    const int c0 = gi * cpg;
+  const size_t bc = (size_t)batch * c_total;
+  const int c0 = c - c % cpg;
+  float dg = 0.f, db = 0.f;
+  for (int b = 0; b < batch; ++b) {
+    const size_t o = (size_t)b * c_total;
+    const float* fs = film_scale != nullptr ? film_scale + o : nullptr;
+    auto g_of = [&](int ch) { return fs != nullptr ? gamma[ch] * (1.f + fs[ch]) : gamma[ch]; };
     const float g1 = sum4(cpg, [&](int j) { return sums[o + c0 + j]; });
     const float g2 = sum4(cpg, [&](int j) { return sums[bc + o + c0 + j]; });
     const float g3 = sum4(cpg, [&](int j) { return sums[2 * bc + o + c0 + j] * g_of(c0 + j); });
@@ -1045,16 +1066,23 @@ gn_bwd_finalize_kernel(const float* __restrict__ sums, const float* __restrict__
     const float rstd = rsqrtf(fmaxf(g2 * inv_n - mean * mean, 0.f) + eps);
     const float c1 = g3 * inv_n;                      // mean_g(g dy')
     const float c2 = rstd * (g4 * inv_n - mean * c1);  // mean_g(g dy' x^)
-    gstat[gi] = rstd;
-    gstat[ng + gi] = -rstd * rstd * c2;                  // Bx
-    gstat[2 * ng + gi] = rstd * (mean * rstd * c2 - c1);  // Cx
+    coef[o + c] = rstd * g_of(c);
+    coef[bc + o + c] = -rstd * rstd * c2;                  // Bx
+    coef[2 * bc + o + c] = rstd * (mean * rstd * c2 - c1);  // Cx
+    if (d_gamma == nullptr) continue;
+    const float s_dy = sums[2 * bc + o + c];
+    const float s_xhat = rstd * (sums[3 * bc + o + c] - mean * s_dy);  // sum dy' x^
+    const float f1 = fs != nullptr ? 1.f + fs[c] : 1.f;
+    dg += f1 * s_xhat;
+    db += f1 * s_dy;
+    if (fs != nullptr) {
+      d_film_scale[o + c] = gamma[c] * s_xhat + beta[c] * s_dy;
+      d_film_shift[o + c] = s_dy;
+    }
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
-    const int gi = c / cpg;
-    out[o + c] = gstat[gi] * g_of(c);
-    out[bc + o + c] = gstat[ng + gi];
-    out[2 * bc + o + c] = gstat[2 * ng + gi];
+  if (d_gamma != nullptr) {
+    d_gamma[c] = dg;
+    d_beta[c] = db;
   }
 }
 
@@ -1318,19 +1346,29 @@ int ddnm_gn_bwd_partial(const void* x, const void* dy, const void* a, const void
                       dtype, 1, stream);
 }
 
-// The finalize of the partial mode: sums (4, batch, c_total) fp32, every
-// shard's added in rank order; hw the pixels of the whole map; gamma
-// (c_total,) and film_scale (batch, c_total) or null, fp32; out (3, batch,
-// c_total) fp32 = (A, Bx, Cx), read by ddnm_gn_bwd_dx.
-int ddnm_gn_bwd_finalize(const void* sums, const void* gamma, const void* film_scale, void* out,
-                         int batch, int hw, int c_total, int groups, float eps, void* stream) {
-  if (groups <= 0 || c_total % groups != 0 || batch <= 0 || batch > 65535 || hw <= 0 ||
-      12 * groups > 48 * 1024 || sums == nullptr || gamma == nullptr || out == nullptr)
+// The backward finalize: sums (4, batch, c_total) fp32 (under spatial
+// shards every shard's added in rank order, in training the whole map's
+// from ddnm_gn_bwd_partial); hw the pixels of the whole map; gamma
+// (c_total,) and film_scale (batch, c_total) or null, fp32; coef (3, batch,
+// c_total) fp32 = (A, Bx, Cx), read by ddnm_gn_bwd_dx. d_gamma, d_beta
+// (c_total,) null or, in training, written with beta (c_total,) read, and
+// where film_scale is given d_film_scale, d_film_shift (batch, c_total).
+int ddnm_gn_bwd_finalize(const void* sums, const void* gamma, const void* beta,
+                         const void* film_scale, void* coef, void* d_gamma, void* d_beta,
+                         void* d_film_scale, void* d_film_shift, int batch, int hw,
+                         int c_total, int groups, float eps, void* stream) {
+  const bool params = d_gamma != nullptr;
+  if (groups <= 0 || c_total % groups != 0 || batch <= 0 || hw <= 0 || sums == nullptr ||
+      gamma == nullptr || coef == nullptr || params != (d_beta != nullptr) ||
+      (params && (beta == nullptr || (film_scale != nullptr &&
+                                      (d_film_scale == nullptr || d_film_shift == nullptr)))))
     return static_cast<int>(cudaErrorInvalidValue);
-  gn_bwd_finalize_kernel<<<batch, kFinalizeThreads, 12 * groups,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (c_total + kFinalizeThreads - 1) / kFinalizeThreads;
+  gn_bwd_finalize_kernel<<<blocks, kFinalizeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(sums), static_cast<const float*>(gamma),
-      static_cast<const float*>(film_scale), static_cast<float*>(out), batch, hw, c_total,
+      static_cast<const float*>(beta), static_cast<const float*>(film_scale),
+      static_cast<float*>(coef), static_cast<float*>(d_gamma), static_cast<float*>(d_beta),
+      static_cast<float*>(d_film_scale), static_cast<float*>(d_film_shift), batch, hw, c_total,
       c_total / groups, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,9 @@ The JAX package's `load_params`, `save_orbax` and `load_orbax` are not
 ported: they convert a torch state dict into a flax parameter tree (with
 an .npz cache) and save or restore that tree with orbax. The port's models
 are torch modules that load the published `.pt` files directly
-(`runner.load_checkpoint`), so it has no tree to convert or save.
+(`load_checkpoint`, fp16 storage upcast), the exports of the port's own
+trainers (training.py `export`) included, so it has no tree to convert or
+save.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from __future__ import annotations
 import hashlib
 from pathlib import Path
 
-__all__ = ["CHECKPOINTS", "fetch", "md5sum"]
+import torch
+
+__all__ = ["CHECKPOINTS", "fetch", "load_checkpoint", "md5sum"]
 
 # name -> (url, md5 or None, target file name), as the reference's maps
 CHECKPOINTS = {
@@ -59,6 +63,13 @@ CHECKPOINTS = {
         "ema_lsun_church.ckpt",
     ),
 }
+
+
+def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
+    """Load a reference state dict (.pt) strictly, upcasting fp16 storage."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: v.float() if v.dtype == torch.float16 else v for k, v in sd.items()}
+    model.load_state_dict(sd, strict=True)
 
 
 def md5sum(path: Path, chunk: int = 1 << 20) -> str:

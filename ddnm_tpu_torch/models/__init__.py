@@ -9,9 +9,11 @@ from ddnm_tpu_torch.models.unet_adm import (
     ADMUNet,
     classifier_guidance_fn,
     classifier_guidance_from_params,
+    init_like_flax,
 )
 from ddnm_tpu_torch.models.unet_ddpm import DDPMUNet
 
 __all__ = ["ADMClassifier", "ADMSuperResModel", "ADMUNet", "DDPMUNet", "cast_torso",
-           "classifier_guidance_fn", "classifier_guidance_from_params", "params_from_flax",
+           "classifier_guidance_fn", "classifier_guidance_from_params", "init_like_flax",
+           "params_from_flax",
            "shard_spatially"]

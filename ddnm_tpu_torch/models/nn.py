@@ -12,9 +12,11 @@ to its input): with grad enabled and an input that requires grad,
 `GroupNormF32` and `attention` go through `ops.GroupNormFunction` and
 `ops.AttentionFunction`, whose backward runs the backward kernels on a
 card. Under `torch.no_grad`, or when no input requires grad, they call the
-forward alone and save nothing, as every sampler does. GroupNormFunction
-gives dx only, so a GroupNorm whose affine or FiLM requires grad (a model
-that is not frozen) raises on every route.
+forward alone and save nothing, as every sampler does. In training (the
+model's parameters require grad) GroupNormFunction also returns the
+gradients of the norm's affine and FiLM (the backward finalize kernel
+on a card); a sharded GroupNorm (ShardedGroupNormFunction) still gives dx only
+and raises for an affine that requires grad.
 
 Spatial shards (parallel/spatial.py): `shard_spatially(model, group)`
 gives every 3x3 convolution, GroupNorm and attention of a UNet the
@@ -144,7 +146,7 @@ class GroupNormF32(nn.Module):
                            eps=self.eps, swish=self.swish, film_scale=film_scale,
                            film_shift=film_shift, force=self.force, spatial=self.spatial)
             return y.permute(0, 3, 1, 2)
-        if _needs_grad(nhwc, film_scale, film_shift):
+        if _needs_grad(nhwc, film_scale, film_shift, self.weight, self.bias):
             y = GroupNormFunction.apply(nhwc, self.weight, self.bias, film_scale, film_shift,
                                         self.num_groups, self.eps, self.swish,
                                         self.force or ("kernel" if nhwc.is_cuda else "torch"))

@@ -139,6 +139,10 @@ class DDPMUNet(nn.Module):
     Also exposes `time_embed(t)`, `encode(x, temb)` and `decode(h, hs, temb)`
     with forward == decode(encode(...)), as the JAX model does."""
 
+    # unet_adm.init_like_flax: flax's default initialisers everywhere (the
+    # JAX DDPM UNet zero-initialises no layer)
+    zero_init = ()
+
     def __init__(self, ch: int = 128, out_ch: int = 3,
                  ch_mult: Sequence[int] = (1, 1, 2, 2, 4, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),

@@ -28,10 +28,12 @@ the custom ops ddnm::gn_stats_affine, ddnm::gn_apply and ddnm::attention
 wrappers take it while a tracer runs or under `force="op"`.
 
 GroupNormFunction and AttentionFunction are group_norm and fused_attention
-with a backward (dx of the GroupNorm; dq, dk, dv of attention), which runs
-hand-written backward kernels of their own on a card (gn_bwd_reduce,
-gn_bwd_dx; attn_bwd_dq, attn_bwd_dkdv); ShardedGroupNormFunction is the
-GroupNorm of a spatial shard with its gradient (gn_bwd_reduce's partial
+with a backward (dx of the GroupNorm, and in training the gradients of its
+scale, bias and FiLM; dq, dk, dv of attention, fp32 up to C = 512), which
+runs hand-written backward kernels of their own on a card (gn_bwd_reduce,
+gn_bwd_dx; in training the reduce kernel's partial sums, gn_bwd_finalize
+with the parameter gradients and gn_bwd_dx; attn_bwd_dq, attn_bwd_dkdv);
+ShardedGroupNormFunction is the GroupNorm of a spatial shard with its gradient (gn_bwd_reduce's partial
 mode and gn_bwd_finalize, then gn_bwd_dx). They have no TPU counterpart: the
 JAX package takes the classifier-guidance gradient with jax.grad through
 its XLA GroupNorm and attention.

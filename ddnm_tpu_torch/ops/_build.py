@@ -47,7 +47,7 @@ _SIGNATURES = {
     "ddnm_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ddnm_gn_bwd_reduce": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ddnm_gn_bwd_partial": [_P] * 7 + [_I] * 12 + [_P],
-    "ddnm_gn_bwd_finalize": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "ddnm_gn_bwd_finalize": [_P] * 9 + [_I] * 4 + [_F, _P],
     "ddnm_gn_bwd_dx": [_P] * 6 + [_I] * 8 + [_P],
     "ddnm_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "ddnm_attention_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],

@@ -28,7 +28,10 @@ plain version (`_torch_attn_bwd_dq`, `_torch_attn_bwd_dkdv`;
 the tensor cores (mma.sync; 64 resident rows a block, the other operand
 pair streamed by TMA, P and dS rounded to bf16 as mma operands); for fp32
 both are FMA kernels on the CUDA cores (32 rows a block), which keep the
-fp32 gates. Head dimensions 32, 64 and 128 (`_bwd_plan`). What holds the
+fp32 gates. Head dimensions 32, 64 and 128 (`_bwd_plan`), and in fp32 also
+256 and 512 (the DDPM UNet's single-head AttnBlocks in training; at 512
+the fp32 kernels take 16 rows a block, so that their padded rows fit a
+block's shared memory). What holds the
 bf16 pair back (2.3x SDPA's autograd backward at (32, 1024, 64) on an
 H100): registers bound the blocks an SM, every warp reads the whole
 streamed tile for its 16 rows, and the dq pass sweeps K twice (the LSE).
@@ -67,15 +70,22 @@ WHOLE_ROW_MAX_T = 1024      # kWholeRowMaxT: longest T with the whole-row softma
 _ROW_PAD, _SCORE_PAD = 8, 8  # kRowPad (bf16), kScorePad (fp32)
 # the fp32 FMA kernel's (csrc/attention.cu kBQ, kThreads; 45.4 KB static)
 _FMA_Q_ROWS, _FMA_THREADS = 16, 256
-# the fp32 backward kernels' (csrc/attention.cu kBwd*): 256 threads; the dq
-# kernel takes 32 query rows a block and 64 keys a tile, the dkdv kernel 32
-# keys a block and 64 query rows a tile
-_BWD_THREADS, _BWD_Q, _BWD_K, _BWD_KV, _BWD_QT = 256, 32, 64, 32, 64
 # the bf16 backward kernels' (kBwdRows, kBwdMmaThreads): 64 resident rows
 # and 4 warps a block
 _BWD_ROWS, _BWD_MMA_THREADS = 64, 128
-# head dimensions both are built for
-BWD_HEAD_DIMS = (32, 64, 128)
+# head dimensions the fp32 backward kernels are built for (256 and 512: the
+# DDPM UNet's single-head AttnBlocks in training), and the bf16 ones
+BWD_HEAD_DIMS = (32, 64, 128, 256, 512)
+BWD_BF16_HEAD_DIMS = (32, 64, 128)
+
+
+def _fp32_bwd_tiles(C: int) -> tuple[int, int]:
+    """csrc/attention.cu bwd_rows(C) and 8 * bwd_per_lane(C): the fp32
+    backward kernels' rows a block (the dq kernel's queries, the dkdv
+    kernel's keys; 8 threads each) and the rows of a streamed tile (32 and
+    64 up to C = 256; 16 and 32 at C = 512, where the padded rows would
+    not fit a block's shared memory)."""
+    return (16, 32) if C > 256 else (32, 64)
 
 
 def _key_tile(C: int) -> int:
@@ -255,8 +265,9 @@ def _bwd_plan(B: int, T: int, C: int, dtype: torch.dtype, Tk: int | None = None)
     Tk = T if Tk is None else Tk
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"attention backward takes float32/bfloat16, got {dtype}")
-    if C not in BWD_HEAD_DIMS:
-        raise ValueError(f"attention backward takes C in {BWD_HEAD_DIMS}, got {C}")
+    dims = BWD_HEAD_DIMS if dtype == torch.float32 else BWD_BF16_HEAD_DIMS
+    if C not in dims:
+        raise ValueError(f"attention backward takes C in {dims} for {dtype}, got {C}")
     if B < 1 or B > 65535:  # CUDA grid y limit
         raise ValueError(f"attention backward takes 1 <= B* <= 65535, got {B}")
     if T < 1 or Tk < 1:
@@ -266,12 +277,12 @@ def _bwd_plan(B: int, T: int, C: int, dtype: torch.dtype, Tk: int | None = None)
                 **{name: {"grid": (-(-rows // _BWD_ROWS), B), "smem": _bwd_mma_smem(C, dkdv),
                           "stream_rows": _bwd_stream_rows(C, dkdv)}
                    for name, dkdv, rows in (("dq", False, T), ("dkdv", True, Tk))}}
-    dq = 4 * ((2 * _BWD_Q + 2 * _BWD_K) * (C + 1) + _BWD_Q * (_BWD_K + 1) + _BWD_Q)
-    dkdv = 4 * ((2 * _BWD_KV + 2 * _BWD_QT) * (C + 1) + 2 * _BWD_KV * (_BWD_QT + 1)
-                + 2 * _BWD_QT)
-    return {"kernel": "fma", "threads": _BWD_THREADS,
-            "dq": {"grid": (-(-T // _BWD_Q), B), "smem": dq},
-            "dkdv": {"grid": (-(-Tk // _BWD_KV), B), "smem": dkdv}}
+    rows, tile = _fp32_bwd_tiles(C)
+    dq = 4 * ((2 * rows + 2 * tile) * (C + 1) + rows * (tile + 1) + rows)
+    dkdv = 4 * ((2 * rows + 2 * tile) * (C + 1) + 2 * rows * (tile + 1) + 2 * tile)
+    return {"kernel": "fma", "threads": 8 * rows,
+            "dq": {"grid": (-(-T // rows), B), "smem": dq},
+            "dkdv": {"grid": (-(-Tk // rows), B), "smem": dkdv}}
 
 
 def _check_bwd(queries, keys):

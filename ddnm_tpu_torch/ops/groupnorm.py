@@ -40,6 +40,14 @@ kernel's layout), each beside its plain version (`_torch_bwd_reduce`,
 `_torch_bwd_dx`); `_torch_group_norm_backward` is the whole formula in
 plain PyTorch.
 
+In training (the scale, bias or FiLM require grad) `GroupNormFunction`
+also returns their gradients: the backward reduce kernel's partial mode
+sums the map's x, x^2, dy' and dy' x per channel (`_bwd_sums`), the
+backward finalize kernel below folds them into dx's coefficients and the
+parameter gradients (`_bwd_finalize(bias=)`, plain `_torch_bwd_finalize`;
+counted as `gn_bwd_param`), and `gn_bwd_dx` runs as before: three
+backward launches a norm.
+
 `ShardedGroupNormFunction` is the spatial path with that gradient (the
 guidance gradient under spatial shards). Its forward is the spatial
 forward above, saving the whole map's affine; its backward needs the
@@ -65,7 +73,8 @@ from ddnm_tpu_torch.ops import _build
 __all__ = ["group_norm", "GroupNormFunction", "ShardedGroupNormFunction", "LAUNCHES"]
 
 # launches of each kernel wrapper since the last reset (ops.reset_launch_counts)
-LAUNCHES = {"groupnorm_stats": 0, "groupnorm_apply": 0, "gn_bwd_reduce": 0, "gn_bwd_dx": 0}
+LAUNCHES = {"groupnorm_stats": 0, "groupnorm_apply": 0, "gn_bwd_reduce": 0, "gn_bwd_dx": 0,
+            "gn_bwd_sums": 0, "gn_bwd_param": 0}
 # the spatial path's: the stats kernel's partial mode and the finalize, and
 # in the gradient the backward reduce kernel's partial mode and its finalize
 SPATIAL_LAUNCHES = {"groupnorm_partial": 0, "groupnorm_finalize": 0, "gn_bwd_partial": 0,
@@ -471,12 +480,18 @@ def _torch_bwd_partial(x, dy, swish, a=None, b=None):
                         (d * xf).sum(dim=(1, 2))])
 
 
-def _torch_bwd_finalize(sums, hw, scale, num_groups, eps, film_scale=None):
+def _torch_bwd_finalize(sums, hw, scale, num_groups, eps, film_scale=None, bias=None):
     """The (3, B, C) coefficients of dx = A dy' + Bx x + Cx from (4, B, C)
     per-channel sums (`_torch_bwd_partial`'s) over a map of `hw` pixels
     (gn_bwd_finalize_kernel): mean and rstd from the sums of x (the fast
     variance, as the forward), g = scale (1 + film_scale), and
-    dx = rstd (g dy' - mean_g(g dy') - x^ mean_g(g dy' x^))."""
+    dx = rstd (g dy' - mean_g(g dy') - x^ mean_g(g dy' x^)).
+
+    With `bias` (training) returns (coef, d_scale, d_bias, d_film_scale,
+    d_film_shift): with sum dy' x^ = rstd (S_dyx - mean S_dy) per (image,
+    channel), d film_shift = S_dy, d film_scale = scale sum dy' x^ + bias
+    S_dy, d scale = sum_b (1 + film_scale) sum dy' x^, d bias = sum_b (1 +
+    film_scale) S_dy (the FiLM pair None without FiLM)."""
     _, B, C = sums.shape
     g = scale.to(sums.dtype)[None].expand(B, C)
     if film_scale is not None:
@@ -490,8 +505,17 @@ def _torch_bwd_finalize(sums, hw, scale, num_groups, eps, film_scale=None):
     c1 = group(g * sums[2]) / n
     c2 = rstd * (group(g * sums[3]) / n - mean * c1)
     per_c = lambda t: torch.repeat_interleave(t, rep, dim=1)
-    return torch.stack([per_c(rstd) * g, per_c(-rstd * rstd * c2),
+    coef = torch.stack([per_c(rstd) * g, per_c(-rstd * rstd * c2),
                         per_c(rstd * (mean * rstd * c2 - c1))])
+    if bias is None:
+        return coef
+    s_dy = sums[2]
+    s_xhat = per_c(rstd) * (sums[3] - per_c(mean) * s_dy)
+    if film_scale is None:
+        return coef, s_xhat.sum(0), s_dy.sum(0), None, None
+    f1 = 1.0 + film_scale.to(sums.dtype)
+    d_fs = scale.to(sums.dtype)[None] * s_xhat + bias.to(sums.dtype)[None] * s_dy
+    return coef, (f1 * s_xhat).sum(0), (f1 * s_dy).sum(0), d_fs, s_dy
 
 
 def _torch_bwd_reduce(x, dy, scale, num_groups, eps, swish, a=None, b=None,
@@ -705,30 +729,56 @@ def _bwd_partial(x, dy, num_groups, swish, a=None, b=None):
     return out
 
 
-def _bwd_finalize(sums, hw, scale, num_groups, eps, film_scale=None):
-    """The (3, B, C) fp32 coefficients of dx from the shards' added (4, B,
-    C) sums over a map of `hw` pixels: one launch of the backward finalize
-    kernel."""
+def _bwd_sums(x, dy, num_groups, swish, a=None, b=None):
+    """(4, B, C) fp32 per-channel sums of x, x^2, dy' and dy' x over the
+    whole map: the backward reduce kernel's partial mode, in training."""
+    out = _bwd_launch(x, dy, None, num_groups, 0.0, swish, a, b, None, True)
+    _build.count_launch(LAUNCHES, "gn_bwd_sums")
+    return out
+
+
+def _bwd_finalize(sums, hw, scale, num_groups, eps, film_scale=None, bias=None):
+    """The (3, B, C) fp32 coefficients of dx from (4, B, C) sums over a map
+    of `hw` pixels (the shards' added, or in training the whole map's):
+    one launch of gn_bwd_finalize_kernel. With `bias` (training) returns
+    (coef, d_scale, d_bias, d_film_scale, d_film_shift) from the same
+    launch, every output in one fp32 allocation (the FiLM pair None without
+    FiLM). Counted as "gn_bwd_finalize" in SPATIAL_LAUNCHES, or in training
+    as "gn_bwd_param" in LAUNCHES."""
     if not sums.is_cuda:
         raise ValueError("the GroupNorm backward finalize kernel takes CUDA tensors only")
     _, B, C = sums.shape
-    if C % num_groups or not 1 <= B <= 65535 or 12 * num_groups > 48 * 1024:
-        raise ValueError(f"GroupNorm backward finalize takes (4, B <= 65535, C) sums with "
-                         f"C % G == 0, got {tuple(sums.shape)} and {num_groups} groups")
+    if C % num_groups or B < 1:
+        raise ValueError(f"GroupNorm backward finalize takes (4, B, C) sums with C % G == 0, "
+                         f"got {tuple(sums.shape)} and {num_groups} groups")
     dev = sums.device
     sums = _vec(sums, (4, B, C), dev)
     scale = _vec(scale, (C,), dev)
-    if film_scale is not None:
+    params = bias is not None
+    film = film_scale is not None
+    if film:
         film_scale = _vec(film_scale, (B, C), dev)
+    if params:
+        bias = _vec(bias, (C,), dev)
+    buf = sums.new_empty(3 * B * C + (2 * C + (2 * B * C if film else 0) if params else 0))
+    coef = buf[:3 * B * C].view(3, B, C)
+    d_scale = d_bias = d_fs = d_ft = None
+    if params:
+        d_scale, d_bias = buf[3 * B * C:3 * B * C + 2 * C].view(2, C).unbind(0)
+        if film:
+            d_fs, d_ft = buf[3 * B * C + 2 * C:].view(2, B, C).unbind(0)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     lib = _build.load_library()
-    out = sums.new_empty((3, B, C))
     with _build.device_guard(dev):
         _build.check(lib.ddnm_gn_bwd_finalize(
-            sums.data_ptr(), scale.data_ptr(),
-            film_scale.data_ptr() if film_scale is not None else None, out.data_ptr(), B,
-            int(hw), C, num_groups, float(eps), _build.raw_stream(dev)), "ddnm_gn_bwd_finalize")
-    _build.count_launch(SPATIAL_LAUNCHES, "gn_bwd_finalize")
-    return out
+            sums.data_ptr(), scale.data_ptr(), ptr(bias), ptr(film_scale), coef.data_ptr(),
+            ptr(d_scale), ptr(d_bias), ptr(d_fs), ptr(d_ft), B, int(hw), C, num_groups,
+            float(eps), _build.raw_stream(dev)), "ddnm_gn_bwd_finalize")
+    if not params:
+        _build.count_launch(SPATIAL_LAUNCHES, "gn_bwd_finalize")
+        return coef
+    _build.count_launch(LAUNCHES, "gn_bwd_param")
+    return coef, d_scale, d_bias, d_fs, d_ft
 
 
 def _bwd_dx(x, dy, coef, swish, a=None, b=None):
@@ -751,44 +801,57 @@ def _bwd_dx(x, dy, coef, swish, a=None, b=None):
 
 
 class GroupNormFunction(torch.autograd.Function):
-    """`group_norm` with the gradient for x: apply(x, scale, bias,
-    film_scale, film_shift, num_groups, eps, swish, mode), mode "kernel"
-    (the two forward and two backward kernels) or "torch" (the plain
-    versions). Only x may require grad: the affine and FiLM are frozen
-    (the classifier's parameters under guidance), and a gradient for them
-    raises rather than come back None."""
+    """`group_norm` with its gradients: apply(x, scale, bias, film_scale,
+    film_shift, num_groups, eps, swish, mode), mode "kernel" (the two
+    forward kernels, then in the backward the reduce and dx kernels, or in
+    training the reduce kernel's partial mode, the finalize and dx) or
+    "torch" (the plain versions). dx always; the gradients of scale, bias,
+    film_scale and film_shift where they require grad (training), from the
+    same sums; a frozen affine (the classifier under guidance) takes the
+    two-launch dx path."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, film_scale, film_shift, num_groups, eps, swish, mode):
-        if any(t is not None and t.requires_grad
-               for t in (scale, bias, film_scale, film_shift)):
-            raise ValueError("GroupNormFunction gives the gradient of x only: the scale, "
-                             "bias and FiLM must not require grad")
         if mode == "kernel":
             a, b = _stats_affine(x, scale, bias, num_groups, eps, film_scale, film_shift)
             y = _apply(x, a, b, swish)
-            ctx.save_for_backward(x, scale, film_scale, a, b)
         elif mode == "torch":
             y = _torch_group_norm(x, scale, bias, num_groups, eps, swish, film_scale, film_shift)
-            ctx.save_for_backward(x, scale, bias, film_scale, film_shift)
+            a = b = None
+            if swish:
+                a, b = _torch_stats_affine(x, scale, bias, num_groups, eps, film_scale,
+                                           film_shift)
         else:
             raise ValueError(f"mode must be 'kernel' or 'torch', got {mode!r}")
+        ctx.save_for_backward(x, scale, bias, film_scale, a, b)
         ctx.conf = (num_groups, eps, swish, mode)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         num_groups, eps, swish, mode = ctx.conf
+        x, scale, bias, film_scale, a, b = ctx.saved_tensors
+        params = ctx.needs_input_grad[1:5]
+        B, H, W, C = x.shape
+        dy = dy.to(x.dtype)
+        grads = [None] * 4
         if mode == "kernel":
-            x, scale, film_scale, a, b = ctx.saved_tensors
-            dy = dy.to(x.dtype).contiguous()
-            coef = _bwd_reduce(x, dy, scale, num_groups, eps, swish, a, b, film_scale)
+            dy = dy.contiguous()
+            if any(params):
+                sums = _bwd_sums(x, dy, num_groups, swish, a, b)
+                coef, *grads = _bwd_finalize(sums, H * W, scale, num_groups, eps, film_scale,
+                                             bias)
+            else:
+                coef = _bwd_reduce(x, dy, scale, num_groups, eps, swish, a, b, film_scale)
             dx = _bwd_dx(x, dy, coef, swish, a, b)
         else:
-            x, scale, bias, film_scale, film_shift = ctx.saved_tensors
-            dx = _torch_group_norm_backward(x, dy.to(x.dtype), scale, bias, num_groups, eps,
-                                            swish, film_scale, film_shift)
-        return dx, None, None, None, None, None, None, None, None
+            sums = _torch_bwd_partial(x, dy, swish, a, b)
+            coef, *grads = _torch_bwd_finalize(sums, H * W, scale, num_groups, eps,
+                                               film_scale, bias)
+            dx = _torch_bwd_dx(x, dy, coef, swish, a, b)
+        grads = [g.to(t.dtype) if need and g is not None else None
+                 for g, need, t in zip(grads, params, (scale, bias, film_scale, film_scale))]
+        return (dx, *grads, None, None, None, None)
 
 
 class ShardedGroupNormFunction(torch.autograd.Function):
@@ -806,7 +869,8 @@ class ShardedGroupNormFunction(torch.autograd.Function):
         if any(t is not None and t.requires_grad
                for t in (scale, bias, film_scale, film_shift)):
             raise ValueError("ShardedGroupNormFunction gives the gradient of x only: the "
-                             "scale, bias and FiLM must not require grad")
+                             "scale, bias and FiLM must not require grad (training under "
+                             "spatial shards is not ported)")
         if mode not in ("kernel", "torch"):
             raise ValueError(f"mode must be 'kernel' or 'torch', got {mode!r}")
         a, b = _sharded_affine(x, scale, bias, num_groups, eps, film_scale, film_shift, spatial,

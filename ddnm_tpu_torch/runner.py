@@ -65,6 +65,7 @@ import torch
 
 from ddnm_tpu_torch import schedules as sch
 from ddnm_tpu_torch.config import Config
+from ddnm_tpu_torch.data.checkpoints import load_checkpoint
 from ddnm_tpu_torch.data.datasets import get_dataset, iterate_batches
 from ddnm_tpu_torch.data.io import load_mask, save_image
 from ddnm_tpu_torch.data.metrics import psnr, ssim
@@ -142,13 +143,6 @@ class RunArgs:
     device: str = "cuda"
     trace_dir: Optional[str] = None  # torch.profiler trace of the run
     loop: str = "auto"  # the JAX CLI's loop driver: accepted, one eager loop runs
-
-
-def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
-    """Load a reference state dict (.pt) strictly, upcasting fp16 storage."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = {k: v.float() if v.dtype == torch.float16 else v for k, v in sd.items()}
-    model.load_state_dict(sd, strict=True)
 
 
 class _SamplerClock:

@@ -12,6 +12,14 @@ data of `jax.random.PRNGKey(seed)`, shape (2,), or a batch of them, shape
     words, and the two output words are xor'ed;
   - `split(key)`: `jax.random.split(key)`: the two new keys are the
     output word pairs at counters 0 and 1;
+  - `uniform(key, shape, minval, maxval)`: `jax.random.uniform` in
+    float32: the top 23 bits as the mantissa of a float in [1, 2), minus 1,
+    times (maxval - minval) plus minval (one fused multiply-add, as XLA
+    emits it), at least minval;
+  - `randint(key, shape, minval, maxval)`: `jax.random.randint` in int32:
+    the key split in two, 32 random bits from each (high, low), and
+    minval + (high mod span * (2^32 mod span) + low mod span) mod span in
+    uint32 arithmetic (span = maxval - minval);
   - `normal(key, shape)`: `jax.random.normal` in float32: the top 23 bits
     as the mantissa of a float in [1, 2), minus 1, mapped onto
     [nextafter(-1, 0), 1), then sqrt(2) erfinv(u), erfinv by XLA's own
@@ -40,8 +48,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["threefry2x32", "random_bits", "split", "normal", "is_key_batch", "as_key",
-           "KeyNoise"]
+__all__ = ["threefry2x32", "random_bits", "split", "uniform", "randint", "normal",
+           "is_key_batch", "as_key", "prng_key", "KeyNoise"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -94,6 +102,14 @@ def as_key(key) -> torch.Tensor:
     return key.to(torch.int64) & _MASK
 
 
+def prng_key(seed: int, device=None) -> torch.Tensor:
+    """The key data of `jax.random.PRNGKey(seed)`, [0, seed] in int64 on
+    `device`, for a seed in [0, 2^32) (JAX without x64 keeps 32 bits)."""
+    if not 0 <= seed <= _MASK:
+        raise ValueError(f"prng_key takes a seed in [0, 2^32), got {seed}")
+    return torch.tensor([0, seed], dtype=torch.int64, device=device)
+
+
 def is_key_batch(key) -> bool:
     """True if `key` carries a leading per-image axis ((B, 2), not (2,))."""
     return key.ndim >= 2
@@ -133,6 +149,40 @@ def split(key, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+def _unit_float(bits):
+    """[0, 1) float32 of the top 23 of 32 random bits (jax.random's map)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)` bit for
+    bit (float32 bounds; scalars or tensors that broadcast to `shape`)."""
+    shape = tuple(shape)
+    f = _unit_float(random_bits(key, shape))
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=f.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=f.device)
+    # XLA fuses f * span + lo into one fused multiply-add: the product is
+    # exact in float64, so one float64 add and one rounding to float32 give
+    # the fma's value (but where the float64 sum falls exactly halfway
+    # between two float32 values: never in the tests' draws)
+    y = (f.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, y)
+
+
+def randint(key, shape, minval, maxval) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` (int32, the
+    default without x64) bit for bit, as int64 values; integer bounds."""
+    shape = tuple(shape)
+    k = split(key)
+    hi_bits, lo_bits = random_bits(k[..., 0, :], shape), random_bits(k[..., 1, :], shape)
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=hi_bits.device)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=hi_bits.device)
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
+    mult = ((((1 << 16) % span) ** 2) & _MASK) % span  # uint32: 2^32 wraps to 0
+    offset = ((((hi_bits % span) * mult) & _MASK) + lo_bits % span) & _MASK
+    return lo + offset % span
+
+
 def _erfinv(x):
     """erfinv of float32 x in (-1, 1) by XLA's formula: w = -log1p(-x^2) in
     float32, both polynomials in float64 (their float32 coefficients), the
@@ -148,9 +198,7 @@ def _erfinv(x):
 
 def _uniform_bits_to_normal(bits):
     """jax.random.normal's float32 map of 32 random bits."""
-    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    f = mant - 1.0
-    u = torch.clamp(f * _SPAN + _LO, min=_LO)
+    u = torch.clamp(_unit_float(bits) * _SPAN + _LO, min=_LO)
     return _erfinv(u) * math.sqrt(2.0)
 
 

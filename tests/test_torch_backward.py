@@ -27,6 +27,7 @@ from ddnm_tpu_torch.ops.groupnorm import (
     GroupNormFunction,
     _torch_bwd_dx,
     _torch_bwd_reduce,
+    _torch_group_norm,
     _torch_group_norm_backward,
     _torch_stats_affine,
 )
@@ -130,10 +131,22 @@ def test_attention_function_gradcheck(T, C):
 
 
 def test_group_norm_function_refuses_a_parameter_that_requires_grad():
+    """The spatial Function gives dx only and refuses an affine that
+    requires grad (training under spatial shards is not ported); the
+    unsharded one now returns that gradient (training), as autograd through
+    the plain forward gives it; its kernel mode refuses a CPU tensor."""
+    from ddnm_tpu_torch.ops.groupnorm import ShardedGroupNormFunction
+
     x = torch.randn(1, 2, 2, 64, requires_grad=True)
     w = torch.ones(64, requires_grad=True)
     with pytest.raises(ValueError, match="must not require grad"):
-        GroupNormFunction.apply(x, w, torch.zeros(64), None, None, 32, 1e-5, False, "torch")
+        ShardedGroupNormFunction.apply(x, w, torch.zeros(64), None, None, 32, 1e-5, False,
+                                       "torch", None)
+    GroupNormFunction.apply(x, w, torch.zeros(64), None, None, 32, 1e-5, False,
+                            "torch").square().sum().backward()
+    ref = torch.ones(64, requires_grad=True)
+    _torch_group_norm(x.detach(), ref, torch.zeros(64), 32, 1e-5, False).square().sum().backward()
+    assert torch.allclose(w.grad, ref.grad, atol=1e-5)
     with pytest.raises(ValueError, match="CUDA"):
         GroupNormFunction.apply(x, w.detach(), torch.zeros(64), None, None, 32, 1e-5, False,
                                 "kernel")
@@ -168,6 +181,9 @@ def test_nn_routes_through_the_functions_only_where_a_gradient_is_wanted(monkeyp
     assert seen == [("gn", "torch"), ("attn", "torch")]
     (y.sum() + o.sum()).backward()
     assert x.grad is not None and q.grad is not None
-    # a module that is not frozen raises on the CPU as on the card
-    with pytest.raises(ValueError, match="must not require grad"):
-        t_nn.GroupNormF32(64)(x)
+    # a module that is not frozen (training) enters the Function and its
+    # affine gets its gradient, even where the input needs none
+    live = t_nn.GroupNormF32(64)
+    live(x.detach()).sum().backward()
+    assert seen[-1] == ("gn", "torch") and live.weight.grad is not None
+    assert live.bias.grad is not None

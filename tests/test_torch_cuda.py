@@ -431,8 +431,92 @@ def test_backward_kernels_raise_on_what_they_do_not_take(gen):
     t = torch.zeros(2, 64, 32, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         _attn_bwd_dq(t, t, t, t, t, 1.0)
+    from ddnm_tpu_torch.ops.groupnorm import ShardedGroupNormFunction
+
     x = torch.zeros(1, 4, 4, 64, device="cuda", requires_grad=True)
     w = torch.ones(64, device="cuda", requires_grad=True)
     with pytest.raises(ValueError, match="must not require grad"):
-        GroupNormFunction.apply(x, w, torch.zeros(64, device="cuda"), None, None, 32, 1e-5,
-                                False, "kernel")
+        ShardedGroupNormFunction.apply(x, w, torch.zeros(64, device="cuda"), None, None, 32,
+                                       1e-5, False, "kernel", None)
+    with pytest.raises(ValueError, match="C in"):  # the bf16 kernels stop at C = 128
+        _attn_bwd_dq(*(torch.zeros(2, 8, 256, device="cuda", dtype=torch.bfloat16),) * 5, 1.0)
+    assert GroupNormFunction  # the training path: test_group_norm_parameter_gradients_*
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128), (3, 5, 7, 96), (16, 16, 16, 512),
+                                   (4, 64, 64, 256)])
+@pytest.mark.parametrize("swish,film", [(False, False), (True, False), (True, True)])
+def test_group_norm_parameter_gradients_match_plain(gen, shape, swish, film):
+    """Training: gn_bwd_finalize with the parameter gradients (dx's
+    coefficients and the gradients of the scale, bias and FiLM, counted as
+    gn_bwd_param) against its plain version on the same sums, the same bits
+    twice and the coefficients bit-equal to the coefficient-only launch's;
+    the Function's five gradients against autograd through the plain
+    forward (1e-3, as the dx test); three backward launches."""
+    from ddnm_tpu_torch.ops.groupnorm import (
+        GroupNormFunction, _bwd_finalize, _bwd_sums, _torch_bwd_finalize)
+
+    B, H, W, C = shape
+    x = torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5
+    dy = torch.randn(shape, device="cuda", generator=gen)
+    g, b = (torch.randn(C, device="cuda", generator=gen) for _ in range(2))
+    fs = ft = None
+    if film:
+        fs, ft = (torch.randn(B, C, device="cuda", generator=gen) * 0.3 for _ in range(2))
+    a_, b_ = _torch_stats_affine(x, g, b, 32, 1e-5, fs, ft)
+    ops.reset_launch_counts()
+    sums = _bwd_sums(x, dy, 32, swish, a_, b_)
+    got = _bwd_finalize(sums, H * W, g, 32, 1e-5, fs, b)
+    want = _torch_bwd_finalize(sums, H * W, g, 32, 1e-5, fs, b)
+    for k, p_ in zip(got, want):
+        assert (k is None) == (p_ is None)
+        if k is not None:
+            assert _rel_err(k, p_) <= 1e-4
+    again = _bwd_finalize(sums, H * W, g, 32, 1e-5, fs, b)
+    assert all(k is None or torch.equal(k, a) for k, a in zip(got, again))
+    assert torch.equal(got[0], _bwd_finalize(sums, H * W, g, 32, 1e-5, fs))
+    counts = ops.launch_counts()
+    assert counts["gn_bwd_sums"] == 1 and counts["gn_bwd_param"] == 2
+    assert ops.spatial_launch_counts()["gn_bwd_finalize"] == 1
+    leaves = [x.clone(), g.clone(), b.clone()] + ([fs.clone(), ft.clone()] if film else [])
+    ref = [t.clone().requires_grad_(True) for t in leaves]
+    ins = [t.requires_grad_(True) for t in leaves]
+    pad = [None, None] if not film else []
+    ops.reset_launch_counts()
+    GroupNormFunction.apply(*ins, *pad, 32, 1e-5, swish, "kernel").backward(dy)
+    counts = ops.launch_counts()
+    assert [counts[k] for k in ("gn_bwd_sums", "gn_bwd_param", "gn_bwd_dx", "gn_bwd_reduce")] \
+        == [1, 1, 1, 0]
+    _torch_group_norm(*ref[:3], 32, 1e-5, swish, *ref[3:]).backward(dy)
+    for a, r in zip(ins, ref):
+        assert _rel_err(a.grad, r.grad) <= 1e-3
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 512), (16, 64, 512), (16, 256, 256), (3, 17, 256),
+                                   (2, 33, 512)])
+def test_attention_backward_wide_heads_match_plain(gen, shape):
+    """Training's head dimensions, fp32 only: the DDPM AttnBlocks' C = 256
+    (big128) and 512 (the flagship at 16 and 8 px), ragged T included;
+    each kernel against its plain version within 1e-4 of the largest
+    gradient, the same bits twice, the Function against autograd."""
+    from ddnm_tpu_torch.ops.attention import (
+        AttentionFunction, _attn_bwd_dkdv, _attn_bwd_dq, _torch_attn_bwd_dkdv,
+        _torch_attn_bwd_dq)
+
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    o = _torch_attention(q, k, v, scale)
+    got = (*_attn_bwd_dq(q, k, v, o, do, scale),)
+    want = _torch_attn_bwd_dq(q, k, v, o, do, scale)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+    got_kv = _attn_bwd_dkdv(q, k, v, do, want[1], want[2], scale)
+    for a, b in zip(got_kv, _torch_attn_bwd_dkdv(q, k, v, do, want[1], want[2], scale)):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+    assert torch.equal(got[0], _attn_bwd_dq(q, k, v, o, do, scale)[0])
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    AttentionFunction.apply(*ins, scale, "kernel").backward(do)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    _torch_attention(*ref, scale).backward(do)
+    for a, b in zip(ins, ref):
+        assert _rel_err(a.grad, b.grad) <= 1e-3

@@ -25,11 +25,19 @@ PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "main_t
                                           REPO / "tools" / "time_runner_overlap.py",
                                           REPO / "tools" / "profile_torch_serve.py",
                                           REPO / "tools" / "time_serving.py",
-                                          REPO / "tools" / "check_spatial_nccl.py"]
+                                          REPO / "tools" / "check_spatial_nccl.py",
+                                          REPO / "tools" / "check_multicard_backward.py"]
 
 
-def _blocked(name: str) -> bool:
-    return name.split(".")[0] in BLOCKED
+# the port's tools (the trainers and the ported experiments): no JAX
+# package and no optax either
+PORT_TOOLS = sorted((REPO / "tools").glob("*_torch.py")) + sorted(
+    (REPO / "tools" / "experiments").glob("*_torch.py"))
+TOOLS_BLOCKED = BLOCKED + ("optax",)
+
+
+def _blocked(name: str, blocked=BLOCKED) -> bool:
+    return name.split(".")[0] in blocked
 
 
 def test_port_imports_with_foreign_packages_blocked():
@@ -83,6 +91,46 @@ def test_port_imports_with_foreign_packages_blocked():
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_names_no_foreign_module(path):
+    _check_source(path, BLOCKED)
+
+
+@pytest.mark.parametrize("path", PORT_TOOLS, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_tools_name_no_foreign_module(path):
+    """tools/*_torch.py and tools/experiments/*_torch.py (the trainers and
+    the quality experiments among them) name none of the blocked
+    packages, nor optax."""
+    _check_source(path, TOOLS_BLOCKED)
+
+
+def test_port_tools_import_with_foreign_packages_blocked():
+    """Every port tool imports in a process where the blocked packages and
+    optax cannot be found, and importing runs nothing (no output)."""
+    assert len(PORT_TOOLS) >= 13
+    script = textwrap.dedent(f"""
+        import importlib.util, sys
+        BLOCKED = {TOOLS_BLOCKED!r}
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("blocked: " + name)
+                return None
+        sys.meta_path.insert(0, Block())
+        for sub in ("", "/tools", "/tools/experiments"):
+            sys.path.insert(0, {str(REPO)!r} + sub)
+        for path in {[str(p) for p in PORT_TOOLS]!r}:
+            name = path.rsplit("/", 1)[1][:-3]
+            spec = importlib.util.spec_from_file_location(name, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=120, cwd=str(REPO.parent))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout == ""
+
+
+def _check_source(path, blocked):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -97,7 +145,7 @@ def test_port_source_names_no_foreign_module(path):
             names = [node.args[0].value]
         else:
             continue
-        bad = [n for n in names if _blocked(n)]
+        bad = [n for n in names if _blocked(n, blocked)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
