@@ -74,7 +74,8 @@ far it got. A failure in any phase raises.
      (tests/fixtures/toy_adm32_main_golden.json), kernel against plain;
  12. the ImageNet rows through evaluation_torch: configs/imagenet_256.yml
      (the 552.8M ADM UNet, unconditional), random weights from seed 1234,
-     bf16 torso, the 8 PNGs of exp/datasets/imagenet, batch 8, 100 steps,
+     bf16 torso, the 8 PNGs of exp/datasets/imagenet, batch 8, 50 steps
+     (IMAGENET_ROW_STEPS, cut from the configs' 100),
      exp/inp_masks/mask.npy for inpainting, one row at a time; images/s in
      the sampler and end to end, launches per step, max |A(x) - y| of the
      sampler's output on the SR and inpainting rows; then the two noisy
@@ -93,7 +94,7 @@ far it got. A failure in any phase raises.
      seed 1234: one 256 px tile of configs/hq/inet256.yml (classifier_scale
      1.0: the 553.8M ADM and the 54,096,360-parameter classifier, 280 model
      calls) through hq_main_torch, and the configs/imagenet_256_cc.yml row
-     through main_torch (SVD 4x average-pooling SR, batch 8, 100 steps,
+     through main_torch (SVD 4x average-pooling SR, batch 8, 50 steps,
      --random_init); s per tile, images/s, launches per model call of
      every forward and backward kernel against the module counts, max
      |A(x) - y|; per guidance call at batch 1 and 8, its ms, launches and
@@ -252,7 +253,27 @@ far it got. A failure in any phase raises.
      memory, every kernel's launches a step exact (71 GroupNorms and 6
      attentions forward and back), each loss finite; the export read back
      through data/checkpoints.load_checkpoint into a fresh UNet, and one
-     bf16 sampling step of it held to the trained module's own.
+     bf16 sampling step of it held to the trained module's own;
+ 25. the loop drivers (ddnm_tpu_torch/sampling/graphs.py): (a) five toy32
+     fp32 paths (simplified with time travel, SVD cs_walshhadamard through
+     the FWHT kernel, the multistep solver, the posterior sampler with
+     op_ctx, paste mask and undo steps, the guided posterior with the
+     toy32 classifier), cuDNN deterministic, each with per-image
+     generators and with a KeyNoise: loop="scan" (a CUDA graph of the
+     trajectory) bit-equal to loop="host" at the capturing call and at a
+     replay on other inputs, launch counts and the noise source's state
+     after the call equal; the hq and guided toy32 goldens under an
+     explicit loop="scan"; (b) the main path at full width (the flag DDPM,
+     bf16, batch 8, 100 steps, sr_averagepooling) through both drivers
+     (tools/time_loop_drivers.py): ms a step, the first call's warm-up,
+     capture and instantiate seconds, each driver's device busy time and
+     idle share, the graph pool's bytes; bit-equal, launches equal.
+Every sampler of phases 5-19 and 23-24 runs on the default loop, "auto",
+which is the scan: each trajectory a CUDA graph, captured at the first
+call of its key, replayed after; the graphs a phase captured are dropped
+at its end. The fp32 parity runs at 256 px (phases 4 and 6, phase 15's
+flag multistep) run loop="host" (FP32_FULL_WIDTH_LOOP); phases 20-22 run
+meshes and --sp, which are host-driven.
 Phases 5, 7, 16 and 19 also print each runner's images/s end to end against in
 the sampler ("runner overlap" lines).
 
@@ -281,7 +302,7 @@ device; and the fused GN+SiLU+conv kernel in its
 three modes (full, conv, act) at the experiment's shape, a small one and a
 ragged one (the conv kernel's bits equal on two calls), back to back and
 on the device beside F.conv2d and the unfused chain.
-Each of phases 4-24 sets the launch counts to 0 just before each run it
+Each of phases 4-25 sets the launch counts to 0 just before each run it
 drives and checks them exactly just after (the ranks of phases 21 and 22
 each their own).
 
@@ -494,9 +515,15 @@ def expected_launches(n_gn: int = 0, n_attn: int = 0, n_gn_bwd: int = 0, n_attn_
 
 @contextlib.contextmanager
 def phase(n: int, name: str):
+    """Print the phase's start and its seconds at its end; drop the CUDA
+    graphs it captured (the samplers' scan driver keeps up to 8, each with
+    the model it reads and a memory pool)."""
+    from ddnm_tpu_torch.sampling import graphs
+
     print(f"== phase {n}: {name}", flush=True)
     t0 = time.perf_counter()
     yield
+    graphs.clear_graphs()
     print(f"== phase {n}: {name} done in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
@@ -825,6 +852,14 @@ def check_fused(mode: str, shape: tuple, gen: torch.Generator) -> dict:
 
 # ------------------------------------------------------------------ phase 4
 
+# The fp32 parity protocols at 256 px (phases 4 and 6, and phase 15's flag
+# multistep) run the host loop: with TF32 off, cuDNN's engines take a
+# workspace of ~18 GB there, and a CUDA graph of phase 4's 25 steps took
+# 25.1 s to capture and 23.5 s to instantiate (an 18.2 GB pool) against
+# 13.4 s for the eager run (on an H100 80GB HBM3 at 700 W). Phase 25 holds the
+# scan driver in fp32 at toy32, and the bf16 paths run it at full width.
+FP32_FULL_WIDTH_LOOP = "host"
+
 
 def parity_fp32(model, n_gn: int, n_attn: int) -> dict:
     from ddnm_tpu_torch import schedules as sch
@@ -856,7 +891,7 @@ def parity_fp32(model, n_gn: int, n_attn: int) -> dict:
         t0 = time.perf_counter()
         x, _ = sample_simplified(model, xt, y, op, sched,
                                  image_generators(0, range(n), STREAM_SAMPLE, "cuda"),
-                                 noise_fn=zero)
+                                 noise_fn=zero, loop=FP32_FULL_WIDTH_LOOP)
         torch.cuda.synchronize()
         runs[mode] = (x, time.perf_counter() - t0, ops.launch_counts())
     set_op_force(model, None)
@@ -984,7 +1019,8 @@ def parity_svd(model, n_gn: int, n_attn: int) -> dict:
             y = op.A(_nhwc_to_vec(gt))
             x, _ = sample_svd(model, xt, y, op, sched,
                               image_generators(0, range(n), STREAM_SAMPLE, "cuda"),
-                              eta=proto["eta"], sigma_y=sigma_y, noise_fn=zero)
+                              eta=proto["eta"], sigma_y=sigma_y, noise_fn=zero,
+                              loop=FP32_FULL_WIDTH_LOOP)
             torch.cuda.synchronize()
             secs, counts = time.perf_counter() - t0, ops.launch_counts()
             finals[mode] = x
@@ -1398,10 +1434,18 @@ def sweep_row(name: str, argv: list[str], out_dir: Path) -> tuple[dict, dict]:
     return report[name], launches
 
 
+# the depth of the ImageNet rows (phase 12) and of the guided ImageNet-cc
+# row (phase 14), cut from the configs' 100 steps: under the
+# scan driver each row's one batch pays its graph's capture and
+# instantiate (~1.6x the host loop), and the whole script stays under
+# 1000 s of its 1200
+IMAGENET_ROW_STEPS = 50
+
+
 def imagenet_rows(n_gn: int, n_attn: int, n_gn_ddpm: int, n_attn_ddpm: int,
                   ) -> tuple[dict, dict]:
     """Phase 12: the six ImageNet rows of evaluation_torch on the 552.8M ADM
-    (bf16, random weights, batch 8, 100 steps), then its two noisy CelebA
+    (bf16, random weights, batch 8, IMAGENET_ROW_STEPS steps), then its two noisy CelebA
     rows on flag_ddpm256.pt at 25 steps. Checks 8 restored images and a
     finite PSNR per row, launch counts exactly, and max |A(x) - y| of the
     sampler's output <= RANGE_SPACE_TOL on the SR and inpainting rows.
@@ -1413,10 +1457,10 @@ def imagenet_rows(n_gn: int, n_attn: int, n_gn_ddpm: int, n_attn_ddpm: int,
         for name, _, deg, _, sigma_y, _, _ in (evaluation_torch.IMAGENET_RUNS
                                                + evaluation_torch.CELEBA_RUNS[-2:]):
             imagenet = name.startswith("imagenet")
-            steps = 100 if imagenet else 25
+            steps = IMAGENET_ROW_STEPS if imagenet else 25
             argv = (["--datasets", "imagenet", "--random-init"] if imagenet else
-                    ["--datasets", "celeba", "--ckpt-celeba", str(FLAG_PT),
-                     "--t-sampling", str(steps)])
+                    ["--datasets", "celeba", "--ckpt-celeba", str(FLAG_PT)]
+                    ) + ["--t-sampling", str(steps)]
             stats, launches = sweep_row(name, argv, Path(tmp) / "eval")
             gn, attn = (n_gn, n_attn) if imagenet else (n_gn_ddpm, n_attn_ddpm)
             # the runner's A+y preview and its range-space check (one each)
@@ -1898,6 +1942,9 @@ def guidance_call(clf, clf32, batch: int) -> dict:
             "nonzero_dy": census}
 
 
+GUIDED_CC_STEPS = IMAGENET_ROW_STEPS  # phase 14's ImageNet-cc row, as phase 12's
+
+
 def guided_full_width(n_gn_hq: int, n_attn_hq: int, n_gn_inet: int, n_attn_inet: int
                       ) -> tuple[dict, dict, dict]:
     """Phase 14: the guided configurations at full width, bf16, random
@@ -1905,7 +1952,7 @@ def guided_full_width(n_gn_hq: int, n_attn_hq: int, n_gn_inet: int, n_attn_inet:
     (classifier_scale 1.0, the 553.8M ADM and the 54,096,360-parameter
     classifier) through hq_main_torch, 280 model calls, 4x SR of a 64 x 64
     PNG with --resize_y; and the configs/imagenet_256_cc.yml row through
-    main_torch (SVD sr_averagepooling 4x, batch 8, 100 steps,
+    main_torch (SVD sr_averagepooling 4x, batch 8, GUIDED_CC_STEPS steps,
     --random_init): s per tile, images/s, launches per model call of every
     forward and backward kernel against the module counts, max |A(x) - y|,
     and per guidance call (the classifier's forward and backward) at
@@ -1943,13 +1990,14 @@ def guided_full_width(n_gn_hq: int, n_attn_hq: int, n_gn_inet: int, n_attn_inet:
             "--config", str(IMAGENET_CC_CONFIG), "--random_init", "--exp", str(REPO / "exp"),
             "--path_y", "imagenet", "--deg", "sr_averagepooling", "--deg_scale", "4",
             "--sigma_y", "0", "--dtype", "bfloat16", "--batch_size", "8",
+            "--t_sampling", str(GUIDED_CC_STEPS),
             "-i", str(tmp / "cc"), "--ni", "--verbose", "warning"])
         launches_cc = ops.launch_counts()
         n_png = len(list((tmp / "cc").glob("*_0.png")))
     hq = dict(out["stats"])
     hq["range_space_max_abs"] = float(np.abs(
         out["final"].reshape(1, 64, 4, 64, 4, 3).mean(axis=(2, 4)) - out["y"]).max())
-    calls, steps = hq["model_calls"], 100
+    calls, steps = hq["model_calls"], GUIDED_CC_STEPS
     hq_want = expected_launches((n_gn_hq + n_gn_c) * calls, (n_attn_hq + n_attn_c) * calls,
                                 n_gn_c * calls, n_attn_c * calls)
     cc_want = expected_launches((n_gn_inet + n_gn_c) * steps, (n_attn_inet + n_attn_c) * steps,
@@ -1962,7 +2010,7 @@ def guided_full_width(n_gn_hq: int, n_attn_hq: int, n_gn_inet: int, n_attn_inet:
           f"{hq['model_calls_per_second']:.2f} model calls/s ({calls} calls); launches per "
           f"call {hq['launches_per_call']}; max |A(final) - y| "
           f"{hq['range_space_max_abs']:.3e}", flush=True)
-    print(f"guided ImageNet-cc row (imagenet_256_cc, bf16, batch 8, 100 steps): "
+    print(f"guided ImageNet-cc row (imagenet_256_cc, bf16, batch 8, {steps} steps): "
           f"{cc['num_samples']} images, {cc['sampler_images_per_second']:.4f} images/s in the "
           f"sampler ({cc['sample_seconds']:.2f} s), {cc['images_per_second']:.4f} end to end; "
           f"max |A(x) - y| {cc['range_space_max_abs']:.3e}; launches per step "
@@ -2294,7 +2342,7 @@ def flag_multistep_parity() -> dict:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         x, _ = sample_simplified(model, xt, op.A(gt), op, sched, [None] * n, noise_fn=zero,
-                                 solver="multistep")
+                                 solver="multistep", loop=FP32_FULL_WIDTH_LOOP)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -2500,11 +2548,13 @@ def accel_full_width(counts: dict) -> tuple[dict, dict]:
         with tempfile.TemporaryDirectory() as tmp:
             ops.reset_launch_counts()
             box = {}
+            # the census reads each backward's dy on the host, which a CUDA
+            # graph cannot hold: this run takes the host loop
             census = backward_dy_census(lambda: box.setdefault("r", main_torch.main([
                 "--config", str(IMAGENET_CC_CONFIG), "--random_init", "--exp",
                 str(REPO / "exp"), "--path_y", "imagenet", "--deg", "sr_averagepooling",
                 "--deg_scale", "4", "--sigma_y", "0", "--dtype", "bfloat16", "--batch_size",
-                "8", "--solver", "multistep", "--t_sampling", str(steps),
+                "8", "--solver", "multistep", "--t_sampling", str(steps), "--loop", "host",
                 "-i", str(Path(tmp) / "cc"), "--ni", "--verbose", "warning"])))
             launches["guided_cc_multistep_10"] = ops.launch_counts()
             n_png = len(list((Path(tmp) / "cc").glob("*_0.png")))
@@ -3672,6 +3722,7 @@ def spatial_worker(argv: list) -> int:
     from ddnm_tpu_torch.models import shard_spatially
     from ddnm_tpu_torch.parallel import (BACKWARD_COLLECTIVES, COLLECTIVES, make_mesh_2d,
                                          multihost, reset_collective_counts)
+    from ddnm_tpu_torch.sampling import graphs
 
     kind, out_json, rest = argv[0], Path(argv[1]), argv[2:]
     torch.backends.cudnn.allow_tf32 = False
@@ -3687,7 +3738,8 @@ def spatial_worker(argv: list) -> int:
         fn, _, _ = grid.wrap(lambda z, t: model(z, t), model=model)
         ops.reset_launch_counts()
         reset_collective_counts()
-        psnr, x, secs = hq_golden_run(fn, "cuda:0", TASKS_HQ[0])
+        with graphs.host_only():  # the wrapped model's collectives run from the host
+            psnr, x, secs = hq_golden_run(fn, "cuda:0", TASKS_HQ[0])
         result = dict(psnr=psnr, seconds=secs, sha256=digest(x.cpu().numpy()))
     elif kind == "hq":
         import hq_main_torch
@@ -3705,7 +3757,8 @@ def spatial_worker(argv: list) -> int:
         clf = shard_spatially(toy_classifier("cuda:0"), grid.spatial)
         ops.reset_launch_counts()
         reset_collective_counts()
-        psnr, x, per_image, secs = guided_golden_run(model, clf, "cuda:0", grid=grid)
+        with graphs.host_only():
+            psnr, x, per_image, secs = guided_golden_run(model, clf, "cuda:0", grid=grid)
         result = dict(psnr=psnr, per_image=per_image, seconds=secs,
                       sha256=digest(x.cpu().numpy()))
     elif kind == "guided_hq":
@@ -4808,6 +4861,181 @@ def flagship_training(tmp: Path) -> tuple[dict, dict]:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+# ------------------------------------------------------------------ phase 25
+
+# the five toy32 fp32 paths of phase 25(a); a DDNM schedule with time
+# travel, a posterior jump schedule with undo steps
+LOOP_PATHS = ("simplified", "svd", "multistep", "posterior", "guided")
+LOOP_SCHED = dict(t_sampling=10, travel_length=2, travel_repeat=2)
+LOOP_JUMP = dict(t_T=10, n_sample=1, jump_length=3, jump_n_sample=2)
+
+
+def loop_driver_env(device) -> dict:
+    """Phase 25(a)'s models, operators and inputs on `device`, built once:
+    a graph's key holds the operator and the model by identity."""
+    from ddnm_tpu_torch import schedules as sch
+    from ddnm_tpu_torch.data.io import load_image
+    from ddnm_tpu_torch.models import classifier_guidance_fn
+    from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operator
+    from ddnm_tpu_torch.sampling import build_posterior_tables, build_schedule
+    from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
+
+    golden = json.loads(SOLVER_GOLDEN.read_text())
+    paths = sorted((REPO / "exp" / "datasets" / "toy32").glob("*.png"))[:2]
+    gt = torch.from_numpy(np.stack([load_image(q) for q in paths]) * 2.0 - 1.0).to(device)
+    xt = np.random.RandomState(7).randn(2, 3, 32, 32).astype(np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(xt.transpose(0, 2, 3, 1))).to(device)
+    betas = sch.get_beta_schedule("linear", beta_start=1e-4, beta_end=0.02,
+                                  num_diffusion_timesteps=1000).astype(np.float32)
+    sr = build_functional_operator("sr_averagepooling", image_size=32, deg_scale=4.0,
+                                   device=device)
+    masks = torch.ones(2, 32, 32, 1, device=device)
+    masks[0, 8:20, 4:28] = 0.0
+    masks[1, 14:30, 10:22] = 0.0
+    inpaint = build_functional_operator("inpainting", image_size=32,
+                                        mask=masks[0, ..., 0].cpu().numpy(), device=device)
+    paste = torch.zeros(2, 32, 32, 1, device=device)
+    paste[:, :8] = 1.0
+    cs = build_svd_operator("cs_walshhadamard", channels=3, image_size=32, deg_scale=0.25,
+                            device=device)
+    post = lambda sigma_y: build_posterior_tables(  # noqa: E731
+        betas=sch.named_beta_schedule("linear", 1000, use_scale=True),
+        timestep_respacing="10", sigma_y=sigma_y, schedule_jump_params=LOOP_JUMP)
+    model = toy_adm(device)
+    return {"ddpm": toy_ddpm(device, golden["protocol"]["ddpm"]), "adm": model,
+            "adm_fn": lambda x, t: model(x, t), "gt": gt, "xt": xt, "sr": sr,
+            "inpaint": inpaint, "masks": masks, "paste": paste, "content": torch.flip(gt, (1,)),
+            "cs": cs, "y_cs": cs.A(_nhwc_to_vec(gt)),
+            "sched": build_schedule(betas=betas, **LOOP_SCHED),
+            "tables": post(0.1), "tables_clean": post(0.0),
+            "guidance": classifier_guidance_fn(toy_classifier(device), 2, 2.0)}
+
+
+def loop_driver_run(env: dict, path: str, loop: str, noise: str, shift: float = 0.0):
+    """One phase 25(a) trajectory: (its outputs, its launch counts, the
+    noise source's next draws). `noise`: "gens" (per-image generators) or
+    "key" (a KeyNoise of PRNGKey(3)); x_T moved by `shift`."""
+    from ddnm_tpu_torch.sampling import sample_posterior, sample_simplified, sample_svd
+    from ddnm_tpu_torch.sampling.rng import STREAM_SAMPLE, image_generators
+    from ddnm_tpu_torch.sampling.threefry import KeyNoise, prng_key
+
+    dev = env["xt"].device
+    src = (KeyNoise(prng_key(3, dev)) if noise == "key"
+           else image_generators(5, [0, 1], STREAM_SAMPLE, dev))
+    xt = env["xt"] + shift
+    ops.reset_launch_counts()
+    if path in ("simplified", "multistep"):
+        out = sample_simplified(env["ddpm"], xt, env["sr"].A(env["gt"]), env["sr"], env["sched"],
+                                src, loop=loop,
+                                solver="multistep" if path == "multistep" else "ddim")
+    elif path == "svd":
+        out = sample_svd(env["ddpm"], xt, env["y_cs"], env["cs"], env["sched"], src, loop=loop)
+    elif path == "posterior":
+        op, ctx = env["inpaint"], env["masks"]
+        out = sample_posterior(env["adm_fn"], xt, op.Ap_ctx(op.A_ctx(env["gt"], ctx), ctx), op,
+                               env["tables"], src, paste_mask=env["paste"],
+                               paste_content=env["content"], op_ctx=ctx, loop=loop)
+    else:
+        out = sample_posterior(env["adm_fn"], xt, env["sr"].Ap(env["sr"].A(env["gt"])),
+                               env["sr"], env["tables_clean"], src, guidance_fn=env["guidance"],
+                               loop=loop)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    state = (src.key.clone() if noise == "key" else
+             torch.stack([torch.randn(4, generator=g, device=dev) for g in src]))
+    return out, launches, state
+
+
+def loop_drivers_toy() -> dict:
+    """Phase 25(a): the five toy32 fp32 paths through both drivers on the
+    card (cuDNN deterministic, as the guidance gradient's bits need): for
+    each path and noise source, the captured graph's first call and a
+    replay on other inputs bit-equal to the eager loop, launch counts and
+    the noise source's state after the call equal; then the phase 9 and 13
+    goldens under an explicit loop="scan" (phases 9, 13 and 15 run the
+    samplers on auto, the scan, already)."""
+    import functools
+
+    from ddnm_tpu_torch.sampling import graphs
+    from ddnm_tpu_torch.sampling.posterior import sample_posterior
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        env = loop_driver_env("cuda")
+        out = {}
+        for path in LOOP_PATHS:
+            for noise in ("gens", "key"):
+                graphs.clear_graphs()
+                row = {}
+                for shift in (0.0, 0.5):
+                    t0 = time.perf_counter()
+                    host = loop_driver_run(env, path, "host", noise, shift)
+                    t1 = time.perf_counter()
+                    scan = loop_driver_run(env, path, "scan", noise, shift)
+                    t2 = time.perf_counter()
+                    equal = all(torch.equal(a, b) for a, b in zip(host[0], scan[0]))
+                    if not (equal and host[1] == scan[1] and torch.equal(host[2], scan[2])):
+                        raise AssertionError(
+                            f"phase 25 {path} ({noise}, shift {shift}): scan against host "
+                            f"bit-equal {equal}, launches {host[1]} / {scan[1]}, noise state "
+                            f"equal {torch.equal(host[2], scan[2])}")
+                    row[f"shift {shift}"] = {"host_s": t1 - t0, "scan_s": t2 - t1}
+                (stats,) = graphs.graph_stats()
+                row.update(launches={k: v for k, v in scan[1].items() if v},
+                           capture_s=stats["capture_s"], instantiate_s=stats["instantiate_s"],
+                           replays=stats["replays"], pool_bytes=stats["pool_bytes"])
+                out[f"{path}/{noise}"] = row
+                print(f"loop drivers toy32 {path:10s} {noise:4s}: scan bit-equal to host at "
+                      f"capture and replay, launches and noise state equal; capture "
+                      f"{stats['capture_s']:.3f} s, instantiate {stats['instantiate_s']:.3f} s, "
+                      f"pool {stats['pool_bytes']} bytes, launches {row['launches']}",
+                      flush=True)
+        graphs.clear_graphs()
+        scan = functools.partial(sample_posterior, loop="scan")
+        want = json.loads(TOY_ADM_PSNR.read_text())[TASKS_HQ[0][0]]["ours_psnr"]
+        psnr, _, _ = hq_golden_run(env["adm"], "cuda", TASKS_HQ[0], sample=scan)
+        golden = json.loads(GUIDED_GOLDEN.read_text())["tiers"]["toy32"]["recorded_psnr"]
+        g_psnr, _, per_image, _ = guided_golden_run(env["adm"], toy_classifier("cuda"), "cuda",
+                                                    sample=scan)
+        print(f"loop drivers goldens under scan: {TASKS_HQ[0][0]} PSNR {psnr:.4f} (JAX "
+              f"{want:.4f}), guided PSNR {g_psnr:.4f} (JAX {golden:.4f}), per-image max "
+              f"|x - JAX| {max(per_image):.2e}", flush=True)
+        if abs(psnr - want) > HQ_PSNR_TOL or abs(g_psnr - golden) > HQ_PSNR_TOL:
+            raise AssertionError("phase 25: a golden missed under loop='scan'")
+        out["goldens"] = {"hq": psnr, "hq_golden": want, "guided": g_psnr,
+                          "guided_golden": golden, "guided_per_image_max_abs": per_image}
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def loop_drivers_main_path() -> dict:
+    """Phase 25(b): the main path at full width (the flag DDPM, bf16, batch
+    8, 100 steps, sr_averagepooling) through both drivers
+    (tools/time_loop_drivers.py `measure`): ms a step, capture and
+    instantiate seconds, the device idle share of each, the pool's bytes;
+    bit-equal outputs and equal launches."""
+    spec = importlib.util.spec_from_file_location(
+        "time_loop_drivers", REPO / "tools" / "time_loop_drivers.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    r = mod.measure("main")
+    h, s = r["host"], r["scan"]
+    print(f"loop drivers main path: host {h['ms_per_step']:.3f} ms a step, scan "
+          f"{s['ms_per_step']:.3f} ms a step (first call {s['first_call_seconds']:.3f} s: "
+          f"warm-up {s['warmup_seconds']:.3f} s, capture {s['capture_seconds']:.3f} s, "
+          f"instantiate {s['instantiate_seconds']:.3f} s)", flush=True)
+    print(f"loop drivers main path idle share: host {h['idle_share_unprofiled']} (busy "
+          f"{h['device_busy_ms']:.1f} ms of {1e3 * h['seconds']:.1f}; profiled "
+          f"{h['idle_share']} of {h['profiled_wall_ms']:.1f} ms), scan "
+          f"{s['idle_share_unprofiled']} (busy {s['device_busy_ms']:.1f} ms of "
+          f"{1e3 * s['seconds']:.1f}; profiled {s['idle_share']} of "
+          f"{s['profiled_wall_ms']:.1f} ms, {s['device_events']} device events); graph pool "
+          f"{s['pool_bytes']} bytes; launches a call {r['launches']}", flush=True)
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False; "
@@ -5093,7 +5321,7 @@ def main() -> int:
         del toy
 
     with phase(12, "ImageNet rows through evaluation_torch (imagenet_256 ADM, bf16, batch 8, "
-                   "100 steps) and the noisy CelebA rows"):
+                   "50 steps) and the noisy CelebA rows"):
         inet_rows, launches_inet = imagenet_rows(n_gn_inet, n_attn_inet, n_gn, n_attn)
 
     with phase(13, "guided parity on the toy32 ADM and classifier (fp32 golden, bf16)"):
@@ -5229,6 +5457,11 @@ def main() -> int:
         training_stats = {"kernels": train_kernels, "golden": train_golden,
                           "flagship": flag_train}
 
+    with phase(25, "the loop drivers (scan against host: five toy32 fp32 paths; the main "
+                   "path at full width, bf16, batch 8, 100 steps)"):
+        loop_drivers = {"toy32": loop_drivers_toy(), "main_path": loop_drivers_main_path()}
+
+
     # launches: the hq path's (phase 10) for the kernels it runs (GroupNorm
     # stats and apply, attention), the SVD main path's (phase 7) for the
     # FWHT and the experiment's default run (phase 8) for fused_gn_conv, the
@@ -5325,7 +5558,7 @@ def main() -> int:
         "accelerators": accel_stats, "served": served, "served_hq": served_hq,
         "data_long_tail": long_tail, "multi_device": multi_device, "spatial": spatial,
         "spatial_guided": spatial_guided, "serving": serving_stats,
-        "training": training_stats}
+        "training": training_stats, "loop_drivers": loop_drivers}
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

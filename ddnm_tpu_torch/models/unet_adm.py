@@ -713,7 +713,12 @@ def _log_prob_grad(classifier_apply, x, t, classes, spatial=None):
         x_in = x.detach().requires_grad_(True)
         logits = classifier_apply(x_in, t)
         logp = torch.log_softmax(logits, dim=-1)
-        cls = torch.as_tensor(classes, dtype=torch.long, device=logp.device)
+        if isinstance(classes, int):
+            # a fill on the card, not an upload: a CUDA graph captures it
+            # (sampling/graphs.py)
+            cls = torch.full((logp.shape[0],), classes, dtype=torch.long, device=logp.device)
+        else:
+            cls = torch.as_tensor(classes, dtype=torch.long, device=logp.device)
         cls = cls.expand(logp.shape[0]) if cls.ndim == 0 or cls.numel() == 1 else cls
         sel = logp.gather(1, cls.reshape(-1, 1)).sum()
         return torch.autograd.grad(sel, x_in)[0]

@@ -65,6 +65,10 @@ _SMS: dict = {}
 # mesh: parallel/mesh.py), beside each wrapper's own table
 TAGGED_LAUNCHES: dict = {}
 _tag = None
+# the graph that sampling/graphs.py is warming up, capturing or replaying
+# (one at a time): a launch on its side stream goes to its launch table,
+# and a GroupNorm launch there takes its counters (ops/groupnorm.py)
+_capture = None
 
 
 def _nvcc() -> str:
@@ -175,13 +179,19 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def count_launch(table: dict, name: str) -> None:
-    """Count one launch of kernel `name` in its wrapper's `table`, and under
-    the current tag where launch_tag set one."""
-    table[name] += 1
+def count_launch(table: dict, name: str, n: int = 1) -> None:
+    """Count `n` launches of kernel `name` in its wrapper's `table`, and under
+    the current tag where launch_tag set one. A launch on the stream of a
+    graph's warm-up or capture goes to that graph instead, which adds its
+    table at each replay (sampling/graphs.py)."""
+    cap = _capture
+    if cap is not None and cap.owns_stream():
+        cap.record(table, name)
+        return
+    table[name] += n
     if _tag is not None:
         per = TAGGED_LAUNCHES.setdefault(_tag, {})
-        per[name] = per.get(name, 0) + 1
+        per[name] = per.get(name, 0) + n
 
 
 @contextlib.contextmanager

@@ -241,7 +241,13 @@ def _counters(device, n, stream=None):
     finds the zeros its predecessor left; two streams (the shards of a
     mesh on one card) must not share a buffer. A buffer that grows is
     allocated on that stream, so the allocator hands the old one out again
-    only to later work of the same stream, after the launches that read it."""
+    only to later work of the same stream, after the launches that read it.
+    A launch that a CUDA graph warms up or captures takes the graph's own
+    counters, allocated before its capture (sampling/graphs.py), so that no
+    eager launch shares a buffer with a replay."""
+    cap = _build._capture
+    if cap is not None and cap.owns_stream():
+        return cap.counters(device, n)
     key = (device.index, _build.raw_stream(device) if stream is None else stream)
     c = _COUNTERS.get(key)
     if c is None or c.numel() < n:

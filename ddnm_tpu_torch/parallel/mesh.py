@@ -52,6 +52,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ddnm_tpu_torch.ops import _build
+from ddnm_tpu_torch.sampling import graphs
 
 __all__ = ["DATA_AXIS", "Mesh", "Replicas", "make_mesh", "replicate", "replicate_all",
            "shard_batch", "sharded_sampler", "clone_generator"]
@@ -368,6 +369,12 @@ def sharded_sampler(sample_fn: Callable, mesh: Mesh) -> Callable:
 
 
 def _run(sample_fn, mesh: Mesh, args, kw, n: int, plan, caller: torch.device):
+    # the shards run host-driven: a scan over a mesh is not ported
+    with graphs.host_only():
+        return _run_shards(sample_fn, mesh, args, kw, n, plan, caller)
+
+
+def _run_shards(sample_fn, mesh: Mesh, args, kw, n: int, plan, caller: torch.device):
     if not mesh.is_cuda:
         outs = []
         for i, sl in plan:

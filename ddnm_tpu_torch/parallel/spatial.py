@@ -80,6 +80,7 @@ from ddnm_tpu_torch.parallel.mesh import (
     to_device,
     warn_unsharded,
 )
+from ddnm_tpu_torch.sampling import graphs
 
 __all__ = ["SPATIAL_AXIS", "COLLECTIVES", "BACKWARD_COLLECTIVES", "SpatialGroup", "Grid",
            "make_mesh_2d", "shard_tiles", "split_rows", "gather_rows", "gather_shards",
@@ -377,6 +378,11 @@ def grid_sampler(sample_fn: Callable, grid: Grid) -> Callable:
     runs whole on every data row (logged once)."""
 
     def wrapped(*args, **kw):
+        # the ranks run host-driven: a scan under --sp is not ported
+        with graphs.host_only():
+            return shard(*args, **kw)
+
+    def shard(*args, **kw):
         n = next(int(v.shape[0]) for v in list(args) + list(kw.values())
                  if isinstance(v, torch.Tensor) and v.ndim >= 1)
         if grid.dp == 1 or grid.data is None or n % grid.dp:

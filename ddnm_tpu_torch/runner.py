@@ -45,9 +45,15 @@ three PNGs per image and the batch's metrics line (`MetricsLogger`,
 in batch order) while the main thread launches batch k + 1. The sampler's
 seconds come from CUDA events around each call, and max |A(x) - y| stays
 on the device, both read once at the end. `trace_dir` writes a
-torch.profiler trace of the loop; `loop` is accepted for the JAX CLI's
-flag (auto | host | scan) and changes nothing: the port has one eager
-sampler loop.
+torch.profiler trace of the loop.
+
+`loop` is the JAX CLI's sampler driver (sampling/graphs.py): "auto" (the
+default) and "scan" run each batch's trajectory as one CUDA graph,
+captured at the first batch and replayed for the others (the graphs are
+dropped when the run ends); "host" the eager loop. Under a data mesh
+"auto" is "host" and "scan" raises NotImplementedError; the encoder cache
+runs host-driven whatever `loop` says, as in the JAX runner. The
+sampler's CUDA events time a replay as a whole.
 """
 
 from __future__ import annotations
@@ -83,7 +89,7 @@ from ddnm_tpu_torch.operators import build_functional_operator, build_svd_operat
 from ddnm_tpu_torch.parallel import multihost
 from ddnm_tpu_torch.parallel.mesh import Mesh, replicate_all, sharded_sampler
 from ddnm_tpu_torch.runtime import resolve_device, to_device, to_host
-from ddnm_tpu_torch.sampling import build_schedule, sample_simplified, sample_svd
+from ddnm_tpu_torch.sampling import build_schedule, graphs, sample_simplified, sample_svd
 from ddnm_tpu_torch.sampling.accel import (
     adm_split_fns,
     ddpm_split_fns,
@@ -142,7 +148,7 @@ class RunArgs:
     encoder_cache_policy: str = "uniform"  # uniform | end_dense
     device: str = "cuda"
     trace_dir: Optional[str] = None  # torch.profiler trace of the run
-    loop: str = "auto"  # the JAX CLI's loop driver: accepted, one eager loop runs
+    loop: str = "auto"  # the sampler's loop driver: auto | scan | host (sampling/graphs.py)
 
 
 class _SamplerClock:
@@ -188,8 +194,6 @@ class Runner:
             raise ValueError(
                 "--solver multistep does not compose with --encoder_cache (the "
                 "encoder-propagation sampler is DDIM-only); drop one of the two")
-        if args.loop not in ("auto", "host", "scan"):
-            raise ValueError(f"loop must be auto|host|scan, got {args.loop!r}")
         if args.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be float32 or bfloat16, got {args.dtype!r}")
         self.args = args
@@ -208,6 +212,7 @@ class Runner:
         )
         self.dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
         self.mesh = self._data_mesh(mesh)
+        self.loop = graphs.resolve_loop(args.loop, mesh=self.mesh)
 
     @property
     def batch_size(self) -> int:
@@ -478,7 +483,8 @@ class Runner:
             finally:
                 done.set()
 
-        with profile(args.trace_dir), ThreadPoolExecutor(max_workers=4) as io_pool:
+        with (profile(args.trace_dir), ThreadPoolExecutor(max_workers=4) as io_pool,
+              graphs.scope()):
             for imgs, _, valid in iterate_batches(dataset, self.batch_size):
                 if args.resume and all(
                     (out_dir / f"{idx_so_far + i}_0.png").exists() for i in range(valid)
@@ -507,6 +513,7 @@ class Runner:
                         x, _ = shard(sample_simplified)(
                             samp_model, x_init, y, samp_op, self.sched, gens,
                             eta=args.eta, sigma_y=sigma_y, solver=args.solver,
+                            loop=self.loop,
                         )
                 else:
                     y = self._measurement_noise(operator.A(_nhwc_to_vec(x_orig)), idxs,
@@ -516,7 +523,7 @@ class Runner:
                     x, _ = shard(sample_svd)(
                         samp_model, x_init, y, samp_op, self.sched, gens,
                         eta=args.eta, sigma_y=sigma_y, guidance_fn=samp_guide,
-                        solver=args.solver,
+                        solver=args.solver, loop=self.loop,
                     )
                 clock.stop()
                 clocks.append(clock)

@@ -15,9 +15,16 @@ against alpha_bar_next * sigma_y, the SVD path sigma_t = sqrt(1 - alpha_bar)
 and a = sqrt(alpha_bar_next); the final step lands on t = -1 where
 alpha_bar = 1 exactly.
 
-The JAX package's host loop becomes an eager Python loop over the static
-schedule. Per-step scalars live on the device from the start, so the loop
-never waits for the card and kernels queue ahead.
+Two loop drivers run one trajectory body, as in the JAX package (`loop`):
+"host" (`_run_host`) is an eager Python loop over the static schedule,
+whose per-step scalars live on the device from the start, so the loop
+never waits for the card and kernels queue ahead; "scan" (`_run_scan`)
+makes the same body, unrolled over the schedule, one CUDA graph that is
+captured once per key and replayed (sampling/graphs.py; eagerly on the
+CPU). "auto", the default, resolves as JAX's `_resolve_loop` does on a
+local backend: to "scan" (`_resolve_loop`). Both drivers draw the same
+noise in the same order, and leave the caller's generators or key in the
+same state.
 
 `solver="multistep"` runs the second-order deterministic solver of
 sampling/solvers.py (noise-free only: sigma_y != 0 raises ValueError, as
@@ -35,6 +42,7 @@ import torch
 from ddnm_tpu_torch import schedules as sch
 from ddnm_tpu_torch.operators.base import SVDOperator
 from ddnm_tpu_torch.operators.functional import FunctionalOperator
+from ddnm_tpu_torch.sampling import graphs
 from ddnm_tpu_torch.sampling.rng import NoiseFn, default_noise, draw_noise
 
 __all__ = ["DDNMSchedule", "build_schedule", "sample_simplified", "sample_svd"]
@@ -123,6 +131,7 @@ def sample_simplified(
     noise_fn: NoiseFn = default_noise,
     op_ctx=None,
     solver: str = "ddim",
+    loop: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Simplified DDNM+ over NHWC images. Returns (x_final, x0_pred_final).
 
@@ -136,7 +145,8 @@ def sample_simplified(
 
     `solver`: "ddim" (the reference's first-order update) or "multistep"
     (second-order, deterministic, noise-free only; `eta` is ignored;
-    sampling/solvers.py)."""
+    sampling/solvers.py). `loop`: "auto" | "host" | "scan" (module
+    docstring; another value raises ValueError)."""
     if solver == "multistep":
         from ddnm_tpu_torch.sampling.solvers import sample_simplified_multistep
 
@@ -146,7 +156,7 @@ def sample_simplified(
                 "only (sigma_y == 0); the noisy DDNM+ gamma_t noise injection is "
                 "tied to the DDIM kernel")
         return sample_simplified_multistep(model_fn, x_init, y, operator, sched, gens,
-                                           noise_fn=noise_fn, op_ctx=op_ctx)
+                                           noise_fn=noise_fn, op_ctx=op_ctx, loop=loop)
     _check_solver(solver)
     if op_ctx is not None and not operator.has_ctx:
         raise ValueError(
@@ -154,12 +164,13 @@ def sample_simplified(
             "op_ctx requires a context-parameterised operator"
         )
 
-    def step(x, t_f, at, at_next, noise):
+    def step(x, t_f, at, at_next, noise, y, op_ctx):
         et = model_fn(x, t_f)
         return _simplified_update(operator, eta, sigma_y, x, y, et, at, at_next,
                                   noise, op_ctx)
 
-    return _drive(step, x_init, sched, gens, noise_fn)
+    parts = ("simplified", model_fn, operator, sched, eta, sigma_y, noise_fn)
+    return _drive(loop, parts, step, x_init, (y, op_ctx), sched, gens, noise_fn)
 
 
 def _check_solver(solver: str) -> None:
@@ -167,25 +178,65 @@ def _check_solver(solver: str) -> None:
         raise ValueError(f"unknown solver {solver!r} (ddim | multistep)")
 
 
-def _drive(step, x_init, sched: DDNMSchedule, gens, noise_fn):
-    """The eager loop over the static schedule: every step draws
+def _resolve_loop(loop: str) -> str:
+    """JAX's `_resolve_loop` on a local backend: "auto" is "scan" (the port
+    has no remote-compile backend, so `_AUTO_SCAN_PARAM_BYTES` has no
+    counterpart), except inside a data mesh's or a spatial grid's shards,
+    where it is "host" and "scan" raises NotImplementedError
+    (sampling/graphs.py `resolve_loop`)."""
+    return graphs.resolve_loop(loop)
+
+
+def _trajectory(step, sched: DDNMSchedule, noise_fn, scalars):
+    """The trajectory body both drivers run: every step draws
     `noise_fn(gens, x.shape)` (or the next draw of a KeyNoise), travel
     steps included, as the JAX sampler does; a travel step re-noises the
     last x0 prediction, any other runs `step(x, t_f[B], at, at_next,
-    noise) -> (x_next, x0_pred)`. torch.export unrolls it (serving.py):
-    the schedule's scalars become the program's constants."""
-    dev = x_init.device
-    n = x_init.shape[0]
-    t_f_all, at_all, at_next_all = _step_scalars(sched, dev)
+    noise, *inputs) -> (x_next, x0_pred)`. `scalars`: `_step_scalars`.
+    torch.export unrolls it (serving.py): the schedule's scalars become
+    the program's constants."""
+    t_f_all, at_all, at_next_all = scalars
+    travel = sched.is_travel.tolist()
 
-    x, x0_pred = x_init, torch.zeros_like(x_init)
-    for i, travel in enumerate(sched.is_travel.tolist()):
-        noise = draw_noise(noise_fn, gens, x.shape, dev)
-        if travel:
-            x = _travel_step(x0_pred, at_next_all[i], noise)
-        else:
-            x, x0_pred = step(x, t_f_all[i].expand(n), at_all[i], at_next_all[i], noise)
-    return x, x0_pred
+    def body(x_init, *inputs, noise, steps=None):
+        dev = x_init.device
+        n = x_init.shape[0]
+        x, x0_pred = x_init, torch.zeros_like(x_init)
+        for i in range(len(travel)) if steps is None else steps:
+            eps = draw_noise(noise_fn, noise, x.shape, dev)
+            if travel[i]:
+                x = _travel_step(x0_pred, at_next_all[i], eps)
+            else:
+                x, x0_pred = step(x, t_f_all[i].expand(n), at_all[i], at_next_all[i], eps,
+                                  *inputs)
+        return x, x0_pred
+
+    return body
+
+
+def _drive(loop, parts, step, x_init, inputs, sched: DDNMSchedule, gens, noise_fn):
+    """The trajectory through the driver `loop` resolves to. `inputs`: the
+    step's tensor inputs (None where absent), which the scan driver copies
+    into its graph's static buffers; `parts`: what `step` closes over."""
+    def make_body():
+        return _trajectory(step, sched, noise_fn, _step_scalars(sched, x_init.device))
+
+    if _resolve_loop(loop) == "scan":
+        return _run_scan(parts, make_body, x_init, inputs, gens, sched.is_travel)
+    return _run_host(make_body(), x_init, inputs, gens)
+
+
+def _run_host(body, x_init, inputs, gens):
+    """The host driver (JAX `_run_host`): the body's eager loop, every
+    launch queued from the host step by step."""
+    return body(x_init, *inputs, noise=gens)
+
+
+def _run_scan(parts, make_body, x_init, inputs, gens, kinds):
+    """The scan driver (JAX `_run_scan`): the body unrolled into one CUDA
+    graph, captured at the first call of its key and replayed
+    (sampling/graphs.py); the warm-up runs the first step of each kind."""
+    return graphs.run(parts, make_body, (x_init, *inputs), gens, np.asarray(kinds).tolist())
 
 
 def _step_scalars(sched: DDNMSchedule, device):
@@ -251,6 +302,7 @@ def sample_svd(
     noise_fn: NoiseFn = default_noise,
     guidance_fn: GuidanceFn | None = None,
     solver: str = "ddim",
+    loop: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SVD-mode DDNM (sigma_y == 0) / DDNM+ (sigma_y > 0) over NHWC images.
     Returns (x_final, x0_pred_final).
@@ -259,8 +311,8 @@ def sample_svd(
     per-image constant `operator.prepare_measurement(y)` is computed once,
     before the loop. `guidance_fn(x, t, at) -> grad log p(y|x)` applies
     classifier guidance as et <- et - sqrt(1 - at) * g, conditioned on the
-    current state as the JAX package does. `gens`, `noise_fn`: as in
-    sample_simplified. `solver`: as in sample_simplified."""
+    current state as the JAX package does. `gens`, `noise_fn`, `solver`,
+    `loop`: as in sample_simplified."""
     if solver == "multistep":
         from ddnm_tpu_torch.sampling.solvers import sample_svd_multistep
 
@@ -268,13 +320,14 @@ def sample_svd(
             raise ValueError("solver='multistep' is deterministic and supports "
                              "noise-free DDNM only (sigma_y == 0)")
         return sample_svd_multistep(model_fn, x_init, y, operator, sched, gens,
-                                    noise_fn=noise_fn, guidance_fn=guidance_fn)
+                                    noise_fn=noise_fn, guidance_fn=guidance_fn, loop=loop)
     _check_solver(solver)
     y_spec = operator.prepare_measurement(y)
 
-    def step(x, t_f, at, at_next, noise):
+    def step(x, t_f, at, at_next, noise, y_spec):
         et = model_fn(x, t_f)
         return _svd_update(operator, eta, sigma_y, guidance_fn, x, y_spec, et,
                            t_f, at, at_next, noise)
 
-    return _drive(step, x_init, sched, gens, noise_fn)
+    parts = ("svd", model_fn, operator, sched, eta, sigma_y, noise_fn, guidance_fn)
+    return _drive(loop, parts, step, x_init, (y_spec,), sched, gens, noise_fn)

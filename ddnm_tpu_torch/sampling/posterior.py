@@ -15,10 +15,12 @@ after the projection and before the posterior mean.
 
 The JAX package drives the loop either as one `lax.scan` (`_run_scan`) or
 from the host (`_host_step` / `_host_undo`), chosen by
-`_resolve_posterior_loop`. Here one eager Python loop over the static
-schedule does both jobs, as `sample_svd` does: the per-step scalars live on
-the device from the start, so the loop never waits for the card. There is
-no counterpart of `_run_scan` or `_resolve_posterior_loop`.
+`_resolve_posterior_loop`, where "auto" always means the scan. So here:
+`loop="host"` is one eager Python loop over the static schedule (the
+per-step scalars live on the device from the start, so the loop never
+waits for the card), `loop="scan"` (what "auto" resolves to) makes the
+same body, unrolled, one CUDA graph captured once per key and replayed
+(sampling/graphs.py; eagerly on the CPU), the guidance gradient included.
 `solver="multistep"` runs the second-order deterministic solver
 (sampling/solvers.py `sample_posterior_multistep`, noise-free tables only).
 `guidance_fn` is the classifier-guidance hook (models/unet_adm.py
@@ -36,6 +38,7 @@ import torch
 
 from ddnm_tpu_torch import schedules as sch
 from ddnm_tpu_torch.operators.functional import FunctionalOperator
+from ddnm_tpu_torch.sampling import graphs
 from ddnm_tpu_torch.sampling.rng import NoiseFn, default_noise, draw_noise
 
 __all__ = [
@@ -253,6 +256,7 @@ def sample_posterior(
     noise_fn: NoiseFn = default_noise,
     op_ctx: Optional[torch.Tensor] = None,
     solver: str = "ddim",
+    loop: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the posterior DDNM jump-schedule loop over NHWC images. Returns
     (x_final, x0_hat_final); callers keep x0_hat (the reference writes
@@ -268,30 +272,60 @@ def sample_posterior(
     `op_ctx`: the runtime operator context (a per-image mask) of a
     context-parameterised operator. `solver`: "ddim" (the reference's
     stochastic posterior transition) or "multistep" (second-order,
-    deterministic, noise-free tables only; sampling/solvers.py)."""
+    deterministic, noise-free tables only; sampling/solvers.py). `loop`:
+    "auto" | "host" | "scan" (module docstring; another value raises)."""
     if solver == "multistep":
         from ddnm_tpu_torch.sampling.solvers import sample_posterior_multistep
 
         return sample_posterior_multistep(
             model_fn, x_init, apy, operator, tables, gens, paste_mask=paste_mask,
             paste_content=paste_content, guidance_fn=guidance_fn,
-            clip_denoised=clip_denoised, noise_fn=noise_fn, op_ctx=op_ctx)
+            clip_denoised=clip_denoised, noise_fn=noise_fn, op_ctx=op_ctx, loop=loop)
     if solver != "ddim":
         raise ValueError(f"unknown solver {solver!r} (ddim | multistep)")
     _check_sampler_args(operator, paste_mask, paste_content, op_ctx)
-    dev = x_init.device
-    n = x_init.shape[0]
-    tb = _DeviceTables(tables, dev)
-    x, x0_hat = x_init, torch.zeros_like(x_init)
-    for t, travel in zip(tables.t_cur.tolist(), tables.is_travel.tolist()):
-        noise = draw_noise(noise_fn, gens, x.shape, dev)
-        if travel:
-            keep, scale = tb.undo(t)
-            x = keep * x + scale * noise
-        else:
-            t_b = tb.t_orig[t].expand(n)
-            out = model_fn(x, t_b)
-            x, x0_hat = _posterior_update(operator, guidance_fn, clip_denoised, x, apy,
-                                          paste_mask, paste_content, noise, out, t_b,
-                                          tb.step(t, op_ctx))
-    return x, x0_hat
+    t_cur, is_travel = tables.t_cur.tolist(), tables.is_travel.tolist()
+
+    def make_body():
+        tb = _DeviceTables(tables, x_init.device)
+
+        def body(x_init, apy, paste_mask, paste_content, op_ctx, *, noise, steps=None):
+            dev = x_init.device
+            n = x_init.shape[0]
+            x, x0_hat = x_init, torch.zeros_like(x_init)
+            for k in range(len(t_cur)) if steps is None else steps:
+                t = t_cur[k]
+                eps = draw_noise(noise_fn, noise, x.shape, dev)
+                if is_travel[k]:
+                    keep, scale = tb.undo(t)
+                    x = keep * x + scale * eps
+                else:
+                    t_b = tb.t_orig[t].expand(n)
+                    out = model_fn(x, t_b)
+                    x, x0_hat = _posterior_update(operator, guidance_fn, clip_denoised, x,
+                                                  apy, paste_mask, paste_content, eps, out,
+                                                  t_b, tb.step(t, op_ctx))
+            return x, x0_hat
+
+        return body
+
+    inputs = (x_init, apy, paste_mask, paste_content, op_ctx)
+    if _resolve_posterior_loop(loop) == "scan":
+        parts = ("posterior", model_fn, operator, tables, guidance_fn, clip_denoised, noise_fn)
+        return _run_scan(parts, make_body, inputs, gens, is_travel)
+    return make_body()(*inputs, noise=gens)
+
+
+def _resolve_posterior_loop(loop: str) -> str:
+    """JAX's `_resolve_posterior_loop`: "auto" always means the scan (here a
+    CUDA graph, sampling/graphs.py), except inside a data mesh's or a
+    spatial grid's shards, where it is "host" and "scan" raises
+    NotImplementedError."""
+    return graphs.resolve_loop(loop)
+
+
+def _run_scan(parts, make_body, inputs, gens, kinds):
+    """The scan driver (JAX `_run_scan`): the body unrolled into one CUDA
+    graph, captured at the first call of its key and replayed; the warm-up
+    runs the first step of each kind."""
+    return graphs.run(parts, make_body, inputs, gens, np.asarray(kinds).tolist())

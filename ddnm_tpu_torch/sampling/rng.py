@@ -21,6 +21,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ddnm_tpu_torch.sampling import graphs
 from ddnm_tpu_torch.sampling.threefry import KeyNoise
 
 __all__ = [
@@ -31,6 +32,7 @@ __all__ = [
     "tile_generators",
     "default_noise",
     "draw_noise",
+    "skip_noise",
     "NoiseFn",
 ]
 
@@ -82,11 +84,32 @@ def default_noise(gens: Sequence[torch.Generator], shape: tuple) -> torch.Tensor
 def draw_noise(noise_fn: NoiseFn, gens: Sequence[torch.Generator] | KeyNoise, shape: tuple,
                device: torch.device) -> torch.Tensor:
     """The next step's noise of `shape`: `noise_fn(gens, shape)`, or the
-    next draw of a KeyNoise (which takes no noise_fn but the default)."""
+    next draw of a KeyNoise (which takes no noise_fn but the default).
+    Noise drawn on another device is copied to `device`, except inside a
+    CUDA graph's warm-up or capture (the scan driver, sampling/graphs.py),
+    where such a copy cannot be captured: there it raises."""
     if isinstance(gens, KeyNoise):
         if noise_fn is not default_noise:
             raise ValueError("a KeyNoise draws JAX's noise from its key: it takes no noise_fn")
-        return gens.draw(shape).to(device)
+        return _on(gens.draw(shape), device)
     if len(gens) != shape[0]:
         raise ValueError(f"{len(gens)} generators for a batch of {shape[0]}")
-    return noise_fn(gens, tuple(shape)).to(device)
+    return _on(noise_fn(gens, tuple(shape)), device)
+
+
+def _on(noise: torch.Tensor, device: torch.device) -> torch.Tensor:
+    elsewhere = noise.device.type != device.type or (
+        device.index is not None and noise.device.index != device.index)
+    if elsewhere and graphs.capturing():
+        raise RuntimeError(
+            f"loop='scan' captures the trajectory on {device}, but the noise was drawn on "
+            f"{noise.device}: draw it on {device} (generators or a key there) or use "
+            "loop='host'")
+    return noise.to(device)
+
+
+def skip_noise(gens: Sequence[torch.Generator] | KeyNoise) -> None:
+    """A step that draws no noise: a KeyNoise splits its key all the same,
+    as JAX's multistep solver does; generators are left alone."""
+    if isinstance(gens, KeyNoise):
+        gens.skip()

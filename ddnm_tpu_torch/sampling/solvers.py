@@ -24,14 +24,17 @@ Deterministic, so noise-free DDNM only (sigma_y == 0; the posterior form
 refuses tables with any lambda_t != 1). Only time-travel steps draw noise:
 the simplified form re-noises the last raw x0 prediction, the posterior
 form undoes at beta[t + shift], each from the image's (or tile's)
-generator. The posterior form's guidance is applied in eps space, the JAX
+generator; a `threefry.KeyNoise` splits its key at every step, as JAX's
+solver splits its carried key. The posterior form's guidance is applied in eps space, the JAX
 package's stated divergence from the stochastic posterior sampler.
 
 The step coefficients are computed on the device in fp32 for every step
 before the loop (the JAX package passes Python floats into a float32 jit;
 a float64 host computation would drift from it at the 1e-6 level); which
 steps are second order is known from the static schedule, so the loop
-never waits for the card.
+never waits for the card. `loop` picks the driver as in sampling/ddnm.py:
+"host" is the eager loop, "scan" ("auto") one CUDA graph of it
+(`_run_scan_ms`, `_run_scan_pms`; JAX's names), eagerly on the CPU.
 """
 
 from __future__ import annotations
@@ -41,9 +44,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ddnm_tpu_torch.sampling import graphs
 from ddnm_tpu_torch.sampling.ddnm import (
     DDNMSchedule,
     _nhwc_to_vec,
+    _resolve_loop,
     _step_scalars,
     _travel_step,
     _vec_to_nhwc,
@@ -52,9 +57,10 @@ from ddnm_tpu_torch.sampling.posterior import (
     PosteriorTables,
     _check_sampler_args,
     _DeviceTables,
+    _resolve_posterior_loop,
     _x0_hat,
 )
-from ddnm_tpu_torch.sampling.rng import NoiseFn, default_noise, draw_noise
+from ddnm_tpu_torch.sampling.rng import NoiseFn, default_noise, draw_noise, skip_noise
 
 __all__ = [
     "sample_simplified_multistep",
@@ -94,9 +100,15 @@ class _Coefs:
         self.coef = a_j * (1.0 - e_mh)
         lam_prev = torch.cat([lam_i[:1], lam_i[:-1]])
         self.c = h / (2.0 * torch.clamp(lam_i - lam_prev, min=1e-8))
+        self.second_order = [second for _, second in self.kinds(travel, abar_j)]
+
+    @staticmethod
+    def kinds(is_travel, abar_j) -> list:
+        """Each step's kind for a warm-up: travel, first or second order."""
+        travel = np.asarray(is_travel, bool)
         is_last = np.asarray(abar_j, np.float32) >= np.float32(1.0 - 1e-8)
         prev_normal = np.concatenate([[False], ~travel[:-1]])
-        self.second_order = (prev_normal & ~travel & ~is_last).tolist()
+        return list(zip(travel.tolist(), (prev_normal & ~travel & ~is_last).tolist()))
 
     def step(self, k: int, x, x0_hat, x0_prev):
         """x_j from x_i, the projected prediction and the history."""
@@ -110,7 +122,7 @@ class _Coefs:
 # ODE integrates.
 
 
-def _simplified_predict(model_fn, operator, x, y, t_f, at, op_ctx=None):
+def _simplified_predict(model_fn, operator, x, t_f, at, y, op_ctx=None):
     et = model_fn(x, t_f)
     et = et[..., :3] if et.shape[-1] == 6 else et
     x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
@@ -121,7 +133,7 @@ def _simplified_predict(model_fn, operator, x, y, t_f, at, op_ctx=None):
     return x0_t, x0_t - proj
 
 
-def _svd_predict(model_fn, operator, guidance_fn, x, y_spec, t_f, at):
+def _svd_predict(model_fn, operator, guidance_fn, x, t_f, at, y_spec):
     et = model_fn(x, t_f)
     et = et[..., :3] if et.shape[-1] == 6 else et
     if guidance_fn is not None:
@@ -132,28 +144,48 @@ def _svd_predict(model_fn, operator, guidance_fn, x, y_spec, t_f, at):
     return x0_t, _vec_to_nhwc(x0_hat, x.shape)
 
 
-def _drive_ddnm(predict, x_init, sched: DDNMSchedule, gens, noise_fn):
-    """The multistep loop over a DDNM schedule: `predict(x, t_f[B], at) ->
-    (x0_raw, x0_hat)`; a travel step re-noises the last x0_raw with noise
-    from `gens`. Returns (x_final, x0_raw_final)."""
-    dev = x_init.device
-    n = x_init.shape[0]
+def _drive_ddnm(loop, parts, predict, x_init, inputs, sched: DDNMSchedule, gens, noise_fn):
+    """The multistep loop over a DDNM schedule: `predict(x, t_f[B], at,
+    *inputs) -> (x0_raw, x0_hat)`; a travel step re-noises the last x0_raw
+    with noise from `gens`. Returns (x_final, x0_raw_final), through the
+    driver `loop` resolves to."""
     abar = np.asarray(sched.alpha_bar, np.float32)
-    co = _Coefs(abar[np.asarray(sched.t_cur, np.int64) + 1],
-                abar[np.asarray(sched.t_next, np.int64) + 1], sched.is_travel, dev)
-    t_f_all, at_all, at_next_all = _step_scalars(sched, dev)
+    abar_i = abar[np.asarray(sched.t_cur, np.int64) + 1]
+    abar_j = abar[np.asarray(sched.t_next, np.int64) + 1]
+    travel = sched.is_travel.tolist()
 
-    x, x0_raw = x_init, torch.zeros_like(x_init)
-    x0_prev = torch.zeros_like(x_init)
-    for k, travel in enumerate(sched.is_travel.tolist()):
-        if travel:
-            noise = draw_noise(noise_fn, gens, x.shape, dev)
-            x = _travel_step(x0_raw, at_next_all[k], noise)
-        else:
-            x0_raw, x0_hat = predict(x, t_f_all[k].expand(n), at_all[k])
-            x = co.step(k, x, x0_hat, x0_prev)
-            x0_prev = x0_hat
-    return x, x0_raw
+    def make_body():
+        dev = x_init.device
+        co = _Coefs(abar_i, abar_j, sched.is_travel, dev)
+        t_f_all, at_all, at_next_all = _step_scalars(sched, dev)
+
+        def body(x_init, *inputs, noise, steps=None):
+            n = x_init.shape[0]
+            x, x0_raw = x_init, torch.zeros_like(x_init)
+            x0_prev = torch.zeros_like(x_init)
+            for k in range(len(travel)) if steps is None else steps:
+                if travel[k]:
+                    eps = draw_noise(noise_fn, noise, x.shape, x_init.device)
+                    x = _travel_step(x0_raw, at_next_all[k], eps)
+                else:
+                    skip_noise(noise)
+                    x0_raw, x0_hat = predict(x, t_f_all[k].expand(n), at_all[k], *inputs)
+                    x = co.step(k, x, x0_hat, x0_prev)
+                    x0_prev = x0_hat
+            return x, x0_raw
+
+        return body
+
+    if _resolve_loop(loop) == "scan":
+        return _run_scan_ms(parts, make_body, (x_init, *inputs), gens,
+                            _Coefs.kinds(sched.is_travel, abar_j))
+    return make_body()(x_init, *inputs, noise=gens)
+
+
+def _run_scan_ms(parts, make_body, inputs, gens, kinds):
+    """The multistep scan driver over a DDNM schedule (JAX `_run_scan_ms`):
+    one CUDA graph (sampling/graphs.py)."""
+    return graphs.run(parts, make_body, inputs, gens, kinds)
 
 
 @torch.no_grad()
@@ -167,16 +199,19 @@ def sample_simplified_multistep(
     *,
     noise_fn: NoiseFn = default_noise,
     op_ctx=None,
+    loop: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Simplified-mode noise-free DDNM with the second-order multistep
     update. Deterministic (no eta: only time-travel steps draw noise).
-    Returns (x_final, x0_pred_final) like sample_simplified."""
+    Returns (x_final, x0_pred_final) like sample_simplified; `loop` as
+    there."""
     _check_sampler_args(operator, None, None, op_ctx)
 
-    def predict(x, t_f, at):
-        return _simplified_predict(model_fn, operator, x, y, t_f, at, op_ctx)
+    def predict(x, t_f, at, y, op_ctx):
+        return _simplified_predict(model_fn, operator, x, t_f, at, y, op_ctx)
 
-    return _drive_ddnm(predict, x_init, sched, gens, noise_fn)
+    parts = ("simplified_multistep", model_fn, operator, sched, noise_fn)
+    return _drive_ddnm(loop, parts, predict, x_init, (y, op_ctx), sched, gens, noise_fn)
 
 
 @torch.no_grad()
@@ -190,16 +225,18 @@ def sample_svd_multistep(
     *,
     noise_fn: NoiseFn = default_noise,
     guidance_fn: Optional[Callable] = None,
+    loop: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SVD-mode noise-free DDNM with the second-order multistep update. `y`
     is the measurement in the operator's flattened layout (B, M); classifier
-    guidance composes as in sample_svd."""
+    guidance composes as in sample_svd; `loop` as in sample_svd."""
     y_spec = operator.prepare_measurement(y)
 
-    def predict(x, t_f, at):
-        return _svd_predict(model_fn, operator, guidance_fn, x, y_spec, t_f, at)
+    def predict(x, t_f, at, y_spec):
+        return _svd_predict(model_fn, operator, guidance_fn, x, t_f, at, y_spec)
 
-    return _drive_ddnm(predict, x_init, sched, gens, noise_fn)
+    parts = ("svd_multistep", model_fn, operator, sched, noise_fn, guidance_fn)
+    return _drive_ddnm(loop, parts, predict, x_init, (y_spec,), sched, gens, noise_fn)
 
 
 # ------------------------------------------- posterior (hq) multistep form
@@ -242,10 +279,12 @@ def sample_posterior_multistep(
     clip_denoised: bool = True,
     noise_fn: NoiseFn = default_noise,
     op_ctx: Optional[torch.Tensor] = None,
+    loop: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Posterior-regime (hq / Mask-Shift) DDNM with the second-order
     multistep update: sample_posterior's arguments (paste masks, op_ctx,
-    one generator per image or tile), deterministic between undo jumps.
+    one generator per image or tile, `loop`), deterministic between undo
+    jumps.
 
     Noise-free DDNM only: the tables must be built with sigma_y == 0 (every
     lambda_t == 1). Returns (x_final, x0_hat_final) like sample_posterior."""
@@ -255,25 +294,47 @@ def sample_posterior_multistep(
             "(sigma_y == 0); rebuild the tables with sigma_y=0 or use the "
             "ddim posterior sampler for noisy measurements")
     _check_sampler_args(operator, paste_mask, paste_content, op_ctx)
-    dev = x_init.device
-    n = x_init.shape[0]
-    tb = _DeviceTables(tables, dev)
     t_cur = np.asarray(tables.t_cur, np.int64)
     abar, abar_prev = _posterior_abar(tables)
-    co = _Coefs(abar[t_cur], abar_prev[t_cur], tables.is_travel, dev)
+    travel = tables.is_travel.tolist()
 
-    x, x0_hat = x_init, torch.zeros_like(x_init)
-    x0_prev = torch.zeros_like(x_init)
-    for k, (t, travel) in enumerate(zip(t_cur.tolist(), tables.is_travel.tolist())):
-        if travel:
-            # an undo re-noises and drops the multistep history
-            noise = draw_noise(noise_fn, gens, x.shape, dev)
-            keep, scale = tb.undo(t)
-            x = keep * x + scale * noise
-        else:
-            x0_hat = _posterior_predict(model_fn, operator, guidance_fn, clip_denoised, x,
-                                        apy, paste_mask, paste_content, tb.t_orig[t].expand(n),
-                                        tb.step(t, op_ctx))
-            x = co.step(k, x, x0_hat, x0_prev)
-            x0_prev = x0_hat
-    return x, x0_hat
+    def make_body():
+        dev = x_init.device
+        tb = _DeviceTables(tables, dev)
+        co = _Coefs(abar[t_cur], abar_prev[t_cur], tables.is_travel, dev)
+
+        def body(x_init, apy, paste_mask, paste_content, op_ctx, *, noise, steps=None):
+            n = x_init.shape[0]
+            x, x0_hat = x_init, torch.zeros_like(x_init)
+            x0_prev = torch.zeros_like(x_init)
+            for k in range(len(travel)) if steps is None else steps:
+                t = int(t_cur[k])
+                if travel[k]:
+                    # an undo re-noises and drops the multistep history
+                    eps = draw_noise(noise_fn, noise, x.shape, x_init.device)
+                    keep, scale = tb.undo(t)
+                    x = keep * x + scale * eps
+                else:
+                    skip_noise(noise)
+                    x0_hat = _posterior_predict(model_fn, operator, guidance_fn, clip_denoised,
+                                                x, apy, paste_mask, paste_content,
+                                                tb.t_orig[t].expand(n), tb.step(t, op_ctx))
+                    x = co.step(k, x, x0_hat, x0_prev)
+                    x0_prev = x0_hat
+            return x, x0_hat
+
+        return body
+
+    inputs = (x_init, apy, paste_mask, paste_content, op_ctx)
+    if _resolve_posterior_loop(loop) == "scan":
+        parts = ("posterior_multistep", model_fn, operator, tables, guidance_fn,
+                 clip_denoised, noise_fn)
+        return _run_scan_pms(parts, make_body, inputs, gens,
+                             _Coefs.kinds(tables.is_travel, abar_prev[t_cur]))
+    return make_body()(*inputs, noise=gens)
+
+
+def _run_scan_pms(parts, make_body, inputs, gens, kinds):
+    """The posterior multistep scan driver (JAX `_run_scan_pms`): one CUDA
+    graph (sampling/graphs.py)."""
+    return graphs.run(parts, make_body, inputs, gens, kinds)

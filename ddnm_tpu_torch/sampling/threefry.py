@@ -224,6 +224,12 @@ class KeyNoise:
     def __init__(self, key):
         self.key = as_key(key)
 
+    def skip(self) -> None:
+        """Split the key as a step that draws nothing: JAX's multistep
+        solver splits its carried key at every step, travel or not
+        (ddnm_tpu/sampling/solvers.py `_run_scan_ms`, `_run_scan_pms`)."""
+        self.key = split(self.key)[..., 0, :]
+
     def draw(self, shape) -> torch.Tensor:
         ks = split(self.key)
         self.key, k = ks[..., 0, :], ks[..., 1, :]

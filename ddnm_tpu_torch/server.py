@@ -26,15 +26,16 @@ JSON keys:
     realized batch, queue depth, request-latency percentiles).
 
 The worker runs a one-deep dispatch/fetch pipeline. `restore_async`
-launches a group's whole trajectory from the host (the samplers are eager
-Python loops), enqueues the copy of its result into pinned host memory
-and records a CUDA event; `fetch` waits on that event, never on the whole
+launches a group's whole trajectory (under `loop` "auto" or "scan" one
+replay of the CUDA graph of its task and shapes, captured by the first
+group of that key, `warmup` included; under "host" the eager loop's
+launches), enqueues the copy of its result into pinned host memory and
+records a CUDA event; `fetch` waits on that event, never on the whole
 device. The worker dispatches group N+1 before it fetches group N, so
 group N's copy-out and the PNG encode of its replies overlap group N+1's
-launches. Dispatch here is not asynchronous as JAX's is: `restore_async`
-returns only after every launch of the trajectory is enqueued, and the
-samplers' set-up copies their step tables to the device with a blocking
-copy, which waits for the work queued before it.
+launches. A capture, and the host loop's set-up (it copies the step
+tables to the device with a blocking copy), wait for the work queued
+before them.
 
 Per-request masks: for context-parameterised tasks (inpainting,
 mask_color_sr: FunctionalOperator.A_ctx) a request may upload an RGBA PNG
@@ -45,7 +46,9 @@ take one label per request (`?class=N`), carried as params["classes"].
 `swap_params` replaces the served weights without landing mid-trajectory:
 it stores the new state, and the worker copies it into the models before
 the next group it launches, so stream order keeps the group in flight on
-the old weights.
+the old weights. The copy is in place, so a captured graph reads the new
+weights at its next replay; the labels of a class-conditional group are
+copied into one buffer of the service's for the same reason.
 
 Several devices (`mesh`, parallel/mesh.py; serve_torch.py `--dp`): the
 served params and operators are replicated on each entry (every replica's
@@ -81,6 +84,7 @@ from ddnm_tpu_torch.parallel.mesh import replicate, sharded_sampler
 from ddnm_tpu_torch.runtime import to_device, to_host
 from ddnm_tpu_torch.sampling import DDNMSchedule, sample_simplified, sample_svd
 from ddnm_tpu_torch.sampling.ddnm import _nhwc_to_vec
+from ddnm_tpu_torch.sampling.graphs import resolve_loop
 from ddnm_tpu_torch.sampling.rng import (
     STREAM_INIT,
     STREAM_SAMPLE,
@@ -225,9 +229,10 @@ class RestorationService:
 
     `noise_fn(gens, shape)` draws the samplers' per-step noise (the port's
     hook for parity runs under the zero-noise protocol); x_T always comes
-    from each request's STREAM_INIT generator. `loop` is accepted for the
-    JAX service's argument and changes nothing: the port has one eager
-    sampler loop. `mesh` (a parallel.Mesh whose first entry holds the
+    from each request's STREAM_INIT generator. `loop`: the samplers'
+    driver (sampling/graphs.py `resolve_loop`: "auto" is "scan" on one
+    device, "host" over a mesh and with the encoder cache, where "scan"
+    raises). `mesh` (a parallel.Mesh whose first entry holds the
     params) shards each group over its entries (module docstring).
     """
 
@@ -257,13 +262,7 @@ class RestorationService:
         self._encoder_policy = str(encoder_cache_policy)
         self._split_fns = split_fns
         self._key_steps = None
-        if loop not in ("auto", "host", "scan"):
-            raise ValueError(f"loop must be auto|host|scan, got {loop!r}")
-        if loop == "scan" and self._encoder_cache > 1:
-            raise ValueError(
-                "encoder_cache > 1 uses the host-driven accel samplers "
-                "(sampling/accel.py); loop='scan' is incompatible")
-        self._loop = loop
+        self._loop = resolve_loop(loop, mesh=mesh, encoder_cache=self._encoder_cache)
         if self._encoder_cache > 1:
             # approximate opt-in (sampling/accel.py): split_fns = (encode_fn(p,
             # x, t), decode_fn(p, cache, x, t)) over the same params model_fn takes
@@ -296,6 +295,7 @@ class RestorationService:
             for replica in self._distinct_replicas():
                 _pin_conv_lanes(replica)
         self._noise_fn = noise_fn
+        self._labels = None  # a class-conditional group's labels (restore_async)
         self._sched = sched
         if self._encoder_cache > 1 and sched is not None:
             from ddnm_tpu_torch.sampling.accel import key_steps_for_policy, n_model_calls
@@ -608,7 +608,12 @@ class RestorationService:
             image_generators(self._base_seed, seq_all, STREAM_INIT, self.device), hw)
         gens = image_generators(self._base_seed, seq_all, STREAM_SAMPLE, self.device)
         if cls is not None:
-            cls = torch.as_tensor(cls + [0] * pad, dtype=torch.long).to(self.device)
+            # one buffer, copied into in stream order: the graph of a group
+            # of this key reads it at every replay (a fresh tensor would
+            # make a key of its own)
+            if self._labels is None:
+                self._labels = torch.zeros(self.max_batch, dtype=torch.long, device=self.device)
+            cls = self._labels.copy_(torch.as_tensor(cls + [0] * pad, dtype=torch.long))
         if self._mesh is None:
             x = self._sample(self._params, op, is_svd, x_init, y, ctx, gens, cls)
         else:
@@ -627,7 +632,7 @@ class RestorationService:
         model_fn = lambda x, t: self._model_fn(params, x, t)
         kw = dict(eta=self._eta, sigma_y=self._sigma_y, noise_fn=self._noise_fn)
         if is_svd:
-            x, _ = sample_svd(model_fn, x_init, y, op, self._sched, gens, **kw)
+            x, _ = sample_svd(model_fn, x_init, y, op, self._sched, gens, loop=self._loop, **kw)
         elif self._encoder_cache > 1:
             from ddnm_tpu_torch.sampling.accel import sample_simplified_encoder_prop
 
@@ -639,7 +644,7 @@ class RestorationService:
                 key_steps=self._key_steps, op_ctx=ctx, **kw)
         else:
             x, _ = sample_simplified(model_fn, x_init, y, op, self._sched, gens,
-                                     op_ctx=ctx, **kw)
+                                     op_ctx=ctx, loop=self._loop, **kw)
         return x
 
     @staticmethod
@@ -760,7 +765,7 @@ class PosteriorRestorationService(RestorationService):
                 key_steps=self._key_steps, **kw)
         else:
             x, _ = sample_posterior(lambda x, t: self._model_fn(params, x, t), x_init,
-                                    apy, op, self._tables, gens, **kw)
+                                    apy, op, self._tables, gens, loop=self._loop, **kw)
         return x
 
 

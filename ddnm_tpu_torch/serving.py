@@ -100,9 +100,11 @@ class _SimplifiedTrajectory(nn.Module):
     def forward(self, x_init, y, key):
         # the sampler without its no_grad decorator: `_export` traces with
         # grad off already, and a grad-mode switch inside the graph costs
-        # torch.export a pass over every node
+        # torch.export a pass over every node. The host loop: the tracer
+        # makes the unrolled trajectory one program itself
         return sample_simplified.__wrapped__(self.model, x_init, y, self.operator, self.sched,
-                                             KeyNoise(key), eta=self.eta, sigma_y=self.sigma_y)
+                                             KeyNoise(key), eta=self.eta, sigma_y=self.sigma_y,
+                                             loop="host")
 
 
 class _PosteriorStep(nn.Module):
@@ -138,7 +140,7 @@ class _PosteriorTrajectory(nn.Module):
         return sample_posterior.__wrapped__(  # as _SimplifiedTrajectory's
             self.model, x_init, apy, self.operator, self.tables, KeyNoise(rest[0]),
             paste_mask=paste_mask, paste_content=paste_content, op_ctx=op_ctx,
-            clip_denoised=self.clip_denoised)
+            clip_denoised=self.clip_denoised, loop="host")
 
 
 def _device(model, device):

@@ -22,8 +22,16 @@ own generators (sampling/rng.py `tile_generators`), so a tile's noise does
 not depend on its group: with deterministic noise the wavefront order
 equals the sequential fresh order, and with stochastic noise each tile
 draws what it draws sequentially. The JAX package pads a wavefront group of
-4-7 tiles to 8 so that one compiled executable serves every width; an
-eager run has no executable to reuse, so groups run at their own size.
+4-7 tiles to 8 so that one compiled executable serves every width; here
+groups run at their own size, and the scan driver keeps one CUDA graph a
+group size.
+
+`loop` picks the sampler's driver (sampling/graphs.py): "auto" (the
+default) and "scan" run each group's trajectory as one CUDA graph, one
+graph a group size, replayed across the canvas's tiles and across images
+(as the JAX package reuses one executable); "host" the eager loop. Over a
+`mesh`, "auto" is "host" and "scan" raises NotImplementedError; the
+encoder cache always runs host-driven.
 
 `solver="multistep"` runs each tile group through the second-order
 solver (sampling/solvers.py; tiles start fresh unless `tile_init` says
@@ -81,6 +89,7 @@ from ddnm_tpu_torch.parallel.mesh import replicate, replicate_all, sharded_sampl
 from ddnm_tpu_torch.parallel.spatial import Grid, grid_sampler
 from ddnm_tpu_torch.runtime import resolve_device
 from ddnm_tpu_torch.sampling.accel import key_steps_for_policy, sample_posterior_encoder_prop
+from ddnm_tpu_torch.sampling.graphs import resolve_loop
 from ddnm_tpu_torch.sampling.posterior import PosteriorTables, n_model_calls, sample_posterior
 from ddnm_tpu_torch.sampling.rng import (
     STREAM_INIT,
@@ -233,7 +242,7 @@ def _check_accel(encoder_cache: int, encode_fn, decode_fn, solver: str) -> None:
 
 def _sample_group(model_fn, x_init, apy, op, tables, gens, *, encoder_cache: int,
                   encoder_cache_policy: str, encode_fn, decode_fn, solver: str, mesh=None,
-                  **kw):
+                  loop: str = "auto", **kw):
     """One sampler call on a batch of tiles: the encoder propagation where
     encoder_cache > 1, else sample_posterior with `solver`; over `mesh`
     the tiles shard (the callables are `Replicas` then; over a Grid the
@@ -242,19 +251,20 @@ def _sample_group(model_fn, x_init, apy, op, tables, gens, *, encoder_cache: int
         return grid_sampler(_sample_group, mesh)(
             model_fn, x_init, apy, op, tables, gens, encoder_cache=encoder_cache,
             encoder_cache_policy=encoder_cache_policy, encode_fn=encode_fn,
-            decode_fn=decode_fn, solver=solver, **kw)
+            decode_fn=decode_fn, solver=solver, loop=loop, **kw)
     if mesh is not None:
         return sharded_sampler(_sample_group, mesh)(
             model_fn, x_init, apy, replicate(mesh, op), tables, gens,
             encoder_cache=encoder_cache, encoder_cache_policy=encoder_cache_policy,
-            encode_fn=encode_fn, decode_fn=decode_fn, solver=solver, **kw)
+            encode_fn=encode_fn, decode_fn=decode_fn, solver=solver, loop=loop, **kw)
     if encoder_cache > 1:
         key_steps = key_steps_for_policy(n_model_calls(tables), encoder_cache,
                                          encoder_cache_policy)
         return sample_posterior_encoder_prop(encode_fn, decode_fn, x_init, apy, op, tables,
                                              gens, interval=encoder_cache,
                                              key_steps=key_steps, **kw)
-    return sample_posterior(model_fn, x_init, apy, op, tables, gens, solver=solver, **kw)
+    return sample_posterior(model_fn, x_init, apy, op, tables, gens, solver=solver, loop=loop,
+                            **kw)
 
 
 def _over_mesh(mesh, model_fn, guidance_fn, encode_fn, decode_fn):
@@ -320,6 +330,7 @@ def batched_tile_sample(
     encode_fn=None,
     decode_fn=None,
     solver: str = "ddim",
+    loop: str = "auto",
 ) -> dict:
     """B single-tile (tile x tile) restorations in one sampler call.
 
@@ -329,9 +340,10 @@ def batched_tile_sample(
     changes throughput only. `masks[i]`: image i's (H, W[, 1]) keep-mask for
     the mask tasks, its op_ctx. Raises ValueError for a canvas that is not
     one tile (callers then run mask_shift_sample per image). `solver`,
-    `encoder_cache`, `encoder_cache_policy`, `encode_fn`, `decode_fn`: as
-    in mask_shift_sample; `mesh`: the images shard over it (module
-    docstring)."""
+    `encoder_cache`, `encoder_cache_policy`, `encode_fn`, `decode_fn`,
+    `loop`: as in mask_shift_sample; `mesh`: the images shard over it
+    (module docstring)."""
+    resolve_loop(loop, mesh=mesh)
     dev = _device(gts, device)
     gts = _images(gts, dev)
     n = int(gts.shape[0])
@@ -375,7 +387,7 @@ def batched_tile_sample(
     _, x0_b = _sample_group(model_fn, x_init, apy, op, tables, gens,
                             encoder_cache=encoder_cache,
                             encoder_cache_policy=encoder_cache_policy, encode_fn=encode_fn,
-                            decode_fn=decode_fn, solver=solver, mesh=mesh,
+                            decode_fn=decode_fn, solver=solver, mesh=mesh, loop=loop,
                             paste_mask=paste_mask, paste_content=torch.zeros_like(gts),
                             guidance_fn=guidance_fn, noise_fn=noise_fn, op_ctx=ctx_b)
     return {"final": _numpy(x0_b), "apy": _numpy(apy), "y": _numpy(y)}
@@ -411,6 +423,7 @@ def mask_shift_sample(
     resume_salt=None,
     solver: str = "ddim",
     checkpoint_writer: bool = True,
+    loop: str = "auto",
 ) -> dict:
     """Restore an arbitrary-size image with Mask-Shift DDNM.
 
@@ -446,8 +459,10 @@ def mask_shift_sample(
     `checkpoint_writer=False`: read the state at a resume but never write
     or delete it (the ranks of a grid that share one writer's folder).
 
-    `mesh`: each group's tiles shard over it (module docstring)."""
+    `mesh`: each group's tiles shard over it; `loop`: the sampler's driver
+    (module docstring)."""
     _check_accel(encoder_cache, encode_fn, decode_fn, solver)
+    resolve_loop(loop, mesh=mesh)
     if tile_init is None:
         tile_init = "fresh" if (parallel or solver != "ddim") else "carry"
     if tile_init not in ("carry", "fresh"):
@@ -540,7 +555,7 @@ def mask_shift_sample(
         x_b, x0_b = _sample_group(
             model_fn, x_init_b, apy_b, op, tables, [samp_gens[t.index] for t in group],
             encoder_cache=encoder_cache, encoder_cache_policy=encoder_cache_policy,
-            encode_fn=encode_fn, decode_fn=decode_fn, solver=solver, mesh=mesh,
+            encode_fn=encode_fn, decode_fn=decode_fn, solver=solver, mesh=mesh, loop=loop,
             paste_mask=mask_b, paste_content=content_b, guidance_fn=guidance_fn,
             noise_fn=noise_fn, op_ctx=ctx_b)
         if tile_init == "carry":

@@ -8,7 +8,9 @@ UNet of configs/imagenet_256.yml) and the same flags, plus --device (cuda
 by default; without a card every row fails unless --device cpu is given)
 and --dtype, passed to every row. Each row's average PSNR and rates go
 into one JSON report, <out>/report.json. A row that fails is recorded with
-its error and the sweep goes on; the sweep then exits non-zero.
+its error and the sweep goes on; the sweep then exits non-zero. Every row
+runs main_torch's default loop, "auto": each batch's trajectory one CUDA
+graph (ddnm_tpu_torch/sampling/graphs.py), dropped when its row ends.
 
 Usage:
   python evaluation_torch.py --ckpt-celeba tests/fixtures/flag_ddpm256.pt \\

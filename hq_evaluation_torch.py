@@ -16,6 +16,8 @@ It takes hq_evaluation.py's flags and builds the same hq_main argv, with
 holding the demo images (orange.png, bear.png, flamingo.png, kimono.png,
 zebra.png); a missing image is skipped with a note. --dry-run prints the
 runs without running them. Use --random-init for a weights-free sweep.
+Every run takes the samplers' default loop, "auto": each tile group's
+trajectory one CUDA graph a group size (ddnm_tpu_torch/sampling/graphs.py).
 """
 
 from __future__ import annotations

@@ -28,6 +28,11 @@ divide runs on the first. The shards launch in turn from one thread, and
 the sampler's host sets the pace, so --dp spreads the work without
 speeding it up (PERF.md §6: no mesh beat one card on 4 H100s).
 
+Each tile group's trajectory runs as one CUDA graph (the samplers' "auto"
+loop, sampling/graphs.py): one graph a group size, captured at its first
+group and replayed across tiles and images, dropped when the run ends;
+with --dp, --sp or --encoder_cache > 1 the loop is host-driven.
+
 --sp S > 1 (spatial partitioning) runs as dp * sp processes, one per
 (data index, spatial rank), each holding S-th of every tile's rows in the
 UNet (ddnm_tpu_torch/parallel/spatial.py):
@@ -180,6 +185,16 @@ def build_classifier_from_hq(conf, device="cpu"):
 
 
 def main(argv=None):
+    """Run the CLI; returns the run's outputs (single-image mode: the
+    canvases and "stats"; sweep mode: PSNR, SSIM, the tree, wall seconds).
+    The graphs the run captures are dropped when it ends."""
+    from ddnm_tpu_torch.sampling import graphs
+
+    with graphs.scope():
+        return _main(argv)
+
+
+def _main(argv):
     ns = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")

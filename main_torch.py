@@ -36,7 +36,11 @@ shards each batch over a mesh of the caller's (parallel/mesh.py).
 --solver multistep (with --t_sampling 10, say) and --encoder_cache 3
 [--encoder_cache_policy end_dense] are the JAX package's two opt-in
 accelerators. --trace_dir DIR writes a torch.profiler Chrome trace of the
-run; --loop is accepted and changes nothing (one eager loop).
+run. --loop picks the sampler's driver, as main.py's does: auto (the
+default) and scan run each batch's whole trajectory as one CUDA graph,
+captured at the first batch and replayed (eagerly on the CPU); host runs
+the eager loop, one launch at a time from the host. Under a mesh auto is
+host and scan raises; --encoder_cache N > 1 runs host-driven.
 """
 
 from __future__ import annotations
@@ -93,8 +97,9 @@ def parse_args(argv=None):
     p.add_argument("--manifest", type=str, default=None, help="imagenet manifest txt")
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--loop", type=str, default="auto", choices=["auto", "scan", "host"],
-                   help="main.py's loop driver, accepted for its command lines: the port "
-                        "has one eager sampler loop, which every choice runs")
+                   help="the sampler's loop driver: auto and scan capture each batch's "
+                        "trajectory as one CUDA graph and replay it; host runs the eager "
+                        "loop (auto is host under a mesh and with --encoder_cache > 1)")
     p.add_argument("--solver", type=str, default="ddim", choices=["ddim", "multistep"],
                    help="ddim: the reference's first-order update (the quality choice "
                         "at 25+ steps); multistep: second-order and deterministic, "
