@@ -160,20 +160,25 @@ far it got. A failure in any phase raises.
      s per tile, max |A(x) - y| on the written images, launches exact;
  20. data parallelism (ddnm_tpu_torch/parallel), on a mesh of 2: two cards
      where the machine has them, else cuda:0 twice on two streams (the
-     phase says which): (a) phase 5's main path through main_torch on the
-     mesh, every output within 1 level of phase 5's, images/s beside its,
-     each shard's launches exact; (b) the same command as two processes
+     phase says which). The samplers run under "auto", the scan driver: a
+     CUDA graph a shard, each shard's capture / instantiate seconds, graph
+     count and pool bytes printed. (a) phase 5's main path through
+     main_torch on the mesh, every output within 1 level of phase 5's and
+     byte-equal to the same run under --loop host, images/s beside both,
+     each shard's launches exact under both; (b) the same command as two processes
      (gloo rendezvous on 127.0.0.1), together images 0-7 once under their
      global names, each within 1 level of phase 5's, both ranks' wall
      times; (c) phase 17's service with --dp 2: 8 requests through
      RestorationServer (requests/s, p50, launches exact per shard), a
      coalesced reply and lane 7 of a direct group of 8 byte-equal to the
-     same request alone, the group within 1 level of the --dp 1 service's;
-     (d) the toy32 ADM Mask-Shift canvas of phase 9 in the wavefront order,
-     fp32, and an 80 x 128 canvas whose 4-tile wavefront shards 2 + 2,
-     each within 0.01 dB of its unsharded run; (e) the 256 px classifier's
-     guidance gradient at batch 8 sharded 4 + 4 (the backward kernels on
-     two streams at once), bit-equal to its halves run alone;
+     same request alone, the group within 1 level of the --dp 1 service's
+     and bit-equal to a --dp 2 --loop host service's; (d) the toy32 ADM
+     Mask-Shift canvas of phase 9 in the wavefront order, fp32, and an 80 x
+     128 canvas whose 4-tile wavefront shards 2 + 2, each within 0.01 dB of
+     its unsharded run and bit-equal to the mesh run host-driven; (e) the
+     256 px classifier's guidance gradient at batch 8 sharded 4 + 4 (the
+     backward kernels on two streams at once; no trajectory, so no graph),
+     bit-equal to its halves run alone;
  21. spatial partitioning at sp = 2 (ddnm_tpu_torch/parallel/spatial.py):
      (a) the stats kernel's partial mode, the finalize kernel and attention
      with Tq != Tk against their plain versions, bf16 and fp32, at every
@@ -189,7 +194,11 @@ far it got. A failure in any phase raises.
      process, --sp 2 as two processes on cuda:0; s per tile at each, the
      sp 2 final against sp 1's, the ranks bit-equal, each shard's launches
      (GroupNorm partial, finalize, apply, gathered attention) and
-     collectives per model call exact. The ranks are this script run as
+     collectives per model call exact. Two ranks on one card use gloo,
+     which no CUDA graph can hold: (b) prints that "auto" resolved to
+     "host" there and (c) that hq_main_torch --loop scan raised naming
+     gloo (the NCCL scan runs on four cards: tools/check_spatial_nccl.py).
+     The ranks are this script run as
      `chip_smoke.py --spatial-worker KIND OUT_JSON [ARGS]`;
  22. classifier guidance under spatial partitioning at sp = 2: (a) the
      backward kernels' spatial modes against their plain versions, bf16
@@ -202,9 +211,10 @@ far it got. A failure in any phase raises.
      partials summed against its dK / dV; ms, device ms, bounds, SDPA's
      autograd backward as the pair's yardstick, totals per sharded guidance
      call; (b) the toy32 guided golden with the ADM and the classifier
-     sharded, fp32, two processes on cuda:0 (gloo): within 0.01 dB of the
-     JAX package's PSNR on both ranks, the ranks' finals bit-equal,
-     launches and collectives (the backward's apart) exact; (c)
+     sharded, fp32, two processes on cuda:0 (gloo, "auto" resolved to
+     "host" and "scan" refused, printed): within 0.01 dB of the JAX
+     package's PSNR on both ranks, the ranks' finals bit-equal, launches
+     and collectives (the backward's apart) exact; (c)
      hq_main_torch on configs/hq/inet256.yml guided at full width (bf16,
      random weights from seed 1234, the classifier dense, 10 model calls a
      tile): --sp 1 in process, --sp 2 as two processes on cuda:0; s per
@@ -3246,6 +3256,50 @@ def dp_mesh():
     return make_mesh(devices=devices), f"{count} visible card(s); {where}"
 
 
+def graphs_by_entry(stats: list) -> dict:
+    """graphs.graph_stats() summed per mesh entry: graphs, warm-up, capture
+    and instantiate seconds, pool bytes."""
+    out: dict = {}
+    for s in stats:
+        e = out.setdefault(s["entry"], dict(graphs=0, warmup_s=0.0, capture_s=0.0,
+                                             instantiate_s=0.0, pool_bytes=0))
+        e["graphs"] += 1
+        for k in ("warmup_s", "capture_s", "instantiate_s"):
+            e[k] += s[k]
+        e["pool_bytes"] += s["pool_bytes"] or 0
+    return out
+
+
+def format_entries(per_entry: dict) -> str:
+    return "; ".join(
+        f"shard {i}: {e['graphs']} graph(s), capture {e['capture_s']:.3f} s, instantiate "
+        f"{e['instantiate_s']:.3f} s (warm-up {e['warmup_s']:.3f} s), pool "
+        f"{e['pool_bytes'] / 2**20:.1f} MiB" for i, e in sorted(per_entry.items()))
+
+
+@contextlib.contextmanager
+def scoped_graph_stats(out: list):
+    """Collect graphs.graph_stats() as each graphs.scope() of the block ends
+    (Runner.run and hq_main_torch.main drop their graphs then)."""
+    from ddnm_tpu_torch.sampling import graphs
+
+    real = graphs.scope
+
+    @contextlib.contextmanager
+    def scope():
+        with real():
+            try:
+                yield
+            finally:
+                out.extend(graphs.graph_stats())
+
+    graphs.scope = scope
+    try:
+        yield
+    finally:
+        graphs.scope = real
+
+
 def max_level_diff(a: dict, b: dict) -> int:
     """Largest |a - b| in uint8 levels over the images of both (same keys)."""
     if sorted(a) != sorted(b):
@@ -3255,35 +3309,56 @@ def max_level_diff(a: dict, b: dict) -> int:
 
 def dp_runner(mesh, where: str, n_gn: int, n_attn: int, phase5: dict, phase5_out: dict
               ) -> tuple[dict, dict]:
-    """Phase 20(a): phase 5's main path through main_torch on `mesh`."""
+    """Phase 20(a): phase 5's main path through main_torch on `mesh` under
+    --loop auto (the scan driver: a graph a shard) and --loop host: the
+    written images byte-equal, each within 1 level of phase 5's unsharded
+    run, launches per shard exact under both; each shard's graphs."""
     import main_torch
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ops.reset_launch_counts()
-        stats = main_torch.main(main_argv("sr_averagepooling", "4", True)
-                                + ["-i", str(Path(tmp) / "out")], mesh=mesh)
-        launches, per_shard = ops.launch_counts(), ops.tagged_launch_counts()
-        outs = read_outputs(Path(tmp) / "out")
+    legs = {}
+    for loop in ("auto", "host"):
+        graph_stats: list = []
+        with tempfile.TemporaryDirectory() as tmp, scoped_graph_stats(graph_stats):
+            ops.reset_launch_counts()
+            stats = main_torch.main(main_argv("sr_averagepooling", "4", True)
+                                    + ["-i", str(Path(tmp) / "out"), "--loop", loop], mesh=mesh)
+            legs[loop] = (stats, ops.launch_counts(), ops.tagged_launch_counts(),
+                          read_outputs(Path(tmp) / "out"), graphs_by_entry(graph_stats))
+    stats, launches, per_shard, outs, per_entry = legs["auto"]
+    host_stats, host_launches, host_per_shard, host_outs, _ = legs["host"]
     diff = max_level_diff(outs, phase5_out)
+    equal = max_level_diff(outs, host_outs) == 0
     want = expected_launches(n_gn * 100, n_attn * 100)
     r = {"mesh": [str(d) for d in mesh.devices], "where": where,
          "images_per_second": stats["images_per_second"],
          "sampler_images_per_second": stats["num_samples"] / stats["sample_seconds"],
+         "host_images_per_second": host_stats["images_per_second"],
+         "host_sampler_images_per_second":
+             host_stats["num_samples"] / host_stats["sample_seconds"],
          "phase5_images_per_second": phase5["images_per_second"],
          "phase5_sampler_images_per_second": phase5["num_samples"] / phase5["sample_seconds"],
          "wall_seconds": stats["wall_seconds"], "max_level_diff_vs_phase5": diff,
+         "byte_equal_to_host_driven": equal, "graphs_per_shard": per_entry,
          "avg_psnr": stats["avg_psnr"], "launches_per_shard": per_shard}
-    print(f"(a) runner on {r['mesh']} ({where}): {stats['num_samples']} images, PSNR "
-          f"{stats['avg_psnr']:.4f}, {r['images_per_second']:.4f} images/s end to end against "
-          f"phase 5's {r['phase5_images_per_second']:.4f}, {r['sampler_images_per_second']:.4f} "
-          f"in the sampler against {r['phase5_sampler_images_per_second']:.4f}; outputs within "
-          f"{diff} level(s) of phase 5's; launches per shard {per_shard}", flush=True)
-    if stats["num_samples"] != 8 or diff > 1:
-        raise AssertionError(f"mesh runner: {stats['num_samples']} images, {diff} levels off")
-    if sorted(per_shard) != [0, 1] or any(c != want for c in per_shard.values()):
-        raise AssertionError(f"mesh runner launches per shard {per_shard} != {want} each")
-    if launches != {k: 2 * v for k, v in want.items()}:
-        raise AssertionError(f"mesh runner launches {launches}")
+    print(f"(a) runner on {r['mesh']} ({where}), --loop auto (a graph a shard): "
+          f"{stats['num_samples']} images, PSNR {stats['avg_psnr']:.4f}, "
+          f"{r['images_per_second']:.4f} images/s end to end against phase 5's "
+          f"{r['phase5_images_per_second']:.4f}, {r['sampler_images_per_second']:.4f} in the "
+          f"sampler against {r['phase5_sampler_images_per_second']:.4f} (--loop host on the "
+          f"mesh: {r['host_images_per_second']:.4f} / "
+          f"{r['host_sampler_images_per_second']:.4f}); images byte-equal to --loop host's: "
+          f"{equal}; within {diff} level(s) of phase 5's; {format_entries(per_entry)}; "
+          f"launches per shard {per_shard}", flush=True)
+    if stats["num_samples"] != 8 or diff > 1 or not equal:
+        raise AssertionError(f"mesh runner: {stats['num_samples']} images, {diff} levels off, "
+                             f"byte-equal to host-driven {equal}")
+    if sorted(per_entry) != [0, 1]:
+        raise AssertionError(f"mesh runner graphs per shard {per_entry}")
+    for got, total in ((per_shard, launches), (host_per_shard, host_launches)):
+        if sorted(got) != [0, 1] or any(c != want for c in got.values()):
+            raise AssertionError(f"mesh runner launches per shard {got} != {want} each")
+        if total != {k: 2 * v for k, v in want.items()}:
+            raise AssertionError(f"mesh runner launches {total}")
     return r, launches
 
 
@@ -3356,6 +3431,7 @@ def dp_served(mesh, n_gn: int, n_attn: int) -> tuple[dict, dict]:
     import serve_torch
     from ddnm_tpu_torch.data.datasets import FolderDataset
     from ddnm_tpu_torch.data.io import encode_png
+    from ddnm_tpu_torch.sampling import graphs
     from ddnm_tpu_torch.server import RestorationService
 
     svc = serve_torch.build_service(serve_torch.parse_args(
@@ -3378,6 +3454,16 @@ def dp_served(mesh, n_gn: int, n_attn: int) -> tuple[dict, dict]:
     ops.reset_launch_counts()
     group = svc.restore(imgs, "sr_averagepooling", list(range(100, 108)), input_kind="gt")
     per_shard = ops.tagged_launch_counts()
+    per_entry = graphs_by_entry(graphs.graph_stats())
+    host_svc = serve_torch.build_service(serve_torch.parse_args(
+        SERVED_FLAGS + ["--degs", "sr_averagepooling", "--deg_scale", "4", "--dp", "2",
+                        "--loop", "host"]), mesh=mesh)
+    ops.reset_launch_counts()
+    host_group = host_svc.restore(imgs, "sr_averagepooling", list(range(100, 108)),
+                                  input_kind="gt")
+    host_per_shard = ops.tagged_launch_counts()
+    host_equal = bool(np.array_equal(group, host_group))
+    del host_svc
     last = svc.restore(imgs[7:8], "sr_averagepooling", [107], input_kind="gt")
     last_equal = encode_png(to_u8(group[7])) == encode_png(to_u8(last[0]))
     single = RestorationService(svc._model_fn, svc._params, svc._sched, svc._operators,
@@ -3390,18 +3476,24 @@ def dp_served(mesh, n_gn: int, n_attn: int) -> tuple[dict, dict]:
          "batches": h["batches"], "mean_batch": h["mean_batch"], "latency_s": h.get("latency_s"),
          "alone_vs_coalesced_byte_equal": alone_equal, "seq_checked": seq,
          "last_lane_vs_alone_byte_equal": last_equal, "max_level_diff_vs_dp1": diff,
+         "bit_equal_to_host_driven": host_equal, "graphs_per_shard": per_entry,
          "launches_per_shard_per_group": per_shard}
     print(f"(c) served --dp 2 on {[str(d) for d in mesh.devices]}: 8 requests in "
           f"{load['wall']:.2f} s, {r['requests_per_second']:.4f} requests/s, {h['batches']} "
           f"groups, mean_batch {h['mean_batch']:.3f}, latency_s {h.get('latency_s')}; reply seq "
           f"{seq} byte-equal alone: {alone_equal}; lane 7 of a group of 8 byte-equal alone: "
-          f"{last_equal}; the group within {diff} level(s) of the --dp 1 service's; launches "
-          f"{load['launches']}, per shard of one group {per_shard}", flush=True)
-    if not (alone_equal and last_equal) or diff > 1:
+          f"{last_equal}; the group within {diff} level(s) of the --dp 1 service's, bit-equal "
+          f"to a --dp 2 --loop host service's: {host_equal}; {format_entries(per_entry)}; "
+          f"launches {load['launches']}, per shard of one group {per_shard}", flush=True)
+    if not (alone_equal and last_equal and host_equal) or diff > 1:
         raise AssertionError(f"--dp 2 service: {r}")
-    if load["launches"] != want_load or sorted(per_shard) != [0, 1] or any(
-            c != want for c in per_shard.values()):
-        raise AssertionError(f"--dp 2 launches {load['launches']} / {per_shard}")
+    if sorted(per_entry) != [0, 1]:
+        raise AssertionError(f"--dp 2 service graphs per shard {per_entry}")
+    for got in (per_shard, host_per_shard):
+        if sorted(got) != [0, 1] or any(c != want for c in got.values()):
+            raise AssertionError(f"--dp 2 launches per shard {got} != {want} each")
+    if load["launches"] != want_load:
+        raise AssertionError(f"--dp 2 launches {load['launches']}")
     del svc, single
     torch.cuda.empty_cache()
     return r, load["launches"]
@@ -3413,7 +3505,9 @@ def dp_hq(mesh) -> tuple[dict, dict]:
     tables (2 x 2 tiles: every group one tile, on the first entry) and an
     80 x 128 crop of a natural128 image on a 10-step schedule without
     jumps (4 x 7 tiles: the wavefront 2i + j = 6 is a group of 4, sharded
-    2 + 2)."""
+    2 + 2). On the mesh under loop "auto" (a graph a shard and group size)
+    and "host": bit-equal, launches equal."""
+    from ddnm_tpu_torch.sampling import graphs
     from ddnm_tpu_torch import schedules as sch
     from ddnm_tpu_torch.data.io import load_image
     from ddnm_tpu_torch.sampling.posterior import build_posterior_tables
@@ -3436,14 +3530,20 @@ def dp_hq(mesh) -> tuple[dict, dict]:
     for name, (img, tables) in canvases.items():
         gt = (img * 2.0 - 1.0)[None]
         res = {}
-        for label, m in (("unsharded", None), ("mesh", mesh)):
+        for label, m, loop in (("unsharded", None, "auto"), ("mesh", mesh, "auto"),
+                               ("mesh_host", mesh, "host")):
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             run = mask_shift_sample(lambda z, t: model(z, t), gt, "sr_averagepooling", tables, 0,
                                     scale=4, noise_fn=zero, tile=32, stride=16, device="cuda",
-                                    parallel=True, mesh=m)
+                                    parallel=True, mesh=m, loop=loop)
             res[label] = (run["final"], time.perf_counter() - t0, ops.launch_counts(),
                           ops.tagged_launch_counts())
+            if label == "mesh":
+                per_entry = graphs_by_entry(graphs.graph_stats())
+            graphs.clear_graphs()
+        host_equal = bool(np.array_equal(res["mesh"][0], res["mesh_host"][0])
+                          and res["mesh"][2:] == res["mesh_host"][2:])
         to01 = lambda a: np.clip((a + 1) / 2, 0, 1)
         psnr = {k: 10 * math.log10(1 / max(float(np.mean((to01(v[0]) - to01(gt)) ** 2)), 1e-12))
                 for k, v in res.items()}
@@ -3451,12 +3551,14 @@ def dp_hq(mesh) -> tuple[dict, dict]:
         out[name] = {"psnr_unsharded": psnr["unsharded"], "psnr_mesh": psnr["mesh"],
                      "max_abs_diff": float(np.abs(res["mesh"][0] - res["unsharded"][0]).max()),
                      "seconds": {k: v[1] for k, v in res.items()},
+                     "bit_equal_to_host_driven": host_equal, "graphs_per_shard": per_entry,
                      "shard1_attention_launches": shard1}
         print(f"(d) hq {name} wavefront fp32: PSNR {psnr['mesh']:.4f} on the mesh against "
               f"{psnr['unsharded']:.4f} unsharded, max |diff| {out[name]['max_abs_diff']:.2e}, "
-              f"{res['mesh'][1]:.2f} s against {res['unsharded'][1]:.2f}; shard 1's attention "
-              f"launches {shard1}", flush=True)
-        if not abs(psnr["mesh"] - psnr["unsharded"]) <= 0.01:
+              f"{res['mesh'][1]:.2f} s against {res['unsharded'][1]:.2f} (host-driven on the "
+              f"mesh {res['mesh_host'][1]:.2f} s, final and launches equal: {host_equal}); "
+              f"{format_entries(per_entry)}; shard 1's attention launches {shard1}", flush=True)
+        if not abs(psnr["mesh"] - psnr["unsharded"]) <= 0.01 or not host_equal:
             raise AssertionError(f"hq {name} on the mesh: {out[name]}")
         # a sharded group runs one forward a shard: shard 1's launches on top
         extra = res["mesh"][3].get(1, dict.fromkeys(res["mesh"][2], 0))
@@ -3740,14 +3842,20 @@ def spatial_worker(argv: list) -> int:
         reset_collective_counts()
         with graphs.host_only():  # the wrapped model's collectives run from the host
             psnr, x, secs = hq_golden_run(fn, "cuda:0", TASKS_HQ[0])
-        result = dict(psnr=psnr, seconds=secs, sha256=digest(x.cpu().numpy()))
+        result = dict(psnr=psnr, seconds=secs, sha256=digest(x.cpu().numpy()),
+                      **gloo_resolution(grid))
     elif kind == "hq":
         import hq_main_torch
 
+        try:  # --loop scan on a gloo grid on a card: refused before any tile
+            hq_main_torch.main(rest + ["--loop", "scan"])
+            cli_scan = None
+        except ValueError as e:
+            cli_scan = str(e)
         ops.reset_launch_counts()
         reset_collective_counts()
         out = hq_main_torch.main(rest)
-        result = dict(stats=out["stats"], sha256=digest(out["final"]))
+        result = dict(stats=out["stats"], sha256=digest(out["final"]), cli_scan_error=cli_scan)
     elif kind == "guided_golden":
         multihost.maybe_init_distributed()
         import torch.distributed as dist
@@ -3760,7 +3868,7 @@ def spatial_worker(argv: list) -> int:
         with graphs.host_only():
             psnr, x, per_image, secs = guided_golden_run(model, clf, "cuda:0", grid=grid)
         result = dict(psnr=psnr, per_image=per_image, seconds=secs,
-                      sha256=digest(x.cpu().numpy()))
+                      sha256=digest(x.cpu().numpy()), **gloo_resolution(grid))
     elif kind == "guided_hq":
         import hq_main_torch
         import torch.distributed as dist
@@ -3791,6 +3899,33 @@ def spatial_worker(argv: list) -> int:
                   rank=multihost.process_index())
     out_json.write_text(json.dumps(result))
     return 0
+
+
+def gloo_resolution(grid) -> dict:
+    """What the loop drivers resolve to on `grid` (gloo on a card): "auto"
+    and the message with which "scan" is refused."""
+    from ddnm_tpu_torch.sampling import graphs
+
+    try:
+        graphs.resolve_loop("scan", mesh=grid)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return dict(auto_resolves_to=graphs.resolve_loop("auto", mesh=grid), scan_refused=refused)
+
+
+def check_gloo_resolution(what: str, ranks: list, key: str = "scan_refused") -> str:
+    """Print and check phase 21 / 22's resolution on the gloo grid of two
+    processes on cuda:0: auto is host, scan raised SCAN_OVER_GLOO."""
+    from ddnm_tpu_torch.sampling import graphs
+
+    autos = sorted({x["auto_resolves_to"] for x in ranks if "auto_resolves_to" in x})
+    refusals = sorted({str(x[key]) for x in ranks})
+    print(f"{what}: gloo on one card, not capturable: auto resolved to {autos or '-'}, "
+          f"scan raised {refusals}", flush=True)
+    if autos not in ([], ["host"]) or refusals != [graphs.SCAN_OVER_GLOO]:
+        raise AssertionError(f"{what}: the gloo grid's loop resolution {autos}, {refusals}")
+    return graphs.SCAN_OVER_GLOO
 
 
 def spatial_processes(kind: str, world: int, args: list, tmp: Path,
@@ -3854,7 +3989,9 @@ def spatial_golden(n_gn: int, n_attn: int, n_conv: int) -> dict:
          "seconds": [x["seconds"] for x in ranks],
          "process_seconds": [x["process_seconds"] for x in ranks],
          "ranks_bit_equal": len({x["sha256"] for x in ranks}) == 1,
-         "spatial_launches": ranks[0]["spatial_launches"], "collectives": ranks[0]["collectives"]}
+         "spatial_launches": ranks[0]["spatial_launches"],
+         "collectives": ranks[0]["collectives"],
+         "scan_refused": check_gloo_resolution("(b) loop resolution", ranks)}
     print(f"(b) toy32 hq golden {TASKS_HQ[0][0]} at sp 2 (two processes on cuda:0, gloo): "
           f"PSNR {r['psnr']} (JAX {golden:.4f}), {r['seconds']} s in the sampler, ranks' "
           f"finals bit-equal {r['ranks_bit_equal']}; launches {ranks[0]['spatial_launches']}, "
@@ -3916,6 +4053,7 @@ def spatial_hq(n_gn: int, n_attn: int, n_conv: int) -> tuple[dict, dict]:
         one = hq_main_torch.main(argv + ["-i", str(tmp / "sp1")])
         launches_one = ops.launch_counts()
         ranks = spatial_processes("hq", 2, argv + ["--sp", "2", "-i", str(tmp / "sp2")], tmp)
+        check_gloo_resolution("(c) hq_main_torch --sp 2 --loop scan", ranks, "cli_scan_error")
         a = load_image(tmp / "sp2" / "final.png")
         b = load_image(tmp / "sp1" / "final.png")
     diff = int(np.abs(np.round(a * 255) - np.round(b * 255)).max())
@@ -4168,7 +4306,8 @@ def spatial_guided_golden(counts: dict) -> dict:
          "ranks_bit_equal": len({x["sha256"] for x in ranks}) == 1, "model_calls": calls,
          "spatial_launches": ranks[0]["spatial_launches"],
          "collectives": ranks[0]["collectives"],
-         "backward_collectives": ranks[0]["backward_collectives"]}
+         "backward_collectives": ranks[0]["backward_collectives"],
+         "scan_refused": check_gloo_resolution("(b) loop resolution", ranks)}
     print(f"(b) toy32 guided golden at sp 2 (two processes on cuda:0, gloo): PSNR {r['psnr']} "
           f"(JAX {want_psnr:.4f}), per-image max |x - JAX| "
           f"{['%.2e' % e for e in r['per_image_max_abs_vs_jax']]}, {r['seconds']} s in the "

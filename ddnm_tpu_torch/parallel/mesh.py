@@ -5,11 +5,13 @@ DDNM's workload is embarrassingly parallel over images: the pattern is a
 with no collective in the step loop. XLA partitions a jitted sampler from
 its inputs' shardings; an eager PyTorch sampler is a host loop, so here
 the mesh runs one copy of the loop per entry, one after the other on the
-caller's thread. On 4 H100s (PERF.md §6) that beat a thread per entry at
-every size measured (at batch 8 over 2 cards 0.79x against 0.29x of one
+caller's thread. Host-driven on 4 H100s (PERF.md §6) that beat a
+thread per entry (at batch 8 over 2 cards 0.79x against 0.29x of one
 card's rate: the threads contend for the interpreter lock), but no mesh
-beat one card: one process a card (parallel/multihost.py) is the way to
-use several cards, and the mesh is a placement for those who ask for it.
+beat one card. Under the scan driver a shard is one graph launch, so the
+cards overlap: a mesh of 2 cards gave 1.72-1.73x one card's sampler
+rate, of 4 cards 2.49x (PERF.md §6; NVIDIA H100 80GB HBM3,
+700.00 W). One process a card (parallel/multihost.py) scaled 3.7-4.0x.
 
   - `make_mesh` gives the ordered devices of the mesh: every visible card
     by default; N entries of the one CPU with device="cpu" (the tests'
@@ -39,6 +41,15 @@ image's noise depends on (seed, global index, stream) alone, whichever
 shard it lands in. Launches made while a shard runs (its backward on
 autograd's device thread too) are counted under its index as well
 (ops.tagged_launch_counts).
+
+Under the scan loop driver (sampling/graphs.py, what "auto" resolves to
+on a mesh, as JAX's scan runs on sharded arrays) each entry's trajectory
+is a CUDA graph of its own (`graphs.placed(entry=i)`): captured on the
+entry's card at the first call of its key, replayed on the entry's stream,
+its per-image generators (cloned to the entry's card) in the graph's
+generator slots, and its launches counted under the entry's index at each
+replay. Two entries of one card keep two graphs, whose replays on the two
+streams may overlap, and share the card's pool budget.
 """
 
 from __future__ import annotations
@@ -369,17 +380,11 @@ def sharded_sampler(sample_fn: Callable, mesh: Mesh) -> Callable:
 
 
 def _run(sample_fn, mesh: Mesh, args, kw, n: int, plan, caller: torch.device):
-    # the shards run host-driven: a scan over a mesh is not ported
-    with graphs.host_only():
-        return _run_shards(sample_fn, mesh, args, kw, n, plan, caller)
-
-
-def _run_shards(sample_fn, mesh: Mesh, args, kw, n: int, plan, caller: torch.device):
     if not mesh.is_cuda:
         outs = []
         for i, sl in plan:
             dev = mesh.devices[i]
-            with _build.launch_tag(i):
+            with _build.launch_tag(i), graphs.placed(entry=i):
                 a = [_pick(v, i, n, sl, dev, None) for v in args]
                 k = {key: _pick(v, i, n, sl, dev, None) for key, v in kw.items()}
                 outs.append(sample_fn(*a, **k))
@@ -391,7 +396,8 @@ def _run_shards(sample_fn, mesh: Mesh, args, kw, n: int, plan, caller: torch.dev
     outs, done = [], []
     for i, sl in plan:
         dev, s = mesh.devices[i], streams[i]
-        with _build.launch_tag(i), torch.cuda.device(dev), torch.cuda.stream(s):
+        with (_build.launch_tag(i), graphs.placed(entry=i), torch.cuda.device(dev),
+              torch.cuda.stream(s)):
             record = lambda t, s=s: t.record_stream(s)
             if dev == caller:
                 s.wait_event(ready)
@@ -408,10 +414,15 @@ def _run_shards(sample_fn, mesh: Mesh, args, kw, n: int, plan, caller: torch.dev
                 ev = torch.cuda.Event()
                 ev.record(s)
                 done.append((ev, out))
-            else:
-                with torch.cuda.stream(caller_stream):
-                    out = _map_tensors(out, lambda t: t.to(caller, non_blocking=True))
         outs.append(out)
+    # the copies back only once every shard is launched: a copy between
+    # cards makes the caller's stream wait on the shard, and the next
+    # shard's inputs are copied on the caller's stream
+    for j, (i, _) in enumerate(plan):
+        dev, s = mesh.devices[i], streams[i]
+        if dev != caller:
+            with torch.cuda.device(dev), torch.cuda.stream(s), torch.cuda.stream(caller_stream):
+                outs[j] = _map_tensors(outs[j], lambda t: t.to(caller, non_blocking=True))
     for ev, out in done:
         caller_stream.wait_event(ev)
         _map_tensors(out, lambda t: t.record_stream(caller_stream))

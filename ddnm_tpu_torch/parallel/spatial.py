@@ -55,7 +55,15 @@ classifier, and gathers the gradient's rows back.
 sp == 1 it is the in-process data mesh (parallel/mesh.py). A spatial group
 uses NCCL where each of its ranks has a card of its own, gloo otherwise
 (the CPU, and ranks sharing one card, where NCCL refuses); a gloo
-collective of CUDA tensors goes through host memory. Unlike the JAX
+collective of CUDA tensors goes through host memory.
+
+The scan loop driver (sampling/graphs.py): `grid_sampler` runs each rank's
+trajectory as one CUDA graph with its NCCL collectives inside, as JAX's
+scan runs one program with XLA's collectives inside. The group agrees on
+every capture over a gloo control group of its own (`SpatialGroup.agree`,
+with a time limit); the collectives a capture issues count at each replay.
+A gloo group on a card cannot be captured (its host hop): its ranks run
+host-driven and an explicit scan raises. Unlike the JAX
 package, which replicates a leaf whose rows the axis does not divide,
 `split_rows` raises ValueError, and `Grid.wrap` checks the model's lowest
 grid before a call.
@@ -64,6 +72,7 @@ grid before a call.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
 import socket
 from typing import Callable, Optional, Sequence
@@ -99,6 +108,10 @@ COLLECTIVES = {"halo": 0, "groupnorm": 0, "attention": 0, "rows": 0, "batch": 0}
 # their senders, a GroupNorm's partial sums of its gradient, the partial
 # gradients of an attention's gathered keys and values
 BACKWARD_COLLECTIVES = {"halo_grad": 0, "groupnorm_grad": 0, "attention_grad": 0}
+# how long a rank waits for the others to agree on a graph's capture
+# (SpatialGroup.agree) before it raises: a first capture of the ranks'
+# trajectory (warm-up, capture and instantiation) must fit in it
+AGREE_TIMEOUT = datetime.timedelta(seconds=600)
 
 
 def reset_collective_counts() -> None:
@@ -111,28 +124,52 @@ def reset_collective_counts() -> None:
 class SpatialGroup:
     """The processes that hold the shards of one map's rows: their process
     group, this process's rank in it (its rows are the rank-th of `size`
-    equal blocks) and the group's backend."""
+    equal blocks), the group's backend, and a gloo group of the same ranks
+    with a time limit (`control`, made by `make_mesh_2d`; None: `group`
+    itself, a gloo group) that carries the graphs' agreements."""
 
     group: object
     rank: int
     size: int
     backend: str = "gloo"
+    control: object = None
 
     def all_gather(self, t: torch.Tensor, kind: str) -> list:
         """Every member's `t` (same shape and dtype), in rank order, on t's
-        device; counted under `kind`. Through host memory for a CUDA tensor
-        on gloo."""
+        device; counted under `kind` (in a graph: at each replay). NCCL
+        gathers into one tensor, which a CUDA graph captures (its stream
+        joins the capture and leaves it at the wait); gloo goes through
+        host memory for a CUDA tensor, which no graph can hold."""
         import torch.distributed as dist
 
-        (BACKWARD_COLLECTIVES if kind in BACKWARD_COLLECTIVES else COLLECTIVES)[kind] += 1
+        graphs.count_collective(
+            BACKWARD_COLLECTIVES if kind in BACKWARD_COLLECTIVES else COLLECTIVES, kind)
         t = t.contiguous()
-        hop = t.is_cuda and self.backend == "gloo"
+        if self.backend == "nccl":
+            out = t.new_empty((self.size, *t.shape))
+            dist.all_gather_into_tensor(out, t, group=self.group)
+            return list(out.unbind(0))
+        hop = t.is_cuda
+        if hop and graphs.recording():
+            raise ValueError(graphs.SCAN_OVER_GLOO)
         src = t.cpu() if hop else t
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
         if hop:
             parts = [p.to(t.device, non_blocking=True) for p in parts]
         return parts
+
+    def agree(self, value: int) -> list:
+        """Every member's small integer `value`, in rank order (the scan
+        driver's capture-or-replay decisions, sampling/graphs.py): one
+        uncounted all_gather on the host over `control`, outside any graph;
+        raises after AGREE_TIMEOUT where a member does not take part."""
+        import torch.distributed as dist
+
+        t = torch.tensor([int(value)], dtype=torch.int64)
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group if self.control is None else self.control)
+        return [int(p.item()) for p in parts]
 
     def gather(self, t: torch.Tensor, dim: int, kind: str) -> torch.Tensor:
         """Every member's `t` concatenated along `dim` in rank order."""
@@ -292,8 +329,9 @@ def make_mesh_2d(dp: int, sp: int, devices: Optional[Sequence] = None, *,
     (cuda:LOCAL_RANK, an explicit cuda:N, or the CPU). Every rank must call
     it, in the same order: it builds every row's spatial group (NCCL where
     the row's ranks hold distinct cards, gloo otherwise; `backend` "nccl"
-    or "gloo" forces one) and every column's data group (gloo). Raises
-    RuntimeError without a process group of dp * sp ranks."""
+    or "gloo" forces one) with its gloo control group (AGREE_TIMEOUT), and
+    every column's data group (gloo). Raises RuntimeError without a process
+    group of dp * sp ranks."""
     if sp == 1:
         return make_mesh(dp, devices, device=device)
     if dp < 1 or sp < 1:
@@ -323,8 +361,9 @@ def make_mesh_2d(dp: int, sp: int, devices: Optional[Sequence] = None, *,
         distinct = (all(p[1] == "cuda" for p in placed) and len(set(placed)) == len(placed))
         chosen = backend or ("nccl" if distinct and dist.is_nccl_available() else "gloo")
         group = dist.new_group(ranks, backend=chosen)
+        control = dist.new_group(ranks, backend="gloo", timeout=AGREE_TIMEOUT)
         if rank in ranks:
-            spatial = SpatialGroup(group, rank - d * sp, sp, chosen)
+            spatial = SpatialGroup(group, rank - d * sp, sp, chosen, control)
     if dp > 1:
         for s in range(sp):
             ranks = list(range(s, world, sp))
@@ -375,11 +414,16 @@ def grid_sampler(sample_fn: Callable, grid: Grid) -> Callable:
     argument's length) and the lists of per-image generators take this
     data index's share, and every tensor of the output is all_gathered over
     the data group in data-index order. A batch that dp does not divide
-    runs whole on every data row (logged once)."""
+    runs whole on every data row (logged once). Under the scan driver each
+    rank's trajectory is one graph of its spatial group, the data group's
+    gather outside it; on a gloo group on a card the ranks run
+    host-driven (sampling/graphs.py `capturable`)."""
 
     def wrapped(*args, **kw):
-        # the ranks run host-driven: a scan under --sp is not ported
-        with graphs.host_only():
+        if not graphs.capturable(grid):
+            with graphs.host_only():
+                return shard(*args, **kw)
+        with graphs.placed(spatial=grid.spatial):
             return shard(*args, **kw)
 
     def shard(*args, **kw):

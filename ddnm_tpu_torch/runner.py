@@ -28,9 +28,10 @@ model, the guidance classifier, the operator and the encoder cache's
 halves replicated on each entry, each entry's images on a stream of its
 own), which then shards every batch whose size it divides, on every route
 (simplified, SVD, guided SVD, the multistep solver, the encoder cache).
-The JAX runner shards over every device by default; this one does not,
-because the eager sampler's host sets the pace: on 4 H100s no mesh beat
-one card, and one process a card scaled 3.7-4.0x (PERF.md §6).
+The JAX runner shards over every device by default; this one does not:
+host-driven on 4 H100s no mesh beat one card, one process a card scaled
+3.7-4.0x, and under the scan a mesh of 2 cards gave 1.72-1.73x and of
+4 cards 2.49x (PERF.md §6).
 Under a multi-process launch (parallel/multihost.py, torchrun) each
 process restores its own contiguous slice of the dataset on its own card,
 under the images' global indices, and writes its metrics to
@@ -51,8 +52,9 @@ torch.profiler trace of the loop.
 default) and "scan" run each batch's trajectory as one CUDA graph,
 captured at the first batch and replayed for the others (the graphs are
 dropped when the run ends); "host" the eager loop. Under a data mesh
-"auto" is "host" and "scan" raises NotImplementedError; the encoder cache
-runs host-driven whatever `loop` says, as in the JAX runner. The
+each shard's trajectory is a graph of its own (parallel/mesh.py), as JAX's
+scan runs on sharded arrays; the encoder cache runs host-driven whatever
+`loop` says, as in the JAX runner. The
 sampler's CUDA events time a replay as a whole.
 """
 

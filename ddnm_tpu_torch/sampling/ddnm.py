@@ -181,9 +181,9 @@ def _check_solver(solver: str) -> None:
 def _resolve_loop(loop: str) -> str:
     """JAX's `_resolve_loop` on a local backend: "auto" is "scan" (the port
     has no remote-compile backend, so `_AUTO_SCAN_PARAM_BYTES` has no
-    counterpart), except inside a data mesh's or a spatial grid's shards,
-    where it is "host" and "scan" raises NotImplementedError
-    (sampling/graphs.py `resolve_loop`)."""
+    counterpart), in a data mesh's shards and a spatial grid's ranks too,
+    except on a gloo spatial group on a card, where it is "host" and
+    "scan" raises ValueError (sampling/graphs.py `resolve_loop`)."""
     return graphs.resolve_loop(loop)
 
 

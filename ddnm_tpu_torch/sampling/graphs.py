@@ -50,21 +50,48 @@ over the static schedule, and `run` makes it one program on the card: a
     launch tag; the warm-up's launches are not counted. The GroupNorm
     kernels' launch counters are the graph's own, allocated in the warm-up.
   - Memory: each graph keeps one private memory pool, reused by its
-    replays. At most `MAX_GRAPHS` graphs are kept, and their pools take at
-    most `POOL_BUDGET` of the card's memory (least recently used dropped
-    first; a 256 px fp32 trajectory with TF32 off holds ~18 GB, a bf16
-    batch-8 one ~1.9 GB); a capture that runs out of memory drops the kept
-    graphs and captures once more. `clear_graphs` drops them all and
+    replays. At most `MAX_GRAPHS` graphs are kept a place (a device, or a
+    mesh entry), and the pools of one card's graphs take at most
+    `POOL_BUDGET` of its memory (least recently used dropped first; a
+    256 px fp32 trajectory with TF32 off holds ~18 GB, a bf16 batch-8 one
+    ~1.9 GB); a capture that runs out of memory drops the kept graphs and
+    captures once more. `clear_graphs` drops them all and
     returns their pools, and a `scope()` drops those captured inside it
     (the runner's run, the hq CLI's images).
+
+Over a mesh (JAX runs its scan on sharded arrays, one program a
+trajectory): the samplers of a shard run inside `placed`, which names the
+mesh entry or the spatial group they run in.
+
+  - A data mesh's entry (parallel/mesh.py): each entry's trajectory is a
+    graph of its own, captured on the entry's card and replayed on the
+    entry's stream, so that two entries of one card keep two graphs whose
+    replays may overlap. The key holds the device and the entry's index.
+  - A rank of a spatial group (parallel/spatial.py `grid_sampler`): the
+    rank's sharded trajectory is one graph, its NCCL collectives (halo
+    rows, GroupNorm sums, attention keys, the model output's rows, and
+    the guidance backward's) captured inside it. The key holds the group
+    by identity. Every capture-or-replay decision is agreed over the group
+    (`SpatialGroup.agree`, one small gloo collective before the
+    trajectory, outside the graph): a rank that lacks the graph (dropped,
+    evicted, or never captured) makes every rank capture, and an
+    out-of-memory capture on one rank makes every rank drop its graphs and
+    capture once more, so that no rank replays while another runs the
+    warm-up's eager collectives. A rank that fails otherwise raises on
+    every rank. The collectives a capture issues are recorded like its
+    launches and counted at each replay (`count_collective`).
+  - Not capturable: a spatial group over gloo whose tensors live on a card
+    (gloo's collectives copy through host memory, which a graph cannot
+    hold). There `auto` is `host` and `scan` raises (`SCAN_OVER_GLOO`);
+    `host_only` marks such a block.
 
 On a CPU tensor, or while torch.export traces the sampler, `run` runs the
 same body eagerly: the CPU has no graphs, and a tracer makes the unrolled
 body one program itself (serving.py). The port has no remote-compile
 backend, so JAX's size-aware `auto` (`_AUTO_SCAN_PARAM_BYTES`, host for
 big models on that backend) has no counterpart: `auto` is the scan, except
-with the encoder cache (sampling/accel.py is host-only, in JAX too) and
-under a data mesh or `--sp` (`host_only`), where a scan is not ported.
+with the encoder cache (sampling/accel.py is host-only, in JAX too) and on
+a gloo spatial group on a card.
 """
 
 from __future__ import annotations
@@ -86,19 +113,22 @@ import torch
 from ddnm_tpu_torch.ops import _build
 from ddnm_tpu_torch.sampling.threefry import KeyNoise
 
-__all__ = ["LOOPS", "MAX_GRAPHS", "clear_graphs", "capturing", "graph_stats", "host_only",
+__all__ = ["LOOPS", "MAX_GRAPHS", "SCAN_OVER_GLOO", "capturable", "clear_graphs", "capturing",
+           "count_collective", "graph_stats", "host_only", "placed", "recording",
            "resolve_loop", "run", "scope"]
 
 LOOPS = ("auto", "host", "scan")
-# graphs kept at once: a Mask-Shift canvas runs wavefront groups of up to
-# six sizes (1 and 4-8 tiles), each a graph of its own
+# graphs kept at once a place (a device, or a mesh entry): a Mask-Shift
+# canvas runs wavefront groups of up to six sizes (1 and 4-8 tiles), each
+# a graph of its own
 MAX_GRAPHS = 8
-# the share of the card's memory the kept graphs' pools may hold together
+# the share of a card's memory its kept graphs' pools may hold together
+# (the entries of a mesh that repeats the card share it)
 POOL_BUDGET = 0.25
-SCAN_UNDER_MESH = (
-    "loop='scan' under a data mesh or --sp is not ported: the port's scan is a CUDA graph "
-    "of one card's trajectory (ROADMAP.md 'Next': scan under a mesh and --sp); use "
-    "loop='auto' or 'host'")
+SCAN_OVER_GLOO = (
+    "loop='scan' cannot capture a spatial group over gloo whose tensors are on a card: "
+    "gloo's collectives copy through host memory, which a CUDA graph cannot hold; give "
+    "each rank of the group a card of its own (NCCL), or use loop='auto' or 'host'")
 ENCODER_CACHE_SCAN = ("encoder_cache > 1 uses the host-driven accel samplers "
                       "(sampling/accel.py); loop='scan' is incompatible")
 
@@ -109,22 +139,34 @@ _STREAMS: dict = {}
 _DEPTH = 8  # closures followed this deep; deeper objects count by identity
 
 
+def capturable(mesh) -> bool:
+    """Whether a trajectory over `mesh` can be one graph a shard: a data
+    mesh always, a grid at sp 1 (no collective inside the trajectory), a
+    grid at sp > 1 where its spatial group is NCCL or its tensors are on
+    the CPU; not a gloo spatial group on a card (module docstring)."""
+    spatial = getattr(mesh, "spatial", None)
+    if spatial is None or spatial.size == 1 or spatial.backend != "gloo":
+        return True
+    return torch.device(mesh.device).type == "cpu"
+
+
 def resolve_loop(loop: str, *, mesh=None, encoder_cache: int = 1) -> str:
-    """The loop driver `loop` names: "auto" is "scan" on any one device, as
-    JAX's `_resolve_loop` is on a local backend; under a mesh (`mesh` given,
-    or inside `host_only`) "auto" is "host" and "scan" raises
-    NotImplementedError; with `encoder_cache > 1` "auto" is "host" and
-    "scan" raises ValueError (the service's refusal). Another value raises
-    ValueError."""
+    """The loop driver `loop` names: "auto" is "scan", as JAX's
+    `_resolve_loop` is on a local backend, on one device and over a data
+    mesh or a spatial grid (`mesh`, where `capturable`); over a gloo
+    spatial group on a card (`mesh` not capturable, or inside `host_only`)
+    "auto" is "host" and "scan" raises ValueError(SCAN_OVER_GLOO); with
+    `encoder_cache > 1` "auto" is "host" and "scan" raises ValueError (the
+    service's refusal). Another value raises ValueError."""
     if loop not in LOOPS:
         raise ValueError(f"loop must be auto|host|scan, got {loop!r}")
-    if mesh is not None or getattr(_LOCAL, "host_only", 0):
-        if loop == "scan":
-            raise NotImplementedError(SCAN_UNDER_MESH)
-        return "host"
     if encoder_cache > 1:
         if loop == "scan":
             raise ValueError(ENCODER_CACHE_SCAN)
+        return "host"
+    if (mesh is not None and not capturable(mesh)) or getattr(_LOCAL, "host_only", 0):
+        if loop == "scan":
+            raise ValueError(SCAN_OVER_GLOO)
         return "host"
     return "scan" if loop == "auto" else loop
 
@@ -132,13 +174,47 @@ def resolve_loop(loop: str, *, mesh=None, encoder_cache: int = 1) -> str:
 @contextlib.contextmanager
 def host_only():
     """Samplers called inside the block run host-driven (`resolve_loop`):
-    the shards of a data mesh (parallel/mesh.py `sharded_sampler`) and of a
-    spatial grid (parallel/spatial.py `grid_sampler`)."""
+    the ranks of a gloo spatial group on a card (parallel/spatial.py
+    `grid_sampler`), or a model wrapped over such a group and called
+    without it."""
     _LOCAL.host_only = getattr(_LOCAL, "host_only", 0) + 1
     try:
         yield
     finally:
         _LOCAL.host_only -= 1
+
+
+@contextlib.contextmanager
+def placed(*, entry=None, spatial=None):
+    """Samplers called inside the block run as mesh entry `entry`'s shard
+    (parallel/mesh.py) or as this process's rank of `spatial`, a
+    SpatialGroup (parallel/spatial.py `grid_sampler`): their graphs are
+    keyed by it, and a group of more than one rank agrees on every
+    capture (module docstring)."""
+    prev = getattr(_LOCAL, "place", None)
+    _LOCAL.place = (entry, spatial)
+    try:
+        yield
+    finally:
+        _LOCAL.place = prev
+
+
+def recording() -> bool:
+    """True while some thread warms up, captures or replays a graph's body
+    (`run`): a host copy there cannot be captured (parallel/spatial.py)."""
+    return _build._capture is not None
+
+
+def count_collective(table: dict, kind: str) -> None:
+    """Count one collective of `kind` in `table` (parallel/spatial.py
+    `COLLECTIVES`). One issued on the stream of a graph's warm-up or
+    capture goes to that graph instead, which adds its table at each
+    replay, as `_build.count_launch` does for a launch."""
+    cap = _build._capture
+    if cap is not None and cap.owns_stream():
+        cap.record_collective(table, kind)
+        return
+    table[kind] += 1
 
 
 def capturing() -> bool:
@@ -375,6 +451,7 @@ class _Entry:
         self.graph, self.key, self.pins, self.body = graph, key, pins, body
         self.phase = "warm"
         self.launches: dict = {}
+        self.collectives: dict = {}
         self._counters: dict = {}
         self.static = [_static_copy(t) for t in inputs]
         self.outputs = None
@@ -398,6 +475,11 @@ class _Entry:
     def record(self, table: dict, name: str) -> None:
         if self.phase == "capture":
             rec = self.launches.setdefault((id(table), name), [table, name, 0])
+            rec[2] += 1
+
+    def record_collective(self, table: dict, kind: str) -> None:
+        if self.phase == "capture":
+            rec = self.collectives.setdefault((id(table), kind), [table, kind, 0])
             rec[2] += 1
 
     def counters(self, device, n: int) -> torch.Tensor:
@@ -447,7 +529,9 @@ class _Entry:
         self.graph.instantiate()
         t3 = time.perf_counter()
         self.stats.update(warmup_s=t1 - t0, capture_s=t2 - t1, instantiate_s=t3 - t2,
-                          launches_per_replay={n: c for _, n, c in self.launches.values()})
+                          launches_per_replay={n: c for _, n, c in self.launches.values()},
+                          collectives_per_replay={k: c for _, k, c in
+                                                  self.collectives.values()})
 
     def replay(self, inputs, noise) -> tuple:
         self.graph.begin()
@@ -464,6 +548,8 @@ class _Entry:
             self.outputs = out
         for table, name, n in self.launches.values():
             _build.count_launch(table, name, n)
+        for table, kind, n in self.collectives.values():
+            table[kind] += n
         if self.key_in is not None:
             noise.key = self.key_out.clone()
         for i in self.pairs:
@@ -495,32 +581,36 @@ def run(parts: tuple, make_body: Callable, inputs: Sequence, noise, kinds: Seque
     `inputs` are its tensors (x_T first; None where absent); `noise` the
     caller's generators (a list, None entries allowed) or KeyNoise; `kinds`
     each step's kind (hashable), which picks the warm-up's steps. On a
-    device without graphs,
-    or under a tracer, the body runs eagerly on the caller's inputs."""
+    device without graphs, or under a tracer, the body runs eagerly on the
+    caller's inputs. Inside `placed`, the graph is the mesh entry's or the
+    spatial rank's, and a spatial group agrees on its capture."""
     x = inputs[0]
     backend = _BACKENDS.get(x.device.type)
     if backend is None or _build.tracing(x):
         return tuple(make_body()(*inputs, noise=noise))
+    entry_index, spatial = getattr(_LOCAL, "place", None) or (None, None)
+    group = spatial if spatial is not None and spatial.size > 1 else None
     with _LOCK:
-        pins: list = []
+        pins: list = [spatial]
         key = (_fingerprint(parts, pins), tuple(_spec(t) for t in inputs),
-               _noise_spec(noise, pins), _flags())
+               _noise_spec(noise, pins), _flags(),
+               ("place", str(x.device), entry_index, id(spatial)))
         entry = _CACHE.get(key)
+        if group is not None and not all(group.agree(int(entry is not None))):
+            # a member lacks this graph: every member captures it afresh
+            if entry is not None:
+                _CACHE.pop(key).release()
+            entry = None
         if entry is None:
-            label = {"sampler": parts[0], "shape": tuple(x.shape), "dtype": str(x.dtype)}
+            label = {"sampler": parts[0], "shape": tuple(x.shape), "dtype": str(x.dtype),
+                     "device": str(x.device), "entry": entry_index}
 
             def capture():
                 entry = _Entry(backend(x.device), key, pins, make_body(), inputs, noise, label)
                 entry.capture(noise, _warm_steps(kinds))
                 return entry
 
-            try:
-                entry = capture()
-            except RuntimeError as err:  # torch.OutOfMemoryError, a CUDA error
-                if "out of memory" not in str(err) or not _CACHE:
-                    raise
-                clear_graphs()  # the kept graphs' pools hold what this one needs
-                entry = capture()
+            entry = _capture(capture, group)
             _CACHE[key] = entry
             for keys in getattr(_LOCAL, "scopes", ()):
                 keys.append(key)
@@ -530,23 +620,72 @@ def run(parts: tuple, make_body: Callable, inputs: Sequence, noise, kinds: Seque
         return entry.replay(inputs, noise)
 
 
+def _out_of_memory(err: BaseException) -> bool:
+    return isinstance(err, RuntimeError) and "out of memory" in str(err)
+
+
+def _capture(capture: Callable, group) -> "_Entry":
+    """capture(), once more after dropping the kept graphs where it ran out
+    of memory (their pools hold what it needs). With a spatial `group`
+    every member decides alike: each capture's outcome is agreed, an
+    out-of-memory capture on any member makes every member drop its graphs
+    and capture again, and any other failure raises on every member."""
+    if group is None:
+        try:
+            return capture()
+        except RuntimeError as err:  # torch.OutOfMemoryError, a CUDA error
+            if not _out_of_memory(err) or not _CACHE:
+                raise
+            clear_graphs()
+            return capture()
+    retry = False
+    while True:
+        entry = err = None
+        try:
+            entry = capture()
+        except Exception as e:  # agreed on below, then raised
+            err = e
+        every = group.agree(0 if err is None else 1 if _out_of_memory(err) else 2)
+        if not any(every):
+            return entry
+        if entry is not None:
+            entry.release()
+        if retry or max(every) == 2:
+            if err is not None:
+                raise err
+            failed = [r for r, v in enumerate(every) if v]
+            raise RuntimeError(f"spatial rank(s) {failed} failed to capture the trajectory's "
+                               "graph: every rank of the group drops it")
+        clear_graphs()
+        retry = True
+
+
 def _evict() -> None:
-    """Drop the least recently used graphs while more than MAX_GRAPHS are
-    kept or their pools hold more than POOL_BUDGET of the card (the newest
-    graph stays)."""
-    while len(_CACHE) > 1:
-        newest = next(reversed(_CACHE.values())).graph
-        pools = sum(getattr(e.graph, "pool_estimate", 0) for e in _CACHE.values())
-        if len(_CACHE) <= MAX_GRAPHS and pools <= getattr(newest, "budget", float("inf")):
+    """Drop the least recently used graphs of the newest graph's place (its
+    device and mesh entry) while more than MAX_GRAPHS are kept there, and
+    of its card while their pools hold more than POOL_BUDGET of it (the
+    newest graph stays)."""
+    newest = next(reversed(_CACHE.values()))
+    card = getattr(newest.graph, "index", None)
+    while True:
+        place = [k for k in _CACHE if k[-1] == newest.key[-1]]
+        same_card = [k for k, e in _CACHE.items() if getattr(e.graph, "index", None) == card]
+        pools = sum(getattr(_CACHE[k].graph, "pool_estimate", 0) for k in same_card)
+        if len(place) > MAX_GRAPHS:
+            victim = place[0]
+        elif len(same_card) > 1 and pools > getattr(newest.graph, "budget", float("inf")):
+            victim = same_card[0]
+        else:
             return
-        _CACHE.popitem(last=False)[1].release()
+        _CACHE.pop(victim).release()
 
 
 def graph_stats() -> list[dict]:
-    """Each kept graph, least recently used first: its sampler, x_T's shape
-    and dtype, warm-up, capture and instantiate seconds, replays, the
-    launches of one replay and its memory pool's bytes (None where the
-    graph has no pool of its own)."""
+    """Each kept graph, least recently used first: its sampler, x_T's shape,
+    dtype and device, its mesh entry (None outside a data mesh), warm-up,
+    capture and instantiate seconds, replays, the launches and collectives
+    of one replay and its memory pool's bytes (None where the graph has no
+    pool of its own)."""
     with _LOCK:
         out = []
         for entry in _CACHE.values():

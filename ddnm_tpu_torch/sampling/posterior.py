@@ -318,9 +318,9 @@ def sample_posterior(
 
 def _resolve_posterior_loop(loop: str) -> str:
     """JAX's `_resolve_posterior_loop`: "auto" always means the scan (here a
-    CUDA graph, sampling/graphs.py), except inside a data mesh's or a
-    spatial grid's shards, where it is "host" and "scan" raises
-    NotImplementedError."""
+    CUDA graph, sampling/graphs.py), in a data mesh's shards and a
+    spatial grid's ranks too, except on a gloo spatial group on a card,
+    where it is "host" and "scan" raises ValueError."""
     return graphs.resolve_loop(loop)
 
 

@@ -230,8 +230,8 @@ class RestorationService:
     `noise_fn(gens, shape)` draws the samplers' per-step noise (the port's
     hook for parity runs under the zero-noise protocol); x_T always comes
     from each request's STREAM_INIT generator. `loop`: the samplers'
-    driver (sampling/graphs.py `resolve_loop`: "auto" is "scan" on one
-    device, "host" over a mesh and with the encoder cache, where "scan"
+    driver (sampling/graphs.py `resolve_loop`: "auto" is "scan", a graph
+    a shard over a mesh; "host" with the encoder cache, where "scan"
     raises). `mesh` (a parallel.Mesh whose first entry holds the
     params) shards each group over its entries (module docstring).
     """

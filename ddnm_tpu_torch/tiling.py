@@ -30,8 +30,10 @@ group size.
 default) and "scan" run each group's trajectory as one CUDA graph, one
 graph a group size, replayed across the canvas's tiles and across images
 (as the JAX package reuses one executable); "host" the eager loop. Over a
-`mesh`, "auto" is "host" and "scan" raises NotImplementedError; the
-encoder cache always runs host-driven.
+data `mesh` each shard's trajectory is a graph of its own, over a Grid
+each rank's, its NCCL collectives inside (parallel/spatial.py); on a Grid
+whose spatial group is gloo on a card "auto" is "host" and "scan" raises
+ValueError naming gloo. The encoder cache always runs host-driven.
 
 `solver="multistep"` runs each tile group through the second-order
 solver (sampling/solvers.py; tiles start fresh unless `tile_init` says

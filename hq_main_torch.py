@@ -6,11 +6,12 @@ the ADM classifier from --classifier_ckpt or the config's classifier_path,
 or random weights from --seed under --random_init).
 
 Takes hq_main.py's flags plus --device (default cuda; without a card it
-raises unless --device cpu is given). Single-image mode restores --path_y
-(with --resize_y it is the low-resolution measurement); sweep mode runs
-the conf's data.eval dataset (or --gt_path + --mask_path_dir) and writes
-the srs / lrs / gts / gt_keep_masks tree with PSNR and SSIM. The tile is
-the config's image_size and the stride half of it. Example on the card:
+raises unless --device cpu is given) and --loop (the samplers' driver).
+Single-image mode restores --path_y (with --resize_y it is the
+low-resolution measurement); sweep mode runs the conf's data.eval dataset
+(or --gt_path + --mask_path_dir) and writes the srs / lrs / gts /
+gt_keep_masks tree with PSNR and SSIM. The tile is the config's
+image_size and the stride half of it. Example on the card:
 
   python hq_main_torch.py --config configs/hq/inet256.yml --path_y in.png \\
       --deg sr_averagepooling --scale 4 --resize_y --class 950 \\
@@ -24,14 +25,18 @@ group; a restart with the same flags goes on at the next group) run as in
 hq_main.py. --dp N shards each tile group (a batched sweep's images, a
 wavefront's tiles) over N devices, the model and classifier replicated
 (the first N cards; on the CPU, N shards of it); a group N does not
-divide runs on the first. The shards launch in turn from one thread, and
-the sampler's host sets the pace, so --dp spreads the work without
-speeding it up (PERF.md §6: no mesh beat one card on 4 H100s).
+divide runs on the first. The shards launch in turn from one thread,
+each a graph replay on its own card's stream (PERF.md §6: a mesh of 2
+cards 1.72-1.73x one card on the main path under the scan).
 
-Each tile group's trajectory runs as one CUDA graph (the samplers' "auto"
-loop, sampling/graphs.py): one graph a group size, captured at its first
-group and replayed across tiles and images, dropped when the run ends;
-with --dp, --sp or --encoder_cache > 1 the loop is host-driven.
+Each tile group's trajectory runs as one CUDA graph (--loop auto, the
+default, or scan; sampling/graphs.py): one graph a group size, captured at
+its first group and replayed across tiles and images, dropped when the run
+ends, as JAX's scan reuses one executable. Under --dp each shard's
+trajectory is a graph of its own; under --sp each rank's, its NCCL
+collectives inside. --loop host runs the eager loop. Host-driven whatever
+--loop says: --encoder_cache > 1, and --sp over gloo on one card (every
+rank on --device cuda:0), where --loop scan raises naming gloo.
 
 --sp S > 1 (spatial partitioning) runs as dp * sp processes, one per
 (data index, spatial rank), each holding S-th of every tile's rows in the
@@ -128,6 +133,11 @@ def parse_args(argv=None):
                         "folder of -i and go on from there (same seed and flags)")
     p.add_argument("--device", type=device_arg, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--loop", type=str, default="auto", choices=("auto", "host", "scan"),
+                   help="the samplers' loop driver: auto and scan capture each tile group's "
+                        "trajectory as one CUDA graph (a shard's or a rank's under --dp / "
+                        "--sp); host runs the eager loop; auto is host with --encoder_cache "
+                        "> 1 and on --sp over gloo on one card, where scan raises")
     return p.parse_args(argv)
 
 
@@ -320,7 +330,7 @@ def _main(argv):
     tiles_done = []
     accel = dict(solver=ns.solver, encoder_cache=ns.encoder_cache,
                  encoder_cache_policy=ns.encoder_cache_policy, encode_fn=encode_fn,
-                 decode_fn=decode_fn, mesh=mesh)
+                 decode_fn=decode_fn, mesh=mesh, loop=ns.loop)
     # what tells a run apart beyond the tiling's own inputs (hq_main.py:347)
     base_salt = (ns.class_label, float(conf.classifier_scale or 0), ns.sigma_y, ns.dtype)
 

@@ -27,11 +27,11 @@ the images under their global names:
 
 (or a Slurm / OpenMPI launch with MASTER_ADDR and MASTER_PORT exported);
 each rank takes cuda:<local rank> unless --device cuda:N is given (several
-ranks may share one card). A run without a launcher uses one card: the JAX
-CLI shards each batch over every device, but the eager sampler's host sets
-the pace, and on 4 H100s no in-process mesh beat one card while one
-process a card scaled 3.7-4.0x (PERF.md §6). `main(argv, mesh=)` still
-shards each batch over a mesh of the caller's (parallel/mesh.py).
+ranks may share one card). A run without a launcher uses one card (the
+JAX CLI shards each batch over every device): one process a card scaled
+3.7-4.0x on 4 H100s, an in-process mesh of 4 cards 2.49x under the scan
+(PERF.md §6). `main(argv, mesh=)` shards each batch over a mesh of the
+caller's (parallel/mesh.py).
 
 --solver multistep (with --t_sampling 10, say) and --encoder_cache 3
 [--encoder_cache_policy end_dense] are the JAX package's two opt-in
@@ -39,8 +39,9 @@ accelerators. --trace_dir DIR writes a torch.profiler Chrome trace of the
 run. --loop picks the sampler's driver, as main.py's does: auto (the
 default) and scan run each batch's whole trajectory as one CUDA graph,
 captured at the first batch and replayed (eagerly on the CPU); host runs
-the eager loop, one launch at a time from the host. Under a mesh auto is
-host and scan raises; --encoder_cache N > 1 runs host-driven.
+the eager loop, one launch at a time from the host. On a data mesh
+(main(mesh=)) each shard's trajectory is a graph of its own, as JAX's
+scan runs on sharded arrays; --encoder_cache N > 1 runs host-driven.
 """
 
 from __future__ import annotations
@@ -99,7 +100,8 @@ def parse_args(argv=None):
     p.add_argument("--loop", type=str, default="auto", choices=["auto", "scan", "host"],
                    help="the sampler's loop driver: auto and scan capture each batch's "
                         "trajectory as one CUDA graph and replay it; host runs the eager "
-                        "loop (auto is host under a mesh and with --encoder_cache > 1)")
+                        "loop (a graph a shard on a data mesh; auto is host with "
+                        "--encoder_cache > 1)")
     p.add_argument("--solver", type=str, default="ddim", choices=["ddim", "multistep"],
                    help="ddim: the reference's first-order update (the quality choice "
                         "at 25+ steps); multistep: second-order and deterministic, "

@@ -29,12 +29,12 @@ SIGTERM drains (pending requests get 503s) and exits 0; SIGHUP rebuilds
 the service from --ckpt and swaps its weights in between two groups.
 --dp N shards each group over N devices (the first N cards, or N shards
 of the CPU with --device cpu; --max_batch must divide by N; the shards
-launch in turn from the worker thread, and on the host-bound eager
-sampler no mesh beat one card, PERF.md §6). --loop picks the samplers'
+launch in turn from the worker thread, each a graph replay on its own
+card's stream). --loop picks the samplers'
 driver, as serve.py's does: auto (the default) and scan replay one CUDA
 graph of a group's whole trajectory a task (captured by the warm-up or the
-first group); host runs the eager loop. With --dp or --encoder_cache > 1
-auto is host, and scan raises.
+first group), one a shard under --dp; host runs the eager loop. With
+--encoder_cache > 1 auto is host, and scan raises.
 """
 
 from __future__ import annotations
@@ -115,9 +115,9 @@ def parse_args(argv=None):
     p.add_argument("--loop", type=str, default="auto",
                    choices=("auto", "host", "scan"),
                    help="the trajectory's loop driver: auto and scan replay one CUDA "
-                        "graph a task and group shape, host runs the eager loop; auto is "
-                        "host with --dp or --encoder_cache > 1, where scan raises (as "
-                        "serve.py refuses scan with the cache)")
+                        "graph a task and group shape (one a shard under --dp), host runs "
+                        "the eager loop; auto is host with --encoder_cache > 1, where scan "
+                        "raises (as serve.py refuses scan with the cache)")
     p.add_argument("--no_warmup", action="store_true")
     p.add_argument("--device", type=device_arg, default="cuda",
                    help="cuda (default; raises without a card) or cpu")

@@ -174,3 +174,54 @@ def main_pair(tmp_path, monkeypatch, flags: list) -> tuple[dict, dict]:
     ours = main_torch.main(common + ["-i", str(tmp_path / "port"), "--device", "cpu"])
     ref = j_main.main(common + ["-i", str(tmp_path / "jax")])
     return ours, ref
+
+
+class StandInGraph:
+    """A graph for the CPU in place of torch.cuda.CUDAGraph
+    (ddnm_tpu_torch/sampling/graphs.py `_BACKENDS`): its capture runs the
+    body once, and each replay runs it again on the entry's static buffers
+    and noise slots (what a CUDA replay recomputes). `fail_capture` raises
+    before the body runs; `fail_after` raises the given error once, after
+    the body ran (a CUDA capture that recorded every collective and then
+    failed)."""
+
+    fail_capture = False
+    fail_after = None
+
+    def __init__(self, device):
+        self.replays = 0
+
+    def owns_stream(self) -> bool:
+        return True
+
+    def register_generator(self, gen) -> None:
+        pass
+
+    def warm(self, fn) -> None:
+        fn()
+
+    def capture(self, fn):
+        if self.fail_capture:
+            raise RuntimeError("stand-in capture failed")
+        out = fn()
+        err = type(self).fail_after
+        if err is not None:
+            type(self).fail_after = None
+            raise err
+        return out
+
+    def instantiate(self) -> None:
+        pass
+
+    def begin(self) -> None:
+        pass
+
+    def replay(self, rerun):
+        self.replays += 1
+        return rerun()
+
+    def end(self) -> None:
+        pass
+
+    def release(self) -> None:
+        pass

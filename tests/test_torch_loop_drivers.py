@@ -2,7 +2,9 @@
 the samplers' `loop`) on the CPU, at toy32.
 
   - the resolution table: auto / host / scan on one device, under a data
-    mesh, under --sp and with the encoder cache; unknown values raise;
+    mesh, under --sp (a CPU gloo grid, a gloo grid on a card) and with the
+    encoder cache; unknown values raise (tests/test_torch_loop_drivers_parallel.py
+    holds the scan driver over meshes and grids);
   - the port's loop="scan" against the JAX package's loop="scan" for the
     simplified sampler (time travel), SVD cs_walshhadamard and a noisy
     DDNM+ task, the multistep solver (simplified and posterior), the
@@ -61,7 +63,14 @@ from ddnm_tpu_torch.sampling.threefry import KeyNoise, prng_key
 from tests._golden import load_eval_images, toy_perm
 from tests._golden_adm import ADM_TOY32
 from tests._golden_adm import load_our_model as load_jax_adm
-from tests._torch_port import TIERS, jax_model, one_torch_thread, port_model, x_T  # noqa: F401
+from tests._torch_port import (  # noqa: F401
+    TIERS,
+    StandInGraph,
+    jax_model,
+    one_torch_thread,
+    port_model,
+    x_T,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 TOY = TIERS["toy32"]
@@ -73,47 +82,6 @@ SCHED = dict(betas=BETAS, t_sampling=6, travel_length=2, travel_repeat=2)
 # a posterior jump schedule with undo steps
 JUMP = dict(t_T=5, n_sample=1, jump_length=2, jump_n_sample=2)
 N = 2
-
-
-class StandInGraph:
-    """A graph for the CPU in place of torch.cuda.CUDAGraph: its capture
-    runs the body once, and each replay runs it again on the entry's static
-    buffers and noise slots (what a CUDA replay recomputes)."""
-
-    fail_capture = False
-
-    def __init__(self, device):
-        self.replays = 0
-
-    def owns_stream(self) -> bool:
-        return True
-
-    def register_generator(self, gen) -> None:
-        pass
-
-    def warm(self, fn) -> None:
-        fn()
-
-    def capture(self, fn):
-        if self.fail_capture:
-            raise RuntimeError("stand-in capture failed")
-        return fn()
-
-    def instantiate(self) -> None:
-        pass
-
-    def begin(self) -> None:
-        pass
-
-    def replay(self, rerun):
-        self.replays += 1
-        return rerun()
-
-    def end(self) -> None:
-        pass
-
-    def release(self) -> None:
-        pass
 
 
 @pytest.fixture
@@ -313,22 +281,27 @@ CASES = {"simplified": (_simplified, "ddpm"), "svd": (_svd, "ddpm"),
 @pytest.mark.parametrize("loop,where,want", [
     ("auto", "one device", "scan"), ("host", "one device", "host"),
     ("scan", "one device", "scan"),
-    ("auto", "mesh", "host"), ("host", "mesh", "host"), ("scan", "mesh", NotImplementedError),
-    ("auto", "sp", "host"), ("host", "sp", "host"), ("scan", "sp", NotImplementedError),
+    ("auto", "mesh", "scan"), ("host", "mesh", "host"), ("scan", "mesh", "scan"),
+    ("auto", "sp", "scan"), ("host", "sp", "host"), ("scan", "sp", "scan"),
+    ("auto", "sp gloo on a card", "host"), ("host", "sp gloo on a card", "host"),
+    ("scan", "sp gloo on a card", ValueError),
     ("auto", "encoder_cache", "host"), ("host", "encoder_cache", "host"),
     ("scan", "encoder_cache", ValueError),
     ("vectorized", "one device", ValueError), ("vectorized", "mesh", ValueError),
 ])
 def test_resolution_table(loop, where, want):
     """resolve_loop as JAX's `_resolve_loop` / `_resolve_posterior_loop` on a
-    local backend: auto is scan on one device (CPU or card alike); host
-    under a data mesh or --sp (grid_sampler's shards), where scan is not
-    ported; host with the encoder cache, whose service refuses scan."""
+    local backend: auto is scan on one device (CPU or card alike), under a
+    data mesh and under --sp (grid_sampler's ranks; a CPU gloo grid); host
+    on a gloo spatial group on a card, where scan raises naming gloo; host
+    with the encoder cache, whose service refuses scan."""
     def resolve():
         if where == "mesh":
             return graphs.resolve_loop(loop, mesh=make_mesh(2, device="cpu"))
-        if where == "sp":
-            grid = types.SimpleNamespace(dp=1, data=None)
+        if where.startswith("sp"):
+            spatial = types.SimpleNamespace(size=2, rank=0, backend="gloo")
+            grid = types.SimpleNamespace(dp=1, data=None, spatial=spatial, device=torch.device(
+                "cuda", 0) if where.endswith("card") else torch.device("cpu"))
             return grid_sampler(lambda x, loop: graphs.resolve_loop(loop), grid)(
                 torch.zeros(2), loop=loop)
         if where == "encoder_cache":
@@ -336,7 +309,7 @@ def test_resolution_table(loop, where, want):
         return graphs.resolve_loop(loop)
 
     if isinstance(want, type):
-        with pytest.raises(want):
+        with pytest.raises(want, **({"match": "over gloo"} if where.endswith("card") else {})):
             resolve()
     else:
         assert resolve() == want
@@ -361,22 +334,23 @@ def test_samplers_take_the_resolved_driver(ddpm, monkeypatch, device_kind, loop)
 
 
 def test_scan_under_a_mesh_raises_and_auto_runs_host(ddpm):
-    """A data mesh's shards run host-driven: auto gives the unsharded
-    host run's images, an explicit scan raises NotImplementedError."""
+    """A data mesh's shards run the driver asked for (scan and auto, as
+    JAX's scan on sharded arrays; on the CPU the scan's body runs eagerly):
+    every driver gives each image's unsharded host run, bit for bit. (The
+    name is kept from when scan raised here.)"""
     (_, _), model = ddpm
     gt, xt = _gt(), x_T(N, 32)
     op = build_functional_operator("sr_averagepooling", image_size=32, deg_scale=4.0)
     args = (model, torch.from_numpy(xt), op.A(torch.from_numpy(gt)), op,
             build_schedule(betas=BETAS, t_sampling=2))
     mesh = make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="scan under a mesh"):
-        sharded_sampler(sample_simplified, mesh)(*args, _new_src("gens"), noise_fn=zero_noise,
-                                                  loop="scan")
-    x, _ = sharded_sampler(sample_simplified, mesh)(*args, _new_src("gens"), noise_fn=zero_noise)
     ref = torch.cat([sample_simplified(model, args[1][i:i + 1], args[2][i:i + 1], op, args[4],
                                        [None], noise_fn=zero_noise, loop="host")[0]
                      for i in range(N)])
-    assert torch.equal(x, ref)
+    for loop in ("scan", "auto", "host"):
+        x, _ = sharded_sampler(sample_simplified, mesh)(*args, _new_src("gens"),
+                                                        noise_fn=zero_noise, loop=loop)
+        assert torch.equal(x, ref), loop
 
 
 # --------------------------------------------------------- port against JAX

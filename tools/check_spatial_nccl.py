@@ -9,13 +9,19 @@ Needs four cards (one a rank):
       of 2 over the data rows through parallel.grid_sampler, each image's
       rows over a pair of cards): every rank's spatial group is NCCL, each
       PSNR within 0.01 dB of the JAX package's, every rank's gathered
-      finals bit-equal;
+      finals bit-equal; under each loop driver of `--loop` in turn in each
+      rank ("scan": the rank's trajectory as one CUDA graph, the NCCL
+      collectives captured inside it; "host": the eager loop), every
+      rank's scan final bit-equal to its host final (the guided runs with
+      cuDNN's deterministic engines), and the collectives counted equal
+      under both;
   (b) tools/time_spatial.py's bf16 face256 tile at sp 2 with the ranks on
       two cards (NCCL) against sp 2 with both ranks on cuda:0 (gloo), the
       protocol of chip_smoke.py phase 21: SHA-256 of the finals and max
       |diff| of their subsample.
 
-    python3 tools/check_spatial_nccl.py [--calls 20] [--out chiprun_out/spatial_nccl.json]
+    python3 tools/check_spatial_nccl.py [--loop host scan] [--calls 20]
+        [--out FILE.json]
     python3 tools/check_spatial_nccl.py --cpu   # (a) as 2 and 4 CPU processes over gloo
 
 Prints a line per run, the card's name and power limit, and last one JSON
@@ -42,43 +48,60 @@ if str(HERE) not in sys.path:
 sys.path.insert(0, str(HERE / "tools"))
 
 
-def worker(kind: str, dp: int, sp: int, out: Path, device: str) -> None:
+def worker(kind: str, dp: int, sp: int, out: Path, device: str, loops: list) -> None:
     """One rank of (a): its card is cuda:<rank>, its spatial group NCCL
-    (device "cpu": the CPU and gloo)."""
+    (device "cpu": the CPU and gloo); the golden under each of `loops`."""
+    import functools
+
     import chip_smoke as cs
     from ddnm_tpu_torch.models import shard_spatially
-    from ddnm_tpu_torch.parallel import grid_sampler, make_mesh_2d, multihost
+    from ddnm_tpu_torch.parallel import (BACKWARD_COLLECTIVES, COLLECTIVES, grid_sampler,
+                                         make_mesh_2d, multihost, reset_collective_counts)
+    from ddnm_tpu_torch.sampling import graphs
     from ddnm_tpu_torch.sampling.posterior import sample_posterior
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the classifier's backward takes cuDNN's deterministic engines, so that
+    # the guided runs under the two drivers can be held bit for bit (as
+    # tools/time_loop_drivers.py does on one card)
+    torch.backends.cudnn.deterministic = kind != "golden"
+    if device == "cpu":
+        torch.set_num_threads(1)  # 2-4 ranks share the host's cores
     multihost.maybe_init_distributed()
     rank = multihost.process_index()
     dev = "cpu" if device == "cpu" else f"cuda:{rank}"
     grid = make_mesh_2d(dp, sp, device=dev, backend="gloo" if device == "cpu" else "nccl")
-    over_rows = grid_sampler(sample_posterior, grid)
-
-    def sample(model_fn, x, apy, op, tables, gens, **kw):
-        # generators (unused under zero noise) so that grid_sampler splits them with the batch
-        gens = [torch.Generator(device=dev).manual_seed(i) for i in range(len(gens))]
-        return over_rows(model_fn, x, apy, op, tables, gens, **kw)
-
     model = shard_spatially(cs.toy_adm(dev), grid.spatial)
-    if kind == "golden":
-        fn, _, _ = grid.wrap(lambda z, t: model(z, t), model=model)
-        psnr, x, secs = cs.hq_golden_run(fn, dev, cs.TASKS_HQ[0], sample=sample)
-        per_image = None
-    else:
-        clf = shard_spatially(cs.toy_classifier(dev), grid.spatial)
-        psnr, x, per_image, secs = cs.guided_golden_run(model, clf, dev, grid=grid,
-                                                        sample=sample)
-    out.write_text(json.dumps({
-        "rank": rank, "device": dev, "backend": grid.spatial.backend, "psnr": psnr,
-        "per_image_max_abs_vs_jax": per_image, "seconds": secs,
-        "sha256": hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()}))
+    clf = shard_spatially(cs.toy_classifier(dev), grid.spatial) if kind != "golden" else None
+    fn, _, _ = grid.wrap(lambda z, t: model(z, t), model=model)
+    runs = {}
+    for loop in loops:
+        over_rows = grid_sampler(functools.partial(sample_posterior, loop=loop), grid)
+
+        def sample(model_fn, x, apy, op, tables, gens, **kw):
+            # generators (unused under zero noise) so that grid_sampler splits them with
+            # the batch
+            gens = [torch.Generator(device=dev).manual_seed(i) for i in range(len(gens))]
+            return over_rows(model_fn, x, apy, op, tables, gens, **kw)
+
+        reset_collective_counts()
+        if kind == "golden":
+            psnr, x, secs = cs.hq_golden_run(fn, dev, cs.TASKS_HQ[0], sample=sample)
+            per_image = None
+        else:
+            psnr, x, per_image, secs = cs.guided_golden_run(model, clf, dev, grid=grid,
+                                                            sample=sample)
+        runs[loop] = {"psnr": psnr, "per_image_max_abs_vs_jax": per_image, "seconds": secs,
+                      "collectives": {**COLLECTIVES, **BACKWARD_COLLECTIVES},
+                      "graphs": len(graphs.graph_stats()),
+                      "sha256": hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()}
+        graphs.clear_graphs()
+    out.write_text(json.dumps({"rank": rank, "device": dev, "backend": grid.spatial.backend,
+                               "loops": runs}))
 
 
-def run_golden(kind: str, dp: int, sp: int, tmp: Path, device: str) -> list:
+def run_golden(kind: str, dp: int, sp: int, tmp: Path, device: str, loops: list) -> list:
     import chip_smoke as cs
 
     world = dp * sp
@@ -90,7 +113,8 @@ def run_golden(kind: str, dp: int, sp: int, tmp: Path, device: str) -> list:
         log = open(tmp / f"{kind}_{dp}x{sp}_{rank}.log", "w+")
         procs.append((log, subprocess.Popen(
             [sys.executable, __file__, "--worker", kind, str(dp), str(sp),
-             str(tmp / f"{kind}_{dp}x{sp}_{rank}.json"), device], cwd=HERE, env=env, stdout=log,
+             str(tmp / f"{kind}_{dp}x{sp}_{rank}.json"), device, ",".join(loops)], cwd=HERE,
+            env=env, stdout=log,
             stderr=subprocess.STDOUT)))
     try:
         for log, proc in procs:
@@ -112,11 +136,13 @@ def main(argv=None) -> int:
     p.add_argument("--calls", type=int, default=20, help="face256 model calls of (b)")
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--cpu", action="store_true", help="(a) only, on the CPU over gloo")
-    p.add_argument("--worker", nargs=5, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--loop", nargs="+", default=["host", "scan"], choices=["host", "scan"],
+                   help="the loop drivers of (a), in turn in each rank")
+    p.add_argument("--worker", nargs=6, default=None, help=argparse.SUPPRESS)
     ns = p.parse_args(argv)
     if ns.worker:
-        kind, dp, sp, out, device = ns.worker
-        worker(kind, int(dp), int(sp), Path(out), device)
+        kind, dp, sp, out, device, loops = ns.worker
+        worker(kind, int(dp), int(sp), Path(out), device, loops.split(","))
         return 0
     import chip_smoke as cs
     import time_spatial
@@ -139,24 +165,38 @@ def main(argv=None) -> int:
         tmp = Path(tmp)
         for kind in ("golden", "guided_golden"):
             for dp, sp in ((1, 2), (2, 2)):
-                ranks = run_golden(kind, dp, sp, tmp, device)
-                row = {"kind": kind, "dp": dp, "sp": sp, "jax_psnr": want[kind],
-                       "psnr": [r["psnr"] for r in ranks],
-                       "backends": sorted({r["backend"] for r in ranks}),
-                       "devices": [r["device"] for r in ranks],
-                       "ranks_bit_equal": len({r["sha256"] for r in ranks}) == 1,
-                       "seconds": [r["seconds"] for r in ranks],
-                       "per_image_max_abs_vs_jax": ranks[0]["per_image_max_abs_vs_jax"]}
-                row["max_db_from_jax"] = max(abs(v - want[kind]) for v in row["psnr"])
-                ok = (row["ranks_bit_equal"] and row["max_db_from_jax"] <= cs.HQ_PSNR_TOL
-                      and row["backends"] == [backend])
-                print(f"{kind} dp {dp} x sp {sp} ({row['backends']}, {row['devices']}): PSNR "
-                      f"{row['psnr']} against JAX {want[kind]:.4f} ({row['max_db_from_jax']:.5f} "
-                      f"dB, gate {cs.HQ_PSNR_TOL}), ranks bit-equal {row['ranks_bit_equal']}, "
-                      f"{'ok' if ok else 'FAILED'}", flush=True)
-                goldens.append(row)
-                if not ok:
-                    failed.append(f"{kind} {dp}x{sp}")
+                ranks = run_golden(kind, dp, sp, tmp, device, ns.loop)
+                for loop in ns.loop:
+                    per = [r["loops"][loop] for r in ranks]
+                    row = {"kind": kind, "dp": dp, "sp": sp, "loop": loop,
+                           "jax_psnr": want[kind], "psnr": [r["psnr"] for r in per],
+                           "backends": sorted({r["backend"] for r in ranks}),
+                           "devices": [r["device"] for r in ranks],
+                           "ranks_bit_equal": len({r["sha256"] for r in per}) == 1,
+                           "seconds": [r["seconds"] for r in per],
+                           "graphs": [r["graphs"] for r in per],
+                           "collectives": per[0]["collectives"],
+                           "per_image_max_abs_vs_jax": per[0]["per_image_max_abs_vs_jax"]}
+                    row["max_db_from_jax"] = max(abs(v - want[kind]) for v in row["psnr"])
+                    ok = (row["ranks_bit_equal"] and row["max_db_from_jax"] <= cs.HQ_PSNR_TOL
+                          and row["backends"] == [backend])
+                    if loop == "scan" and "host" in ns.loop:
+                        host = [r["loops"]["host"] for r in ranks]
+                        row["bit_equal_to_host"] = all(a["sha256"] == b["sha256"]
+                                                       for a, b in zip(per, host))
+                        row["collectives_equal_to_host"] = all(
+                            a["collectives"] == b["collectives"] for a, b in zip(per, host))
+                        ok = ok and row["bit_equal_to_host"] and row["collectives_equal_to_host"]
+                    print(f"{kind} dp {dp} x sp {sp} {loop} ({row['backends']}, "
+                          f"{row['devices']}): PSNR {row['psnr']} against JAX {want[kind]:.4f} "
+                          f"({row['max_db_from_jax']:.5f} dB, gate {cs.HQ_PSNR_TOL}), ranks "
+                          f"bit-equal {row['ranks_bit_equal']}, graphs {row['graphs']}, "
+                          f"bit-equal to host {row.get('bit_equal_to_host', '-')}, collectives "
+                          f"equal to host {row.get('collectives_equal_to_host', '-')}, "
+                          f"{'ok' if ok else 'FAILED'}", flush=True)
+                    goldens.append(row)
+                    if not ok:
+                        failed.append(f"{kind} {dp}x{sp} {loop}")
         face, face_row = {}, None
         for where, env in (() if ns.cpu else (("two_cards_nccl", None), ("one_card_gloo", "0"))):
             old = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -164,7 +204,9 @@ def main(argv=None) -> int:
                 os.environ["CUDA_VISIBLE_DEVICES"] = env
             try:
                 ranks = time_spatial.run_layout("face256", 1, 2, "nccl" if env is None else "gloo",
-                                                ns.calls, 1, tmp)
+                                                ns.calls, 1, tmp, ["auto"])
+                ranks = [dict(r["loops"]["auto"], device=r["device"], backend=r["backend"])
+                         for r in ranks]
             finally:
                 if env is not None:
                     if old is None:

@@ -20,14 +20,23 @@ of configs/celeba_hq.yml (tests/fixtures/flag_ddpm256.pt, bf16 torso),
              each running `single` at batch B on its own card at the same
              time: images/s of the node is the sum of theirs
 
+`--loop` picks the samplers' drivers, each timed as its own run of the
+above: "scan" (what "auto" resolves to: a trajectory as one CUDA graph, a
+graph a shard on a mesh, replayed on the shard's stream) and "host" (the
+eager loop). One more call of each run goes under torch.profiler: every
+card's busy ms (the union of its kernels' intervals, streams overlapping)
+and the idle share of the cards over that call's wall
+(tools/time_spatial.py `profiled`).
+
 Each call is timed from synchronised cards to synchronised cards, after one
-warm-up call of each; the best of `--repeat` rounds is kept. The mesh's
+warm-up call of each (under scan, the capture); the best of `--repeat`
+rounds is kept. The mesh's
 outputs are held against `single`'s (max |difference|: the shards' copies
 between cards). The sampler is host-bound at batch 8 (PERF.md §5): a shard
 of B/m images launches as much as the whole batch.
 
     python3 tools/time_data_parallel.py [--steps 20] [--repeat 3] \
-        [--mesh 2 4] [--batch 8 32] [--processes]
+        [--mesh 2 4] [--batch 8 32] [--loop scan host] [--processes]
 
 Prints one line per call and, last, one JSON object. Needs a CUDA card.
 """
@@ -54,11 +63,12 @@ from ddnm_tpu_torch.models import DDPMUNet, cast_torso  # noqa: E402
 from ddnm_tpu_torch.operators import build_functional_operator  # noqa: E402
 from ddnm_tpu_torch.parallel import make_mesh, replicate, sharded_sampler  # noqa: E402
 from ddnm_tpu_torch.runner import load_checkpoint  # noqa: E402
-from ddnm_tpu_torch.sampling import build_schedule, sample_simplified  # noqa: E402
+from ddnm_tpu_torch.sampling import build_schedule, graphs, sample_simplified  # noqa: E402
 from ddnm_tpu_torch.sampling.rng import STREAM_SAMPLE, image_generators  # noqa: E402
+from time_spatial import profiled  # noqa: E402
 
 
-def _threaded(mesh, model, op, x_init, y, sched, pool):
+def _threaded(mesh, model, op, x_init, y, sched, pool, loop):
     """The `threads` run: entry i's shard through a mesh of that entry
     alone, on a thread of `pool`; the outputs joined on the caller's card."""
     m, n = mesh.size, x_init.shape[0]
@@ -69,7 +79,7 @@ def _threaded(mesh, model, op, x_init, y, sched, pool):
     def run(gens):
         futs = [pool.submit(sharded_sampler(sample_simplified, sub), mod,
                             x_init[i * k:(i + 1) * k], y[i * k:(i + 1) * k], o, sched,
-                            gens[i * k:(i + 1) * k])
+                            gens[i * k:(i + 1) * k], loop=loop)
                 for i, (sub, (mod, o)) in enumerate(zip(subs, reps))]
         return torch.cat([f.result()[0] for f in futs]), None
     return run
@@ -114,7 +124,7 @@ def child(ns) -> int:
     for batch in ns.batch:
         x_init, y = _inputs(batch, op, ns.device)
         timed = _timer({torch.device(ns.device)}, batch, ns.device)
-        run = lambda g: sample_simplified(model, x_init, y, op, sched, g)
+        run = lambda g: sample_simplified(model, x_init, y, op, sched, g, loop=ns.loop[0])
         timed(run)
         best[batch] = min(timed(run)[0] for _ in range(ns.repeat))
     print(json.dumps({"device": ns.device, "best_seconds": best}), flush=True)
@@ -124,7 +134,7 @@ def child(ns) -> int:
 def processes(ns, m: int) -> dict:
     """`child` on cards 0..m-1 at once; each one's best seconds per batch."""
     argv = [sys.executable, str(Path(__file__).resolve()), "--child", "--steps", str(ns.steps),
-            "--repeat", str(ns.repeat), "--batch", *map(str, ns.batch)]
+            "--repeat", str(ns.repeat), "--batch", *map(str, ns.batch), "--loop", ns.loop[0]]
     procs = [subprocess.Popen(argv + ["--device", f"cuda:{i}"], stdout=subprocess.PIPE,
                               text=True, cwd=HERE, env=dict(os.environ))
              for i in range(m)]
@@ -149,6 +159,7 @@ def main(argv=None) -> int:
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--mesh", type=int, nargs="+", default=[2])
     ap.add_argument("--batch", type=int, nargs="+", default=[8])
+    ap.add_argument("--loop", nargs="+", default=["auto"], choices=["auto", "host", "scan"])
     ap.add_argument("--processes", action="store_true")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda:0", help=argparse.SUPPRESS)
@@ -177,29 +188,42 @@ def main(argv=None) -> int:
     for batch in ns.batch:
         x_init, y = _inputs(batch, op, "cuda:0")
         timed = _timer(every, batch, "cuda:0")
-        runs = {"single": lambda g: sample_simplified(model, x_init, y, op, sched, g)}
-        for m, (mesh, models, ops_) in meshes.items():
-            if batch % m:
-                continue
-            runs[f"threads{m}"] = _threaded(mesh, model, op, x_init, y, sched, pool)
-            runs[f"serial{m}"] = (lambda g, mesh=mesh, models=models, ops_=ops_:
-                                  sharded_sampler(sample_simplified, mesh)(
-                                      models, x_init, y, ops_, sched, g))
-        outs = {name: timed(run)[1] for name, run in runs.items()}  # warm-up
-        diff = {name: float((o.float() - outs["single"].float()).abs().max())
-                for name, o in outs.items() if name != "single"}
+        runs = {}
+        for loop in ns.loop:
+            runs[f"single_{loop}"] = (lambda g, loop=loop: sample_simplified(
+                model, x_init, y, op, sched, g, loop=loop))
+            for m, (mesh, models, ops_) in meshes.items():
+                if batch % m:
+                    continue
+                runs[f"threads{m}_{loop}"] = _threaded(mesh, model, op, x_init, y, sched, pool,
+                                                       loop)
+                runs[f"serial{m}_{loop}"] = (lambda g, mesh=mesh, models=models, ops_=ops_,
+                                             loop=loop: sharded_sampler(sample_simplified, mesh)(
+                                                 models, x_init, y, ops_, sched, g, loop=loop))
+        base = f"single_{ns.loop[0]}"
+        outs = {name: timed(run)[1] for name, run in runs.items()}  # warm-up, captures
+        diff = {name: float((o.float() - outs[base].float()).abs().max())
+                for name, o in outs.items() if name != base}
         best = {name: float("inf") for name in runs}
         for r in range(ns.repeat):
             for name, run in runs.items():
                 secs = timed(run)[0]
                 best[name] = min(best[name], secs)
-                print(f"batch {batch} round {r} {name:9s}: {secs:.4f} s, {batch / secs:.4f} "
+                print(f"batch {batch} round {r} {name:14s}: {secs:.4f} s, {batch / secs:.4f} "
                       f"images/s in the sampler ({ns.steps} steps)", flush=True)
+        gens = lambda: image_generators(0, range(batch), STREAM_SAMPLE, "cuda:0")  # noqa: E731
+        prof = {name: profiled(lambda run=run: run(gens()), sorted(every, key=str))
+                for name, run in runs.items()}
+        for name, p in prof.items():
+            print(f"batch {batch} {name:14s}: profiled {p['profiled_wall_ms']:.1f} ms, busy "
+                  f"{ {d: round(b['busy_ms'], 1) for d, b in p['busy'].items()} } ms, idle share "
+                  f"{p['idle_share']}", flush=True)
         results.append({"batch": batch, "best_seconds": best,
                         "images_per_second": {k: batch / v for k, v in best.items()},
-                        "over_single": {k: best["single"] / v for k, v in best.items()},
-                        "max_abs_diff_vs_single": diff})
-        print(json.dumps(results[-1]), flush=True)
+                        "over_single": {k: best[base] / v for k, v in best.items()},
+                        "max_abs_diff_vs_single": diff, "profiled": prof})
+        print(json.dumps({k: v for k, v in results[-1].items() if k != "profiled"}), flush=True)
+        graphs.clear_graphs()
     pool.shutdown()
     procs = {}
     if ns.processes:

@@ -22,6 +22,15 @@ a clock; the exchange and its host copies, not the kernels it waits
 behind). Every rank's tile must be bit-equal to its group's others', and
 each layout's to 1x1's within the bf16 rounding (printed, not gated).
 
+`--loop` picks the samplers' drivers, timed one after the other in each
+rank: "scan" (a rank's trajectory as one CUDA graph, its NCCL collectives
+inside; what "auto" resolves to except on gloo on a card, where it is
+"host" and "scan" is refused) and "host" (the eager loop). For each, a
+third call runs under torch.profiler: the card's busy ms (the union of its
+kernels' intervals, the NCCL kernels' among them and also apart) and the
+idle share of that call's wall. The host seconds inside the collectives
+are those of the host driver; a replay issues none.
+
 `--model inet256_guided` times the guided call instead: the inet256 ADM of
 configs/hq/inet256.yml (256 channels, class 951, random weights from seed
 1234 with the zeroed layers drawn too) and its 54.1M classifier (the same
@@ -30,7 +39,7 @@ call is the UNet's forward and the classifier's forward and backward, the
 backward's collectives counted apart (`BACKWARD_COLLECTIVES`).
 
     python3 tools/time_spatial.py [--model face256|inet256_guided]
-        [--layouts 1x1 1x2] [--backends auto gloo]
+        [--layouts 1x1 1x2] [--backends auto gloo] [--loop scan host]
         [--calls 20] [--repeat 2] [--out chiprun_out/time_spatial.json]
 
 Prints one line per layout and, last, one JSON object (the card's name and
@@ -75,9 +84,57 @@ def _tables(model: str, calls: int):
         schedule_jump_params=dict(t_T=calls, n_sample=1, jump_length=1, jump_n_sample=1))
 
 
+def device_busy(prof, device: int) -> dict:
+    """Busy ms of card `device` in a torch.profiler run: the union of its
+    kernels' intervals (streams overlap), and the NCCL kernels' union apart
+    (they wait for the other ranks on the card)."""
+    spans, nccl = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA or ev.device_index() != device:
+            continue
+        span = (ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        spans.append(span)
+        if "nccl" in ev.name().lower():
+            nccl.append(span)
+
+    def union_ms(iv):
+        total, end = 0, None
+        for a, b in sorted(iv):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total / 1e6
+
+    return {"busy_ms": union_ms(spans), "nccl_ms": union_ms(nccl), "device_events": len(spans)}
+
+
+def profiled(fn, devices) -> dict:
+    """One call of fn() under torch.profiler: its wall, each card's busy ms
+    and the idle share of the cards over that wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        fn()
+        for d in devices:
+            torch.cuda.synchronize(d)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = {str(d): device_busy(prof, torch.device(d).index) for d in devices}
+    total = sum(b["busy_ms"] for b in busy.values())
+    return {"profiled_wall_ms": wall_ms, "busy": busy,
+            "idle_share": 1 - total / (wall_ms * len(devices)) if total else None}
+
+
 def worker(model_name: str, dp: int, sp: int, backend: str, calls: int, repeat: int,
-           out: Path) -> None:
-    """One rank: the timed tiles of this layout, written to `out`."""
+           out: Path, loops=("auto",)) -> None:
+    """One rank: the timed tiles of this layout under each loop driver,
+    written to `out`."""
+    from ddnm_tpu_torch.sampling import graphs
     from ddnm_tpu_torch import ops
     from ddnm_tpu_torch.config import load_hq_config
     from ddnm_tpu_torch.models import cast_torso, classifier_guidance_fn, shard_spatially
@@ -140,33 +197,48 @@ def worker(model_name: str, dp: int, sp: int, backend: str, calls: int, repeat: 
     gts = rng.uniform(-1, 1, (dp, 256, 256, 3)).astype(np.float32)
     zero = lambda gens, shape: torch.zeros(shape, device=dev)
 
-    def run():
+    def run(loop):
         return batched_tile_sample(model_fn, gts, "sr_averagepooling", tables, 1234, scale=4,
                                    noise_fn=zero, guidance_fn=guidance_fn, device=dev,
-                                   mesh=mesh)
+                                   mesh=mesh, loop=loop)
 
-    run()  # warm-up: cuDNN's plans, the allocator, the kernels' first launches
-    best = float("inf")
-    for _ in range(repeat):
-        ops.reset_launch_counts()
-        spatial.reset_collective_counts()
-        clock["seconds"] = 0.0
-        torch.cuda.synchronize(dev)
+    results = {}
+    for loop in loops:
+        # warm-up: cuDNN's plans, the allocator, the kernels' first launches;
+        # under scan the capture (its seconds in the graph's stats)
         t0 = time.perf_counter()
-        res = run()
+        run(loop)
         torch.cuda.synchronize(dev)
-        best = min(best, time.perf_counter() - t0)
-    launches = {**ops.launch_counts(), **ops.spatial_launch_counts()}
+        first = time.perf_counter() - t0
+        stats = graphs.graph_stats()
+        best = float("inf")
+        for _ in range(repeat):
+            ops.reset_launch_counts()
+            spatial.reset_collective_counts()
+            clock["seconds"] = 0.0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = run(loop)
+            torch.cuda.synchronize(dev)
+            best = min(best, time.perf_counter() - t0)
+        launches = {**ops.launch_counts(), **ops.spatial_launch_counts()}
+        collectives = {**spatial.COLLECTIVES, **spatial.BACKWARD_COLLECTIVES}
+        host_seconds = clock["seconds"]
+        results[loop] = {
+            "seconds": best, "seconds_per_tile": best / dp, "first_call_seconds": first,
+            "graphs": [{k: s[k] for k in ("warmup_s", "capture_s", "instantiate_s",
+                                          "pool_bytes")} for s in stats],
+            "launches_per_call": {k: v / calls for k, v in launches.items() if v},
+            "collectives_per_call": {k: v / calls for k, v in collectives.items() if v},
+            "collective_host_seconds_per_call": host_seconds / calls,
+            "profile": profiled(lambda: run(loop), [dev]),
+            "sha256": hashlib.sha256(res["final"].tobytes()).hexdigest(),
+            "final": res["final"][0, ::8, ::8].tolist()}
+        graphs.clear_graphs()
     out.write_text(json.dumps({
         "rank": multihost.process_index(), "device": str(dev),
         "backend": grid.spatial.backend if grid is not None and sp > 1 else None,
-        "seconds": best, "seconds_per_tile": best / dp,
-        "launches_per_call": {k: v / calls for k, v in launches.items() if v},
-        "collectives_per_call": {k: v / calls for k, v in {
-            **spatial.COLLECTIVES, **spatial.BACKWARD_COLLECTIVES}.items() if v},
-        "collective_host_seconds_per_call": clock["seconds"] / calls,
-        "sha256": hashlib.sha256(res["final"].tobytes()).hexdigest(),
-        "final": res["final"][0, ::8, ::8].tolist()}))
+        "loops": results}))
 
 
 def free_port() -> int:
@@ -176,7 +248,9 @@ def free_port() -> int:
 
 
 def run_layout(model: str, dp: int, sp: int, backend: str, calls: int, repeat: int,
-               tmp: Path) -> list:
+               tmp: Path, loops=("auto",)) -> list:
+    """The D * S ranks of one layout, each timing `loops` in turn; their
+    results in rank order."""
     world = dp * sp
     port = free_port()
     procs = []
@@ -189,7 +263,8 @@ def run_layout(model: str, dp: int, sp: int, backend: str, calls: int, repeat: i
         log = open(tmp / f"{dp}x{sp}_{backend}_{rank}.log", "w+")
         procs.append((log, subprocess.Popen(
             [sys.executable, __file__, "--worker", model, f"{dp}x{sp}", backend, str(calls),
-             str(repeat), str(tmp / f"{dp}x{sp}_{backend}_{rank}.json")], cwd=HERE, env=env,
+             str(repeat), str(tmp / f"{dp}x{sp}_{backend}_{rank}.json"), ",".join(loops)],
+            cwd=HERE, env=env,
             stdout=log, stderr=subprocess.STDOUT)))
     try:
         for log, proc in procs:
@@ -214,56 +289,81 @@ def main(argv=None) -> int:
     p.add_argument("--backends", nargs="+", default=["auto"], choices=["auto", "nccl", "gloo"])
     p.add_argument("--calls", type=int, default=20)
     p.add_argument("--repeat", type=int, default=2)
+    p.add_argument("--loop", nargs="+", default=["auto"], choices=["auto", "host", "scan"],
+                   help="the loop drivers to time, in turn, in each rank")
     p.add_argument("--out", type=str, default=None)
-    p.add_argument("--worker", nargs=6, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--worker", nargs=7, default=None, help=argparse.SUPPRESS)
     ns = p.parse_args(argv)
     if ns.worker:
-        model, layout, backend, calls, repeat, out = ns.worker
+        model, layout, backend, calls, repeat, out, loops = ns.worker
         dp, sp = (int(v) for v in layout.split("x"))
-        worker(model, dp, sp, backend, int(calls), int(repeat), Path(out))
+        worker(model, dp, sp, backend, int(calls), int(repeat), Path(out), loops.split(","))
         return 0
     if not torch.cuda.is_available():
         raise RuntimeError("tools/time_spatial.py needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
     print(f"{len(smi)} card(s): {smi[0]}", flush=True)
-    results, base = [], None
+    results, base = [], {}
     with tempfile.TemporaryDirectory() as tmp:
         for layout in ns.layouts:
             dp, sp = (int(v) for v in layout.split("x"))
             if sp == 1 and dp > 1:
                 raise ValueError(f"layout {layout}: a grid of processes needs sp > 1")
             for backend in (["auto"] if dp * sp == 1 else ns.backends):
-                ranks = run_layout(ns.model, dp, sp, backend, ns.calls, ns.repeat, Path(tmp))
-                r0 = ranks[0]
-                final = np.asarray(r0.pop("final"))
-                for r in ranks[1:]:
-                    r.pop("final")
-                groups_equal = all(
-                    len({ranks[d * sp + s]["sha256"] for s in range(sp)}) == 1
-                    for d in range(dp))
-                if base is None and dp * sp == 1:
-                    base = final
-                diff = None if base is None else float(np.abs(final - base).max())
-                row = {"layout": layout, "dp": dp, "sp": sp, "backend": r0["backend"],
-                       "devices": sorted({r["device"] for r in ranks}),
-                       "seconds_per_tile": max(r["seconds_per_tile"] for r in ranks),
-                       "calls": ns.calls, "launches_per_call": r0["launches_per_call"],
-                       "collectives_per_call": r0["collectives_per_call"],
-                       "collective_host_seconds_per_call":
-                           r0["collective_host_seconds_per_call"],
-                       "ranks_bit_equal_in_group": groups_equal,
-                       "max_abs_vs_1x1_subsampled": diff}
-                results.append(row)
-                print(f"{layout} ({row['backend']}, {row['devices']}): "
-                      f"{row['seconds_per_tile']:.4f} s per tile, "
-                      f"{row['seconds_per_tile'] / ns.calls * 1e3:.2f} ms per model call, "
-                      f"{row['collective_host_seconds_per_call'] * 1e3:.2f} ms of it in "
-                      f"collectives; per call {row['launches_per_call']} launches, "
-                      f"{row['collectives_per_call']} collectives; group bit-equal "
-                      f"{groups_equal}; against 1x1 {diff}", flush=True)
-                if not groups_equal:
-                    raise AssertionError(f"{layout}: the ranks of a group disagree")
+                ranks = run_layout(ns.model, dp, sp, backend, ns.calls, ns.repeat, Path(tmp),
+                                   ns.loop)
+                for loop in ns.loop:
+                    per = [r["loops"][loop] for r in ranks]
+                    final = np.asarray(per[0].pop("final"))
+                    for r in per[1:]:
+                        r.pop("final")
+                    groups_equal = all(
+                        len({per[d * sp + s]["sha256"] for s in range(sp)}) == 1
+                        for d in range(dp))
+                    if loop not in base and dp * sp == 1:
+                        base[loop] = final
+                    diff = (None if loop not in base
+                            else float(np.abs(final - base[loop]).max()))
+                    r0 = per[0]
+                    row = {"layout": layout, "dp": dp, "sp": sp, "loop": loop,
+                           "backend": ranks[0]["backend"],
+                           "devices": sorted({r["device"] for r in ranks}),
+                           "seconds_per_tile": max(r["seconds_per_tile"] for r in per),
+                           "first_call_seconds": max(r["first_call_seconds"] for r in per),
+                           "calls": ns.calls, "graphs": r0["graphs"],
+                           "launches_per_call": r0["launches_per_call"],
+                           "collectives_per_call": r0["collectives_per_call"],
+                           "collective_host_seconds_per_call":
+                               r0["collective_host_seconds_per_call"],
+                           "profile_per_rank": [r["profile"] for r in per],
+                           "idle_share_max": max((r["profile"]["idle_share"] or 0.0)
+                                                 for r in per),
+                           "sha256": r0["sha256"],
+                           "ranks_bit_equal_in_group": groups_equal,
+                           "max_abs_vs_1x1_subsampled": diff}
+                    results.append(row)
+                    busy = r0["profile"]["busy"][ranks[0]["device"]]
+                    print(f"{layout} {loop} ({row['backend']}, {row['devices']}): "
+                          f"{row['seconds_per_tile']:.4f} s per tile, "
+                          f"{row['seconds_per_tile'] / ns.calls * 1e3:.2f} ms per model call "
+                          f"(first call {row['first_call_seconds']:.2f} s), "
+                          f"{row['collective_host_seconds_per_call'] * 1e3:.2f} ms of host in "
+                          f"collectives; rank 0 busy {busy['busy_ms']:.1f} ms (NCCL "
+                          f"{busy['nccl_ms']:.1f}) of {r0['profile']['profiled_wall_ms']:.1f}, "
+                          f"idle share {r0['profile']['idle_share']}; per call "
+                          f"{row['launches_per_call']} launches, {row['collectives_per_call']} "
+                          f"collectives; group bit-equal {groups_equal}; against 1x1 {diff}",
+                          flush=True)
+                    if not groups_equal:
+                        raise AssertionError(f"{layout} {loop}: the ranks of a group disagree")
+                if len(ns.loop) > 1:
+                    shas = {loop: [r["loops"][loop]["sha256"] for r in ranks]
+                            for loop in ns.loop}
+                    same = len({tuple(v) for v in shas.values()}) == 1
+                    print(f"{layout}: every rank's tile bit-equal across {ns.loop}: {same}",
+                          flush=True)
+                    results[-1]["bit_equal_across_loops"] = same
     summary = {"card": smi[0], "cards": len(smi), "model": ns.model, "model_calls": ns.calls,
                "layouts": results}
     if ns.out:
